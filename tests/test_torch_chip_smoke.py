@@ -1,0 +1,105 @@
+"""CPU rehearsal of ``chip_smoke.py``'s helpers (the script itself needs a
+CUDA card): the seeded forest has the reference checkpoint's shape, the
+bulk synthetic table equals the one the Python ingest path builds, the
+table parser reads what the CLI prints, the node-visit count matches a
+walk, and the script refuses to run without a card."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from traffic_classifier_sdn_tpu_torch import cli, interop
+from traffic_classifier_sdn_tpu_torch.core import flow_table as ft
+from traffic_classifier_sdn_tpu_torch.ingest.batcher import FlowStateEngine
+from traffic_classifier_sdn_tpu_torch.ingest.replay import SyntheticFlows
+from traffic_classifier_sdn_tpu_torch.io import checkpoint
+from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+from traffic_classifier_sdn_tpu_torch.ops import tree_gemm
+
+
+@pytest.fixture(scope="module")
+def table():
+    return chip_smoke.synthetic_table(200, 3, "cpu")
+
+
+@pytest.fixture(scope="module")
+def forest(table):
+    return chip_smoke.random_forest(0, ft.features12(table).numpy())
+
+
+def test_bulk_table_equals_ingest_path(table):
+    engine = FlowStateEngine(200, device="cpu")
+    syn = SyntheticFlows(200)
+    for _ in range(3):
+        engine.mark_tick()
+        engine.ingest(syn.tick())
+        engine.step()
+    for name in ("time_start", "in_use"):
+        assert torch.equal(getattr(table, name), getattr(engine.table, name))
+    for d in ("fwd", "rev"):
+        for f in dataclasses.fields(ft.DirState):
+            assert torch.equal(
+                getattr(getattr(table, d), f.name),
+                getattr(getattr(engine.table, d), f.name),
+            ), f"{d}.{f.name}"
+
+
+def test_random_forest_has_reference_shape(forest):
+    left = forest["left"]
+    assert left.shape == (100, 101) and forest["values"].shape[2] == 6
+    assert forest["max_depth"] <= 14
+    for t in range(100):
+        reach = tree_gemm._reachable_nodes(left, forest["right"], t)
+        assert 25 <= len(reach) <= 101 and len(reach) % 2 == 1
+        leaves = [n for n in reach if left[t, n] == -1]
+        assert (forest["values"][t, leaves].sum(1) > 0).all()
+
+
+def _walk_visits(k, X) -> int:
+    nodes = k.nodes.numpy().reshape(k.n_trees, k.n_internal, 4)
+    visits = 0
+    for x in X:
+        for t in range(k.n_trees):
+            code = 0
+            while code >= 0:
+                f, thr, lc, rc = nodes[t, code]
+                code = lc if x[f] <= np.int32(thr).view(np.float32) else rc
+                visits += 1
+    return visits
+
+
+def test_node_visits_and_bound(table, forest):
+    k = fk.compile_forest(forest, n_features=12, device="cpu")
+    X = ft.features12(table)[:40]
+    visits = chip_smoke.node_visits(k, X)
+    assert visits == _walk_visits(k, X.numpy())
+    ms, by = chip_smoke.forest_bound(k, X, visits)
+    assert by in ("bytes", "operations") and ms > 0
+
+
+def test_parse_tables_reads_cli_output(tmp_path, capsys, forest):
+    classes = chip_smoke.CLASSES
+    checkpoint.save_model(str(tmp_path), "forest",
+                          interop.forest_params_from_numpy(forest, device="cpu"),
+                          classes=classes)
+    summary = cli.main([
+        "Randomforest", "--source", "synthetic", "--synthetic-flows", "90",
+        "--capacity", "128", "--max-ticks", "4", "--print-every", "2",
+        "--table-rows", "16", "--native-checkpoint", str(tmp_path),
+        "--device", "cpu",
+    ])
+    tables = chip_smoke.parse_tables(capsys.readouterr().out)
+    assert [len(t) for t in tables] == [16, 16]
+    k = fk.compile_forest(forest, n_features=12, device="cpu")
+    labels = fk.predict(k, summary.engine.features()).numpy()
+    assert all(classes[labels[s]] == lab for s, lab in tables[-1])
+
+
+def test_main_refuses_without_cuda(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() == 1
+    io = capsys.readouterr()
+    assert io.out == "" and "no CUDA device" in io.err

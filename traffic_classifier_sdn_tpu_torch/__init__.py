@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of ``traffic_classifier_sdn_tpu`` for one NVIDIA H100.
+
+The JAX package beside this one is the reference: every module here keeps
+the name of its counterpart there, and the tests run the same inputs
+through both. This package imports ``torch`` and nothing of JAX or of the
+JAX package; where it needs code from a jax-free module there, it keeps
+its own copy.
+
+It covers the serial ``Randomforest`` classify serve (Python ingest,
+full-table predict through the hand-written CUDA forest kernel in
+``csrc/forest_proba.cu``, activity-ranked render). Entry points run on
+CUDA unless the caller asks for the CPU.
+"""
