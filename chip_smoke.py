@@ -11,17 +11,25 @@ the script exits non-zero:
    the TF32 settings;
 2. build — every CUDA kernel of the port, from ``csrc/``, all ``nvcc``
    processes started together;
-3. kernels against their plain versions on the card — the forest kernel
-   on a seeded forest of the reference checkpoint's shape (100 trees,
-   node counts 25-101, depth <= 14, 6 classes, 12 features), with X from
+3. kernels against their plain versions on the card, with X from
    ``features12`` of synthetic flow tables at N = 777, 65,536 and
-   1,048,576: probabilities bitwise equal, labels equal, CUDA-event
-   median times, and the bound (least time the card could take);
-4. serve — the port CLI in-process (``Randomforest --source synthetic
+   1,048,576, on seeded models of the reference checkpoints' shapes (the
+   reference pickles are not in the repository):
+   - forest_proba: 100 trees, node counts 25-101, depth <= 14, 6 classes,
+     12 features; probabilities bitwise equal;
+   - knn_topk: a 4448-row corpus, k = 5, 6 classes; neighbor indices and
+     similarities bitwise equal;
+   - rbf_decision: 2281 support vectors split over 6 classes, 15 pairs;
+     decisions bitwise equal;
+   labels equal for all three; CUDA-event median times, the plain
+   version's time, and the bound (least time the card could take);
+4. serve — the port CLI in-process (``<subcommand> --source synthetic
    --synthetic-flows 65536 --capacity 65536 --max-ticks 6 --print-every
-   2``) on that forest: 65,536 flows tracked, one kernel launch per render
-   tick, 64 rows per rendered table, and the last table's labels equal to
-   the plain version's labels on the same table;
+   2``) for ``Randomforest``, ``knearest`` and ``svm`` on those models:
+   65,536 flows tracked, one launch of the family's kernel per render tick
+   (every launch count set to 0 just before the serve and read just
+   after), 64 rows per rendered table, and the last table's labels equal
+   to the plain version's labels on the same table;
 5. summary — a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
    power-limit line, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -49,9 +57,13 @@ N_CLASSES = 6
 N_FEATURES = 12
 NODE_COUNT = (25, 101)  # reference checkpoint: node_count min/max
 MAX_DEPTH = 14  # reference checkpoint: max_depth max
+KNN_ROWS, KNN_NEIGHBORS = 4448, 5  # reference checkpoint KNeighbors
+SVC_VECTORS = 2281  # reference checkpoint SVC: support vectors, 15 pairs
 CAPACITY = 65536
 SHAPES = (777, 65536, 1 << 20)
 TIMED_RUNS = 30
+# the plain KNN/SVC versions take seconds at 2^20 rows: few runs each
+PLAIN_RUNS = {777: 10, 65536: 5, 1 << 20: 2}
 CLASSES = ("dns", "game", "ping", "quake", "telnet", "voice")
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and
 # non-tensor-core float32 operations/s.
@@ -111,6 +123,57 @@ def random_forest(seed: int, X_sample: np.ndarray, n_trees: int = N_TREES,
         "left": left, "right": right, "feature": feature,
         "threshold": threshold, "values": values, "max_depth": deepest,
         "n_features": F,
+    }
+
+
+def _jittered_rows(rng, X_sample: np.ndarray, n: int) -> np.ndarray:
+    """``n`` rows drawn from ``X_sample``, each value scaled by a factor
+    near 1 (float64): rows near the served ones, not copies of them, with
+    a nonzero two-float residual."""
+    rows = X_sample[rng.randint(X_sample.shape[0], size=n)].astype(np.float64)
+    return np.abs(rows * (1.0 + 0.05 * rng.randn(*rows.shape)))
+
+
+def random_knn(seed: int, X_sample: np.ndarray, n_rows: int = KNN_ROWS,
+               n_neighbors: int = KNN_NEIGHBORS,
+               n_classes: int = N_CLASSES) -> dict:
+    """A seeded KNN model in importer layout (``fit_X`` (S, F) float64,
+    ``y``, ``n_neighbors``, ``classes``): the corpus is drawn from
+    ``X_sample`` (``_jittered_rows``), so served rows have near neighbors,
+    and the labels are uniform over the classes."""
+    rng = np.random.RandomState(seed)
+    return {
+        "fit_X": _jittered_rows(rng, X_sample, n_rows),
+        "y": rng.randint(0, n_classes, n_rows),
+        "n_neighbors": n_neighbors,
+        "classes": np.arange(n_classes),
+    }
+
+
+def random_svc(seed: int, X_sample: np.ndarray, n_sv: int = SVC_VECTORS,
+               n_classes: int = N_CLASSES) -> dict:
+    """A seeded RBF-SVC in libsvm importer layout (``support_vectors``,
+    ``dual_coef`` (C−1, S), ``n_support``, ``intercept`` (P,), ``gamma``).
+    Support vectors are drawn from ``X_sample`` (``_jittered_rows``) and γ
+    is sklearn's ``'scale'`` of that sample, 1 / (F · Var): without both,
+    exp(−γ·d²) underflows to 0 on served rows and every decision is its
+    intercept. Dual coefficients are y·α with α in (0, 1] (the box of
+    C = 1) and libsvm's signs: a class-c vector's coefficient for the pair
+    (c, o) is positive when c < o, so a row near class-c vectors votes c."""
+    rng = np.random.RandomState(seed)
+    n_support = rng.multinomial(n_sv - n_classes,
+                                np.full(n_classes, 1.0 / n_classes)) + 1
+    sv_class = np.repeat(np.arange(n_classes), n_support)
+    other = np.arange(n_classes - 1)[:, None]  # row r pairs class c with o
+    other = other + (other >= sv_class[None, :])
+    sign = np.where(sv_class[None, :] < other, 1.0, -1.0)
+    n_pairs = n_classes * (n_classes - 1) // 2
+    return {
+        "support_vectors": _jittered_rows(rng, X_sample, n_sv),
+        "dual_coef": sign * rng.uniform(1e-3, 1.0, (n_classes - 1, n_sv)),
+        "n_support": n_support,
+        "intercept": rng.normal(0.0, 0.5, n_pairs),
+        "gamma": 1.0 / (X_sample.shape[1] * X_sample.astype(np.float64).var()),
     }
 
 
@@ -197,6 +260,41 @@ def forest_bound(k, X, visits: int) -> tuple[float, str]:
         + k.nodes.numel() * 4 + k.leaf_values.numel() * 4
     )
     ops = visits + N * k.n_trees * k.n_classes
+    return _bound(nbytes, ops)
+
+
+def knn_pair_ops(g) -> int:
+    """Operations per (row, corpus row) pair of the KNN top-k: F
+    multiplies, F − 1 adds, one subtract and one compare (2F + 1)."""
+    return 2 * g.n_features + 1
+
+
+def knn_bound(g, X) -> tuple[float, str]:
+    """(ms, "bytes"|"operations") of the KNN top-k: X in, (N, k) values and
+    indices out, the corpus records once; ``knn_pair_ops`` per pair."""
+    N, F = X.shape
+    nbytes = X.numel() * 4 + N * g.n_neighbors * 8 + g.n_rows * (F + 1) * 4
+    return _bound(nbytes, N * g.n_rows * knn_pair_ops(g))
+
+
+def svc_pair_ops(g) -> int:
+    """Operations per (row, SV) pair of the RBF-SVC decision: 4 per
+    feature for d², the γ product, the exp, and P multiply-adds (4F + 2 +
+    2P, 80 for F = 12, P = 15)."""
+    return 4 * g.n_features + 2 + 2 * g.n_pairs
+
+
+def svc_bound(g, X) -> tuple[float, str]:
+    """(ms, "bytes"|"operations") of the RBF-SVC decision: X in, (N, P) out,
+    the support vectors (hi, lo, coefficients) once; ``svc_pair_ops`` per
+    pair."""
+    N, F = X.shape
+    P = g.n_pairs
+    nbytes = X.numel() * 4 + N * P * 4 + g.n_sv * (2 * F + P) * 4
+    return _bound(nbytes, N * g.n_sv * svc_pair_ops(g))
+
+
+def _bound(nbytes: int, ops: int) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_F32_OPS_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -258,128 +356,316 @@ def phase_environment() -> str:
     return smi
 
 
+def knn_plain_predict(g, X):
+    """Labels of the KNN kernel's plain version (votes of its top-k)."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch.models import knn
+    from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk
+
+    idx = kk.topk_sim_idx_plain(g, X)[1]
+    return torch.argmax(knn.count_votes(g.fit_y, g.n_classes, idx), dim=-1)
+
+
+def svc_plain_predict(g, X):
+    """Labels of the RBF-SVC kernel's plain version (ovo votes)."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch.models import svc
+    from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
+
+    D = rk.partial_decision_plain(g, X) + g.intercept[None, :]
+    votes = svc.votes_from_decision(D, g.vote_i, g.vote_j, g.n_classes)
+    return torch.argmax(votes, dim=-1)
+
+
 def phase_build() -> None:
-    from traffic_classifier_sdn_tpu_torch.ops import cuda_build, forest_kernel
+    from traffic_classifier_sdn_tpu_torch.ops import (
+        cuda_build,
+        forest_kernel,
+        knn_kernel,
+        rbf_kernel,
+    )
 
     t0 = time.perf_counter()
-    logs = cuda_build.build([forest_kernel.KERNEL])
+    logs = cuda_build.build(
+        [forest_kernel.KERNEL, knn_kernel.KERNEL, rbf_kernel.KERNEL]
+    )
     print(f"[build] {len(logs)} kernel(s) in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build] {name}: {line.strip()}")
 
 
-def phase_kernels(device):
+def _check_forest(k, X, N: int) -> dict:
     import torch
 
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+
+    got = fk.forest_proba(k, X)
+    want = fk.forest_proba_plain(k, X)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"forest kernel != plain version at N={N}: max |diff| {err}"
+        )
+    if not torch.equal(got.argmax(-1), want.argmax(-1)):
+        raise AssertionError(f"forest kernel labels differ at N={N}")
+    visits = node_visits(k, X)
+    bound_ms, bound_by = forest_bound(k, X, visits)
+    ms = cuda_median_ms(lambda: fk.forest_proba(k, X), TIMED_RUNS)
+    plain_ms = cuda_median_ms(lambda: fk.forest_proba_plain(k, X), TIMED_RUNS)
+    print(f"[kernels] forest_proba N={N}: bitwise equal, kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}), {visits / (N * k.n_trees):.2f} visits/tree")
+    return {
+        "rows": N, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "mean_visits_per_tree": visits / (N * k.n_trees),
+    }
+
+
+def _check_knn(g, X, N: int) -> dict:
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk
+
+    got_v, got_i = kk.topk_sim_idx(g, X)
+    want_v, want_i = kk.topk_sim_idx_plain(g, X)
+    torch.cuda.synchronize()
+    err = float((got_v - want_v).abs().max())
+    if not torch.equal(got_i, want_i) or not torch.equal(
+        got_v.view(torch.int32), want_v.view(torch.int32)
+    ):
+        bad = int((got_i != want_i).any(1).sum())
+        raise AssertionError(
+            f"knn_topk kernel != plain version at N={N}: {bad} rows' indices "
+            f"differ, max |value diff| {err}"
+        )
+    labels = kk.predict(g, X)
+    if not torch.equal(labels.long(), knn_plain_predict(g, X)):
+        raise AssertionError(f"knn_topk kernel labels differ at N={N}")
+    bound_ms, bound_by = knn_bound(g, X)
+    ms = cuda_median_ms(lambda: kk.topk_sim_idx(g, X), TIMED_RUNS)
+    plain_ms = cuda_median_ms(lambda: kk.topk_sim_idx_plain(g, X),
+                              PLAIN_RUNS[N], warmup=1)
+    counts = torch.bincount(labels.long(), minlength=g.n_classes).tolist()
+    print(f"[kernels] knn_topk N={N}: indices and values bitwise equal, "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}; {knn_pair_ops(g)} operations per "
+          f"pair); labels per class {counts}")
+    if N <= CAPACITY:
+        fit_t = g.fit_X.t().contiguous()
+        lib_ms = cuda_median_ms(
+            lambda: torch.topk(torch.matmul(X, fit_t) - g.half_sq, g.n_neighbors),
+            TIMED_RUNS,
+        )
+        print(f"[kernels] knn_topk N={N}: context only (not the same "
+              f"rounding or tie order): torch.matmul + torch.topk {lib_ms:.4f} ms")
+    return {"rows": N, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "labels_per_class": counts}
+
+
+def _check_svc(g, X, N: int) -> dict:
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
+
+    got = rk.partial_decision(g, X)
+    want = rk.partial_decision_plain(g, X)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        bad = int((got != want).any(1).sum())
+        raise AssertionError(
+            f"rbf_decision kernel != plain version at N={N}: {bad} rows "
+            f"differ, max |diff| {err}"
+        )
+    labels = rk.predict(g, X)
+    if not torch.equal(labels.long(), svc_plain_predict(g, X)):
+        raise AssertionError(f"rbf_decision kernel labels differ at N={N}")
+    D = got + g.intercept[None, :]
+    bound_ms, bound_by = svc_bound(g, X)
+    ms = cuda_median_ms(lambda: rk.partial_decision(g, X), TIMED_RUNS)
+    plain_ms = cuda_median_ms(lambda: rk.partial_decision_plain(g, X),
+                              PLAIN_RUNS[N], warmup=1)
+    counts = torch.bincount(labels.long(), minlength=g.n_classes).tolist()
+    print(f"[kernels] rbf_decision N={N}: decisions bitwise equal, kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}; {svc_pair_ops(g)} operations per pair); max |K @ coef| {float(got.abs().max()):.3f}, min |D| "
+          f"{float(D.abs().min()):.3e}; labels per class {counts}")
+    if N <= CAPACITY:
+        lib_ms = cuda_median_ms(
+            lambda: torch.exp(-g.gamma * torch.cdist(X, g.sv_hi) ** 2) @ g.coef_t,
+            TIMED_RUNS,
+        )
+        print(f"[kernels] rbf_decision N={N}: context only (hi parts only, "
+              f"not the same rounding): torch.cdist + exp + matmul "
+              f"{lib_ms:.4f} ms")
+    return {"rows": N, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "labels_per_class": counts}
+
+
+def phase_kernels(device):
+    """Seeded models of the reference checkpoints' shapes, drawn from the
+    served features, and each kernel held to its plain version at every
+    size of ``SHAPES``. Returns ({family: model dict}, {family: kernel
+    operands}, {family: {N: result}})."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch import interop
     from traffic_classifier_sdn_tpu_torch.core import flow_table as ft
     from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+    from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk
+    from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
 
     t0 = time.perf_counter()
     tables = {n: synthetic_table(n, 3, device) for n in (CAPACITY, SHAPES[-1])}
     X_cap = ft.features12(tables[CAPACITY])
+    X_big = ft.features12(tables[SHAPES[-1]])
+    del tables
     sample = X_cap[torch.randperm(
         CAPACITY, generator=torch.Generator().manual_seed(SEED)
     )[:4096].to(device)].cpu().numpy()
-    forest = random_forest(SEED, sample)
-    k = fk.compile_forest(forest, n_features=N_FEATURES, device=device)
+    models = {
+        "forest": random_forest(SEED, sample),
+        "knn": random_knn(SEED, sample),
+        "svc": random_svc(SEED, sample),
+    }
+    ops = {
+        "forest": fk.compile_forest(models["forest"], n_features=N_FEATURES,
+                                    device=device),
+        "knn": kk.compile_knn(interop.knn_params_from_numpy(models["knn"],
+                                                            device)),
+        "svc": rk.compile_svc(interop.svc_params_from_numpy(models["svc"],
+                                                            device)),
+    }
+    k, g_knn, g_svc = ops["forest"], ops["knn"], ops["svc"]
     print(f"[kernels] forest: {k.n_trees} trees, {k.n_internal} node "
           f"records and {k.n_leaves} leaf slots per tree, depth "
-          f"{forest['max_depth']}; tables built in "
-          f"{time.perf_counter() - t0:.2f} s")
-    results = {}
+          f"{models['forest']['max_depth']}; knn: {g_knn.n_rows} corpus "
+          f"rows, k = {g_knn.n_neighbors}; svc: {g_svc.n_sv} support "
+          f"vectors, {g_svc.n_pairs} pairs, gamma {g_svc.gamma:.4e}, "
+          f"n_support {models['svc']['n_support'].tolist()}; tables built "
+          f"in {time.perf_counter() - t0:.2f} s")
+    checks = {"forest": _check_forest, "knn": _check_knn, "svc": _check_svc}
+    results = {name: {} for name in checks}
     for N in SHAPES:
-        X = X_cap[:N] if N <= CAPACITY else ft.features12(tables[N])
-        got = fk.forest_proba(k, X)
-        want = fk.forest_proba_plain(k, X)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"forest kernel != plain version at N={N}: max |diff| {err}"
-            )
-        if not torch.equal(got.argmax(-1), want.argmax(-1)):
-            raise AssertionError(f"forest kernel labels differ at N={N}")
-        visits = node_visits(k, X)
-        bound_ms, bound_by = forest_bound(k, X, visits)
-        ms = cuda_median_ms(lambda X=X: fk.forest_proba(k, X), TIMED_RUNS)
-        plain_ms = cuda_median_ms(
-            lambda X=X: fk.forest_proba_plain(k, X), TIMED_RUNS
-        )
-        results[N] = {
-            "rows": N, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "mean_visits_per_tree": visits / (N * k.n_trees),
-        }
-        print(f"[kernels] forest_proba N={N}: bitwise equal, kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
-              f"({bound_by}), {visits / (N * k.n_trees):.2f} visits/tree")
-    del tables
-    return forest, k, results
+        X = X_cap[:N] if N <= CAPACITY else X_big
+        for name, check in checks.items():
+            results[name][N] = check(ops[name], X, N)
+    return models, ops, results
 
 
-def phase_serve(forest, k, device) -> int:
+# family → (CLI subcommand, interop builder of the port's model)
+SERVES = {
+    "forest": ("Randomforest", "forest_params_from_numpy"),
+    "knn": ("knearest", "knn_params_from_numpy"),
+    "svc": ("svm", "svc_params_from_numpy"),
+}
+
+
+def _kernels() -> dict:
+    """{family: (the wrapper whose ``launches`` counts its kernel, the
+    serving predict)}."""
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+    from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk
+    from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
+
+    return {
+        "forest": (fk.forest_proba, fk.predict),
+        "knn": (kk.topk_sim_idx, kk.predict),
+        "svc": (rk.partial_decision, rk.predict),
+    }
+
+
+def _plain_labels(family: str, g, X):
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+
+    if family == "forest":
+        return fk.forest_proba_plain(g, X).argmax(-1)
+    if family == "knn":
+        return knn_plain_predict(g, X)
+    return svc_plain_predict(g, X)
+
+
+def phase_serve(family: str, model: dict, g, device) -> int:
+    """The port CLI's serve of ``family`` at capacity 65,536; returns its
+    kernel's launches in that run."""
     import torch
 
     from traffic_classifier_sdn_tpu_torch import cli, interop
     from traffic_classifier_sdn_tpu_torch.io import checkpoint
-    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
 
+    subcommand, builder = SERVES[family]
+    counters = {f: wrapper for f, (wrapper, _) in _kernels().items()}
     with tempfile.TemporaryDirectory() as ckpt:
         checkpoint.save_model(
-            ckpt, "forest", interop.forest_params_from_numpy(forest),
+            ckpt, family, getattr(interop, builder)(model, device),
             classes=CLASSES,
         )
         argv = [
-            "Randomforest", "--source", "synthetic",
+            subcommand, "--source", "synthetic",
             "--synthetic-flows", str(CAPACITY), "--capacity", str(CAPACITY),
             "--max-ticks", "6", "--print-every", "2",
             "--native-checkpoint", ckpt,
         ]
         out = io.StringIO()
-        fk.forest_proba.launches = 0  # count the main path's launches only
+        for c in counters.values():  # count the main path's launches only
+            c.launches = 0
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             summary = cli.main(argv)
         wall = time.perf_counter() - t0
-        launches = fk.forest_proba.launches
+        launches = {f: c.launches for f, c in counters.items()}
     engine = summary.engine
     tables = parse_tables(out.getvalue())
-    print(f"[serve] {summary.ticks} ticks in {wall:.2f} s; per tick (s): "
+    tag = f"[serve {subcommand}]"
+    print(f"{tag} {summary.ticks} ticks in {wall:.2f} s; per tick (s): "
           + ", ".join(f"{s:.3f}" for s in summary.tick_seconds)
           + "; of which ingest (parse, batcher, wire scatter): "
           + ", ".join(f"{s:.3f}" for s in summary.ingest_seconds)
           + f"; render ticks {summary.render_ticks}")
     if engine.num_flows() != CAPACITY:
         raise AssertionError(f"{engine.num_flows()} flows tracked, want {CAPACITY}")
-    if launches != len(summary.render_ticks) or launches == 0:
+    own = launches[family]
+    if own != len(summary.render_ticks) or own == 0:
         raise AssertionError(
-            f"{launches} kernel launches for {len(summary.render_ticks)} "
+            f"{own} {family} kernel launches for {len(summary.render_ticks)} "
             "render ticks (want one each)"
         )
+    others = {f: n for f, n in launches.items() if f != family and n}
+    if others:
+        raise AssertionError(f"the {family} serve launched other kernels: {others}")
     if len(tables) != len(summary.render_ticks) or any(
         len(t) != 64 for t in tables
     ):
         raise AssertionError(
             f"rendered tables have {[len(t) for t in tables]} rows, want 64 each"
         )
-    plain = fk.forest_proba_plain(k, engine.features()).argmax(-1).cpu()
+    plain = _plain_labels(family, g, engine.features()).cpu()
     wrong = [(s, lab) for s, lab in tables[-1] if CLASSES[plain[s]] != lab]
     if wrong:
         raise AssertionError(f"rendered labels differ from the plain version: {wrong[:5]}")
+    shown = sorted({lab for _, lab in tables[-1]})
+    if family != "forest" and len(shown) < 2:
+        raise AssertionError(f"the last table shows one class only: {shown}")
     torch.cuda.synchronize()
-    print(f"[serve] {engine.num_flows()} flows tracked, {launches} kernel "
+    print(f"{tag} {engine.num_flows()} flows tracked, {own} kernel "
           f"launches over {len(tables)} render ticks, tables of "
           f"{[len(t) for t in tables]} rows, last table's labels equal the "
-          "plain version's")
-    print("[serve] end of the last table:\n"
+          f"plain version's (classes shown: {', '.join(shown)})")
+    print(f"{tag} end of the last table:\n"
           + "\n".join(out.getvalue().splitlines()[-6:]))
-    render_breakdown(engine, k, device)
-    return launches
+    render_breakdown(engine, family, g, device)
+    return own
 
 
-def render_breakdown(engine, k, device) -> None:
+def render_breakdown(engine, family: str, g, device) -> None:
     """Device time of each step of a render tick on the served table (CUDA
     event medians), the host side of the render, and the wire scatter of
     one synthetic tick — where a tick's time goes outside Python ingest."""
@@ -387,33 +673,45 @@ def render_breakdown(engine, k, device) -> None:
 
     from traffic_classifier_sdn_tpu_torch.core import flow_table as ft
     from traffic_classifier_sdn_tpu_torch.ingest.replay import SyntheticFlows
-    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
 
     table, n = engine.table, engine.table.capacity
+    predict = _kernels()[family][1]
     X = ft.features12(table)
-    labels = fk.predict(k, X)
-    syn = SyntheticFlows(n_flows=n)
-    tick_wire(syn, True)
-    wire_np = tick_wire(syn, False)
-    wire = ft.wire_tensor(wire_np, device)
+    labels = predict(g, X)
+    tag = f"[breakdown {SERVES[family][0]}]"
     steps = {
         "features12": lambda: ft.features12(table),
-        "forest predict (kernel + argmax)": lambda: fk.predict(k, X),
+        f"{family} predict (kernel + labels)": lambda: predict(g, X),
         "top_active_render (64 of the table)": lambda: ft.top_active_render(
             table, labels, 64, engine.tick_floor),
-        f"wire to device ({wire_np.shape[0]} x {wire_np.shape[1]})":
-            lambda: ft.wire_tensor(wire_np, device),
-        f"apply_wire ({wire_np.shape[0]} rows)":
-            lambda: ft.apply_wire(table, wire),
     }
+    if family == "forest":  # the ingest side is the same for every family
+        syn = SyntheticFlows(n_flows=n)
+        tick_wire(syn, True)
+        wire_np = tick_wire(syn, False)
+        wire = ft.wire_tensor(wire_np, device)
+        steps[f"wire to device ({wire_np.shape[0]} x {wire_np.shape[1]})"] = (
+            lambda: ft.wire_tensor(wire_np, device))
+        steps[f"apply_wire ({wire_np.shape[0]} rows)"] = (
+            lambda: ft.apply_wire(table, wire))
     for name, fn in steps.items():
-        print(f"[breakdown] {name}: {cuda_median_ms(fn, TIMED_RUNS):.4f} ms")
+        print(f"{tag} {name}: {cuda_median_ms(fn, TIMED_RUNS):.4f} ms")
     t0 = time.perf_counter()
     for _ in range(10):
         engine.render_sample(labels, 64)
     torch.cuda.synchronize(device)
-    print(f"[breakdown] render_sample host round trip (ranking, 64 rows to "
+    print(f"{tag} render_sample host round trip (ranking, 64 rows to "
           f"the host): {(time.perf_counter() - t0) * 100:.4f} ms")
+
+
+KERNEL_ROWS = {
+    "forest": ("forest_proba", "forest_proba.cu",
+               "traffic_classifier_sdn_tpu/ops/pallas_forest.py:241"),
+    "knn": ("knn_topk", "knn_topk.cu",
+            "traffic_classifier_sdn_tpu/ops/pallas_knn.py:116"),
+    "svc": ("rbf_decision", "rbf_decision.cu",
+            "traffic_classifier_sdn_tpu/ops/pallas_rbf.py:90"),
+}
 
 
 def main() -> int:
@@ -435,26 +733,32 @@ def main() -> int:
     smi = phase_environment()
     device = torch.device("cuda")
     phase_build()
-    forest, k, results = phase_kernels(device)
-    launches = phase_serve(forest, k, device)
-    main_path = results[CAPACITY]
-    kernel = {
-        "name": "forest_proba",
-        "route": "cuda",
-        "source": "traffic_classifier_sdn_tpu_torch/csrc/forest_proba.cu",
-        "replaces": "traffic_classifier_sdn_tpu/ops/pallas_forest.py:241",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in results.values()),
-        "ms": main_path["ms"],
-        "plain_ms": main_path["plain_ms"],
-        "bound_ms": main_path["bound_ms"],
-        "bound_by": main_path["bound_by"],
-        "library_ms": None,
-        "rows": CAPACITY,
-        "by_rows": [results[n] for n in SHAPES],
+    models, ops, results = phase_kernels(device)
+    launches = {
+        family: phase_serve(family, models[family], ops[family], device)
+        for family in SERVES
     }
+    kernels = []
+    for family, (name, source, replaces) in KERNEL_ROWS.items():
+        by_rows = results[family]
+        main_path = by_rows[CAPACITY]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"traffic_classifier_sdn_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": launches[family],
+            "max_abs_err": max(r["max_abs_err"] for r in by_rows.values()),
+            "ms": main_path["ms"],
+            "plain_ms": main_path["plain_ms"],
+            "bound_ms": main_path["bound_ms"],
+            "bound_by": main_path["bound_by"],
+            "library_ms": None,
+            "rows": CAPACITY,
+            "by_rows": [by_rows[n] for n in SHAPES],
+        })
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({
         "ok": True,

@@ -1,6 +1,6 @@
 """Checkpoint parity: a JAX model checkpoint carried into the port's format
 comes back bitwise equal — JAX ``io/checkpoint.save_model`` → JAX
-``load_model`` → ``interop.forest_params_from_numpy`` → port
+``load_model`` → ``interop.{forest,knn,svc}_params_from_numpy`` → port
 ``save_model`` → port ``load_model``."""
 
 import json
@@ -10,9 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from __graft_entry__ import _synth_forest
 from traffic_classifier_sdn_tpu.io import checkpoint as jck
 from traffic_classifier_sdn_tpu.models import forest as jforest
+from traffic_classifier_sdn_tpu.models import knn as jknn
+from traffic_classifier_sdn_tpu.models import svc as jsvc
 from traffic_classifier_sdn_tpu_torch import interop
 from traffic_classifier_sdn_tpu_torch.io import checkpoint as tck
 from traffic_classifier_sdn_tpu_torch.models.forest import PARAM_FIELDS
@@ -60,7 +63,7 @@ def test_load_rejects_newer_format_and_dtype_mismatch(tmp_path):
 def test_save_rejects_unknown_family(tmp_path):
     port = interop.forest_params_from_numpy(_synth_forest(), device="cpu")
     with pytest.raises(ValueError, match="unknown model family"):
-        tck.save_model(str(tmp_path), "svc", port)
+        tck.save_model(str(tmp_path), "gnb", port)  # not ported yet
 
 
 def test_loaded_model_predicts_like_source(tmp_path):
@@ -75,5 +78,50 @@ def test_loaded_model_predicts_like_source(tmp_path):
     assert back.classes.decode(back.predict(X)[:3].numpy()) == [
         CLASSES[int(c)] for c in port.predict(X)[:3]
     ]
+    fn, serve_params = back.serving_path()
+    assert torch.equal(fn(serve_params, X), port.predict(X))
+
+
+def _sample():
+    return np.random.RandomState(0).gamma(1.0, 1e5, (200, 12)).astype(np.float32)
+
+
+# family → (JAX module, seeded importer dict, interop builder, the port's
+# array fields, the manifest's static fields)
+FAMILIES = {
+    "knn": (jknn, lambda: chip_smoke.random_knn(0, _sample(), n_rows=90),
+            interop.knn_params_from_numpy, interop.KNN_FIELDS,
+            {"n_neighbors": 5, "n_classes": 6}),
+    "svc": (jsvc, lambda: chip_smoke.random_svc(0, _sample(), n_sv=70),
+            interop.svc_params_from_numpy, interop.SVC_FIELDS,
+            {"n_classes": 6, "has_lo": True}),
+}
+
+
+@pytest.mark.parametrize("family", ["knn", "svc"])
+def test_jax_family_checkpoint_roundtrips_bitwise(tmp_path, family):
+    """Every array bitwise with its dtype (int32 ``fit_y``/``vote_*``, the
+    0-d f32 ``gamma``), and the int and bool static fields, through JAX
+    save → load → interop → port save → load."""
+    jmod, make, carry, fields, static = FAMILIES[family]
+    jck.save_model(str(tmp_path / "jax"), family, jmod.from_numpy(make()),
+                   classes=CLASSES)
+    loaded = jck.load_model(str(tmp_path / "jax"))
+    port = carry(loaded.params, device="cpu")
+    tck.save_model(str(tmp_path / "port"), family, port, classes=CLASSES)
+    back = tck.load_model(str(tmp_path / "port"), device="cpu")
+    assert back.name == family and back.classes.names == CLASSES
+    for k in fields:
+        want = np.asarray(getattr(loaded.params, k))
+        got = getattr(back.params, k).numpy()
+        assert got.dtype == want.dtype and got.shape == want.shape, k
+        np.testing.assert_array_equal(np.atleast_1d(got).view(np.uint8),
+                                      np.atleast_1d(want).view(np.uint8))
+    manifest = json.loads((tmp_path / "port" / "manifest.json").read_text())
+    assert manifest["static"] == static
+    for k, v in static.items():
+        assert getattr(back.params, k) == v and type(getattr(back.params, k)) is type(v)
+    X = torch.from_numpy(_sample()[:64])
+    assert torch.equal(back.predict(X), port.predict(X))
     fn, serve_params = back.serving_path()
     assert torch.equal(fn(serve_params, X), port.predict(X))

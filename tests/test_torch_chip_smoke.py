@@ -1,8 +1,10 @@
 """CPU rehearsal of ``chip_smoke.py``'s helpers (the script itself needs a
-CUDA card): the seeded forest has the reference checkpoint's shape, the
-bulk synthetic table equals the one the Python ingest path builds, the
-table parser reads what the CLI prints, the node-visit count matches a
-walk, and the script refuses to run without a card."""
+CUDA card): the seeded forest, KNN and SVC have the reference checkpoints'
+shapes, the bulk synthetic table equals the one the Python ingest path
+builds, the table parser reads what the CLI prints, the node-visit count
+matches a walk, the bounds follow their operation counts, the plain-label
+helpers agree with the serving predicts, and the script refuses to run
+without a card."""
 
 import dataclasses
 
@@ -16,7 +18,10 @@ from traffic_classifier_sdn_tpu_torch.core import flow_table as ft
 from traffic_classifier_sdn_tpu_torch.ingest.batcher import FlowStateEngine
 from traffic_classifier_sdn_tpu_torch.ingest.replay import SyntheticFlows
 from traffic_classifier_sdn_tpu_torch.io import checkpoint
+from traffic_classifier_sdn_tpu_torch.models import knn, svc
 from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk
+from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
 from traffic_classifier_sdn_tpu_torch.ops import tree_gemm
 
 
@@ -96,6 +101,51 @@ def test_parse_tables_reads_cli_output(tmp_path, capsys, forest):
     k = fk.compile_forest(forest, n_features=12, device="cpu")
     labels = fk.predict(k, summary.engine.features()).numpy()
     assert all(classes[labels[s]] == lab for s, lab in tables[-1])
+
+
+def test_random_knn_and_svc_have_reference_shapes(table):
+    X = ft.features12(table).numpy()
+    d = chip_smoke.random_knn(0, X)
+    assert d["fit_X"].shape == (4448, 12) and d["n_neighbors"] == 5
+    assert set(np.unique(d["y"])) == set(range(6))
+    s = chip_smoke.random_svc(0, X)
+    n_support = s["n_support"]
+    assert s["support_vectors"].shape == (2281, 12) and n_support.sum() == 2281
+    assert len(n_support) == 6 and (n_support >= 1).all()
+    assert s["dual_coef"].shape == (5, 2281) and s["intercept"].shape == (15,)
+    assert np.abs(s["dual_coef"]).max() <= 1.0
+    # libsvm's signs: a class-c vector is positive in the pairs (c, o > c)
+    # and negative in (o < c, c); row r of dual_coef pairs c with o
+    starts = np.concatenate([[0], np.cumsum(n_support)])
+    for c in range(6):
+        block = s["dual_coef"][:, starts[c]:starts[c + 1]]
+        for r in range(5):
+            o = r if r < c else r + 1
+            assert (np.sign(block[r]) == (1 if c < o else -1)).all()
+    var = X.astype(np.float64).var()
+    assert s["gamma"] == 1.0 / (12 * var)
+    # near the served rows: the RBF values reach the decisions
+    m = svc.SvcModel.from_numpy(s, device="cpu")
+    K = m.rbf_kernel(torch.from_numpy(X[:50]))
+    assert float(K.max(1).values.min()) > 0.1
+
+
+def test_knn_svc_bounds_and_plain_labels(table):
+    X = ft.features12(table)
+    g = kk.compile_knn(knn.KnnModel.from_numpy(
+        chip_smoke.random_knn(0, X.numpy(), n_rows=300), device="cpu"))
+    ms, by = chip_smoke.knn_bound(g, X)
+    ops = X.shape[0] * 300 * 25
+    assert (ms, by) == (ops / chip_smoke.PEAK_F32_OPS_S * 1e3, "operations")
+    assert torch.equal(chip_smoke.knn_plain_predict(g, X),
+                       kk.predict(g, X).long())
+    gs = rk.compile_svc(svc.SvcModel.from_numpy(
+        chip_smoke.random_svc(0, X.numpy(), n_sv=120), device="cpu"))
+    ms, by = chip_smoke.svc_bound(gs, X)
+    assert (ms, by) == (X.shape[0] * 120 * 80 / chip_smoke.PEAK_F32_OPS_S * 1e3,
+                        "operations")
+    assert torch.equal(chip_smoke.svc_plain_predict(gs, X),
+                       rk.predict(gs, X).long())
 
 
 def test_main_refuses_without_cuda(monkeypatch, capsys):

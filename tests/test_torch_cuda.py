@@ -1,6 +1,6 @@
-"""Card-only checks of the port (``requires_cuda``): the CUDA forest
-kernel against its plain version, and the CUDA flow table and serve
-against the same code on the CPU. The CPU side is held to the JAX
+"""Card-only checks of the port (``requires_cuda``): the CUDA forest, KNN
+top-k and RBF-SVC kernels against their plain versions, and the CUDA flow
+table and serves against the same code on the CPU. The CPU side is held to the JAX
 reference by the other ``test_torch_*`` files, so these carry that parity
 onto the card.
 
@@ -22,7 +22,10 @@ from traffic_classifier_sdn_tpu_torch import cli, interop
 from traffic_classifier_sdn_tpu_torch.core import flow_table as ft
 from traffic_classifier_sdn_tpu_torch.ingest.replay import SyntheticFlows
 from traffic_classifier_sdn_tpu_torch.io import checkpoint
+from traffic_classifier_sdn_tpu_torch.models import knn, svc
 from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk
+from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -130,5 +133,140 @@ def test_serve_on_card_prints_what_the_cpu_serve_prints(cuda, tmp_path, capsys):
     summary = cli.main(argv)  # CUDA by default
     on_card = capsys.readouterr().out
     assert fk.forest_proba.launches == launches + len(summary.render_ticks) == launches + 2
+    cli.main(argv + ["--device", "cpu"])
+    assert capsys.readouterr().out == on_card
+
+
+def _served(n_flows=3000, ticks=3):
+    """Served features (nonzero rows) of a synthetic table."""
+    X = ft.features12(chip_smoke.synthetic_table(n_flows, ticks, "cpu")).numpy()
+    return X[np.abs(X).sum(1) > 0]
+
+
+def _knn_cases():
+    """The integer tie corpus (every similarity exact, massively tied) and
+    a corpus drawn near served features, at k = 1, 5 (the reference) and
+    20 (the kernel's large-k instance), with ragged query counts."""
+    rng = np.random.RandomState(0)
+    X = _served()
+    cases = {}
+    for k in (1, 5, 20):
+        cases[f"ties-k{k}"] = (
+            {"fit_X": rng.randint(0, 4, (333, 12)).astype(np.float64),
+             "y": rng.randint(0, 6, 333), "n_neighbors": k,
+             "classes": np.arange(6)},
+            rng.randint(0, 4, (777, 12)).astype(np.float32),
+        )
+        cases[f"served-k{k}"] = (
+            chip_smoke.random_knn(k, X, n_rows=1000, n_neighbors=k), X[:999],
+        )
+    cases["ties-S==k"] = (
+        {"fit_X": rng.randint(0, 4, (5, 12)).astype(np.float64),
+         "y": rng.randint(0, 6, 5), "n_neighbors": 5, "classes": np.arange(6)},
+        rng.randint(0, 4, (130, 12)).astype(np.float32),
+    )
+    return cases
+
+
+@pytest.mark.parametrize("name", ["ties-k1", "ties-k5", "ties-k20",
+                                  "served-k1", "served-k5", "served-k20",
+                                  "ties-S==k"])
+def test_knn_kernel_bitwise_equals_plain(cuda, name):
+    d, X = _knn_cases()[name]
+    g = kk.compile_knn(knn.KnnModel.from_numpy(d, device=cuda))
+    Xc = torch.from_numpy(X).to(cuda)
+    launches = kk.topk_sim_idx.launches
+    vals, idx = kk.topk_sim_idx(g, Xc)
+    torch.cuda.synchronize()
+    assert kk.topk_sim_idx.launches == launches + 1
+    want_v, want_i = kk.topk_sim_idx_plain(g, Xc)
+    assert torch.equal(idx, want_i)
+    assert torch.equal(vals.view(torch.int32), want_v.view(torch.int32))
+    cpu = kk.compile_knn(knn.KnnModel.from_numpy(d, device="cpu"))
+    cv, ci = kk.topk_sim_idx(cpu, torch.from_numpy(X))
+    np.testing.assert_array_equal(idx.cpu().numpy(), ci.numpy())
+    np.testing.assert_array_equal(vals.cpu().numpy().view(np.uint32),
+                                  cv.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("lo", [False, True], ids=["no-X_lo", "X_lo"])
+def test_svc_kernel_bitwise_equals_plain(cuda, lo):
+    """Decisions on the card against the plain version on the card
+    (the same ``expf``), bitwise; against the plain version on the CPU
+    (another ``exp``) within 1e-5 of the largest possible sum, labels
+    equal off that rounding."""
+    X = _served()[:1111]
+    d = chip_smoke.random_svc(0, X, n_sv=700)
+    Xh, Xl = X, None
+    if lo:
+        X64 = X.astype(np.float64) * (1 + 1e-4 * np.random.RandomState(1).rand(*X.shape))
+        Xh, Xl = svc.split_hilo(X64)
+    g = rk.compile_svc(svc.SvcModel.from_numpy(d, device=cuda))
+    Xc = torch.from_numpy(Xh).to(cuda)
+    Xlc = None if Xl is None else torch.from_numpy(Xl).to(cuda)
+    launches = rk.partial_decision.launches
+    got = rk.partial_decision(g, Xc, Xlc)
+    torch.cuda.synchronize()
+    assert rk.partial_decision.launches == launches + 1
+    want = rk.partial_decision_plain(g, Xc, Xlc)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    plain_labels = torch.argmax(svc.votes_from_decision(
+        want + g.intercept, g.vote_i, g.vote_j, g.n_classes), dim=-1)
+    assert torch.equal(rk.predict(g, Xc, Xlc).long(), plain_labels)
+    cpu = rk.compile_svc(svc.SvcModel.from_numpy(d, device="cpu"))
+    Xl_cpu = None if Xl is None else torch.from_numpy(Xl)
+    D_cpu = rk.decision_ovo(cpu, torch.from_numpy(Xh), Xl_cpu).numpy()
+    atol = 1e-5 * float(cpu.coef_t.abs().sum(0).max())
+    D = rk.decision_ovo(g, Xc, Xlc).cpu().numpy()
+    np.testing.assert_allclose(D, D_cpu, atol=atol, rtol=0)
+    clear = np.abs(D_cpu).min(1) > atol
+    np.testing.assert_array_equal(
+        rk.predict(g, Xc, Xlc).cpu().numpy()[clear],
+        rk.predict(cpu, torch.from_numpy(Xh), Xl_cpu).numpy()[clear],
+    )
+
+
+def test_knn_svc_wrappers_on_card(cuda):
+    X = _served()[:50]
+    gk = kk.compile_knn(knn.KnnModel.from_numpy(
+        chip_smoke.random_knn(0, X, n_rows=40), device=cuda))
+    gs = rk.compile_svc(svc.SvcModel.from_numpy(
+        chip_smoke.random_svc(0, X, n_sv=40), device=cuda))
+    lk, ls = kk.topk_sim_idx.launches, rk.partial_decision.launches
+    assert kk.topk_sim_idx(gk, torch.zeros((0, 12), device=cuda))[1].shape == (0, 5)
+    assert rk.partial_decision(gs, torch.zeros((0, 12), device=cuda)).shape == (0, 15)
+    assert (kk.topk_sim_idx.launches, rk.partial_decision.launches) == (lk, ls)
+    for fn, g in ((kk.topk_sim_idx, gk), (rk.partial_decision, gs)):
+        with pytest.raises(ValueError, match="operands"):
+            fn(g, torch.zeros((4, 12)))
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(g, torch.zeros((12, 4), device=cuda).t())
+
+
+@pytest.mark.parametrize("family", ["knn", "svc"])
+def test_knn_svc_serve_on_card_prints_what_the_cpu_serve_prints(
+        cuda, tmp_path, capsys, family):
+    """The port CLI on CUDA (kernel path) and on the CPU (plain path) print
+    the same tables for ``knearest`` and ``svm``; the kernel launches once
+    per render tick."""
+    X = ft.features12(chip_smoke.synthetic_table(300, 2, "cpu")).numpy()
+    X = X[np.abs(X).sum(1) > 0]
+    if family == "knn":
+        model = interop.knn_params_from_numpy(
+            chip_smoke.random_knn(0, X, n_rows=400), "cpu")
+        sub, counter = "knearest", kk.topk_sim_idx
+    else:
+        model = interop.svc_params_from_numpy(
+            chip_smoke.random_svc(0, X, n_sv=200), "cpu")
+        sub, counter = "svm", rk.partial_decision
+    checkpoint.save_model(str(tmp_path), family, model,
+                          classes=chip_smoke.CLASSES)
+    argv = [sub, "--native-checkpoint", str(tmp_path),
+            "--source", "synthetic", "--synthetic-flows", "300",
+            "--capacity", "512", "--max-ticks", "4", "--print-every", "2"]
+    launches = counter.launches
+    summary = cli.main(argv)  # CUDA by default
+    on_card = capsys.readouterr().out
+    assert counter.launches == launches + len(summary.render_ticks) == launches + 2
     cli.main(argv + ["--device", "cpu"])
     assert capsys.readouterr().out == on_card

@@ -1,8 +1,9 @@
 """Serve parity: the port CLI on the CPU prints byte-identical stdout to the
 JAX CLI serve it ports —
-``traffic_classifier_sdn_tpu.cli Randomforest --native-checkpoint CKPT
+``traffic_classifier_sdn_tpu.cli <subcommand> --native-checkpoint CKPT
 --pipeline off --incremental off --degrade off --native-ingest off`` — on
-the same forest and the same telemetry.
+the same model and the same telemetry, for ``Randomforest``, ``knearest``
+and ``svm`` (``--knn-topk`` and ``TCSDN_SVC_KERNEL`` at their defaults).
 
 The forest comes from ``chip_smoke.random_forest`` (seed 0) with
 thresholds drawn from the served features. Its leaves are never pure, so
@@ -10,6 +11,15 @@ exact vote ties — where the two packages' differently ordered f32 sums
 could pick different classes — do not arise. The comparison is exact; a
 difference confined to a row whose JAX top-two margin is at most 1e-5
 would be such a tie-order difference, and none occurs with seed 0.
+
+The KNN corpus and the SVC's support vectors are drawn near the served
+features (``chip_smoke.random_knn``/``random_svc``, seed 0) and carried
+from the JAX params through ``interop``. The two packages round the
+similarities and decisions differently in the last bits, so a label may
+differ only on a row that is an f32 near-tie: a k-th/(k+1)-th similarity
+gap, or a smallest |D|, within rounding of JAX's value. When stdout
+differs, the test names each differing row with that margin; with seed 0
+none occurs and stdout is byte-identical.
 """
 
 import numpy as np
@@ -20,6 +30,8 @@ import chip_smoke
 from traffic_classifier_sdn_tpu import cli as jcli
 from traffic_classifier_sdn_tpu.io import checkpoint as jck
 from traffic_classifier_sdn_tpu.models import forest as jforest
+from traffic_classifier_sdn_tpu.models import knn as jknn
+from traffic_classifier_sdn_tpu.models import svc as jsvc
 from traffic_classifier_sdn_tpu_torch import cli as tcli
 from traffic_classifier_sdn_tpu_torch import interop
 from traffic_classifier_sdn_tpu_torch.device import resolve_device
@@ -32,6 +44,7 @@ from traffic_classifier_sdn_tpu_torch.ingest.replay import (
     SyntheticFlows,
     iter_capture,
 )
+from traffic_classifier_sdn_tpu_torch.core import flow_table as ft
 from traffic_classifier_sdn_tpu_torch.io import checkpoint as tck
 
 CLASSES = ("dns", "game", "ping", "quake", "telnet", "voice")
@@ -159,3 +172,113 @@ def test_cli_defaults_to_cuda_without_fallback(tmp_path):
     assert resolve_device("cpu").type == "cpu"
     assert not torch.backends.cuda.matmul.allow_tf32
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+# subcommand → (family, JAX module, chip_smoke model builder, interop
+# builder, model size)
+FAMILIES = {
+    "knearest": ("knn", jknn, chip_smoke.random_knn,
+                 interop.knn_params_from_numpy, {"n_rows": 400}),
+    "svm": ("svc", jsvc, chip_smoke.random_svc,
+            interop.svc_params_from_numpy, {"n_sv": 200}),
+}
+
+
+def _family_checkpoints(tmp_path, sub, X_sample):
+    family, jmod, build, carry, size = FAMILIES[sub]
+    jp = jmod.from_numpy(build(0, X_sample, **size))
+    jdir, tdir = str(tmp_path / "jax_ckpt"), str(tmp_path / "port_ckpt")
+    jck.save_model(jdir, family, jp, classes=CLASSES)
+    tck.save_model(tdir, family, carry(jp, device="cpu"), classes=CLASSES)
+    return jp, jdir, tdir
+
+
+def _near_tie_report(sub, jp, engine, jax_out, port_out) -> str:
+    """Each row whose rendered label differs, with JAX's margin on it: the
+    k-th/(k+1)-th similarity gap (knearest) or the smallest |D| (svm),
+    beside the f32 rounding scale of that row."""
+    import jax.numpy as jnp
+
+    X = jnp.asarray(ft.features12(engine.table).numpy())
+    if sub == "knearest":
+        sim = np.asarray(jknn._dot_expansion_sim(X, jp.fit_X, jp.half_sq_norms))
+        top = -np.sort(-sim, axis=1)[:, : jp.n_neighbors + 1]
+        margin = top[:, -2] - top[:, -1]
+        scale = np.spacing(np.abs(sim).max(1))
+    else:
+        margin = np.abs(np.asarray(jsvc.decision_ovo(jp, X))).min(1)
+        scale = np.full(len(margin),
+                        1e-5 * np.abs(np.asarray(jp.pair_coef)).sum(1).max())
+    lines = []
+    for tj, tp in zip(chip_smoke.parse_tables(jax_out),
+                      chip_smoke.parse_tables(port_out)):
+        for (slot, a), (_, b) in zip(tj, tp):
+            if a != b:
+                lines.append(f"slot {slot}: JAX {a}, port {b}, margin "
+                             f"{margin[slot]:.6g}, rounding {scale[slot]:.3g}")
+    return "stdout differs; labels differ at:\n" + "\n".join(lines)
+
+
+def _serve_family(capsys, monkeypatch, sub, jdir, tdir, argv):
+    monkeypatch.delenv("TCSDN_KNN_TOPK", raising=False)
+    monkeypatch.delenv("TCSDN_SVC_KERNEL", raising=False)
+    jcli.main([sub, "--native-checkpoint", jdir, *argv, *JAX_SLICE_FLAGS])
+    jax_io = capsys.readouterr()
+    summary = tcli.main([sub, "--native-checkpoint", tdir, *argv,
+                         "--device", "cpu"])
+    return jax_io, capsys.readouterr(), summary
+
+
+def _classes_shown(out: str) -> set:
+    return {lab for t in chip_smoke.parse_tables(out) for _, lab in t}
+
+
+@pytest.mark.parametrize("sub", ["knearest", "svm"])
+def test_family_synthetic_serve_stdout_identical(tmp_path, capsys,
+                                                 monkeypatch, sub):
+    """The synthetic source on a table too small for its flows, as
+    ``test_synthetic_serve_stdout_identical`` does for the forest."""
+    syn = SyntheticFlows(n_flows=300)
+    X = _sample_features([syn.tick() for _ in range(2)], 512)
+    jp, jdir, tdir = _family_checkpoints(tmp_path, sub, X)
+    argv = ["--source", "synthetic", "--synthetic-flows", "300",
+            "--capacity", "256", "--max-ticks", "4", "--print-every", "2"]
+    jax_io, port_io, summary = _serve_family(capsys, monkeypatch, sub, jdir,
+                                             tdir, argv)
+    assert port_io.out == jax_io.out, _near_tie_report(
+        sub, jp, summary.engine, jax_io.out, port_io.out)
+    assert port_io.out.count("Flow ID") == 2
+    assert _warnings(port_io.err) == _warnings(jax_io.err) != []
+    assert len(_classes_shown(port_io.out)) > 1
+    assert summary.engine.num_flows() == 256
+
+
+@pytest.mark.parametrize("table_rows", ["64", "0"])
+@pytest.mark.parametrize("sub", ["knearest", "kneighbors", "svm"])
+def test_family_replay_serve_stdout_identical(tmp_path, capsys, monkeypatch,
+                                              sub, table_rows):
+    """The replay capture of ``write_capture`` (counter wrap, reset, full
+    wire, malformed lines, idle eviction), ranked and full renders."""
+    cap = tmp_path / "capture.tsv"
+    write_capture(cap)
+    X = _sample_features(iter_capture(str(cap)), 64)
+    key = "knearest" if sub == "kneighbors" else sub
+    jp, jdir, tdir = _family_checkpoints(tmp_path, key, X)
+    argv = ["--source", "replay", "--capture", str(cap), "--capacity", "64",
+            "--print-every", "2", "--idle-timeout", "2",
+            "--table-rows", table_rows]
+    jax_io, port_io, summary = _serve_family(capsys, monkeypatch, sub, jdir,
+                                             tdir, argv)
+    assert port_io.out == jax_io.out, _near_tie_report(
+        key, jp, summary.engine, jax_io.out, port_io.out)
+    assert port_io.out.count("Flow ID") == 4
+    assert len(_classes_shown(port_io.out)) > 1
+    assert summary.engine.num_flows() == 40 - 13
+
+
+def test_subcommand_must_match_the_checkpoint(tmp_path):
+    X = np.random.RandomState(0).rand(8, 12).astype(np.float32)
+    _, _, tdir = _family_checkpoints(tmp_path, "svm", X)
+    with pytest.raises(SystemExit, match="'svc' model, not 'knn'"):
+        tcli.main(["knearest", "--native-checkpoint", tdir,
+                   "--source", "synthetic", "--device", "cpu"])

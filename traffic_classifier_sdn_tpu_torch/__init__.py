@@ -6,8 +6,9 @@ through both. This package imports ``torch`` and nothing of JAX or of the
 JAX package; where it needs code from a jax-free module there, it keeps
 its own copy.
 
-It covers the serial ``Randomforest`` classify serve (Python ingest,
-full-table predict through the hand-written CUDA forest kernel in
-``csrc/forest_proba.cu``, activity-ranked render). Entry points run on
-CUDA unless the caller asks for the CPU.
+It covers the serial ``Randomforest``, ``knearest`` and ``svm`` classify
+serves: Python ingest, a full-table predict through a hand-written CUDA
+kernel (``csrc/forest_proba.cu``, ``csrc/knn_topk.cu``,
+``csrc/rbf_decision.cu``), and the activity-ranked render. Entry points
+run on CUDA unless the caller asks for the CPU.
 """

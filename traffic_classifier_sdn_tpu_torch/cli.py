@@ -1,4 +1,5 @@
-"""Command-line interface of the port: the ``Randomforest`` classify serve.
+"""Command-line interface of the port: the ``Randomforest``, ``knearest``
+(alias ``kneighbors``) and ``svm`` classify serves.
 
 The serial serve of the JAX CLI (``traffic_classifier_sdn_tpu/cli.py``
 ``_serve_loop`` and ``_print_table``, run with ``--pipeline off
@@ -10,15 +11,21 @@ default, ``ryu``, is not ported yet). Each render tick:
 2. the Python ``Batcher`` assigns slots and packs the wire;
 3. ``apply_wire`` scatters it into the device flow table;
 4. ``features12`` projects the whole table;
-5. the forest predicts all ``capacity`` rows through the CUDA kernel
-   (ops/forest_kernel.py);
+5. the model predicts all ``capacity`` rows through its CUDA kernel: the
+   forest walk (ops/forest_kernel.py), the KNN top-k (ops/knn_kernel.py)
+   or the RBF-SVC decision (ops/rbf_kernel.py);
 6. the activity-ranked ``top_active_render`` picks ``--table-rows`` rows;
 7. ``utils/table.render_table`` prints them, after idle eviction.
+
+The model family comes from the checkpoint and must match the subcommand.
+KNN serves one exact top-k, the semantics of the JAX default ``--knn-topk
+sort``; the ``--knn-topk`` menu is not ported. SVC serves the two-float
+difference form, the JAX default ``TCSDN_SVC_KERNEL=chunked``.
 
 Sources: ``replay`` (recorded capture file) and ``synthetic`` (generated
 flow population). The serve runs on CUDA unless ``--device cpu`` is given.
 
-    python -m traffic_classifier_sdn_tpu_torch.cli Randomforest \\
+    python -m traffic_classifier_sdn_tpu_torch.cli knearest \\
         --native-checkpoint DIR --source synthetic --max-ticks 4 --print-every 2
 """
 
@@ -31,7 +38,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-SUBCOMMANDS = ("Randomforest", "randomforest")
+SUBCOMMANDS = ("Randomforest", "randomforest", "knearest", "kneighbors", "svm")
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -75,7 +82,7 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="device of the flow table and the forest (default cuda; "
+        help="device of the flow table and the model (default cuda; "
         "there is no fallback to the CPU)",
     )
     return p

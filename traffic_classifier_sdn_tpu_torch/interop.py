@@ -13,8 +13,30 @@ from __future__ import annotations
 from collections.abc import Mapping
 
 import numpy as np
+import torch
 
+from .device import resolve_device
 from .models.forest import PARAM_FIELDS, ForestModel
+from .models.knn import KnnModel
+from .models.svc import SvcModel
+
+KNN_FIELDS = ("fit_X", "fit_X_lo", "fit_y", "half_sq_norms")
+SVC_FIELDS = ("sv_hi", "sv_lo", "pair_coef", "intercept", "vote_i",
+              "vote_j", "gamma")
+
+
+def _getter(d):
+    return (lambda k: d[k]) if isinstance(d, Mapping) else (
+        lambda k: getattr(d, k))
+
+
+def _has(d, k) -> bool:
+    return k in d if isinstance(d, Mapping) else hasattr(d, k)
+
+
+def _tensors(get, fields, device) -> dict:
+    """The named arrays as tensors of their own dtype (a copy each)."""
+    return {k: torch.from_numpy(np.array(get(k))).to(device) for k in fields}
 
 
 def forest_params_from_numpy(d, device=None) -> ForestModel:
@@ -22,9 +44,44 @@ def forest_params_from_numpy(d, device=None) -> ForestModel:
     as the port's ``ForestModel`` on ``device`` (default CUDA).
     Thresholds pass through ``f32_safe_thresholds``, as in the JAX
     ``forest.from_numpy``."""
-    def get(k):
-        return d[k] if isinstance(d, Mapping) else getattr(d, k)
-
+    get = _getter(d)
     fields = {k: np.asarray(get(k)) for k in PARAM_FIELDS}
     fields["max_depth"] = int(get("max_depth"))
     return ForestModel.from_numpy(fields, device=device)
+
+
+def knn_params_from_numpy(d, device=None) -> KnnModel:
+    """The JAX KNN parameters as the port's ``KnnModel`` on ``device``
+    (default CUDA). Given the JAX ``Params`` fields (``fit_X``,
+    ``fit_X_lo``, ``fit_y``, ``half_sq_norms``, ``n_neighbors``,
+    ``n_classes``), every array is carried over as it is — in particular
+    ``half_sq_norms``: a 12-term f32 sum taken in another order can
+    differ in its last bit, and that flips exact ties. Given an importer
+    dict (``fit_X``, ``y``, ``n_neighbors``, ``classes``), the port's own
+    ``KnnModel.from_numpy`` builds it."""
+    if not _has(d, "half_sq_norms"):
+        return KnnModel.from_numpy(d, device=device)
+    device = resolve_device(device)
+    get = _getter(d)
+    return KnnModel(
+        **_tensors(get, KNN_FIELDS, device),
+        n_neighbors=int(get("n_neighbors")), n_classes=int(get("n_classes")),
+    )
+
+
+def svc_params_from_numpy(d, device=None) -> SvcModel:
+    """The JAX SVC parameters as the port's ``SvcModel`` on ``device``
+    (default CUDA). Given the JAX ``Params`` fields (``sv_hi``, ``sv_lo``,
+    ``pair_coef``, ``intercept``, ``vote_i``, ``vote_j``, ``gamma``,
+    ``n_classes``, ``has_lo``), every array is carried over as it is;
+    given an importer dict (``support_vectors``, ``dual_coef``,
+    ``n_support``, ``intercept``, ``gamma``), the port's own
+    ``SvcModel.from_numpy`` builds it."""
+    if not _has(d, "sv_hi"):
+        return SvcModel.from_numpy(d, device=device)
+    device = resolve_device(device)
+    get = _getter(d)
+    return SvcModel(
+        **_tensors(get, SVC_FIELDS, device),
+        n_classes=int(get("n_classes")), has_lo=bool(get("has_lo")),
+    )

@@ -1,5 +1,5 @@
-"""Classifier families of the port (so far the random forest) and the
-serving-path resolution — the torch counterpart of
+"""Classifier families of the port (so far the random forest, KNN and
+RBF-SVC) and the serving-path resolution — the torch counterpart of
 ``traffic_classifier_sdn_tpu/models/__init__.py``.
 
 Registry keys mirror the reference's CLI subcommands under normalized
@@ -14,26 +14,38 @@ from collections.abc import Callable
 from dataclasses import dataclass
 from typing import Any
 
-from . import forest
+from . import forest, knn, svc
 from .base import ClassList
 
 MODEL_CLASSES = {
     "forest": forest.ForestModel,
+    "knn": knn.KnnModel,
+    "svc": svc.SvcModel,
 }
 
-# reference CLI subcommand → normalized model name (traffic_classifier.py:189)
+# reference CLI subcommand → normalized model name (traffic_classifier.py:189;
+# both 'knearest' and 'kneighbors' accepted, as in the JAX package)
 SUBCOMMAND_ALIASES = {
+    "knearest": "knn",
+    "kneighbors": "knn",
+    "svm": "svc",
     "Randomforest": "forest",
     "randomforest": "forest",
 }
 
 
 def _build_serving_path(name: str, params) -> tuple[Callable, Any]:
-    """(predict_fn, params) for full-table serving. The forest serves
-    through ops/forest_kernel: on CUDA tensors the hand-written kernel, on
-    CPU tensors its plain version. The selector is compiled at the
-    framework's fixed 12-column feature width (a forest whose trees never
-    split on the last feature still sees the full matrix)."""
+    """(predict_fn, params) for full-table serving. Each family serves
+    through its kernel module — on CUDA tensors the hand-written kernel,
+    on CPU tensors its plain version:
+
+    - forest: ops/forest_kernel, the selector compiled at the framework's
+      fixed 12-column feature width (a forest whose trees never split on
+      the last feature still sees the full matrix);
+    - knn: ops/knn_kernel, the exact top-k (the JAX default ``sort``
+      tier's semantics; the ``--knn-topk`` menu is not ported);
+    - svc: ops/rbf_kernel, the two-float difference form (the JAX default
+      ``TCSDN_SVC_KERNEL=chunked``; ``dot`` is not ported)."""
     if name == "forest":
         from ..core.features import NUM_FEATURES
         from ..ops import forest_kernel
@@ -42,6 +54,14 @@ def _build_serving_path(name: str, params) -> tuple[Callable, Any]:
             params.node_arrays(), n_features=NUM_FEATURES,
             device=params.left.device,
         )
+    if name == "knn":
+        from ..ops import knn_kernel
+
+        return knn_kernel.predict, knn_kernel.compile_knn(params)
+    if name == "svc":
+        from ..ops import rbf_kernel
+
+        return rbf_kernel.predict, rbf_kernel.compile_svc(params)
     raise ValueError(f"no serving path for model family {name!r}")
 
 
