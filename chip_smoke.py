@@ -43,6 +43,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -379,7 +380,29 @@ def svc_plain_predict(g, X):
     return torch.argmax(votes, dim=-1)
 
 
-def phase_build() -> None:
+def ptxas_instances(logs: dict) -> dict:
+    """{(kernel, template arguments): "registers; stack and spills"} from
+    the ``-Xptxas -v`` build logs, the arguments written as the wrappers'
+    ``instance`` writes them: ``rbf_decision_kernel<64, 12, 15, false>``
+    is ``("rbf_decision", "64, 12, 15, false")``."""
+    found, entry = {}, None
+    token = re.compile(r"Li(\d+)E|Lb(\d)E")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '\S*?_kernelI(\S*?)EEv", line)
+            if m:
+                args = []
+                for num, flag in token.findall(m.group(1)):
+                    args.append(num or ("true" if flag == "1" else "false"))
+                entry = (name, ", ".join(args))
+                found[entry] = ""
+            elif entry and ("stack frame" in line or "registers" in line):
+                found[entry] = (found[entry] + "; " + line.strip()).strip("; ")
+    return found
+
+
+def phase_build() -> dict:
+    """Builds every kernel; returns ``ptxas_instances`` of the build."""
     from traffic_classifier_sdn_tpu_torch.ops import (
         cuda_build,
         forest_kernel,
@@ -392,10 +415,10 @@ def phase_build() -> None:
         [forest_kernel.KERNEL, knn_kernel.KERNEL, rbf_kernel.KERNEL]
     )
     print(f"[build] {len(logs)} kernel(s) in {time.perf_counter() - t0:.2f} s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print(f"[build] {name}: {line.strip()}")
+    instances = ptxas_instances(logs)
+    for (name, args), report in instances.items():
+        print(f"[build] {name}_kernel<{args}>: {report}")
+    return instances
 
 
 def _check_forest(k, X, N: int) -> dict:
@@ -452,10 +475,18 @@ def _check_knn(g, X, N: int) -> dict:
     plain_ms = cuda_median_ms(lambda: kk.topk_sim_idx_plain(g, X),
                               PLAIN_RUNS[N], warmup=1)
     counts = torch.bincount(labels.long(), minlength=g.n_classes).tolist()
+    rw = kk.launch_shape(N, g.n_neighbors)
+    inst = kk.instance(g)
     print(f"[kernels] knn_topk N={N}: indices and values bitwise equal, "
           f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
           f"{bound_ms:.5f} ms ({bound_by}; {knn_pair_ops(g)} operations per "
           f"pair); labels per class {counts}")
+    print(f"[kernels] knn_topk N={N}: launch shape {rw} row(s) per warp: "
+          f"{kk.blocks(N, rw)} blocks of {kk.THREADS} threads, "
+          f"{kk.WARPS * rw} rows per block, each warp scanning the whole "
+          f"corpus; instance knn_topk_kernel<{inst}>: "
+          f"{INSTANCES.get(('knn_topk', inst), 'not in the build log')}")
+    lib_ms = None
     if N <= CAPACITY:
         fit_t = g.fit_X.t().contiguous()
         lib_ms = cuda_median_ms(
@@ -466,6 +497,8 @@ def _check_knn(g, X, N: int) -> dict:
               f"rounding or tie order): torch.matmul + torch.topk {lib_ms:.4f} ms")
     return {"rows": N, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "context_only_ms": lib_ms, "launch_shape": {
+                "rows_per_warp": rw, "blocks": kk.blocks(N, rw)},
             "labels_per_class": counts}
 
 
@@ -497,6 +530,14 @@ def _check_svc(g, X, N: int) -> dict:
           f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
           f"({bound_by}; {svc_pair_ops(g)} operations per pair); max |K @ coef| {float(got.abs().max()):.3f}, min |D| "
           f"{float(D.abs().min()):.3e}; labels per class {counts}")
+    R = rk.launch_shape(N)
+    inst = rk.instance(g, R, has_xlo=False)
+    print(f"[kernels] rbf_decision N={N}: launch shape {R} row(s) per "
+          f"block: {-(-N // R)} blocks of {rk.threads_per_block(R)} threads, "
+          f"support vectors in stages of {rk.STAGE}; instance "
+          f"rbf_decision_kernel<{inst}>: "
+          f"{INSTANCES.get(('rbf_decision', inst), 'not in the build log')}")
+    lib_ms = None
     if N <= CAPACITY:
         lib_ms = cuda_median_ms(
             lambda: torch.exp(-g.gamma * torch.cdist(X, g.sv_hi) ** 2) @ g.coef_t,
@@ -507,6 +548,8 @@ def _check_svc(g, X, N: int) -> dict:
               f"{lib_ms:.4f} ms")
     return {"rows": N, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "context_only_ms": lib_ms,
+            "launch_shape": {"rows_per_block": R, "blocks": -(-N // R)},
             "labels_per_class": counts}
 
 
@@ -704,6 +747,8 @@ def render_breakdown(engine, family: str, g, device) -> None:
           f"the host): {(time.perf_counter() - t0) * 100:.4f} ms")
 
 
+INSTANCES: dict = {}  # ptxas_instances of this run's build
+
 KERNEL_ROWS = {
     "forest": ("forest_proba", "forest_proba.cu",
                "traffic_classifier_sdn_tpu/ops/pallas_forest.py:241"),
@@ -732,7 +777,7 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_environment()
     device = torch.device("cuda")
-    phase_build()
+    INSTANCES.update(phase_build())
     models, ops, results = phase_kernels(device)
     launches = {
         family: phase_serve(family, models[family], ops[family], device)

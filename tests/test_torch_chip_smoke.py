@@ -153,3 +153,39 @@ def test_main_refuses_without_cuda(monkeypatch, capsys):
     assert chip_smoke.main() == 1
     io = capsys.readouterr()
     assert io.out == "" and "no CUDA device" in io.err
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115knn_topk_kernelILi1ELi12EEEvPKfiiPK6float4iiiPfPi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115knn_topk_kernelILi1ELi12EEEvPKfiiPK6float4iiiPfPi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 115 registers, used 1 barriers, 32 bytes smem
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__490736b2_15_rbf_decision_cu_71902b5219rbf_decision_kernelILi64ELi12ELi15ELb0EEEvPKfS2_iiPK6float4iifPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__490736b2_15_rbf_decision_cu_71902b5219rbf_decision_kernelILi64ELi12ELi15ELb0EEEvPKfS2_iiPK6float4iifPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 54 registers, used 1 barriers, 36352 bytes smem
+"""
+
+
+def test_ptxas_instances_name_what_the_wrappers_launch(table):
+    """The build report is keyed by the template arguments as the
+    wrappers' ``instance`` writes them, so each timed launch prints its
+    own instance's registers and spills."""
+    cut = PTXAS_LOG.index("ptxas info    : Compiling entry function '_ZN48")
+    found = chip_smoke.ptxas_instances({"knn_topk": PTXAS_LOG[:cut],
+                                        "rbf_decision": PTXAS_LOG[cut:]})
+    X = ft.features12(table).numpy()
+    gk = kk.compile_knn(knn.KnnModel.from_numpy(
+        chip_smoke.random_knn(0, X, n_rows=40), device="cpu"))
+    gs = rk.compile_svc(svc.SvcModel.from_numpy(
+        chip_smoke.random_svc(0, X, n_sv=40), device="cpu"))
+    knn_key = ("knn_topk", kk.instance(gk))
+    svc_key = ("rbf_decision", rk.instance(gs, 64, has_xlo=False))
+    assert knn_key == ("knn_topk", "1, 12")
+    assert svc_key == ("rbf_decision", "64, 12, 15, false")
+    assert found[knn_key] == ("0 bytes stack frame, 0 bytes spill stores, 0 "
+                              "bytes spill loads; ptxas info    : Used 115 "
+                              "registers, used 1 barriers, 32 bytes smem")
+    assert "Used 54 registers" in found[svc_key]
+    assert kk.instance(dataclasses.replace(gk, n_neighbors=33)) == "4, 12"
+    assert rk.instance(dataclasses.replace(gs, n_pairs=3), 4, True) == "4, 0, 0, true"

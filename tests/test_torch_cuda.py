@@ -270,3 +270,82 @@ def test_knn_svc_serve_on_card_prints_what_the_cpu_serve_prints(
     assert counter.launches == launches + len(summary.render_ticks) == launches + 2
     cli.main(argv + ["--device", "cpu"])
     assert capsys.readouterr().out == on_card
+
+
+CARD_ROWS = (1, 33, 777, 4097)
+
+
+@pytest.mark.parametrize("k", [1, 5, 20, 128])
+def test_knn_kernel_every_launch_shape_bitwise_on_ties(cuda, k):
+    """Every rows-per-warp choice for this k (16 down to 1 for k <= 32, 2
+    and 1 above), and the wrapper's own choice, at ragged N on the integer
+    tie corpus: indices and values bitwise equal to the plain version,
+    one counted launch per call."""
+    rng = np.random.RandomState(k)
+    d = {"fit_X": rng.randint(0, 4, (600, 12)).astype(np.float64),
+         "y": rng.randint(0, 6, 600), "n_neighbors": k,
+         "classes": np.arange(6)}
+    g = kk.compile_knn(knn.KnnModel.from_numpy(d, device=cuda))
+    Xall = torch.from_numpy(
+        rng.randint(0, 4, (max(CARD_ROWS), 12)).astype(np.float32)).to(cuda)
+    for N in CARD_ROWS:
+        X = Xall[:N].contiguous()
+        want_v, want_i = kk.topk_sim_idx_plain(g, X)
+        for rw in (*kk.rows_per_warp_choices(k), None):
+            launches = kk.topk_sim_idx.launches
+            vals, idx = (kk.topk_sim_idx(g, X) if rw is None
+                         else kk._launch(g, X, rw))
+            torch.cuda.synchronize()
+            assert kk.topk_sim_idx.launches == launches + 1
+            assert torch.equal(idx, want_i), (N, rw)
+            assert torch.equal(vals.view(torch.int32),
+                               want_v.view(torch.int32)), (N, rw)
+
+
+@pytest.mark.parametrize("n_sv", [15, 129, 2281])
+@pytest.mark.parametrize("lo", [False, True], ids=["no-X_lo", "X_lo"])
+def test_svc_kernel_every_launch_shape_bitwise(cuda, n_sv, lo):
+    """Every rows-per-block instance at ragged N and SV counts below,
+    across and far above a 32-SV stage, with and without ``X_lo``:
+    decisions bitwise equal to the plain version on the card."""
+    X = _served(n_flows=6000)[: max(CARD_ROWS)]
+    assert X.shape[0] == max(CARD_ROWS)
+    d = chip_smoke.random_svc(n_sv, X, n_sv=n_sv)
+    Xh, Xl = X, None
+    if lo:
+        X64 = X.astype(np.float64) * (
+            1 + 1e-4 * np.random.RandomState(2).rand(*X.shape))
+        Xh, Xl = svc.split_hilo(X64)
+    g = rk.compile_svc(svc.SvcModel.from_numpy(d, device=cuda))
+    for N in CARD_ROWS:
+        Xc = torch.from_numpy(np.ascontiguousarray(Xh[:N])).to(cuda)
+        Xlc = None if Xl is None else torch.from_numpy(
+            np.ascontiguousarray(Xl[:N])).to(cuda)
+        want = rk.partial_decision_plain(g, Xc, Xlc)
+        for r in rk.ROWS_PER_BLOCK:
+            got = rk._launch(g, Xc, Xlc, r)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), (N, r)
+
+
+def test_kernels_generic_instances_bitwise(cuda):
+    """The instances for other widths than the reference's (KNN with 7
+    features; SVC with 7 features and 3 classes): bitwise equal to their
+    plain versions at every launch shape."""
+    X = _served()[:777, :7].copy()
+    dk = chip_smoke.random_knn(3, X, n_rows=500, n_neighbors=9)
+    gk = kk.compile_knn(knn.KnnModel.from_numpy(dk, device=cuda))
+    Xc = torch.from_numpy(X).to(cuda)
+    want_v, want_i = kk.topk_sim_idx_plain(gk, Xc)
+    for rw in kk.rows_per_warp_choices(9):
+        vals, idx = kk._launch(gk, Xc, rw)
+        assert torch.equal(idx, want_i), rw
+        assert torch.equal(vals.view(torch.int32), want_v.view(torch.int32))
+    ds = chip_smoke.random_svc(3, X, n_sv=300, n_classes=3)
+    gs = rk.compile_svc(svc.SvcModel.from_numpy(ds, device=cuda))
+    assert (gs.n_features, gs.n_pairs) == (7, 3)
+    want = rk.partial_decision_plain(gs, Xc)
+    for r in rk.ROWS_PER_BLOCK:
+        got = rk._launch(gs, Xc, None, r)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), r

@@ -181,57 +181,120 @@ def test_half_sq_norms():
     np.testing.assert_array_equal(own.fit_X_lo.numpy(), np.asarray(jp.fit_X_lo))
 
 
+SENTINEL = np.iinfo(np.int32).max  # kSentinel: an empty slot's index
+
+
+def _offer(vals, idx, v, s):
+    """WarpList::offer for one candidate: it enters if it beats the k-th
+    value, after every entry >= it; the entries behind move down."""
+    if not v > vals[-1]:
+        return
+    p = sum(1 for u in vals if u >= v)
+    vals.insert(p, v)
+    idx.insert(p, s)
+    del vals[-1], idx[-1]
+
+
 def _kernel_scan(g: kk.KnnKernelOperands, X: np.ndarray):
-    """The CUDA kernel's per-row procedure in numpy: scan the records in
-    index order, take the similarity in its order, and insert a candidate
-    only if it beats the k-th value, past entries strictly smaller."""
+    """The CUDA kernel's procedure in numpy: the corpus taken 128 records
+    at a time, record 32·j + lane of a chunk in lane ``lane``'s column j,
+    padded past the corpus's end with zeros and a half norm of +inf; the
+    similarity in its order; the first chunk's k best (value desc, index
+    asc) filling the empty list (k <= 32), every later candidate offered
+    column by column, lane by lane. Empty slots are (-inf, SENTINEL)."""
     rec = g.records.numpy()
-    k, F = g.n_neighbors, g.n_features
+    k, F, S = g.n_neighbors, g.n_features, g.n_rows
+    pad = np.zeros(kk.RECORD, np.float32)
+    pad[-1] = np.inf
     out_v = np.zeros((X.shape[0], k), np.float32)
     out_i = np.zeros((X.shape[0], k), np.int32)
-    for r, x in enumerate(X):
-        vals = [np.float32(-np.inf)] * k
-        idx = [0] * k
-        for s in range(g.n_rows):
-            acc = np.float32(x[0] * rec[s, 0])
-            for f in range(1, F):
-                acc = np.float32(acc + np.float32(x[f] * rec[s, f]))
-            sim = np.float32(acc - rec[s, kk.RECORD - 1])
-            if not sim > vals[k - 1]:
-                continue
-            for q in range(k - 1, 0, -1):
-                if vals[q - 1] < sim:
-                    vals[q], idx[q] = vals[q - 1], idx[q - 1]
-                elif vals[q] < sim:
-                    vals[q], idx[q] = sim, s
-            if vals[0] < sim:
-                vals[0], idx[0] = sim, s
-        out_v[r], out_i[r] = vals, idx
+    with np.errstate(invalid="ignore"):
+        for row, x in enumerate(X):
+            vals, idx = [np.float32(-np.inf)] * k, [SENTINEL] * k
+            for base in range(0, S, kk.CHUNK):
+                cand = []  # column by column, lane by lane
+                for j in range(kk.CHUNK // 32):
+                    for lane in range(32):
+                        s = base + 32 * j + lane
+                        r = rec[s] if s < S else pad
+                        acc = np.float32(x[0] * r[0])
+                        for f in range(1, F):
+                            acc = np.float32(acc + np.float32(x[f] * r[f]))
+                        cand.append((np.float32(acc - r[-1]), s))
+                if base == 0 and k <= 32:  # fill: the chunk's k best
+                    best = sorted((c for c in cand if c[0] > -np.inf),
+                                  key=lambda c: (-c[0], c[1]))[:k]
+                    for q, (v, s) in enumerate(best):
+                        vals[q], idx[q] = v, s
+                    continue
+                for v, s in cand:
+                    _offer(vals, idx, v, s)
+            out_v[row], out_i[row] = vals, idx
     return out_v, out_i
 
 
 @pytest.mark.parametrize("k", [1, 5, 12])
 def test_kernel_procedure_equals_plain_bitwise(served, k):
-    """The kernel's records and insertion, run as the kernel runs them,
-    reproduce the plain version bit for bit — on the tie corpus and on
-    served features (the card check repeats this with the compiled
-    kernel)."""
+    """The kernel's records, chunking, argmax fill and insertion, run as
+    the kernel runs them, reproduce the plain version bit for bit -- on
+    the tie corpus (S = 300, over three chunks, the last one padded, and
+    S == k) and on served features. The card check repeats this with the
+    compiled kernel at every rows-per-warp choice."""
     rng = np.random.RandomState(k)
-    d = _tie_dict(rng, 60, k=k)
-    tie = kk.compile_knn(tknn.KnnModel.from_numpy(d, device="cpu"))
+    tie = kk.compile_knn(tknn.KnnModel.from_numpy(_tie_dict(rng, 300, k=k),
+                                                  device="cpu"))
+    tie_k = kk.compile_knn(tknn.KnnModel.from_numpy(_tie_dict(rng, k, k=k),
+                                                    device="cpu"))
     X, dserved = served
     dserved = dict(dserved, n_neighbors=k)
-    dserved["fit_X"] = dserved["fit_X"][:60]
-    dserved["y"] = dserved["y"][:60]
+    dserved["fit_X"] = dserved["fit_X"][:160]
+    dserved["y"] = dserved["y"][:160]
     real = kk.compile_knn(tknn.KnnModel.from_numpy(dserved, device="cpu"))
-    for g, Xq in ((tie, rng.randint(0, 4, (30, 12)).astype(np.float32)),
-                  (real, X[:30])):
+    Xtie = rng.randint(0, 4, (12, 12)).astype(np.float32)
+    for g, Xq in ((tie, Xtie), (tie_k, Xtie), (real, X[:30])):
         np.testing.assert_array_equal(g.records[:, :12].numpy(), g.fit_X.numpy())
         want_v, want_i = kk.topk_sim_idx(g, torch.from_numpy(Xq))
         got_v, got_i = _kernel_scan(g, Xq)
         np.testing.assert_array_equal(got_i, want_i.numpy())
         np.testing.assert_array_equal(got_v.view(np.uint32),
                                       want_v.numpy().view(np.uint32))
+
+
+SHAPE_ROWS = (1, 31, 777, 65536, 1 << 20)
+
+
+@pytest.mark.parametrize("k", [1, 5, 20, 128])
+@pytest.mark.parametrize("N", SHAPE_ROWS)
+def test_launch_shape_covers_every_row_and_corpus_row_once(N, k):
+    """The kernel's index math, replayed on the chosen rows per warp for
+    the reference corpus (S = 4448): every row is scanned by one warp; the
+    512-record stages and their 128-record chunks give every corpus row to
+    one (stage, chunk, column, lane) slot, in ascending order; and the
+    launch has at least one block per SM wherever N allows."""
+    S = 4448
+    RW = kk.launch_shape(N, k)
+    assert RW in kk.rows_per_warp_choices(k)
+    # two blocks per SM (__launch_bounds__(256, 2)) fit its 228 KB of
+    # shared memory: two record stages, the rows, the lists
+    smem = (2 * 4 * kk.CHUNK * kk.RECORD * 4 + kk.WARPS * RW * 64
+            + kk.WARPS * RW * 32 * kk.list_slots(k) * 8)
+    assert 2 * (smem + 1024) <= 228 * 1024
+    # (block, warp, i) -> row, as the kernel computes it
+    b = np.arange(kk.blocks(N, RW))[:, None, None]
+    w = np.arange(kk.WARPS)[None, :, None]
+    i = np.arange(RW)[None, None, :]
+    row = (b * kk.WARPS + w) * RW + i
+    np.testing.assert_array_equal(np.sort(row[row < N]), np.arange(N))
+    # (stage, chunk, column, lane) -> corpus row, as the stages load them
+    stage = 4 * kk.CHUNK
+    slot = (np.arange(-(-S // stage))[:, None, None, None] * stage
+            + np.arange(4)[None, :, None, None] * kk.CHUNK
+            + 32 * np.arange(kk.CHUNK // 32)[None, None, :, None]
+            + np.arange(32)[None, None, None, :]).ravel()
+    np.testing.assert_array_equal(slot[slot < S], np.arange(S))
+    assert kk.blocks(N, RW) >= min(kk.SMS, kk.blocks(N, 1))
+    if RW > 1:  # the most rows per warp that still fill the card
+        assert kk.blocks(N, RW) >= kk.SMS
 
 
 def test_rejections_match_jax():

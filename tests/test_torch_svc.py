@@ -184,3 +184,36 @@ def test_wrapper_checks_and_rejections(case):
     assert rk.predict(g, torch.from_numpy(X[:5])).shape == (5,)
     assert rk.partial_decision(g, torch.zeros((0, 12))).shape == (0, 15)
     assert rk.partial_decision.launches == launches  # the CPU twin never counts
+
+
+@pytest.mark.parametrize("N", [1, 31, 777, 65536, 1 << 20])
+def test_launch_shape_covers_every_row_and_support_vector_once(N):
+    """The kernel's index math, replayed on the chosen rows per block:
+    every row is in one block; in each stage, phase 1 gives every (row,
+    SV) pair of the tile to one thread and phase 2 every (row, pair) sum
+    to one thread; the stages cover the support vectors once in ascending
+    order; and the launch has at least one block per SM wherever N
+    allows (the support vectors are never split, so a block holds at
+    least 4 rows)."""
+    R = rk.launch_shape(N)
+    assert R in rk.ROWS_PER_BLOCK
+    blocks = -(-N // R)
+    rows = (np.arange(blocks)[:, None] * R + np.arange(R)[None, :]).ravel()
+    np.testing.assert_array_equal(rows[rows < N], np.arange(N))
+    assert blocks >= min(-(-N // 4), 132)
+    T = rk.threads_per_block(R)
+    subs = T // R
+    groups = min(subs, rk.MAX_PAIRS)
+    per_group = -(-rk.MAX_PAIRS // groups)
+    t = np.arange(T)
+    tile = [(r, s) for tt in t for m in range(rk.STAGE // subs)
+            for r, s in [(tt % R, tt // R + m * subs)]]
+    assert sorted(tile) == [(r, s) for r in range(R) for s in range(rk.STAGE)]
+    sums = [(tt % R, (tt // R) * per_group + i) for tt in t
+            if tt // R < groups for i in range(per_group)
+            if (tt // R) * per_group + i < rk.MAX_PAIRS]
+    assert sorted(sums) == [(r, p) for r in range(R)
+                            for p in range(rk.MAX_PAIRS)]
+    for S in (15, 129, 2281):
+        stages = [range(b, min(S, b + rk.STAGE)) for b in range(0, S, rk.STAGE)]
+        assert [s for st in stages for s in st] == list(range(S))

@@ -1,0 +1,121 @@
+#!/usr/bin/env python3
+"""Launch-shape sweep of the port's KNN top-k and RBF-SVC kernels on one
+CUDA card.
+
+    python3 tools/torch_kernel_sweep.py [--sizes 33,777,3000,...]
+
+Runs from the root of a checkout, on the models and served features that
+``chip_smoke.py`` builds (seeded; reference checkpoint shapes). For each
+size it checks every launch shape the wrappers can take (KNN rows per
+warp, SVC rows per block) against the plain version on the card
+(bitwise), times each one (CUDA-event median of 20 calls, the best of 3
+such medians), and names the shape the wrapper chooses and the fastest.
+The default sizes include one at which each shape is the one chosen:
+KNN 1 row per warp at 33 and 777 rows, 2 at 3,000, 4 at 6,000 and
+12,000, 16 from 65,536; SVC 4 rows per block at 33 and 777, 16 at 3,000
+and 6,000, 64 from 12,000. For KNN it also counts, per row, the 128-record chunks in which
+some candidate beats the row's running k-th similarity: the chunks that
+take the kernel's insertion path (the first chunk of the corpus fills the
+empty list instead and is not counted). Prints the card's name and power
+limit first, and last the range of the SM clock that ``nvidia-smi``
+sampled every 500 ms during the sweep. Imports nothing of JAX; needs the
+CUDA toolkit (``nvcc``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import pathlib
+import subprocess
+import sys
+
+import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+
+import chip_smoke as cs  # noqa: E402
+from traffic_classifier_sdn_tpu_torch import interop  # noqa: E402
+from traffic_classifier_sdn_tpu_torch.core import flow_table as ft  # noqa: E402
+from traffic_classifier_sdn_tpu_torch.ops import cuda_build  # noqa: E402
+from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk  # noqa: E402
+from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk  # noqa: E402
+
+
+def best_ms(fn) -> float:
+    return min(cs.cuda_median_ms(fn, 20) for _ in range(3))
+
+
+def insertion_chunks(g, X: torch.Tensor, rows: int = 4096) -> float:
+    """Mean count, over the first ``rows`` rows, of the chunks after the
+    first in which a similarity beats the k-th best of all earlier
+    chunks (the plain version's similarity)."""
+    from traffic_classifier_sdn_tpu_torch.models import knn
+
+    sim = knn.dot_expansion_sim(X[:rows], g.fit_X, g.half_sq)
+    k, total = g.n_neighbors, torch.zeros(sim.shape[0], device=X.device)
+    for lo in range(kk.CHUNK, g.n_rows, kk.CHUNK):
+        kth = torch.topk(sim[:, :lo], k, dim=1).values[:, -1]
+        total += (sim[:, lo: lo + kk.CHUNK] > kth[:, None]).any(1)
+    return float(total.mean())
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sizes", default="33,777,3000,6000,12000,65536,1048576")
+    sizes = [int(s) for s in ap.parse_args().sizes.split(",")]
+    if not torch.cuda.is_available():
+        print("torch_kernel_sweep: no CUDA device is visible", file=sys.stderr)
+        return 1
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip())
+    cuda_build.build([kk.KERNEL, rk.KERNEL])
+    dev = torch.device("cuda")
+    cap, big = cs.CAPACITY, max(sizes)
+    X_cap = ft.features12(cs.synthetic_table(cap, 3, dev))
+    X_big = ft.features12(cs.synthetic_table(big, 3, dev)) if big > cap else X_cap
+    sample = X_cap[torch.randperm(
+        cap, generator=torch.Generator().manual_seed(cs.SEED)
+    )[:4096].to(dev)].cpu().numpy()
+    gk = kk.compile_knn(interop.knn_params_from_numpy(cs.random_knn(cs.SEED, sample), dev))
+    gs = rk.compile_svc(interop.svc_params_from_numpy(cs.random_svc(cs.SEED, sample), dev))
+    print(f"knn: chunks taking the insertion path per row (of "
+          f"{-(-gk.n_rows // kk.CHUNK)}): {insertion_chunks(gk, X_cap):.2f}")
+    clocks = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+         "-lms", "500"], stdout=subprocess.PIPE, text=True)
+    failed = 0
+    for N in sizes:
+        X = (X_cap if N <= cap else X_big)[:N].contiguous()
+        want_v, want_i = kk.topk_sim_idx_plain(gk, X)
+        times = {}
+        for rw in kk.rows_per_warp_choices(gk.n_neighbors):
+            v, i = kk._launch(gk, X, rw)
+            ok = torch.equal(i, want_i) and torch.equal(
+                v.view(torch.int32), want_v.view(torch.int32))
+            failed += not ok
+            times[rw] = best_ms(lambda: kk._launch(gk, X, rw))
+            print(f"knn_topk N={N} rows_per_warp={rw} "
+                  f"blocks={kk.blocks(N, rw)} bitwise={ok} {times[rw]:.4f} ms")
+        print(f"knn_topk N={N} chosen: {kk.launch_shape(N, gk.n_neighbors)} "
+              f"rows per warp; fastest: {min(times, key=times.get)}")
+        want = rk.partial_decision_plain(gs, X)
+        times = {}
+        for R in rk.ROWS_PER_BLOCK:
+            got = rk._launch(gs, X, None, R)
+            ok = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            failed += not ok
+            times[R] = best_ms(lambda: rk._launch(gs, X, None, R))
+            print(f"rbf_decision N={N} rows_per_block={R} blocks={-(-N // R)} "
+                  f"bitwise={ok} {times[R]:.4f} ms")
+        print(f"rbf_decision N={N} chosen: {rk.launch_shape(N)} rows per "
+              f"block; fastest: {min(times, key=times.get)}")
+    clocks.terminate()
+    mhz = [int(v) for v in clocks.communicate()[0].split() if v.isdigit()]
+    print(f"SM clock during the sweep: {min(mhz, default=0)}-"
+          f"{max(mhz, default=0)} MHz ({len(mhz)} samples)")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds). Libraries go to
-``csrc/build/`` (listed in ``.gitignore``), named by a hash of the source
-and flags, so an edited kernel is rebuilt and an unchanged one is not.
+``csrc/build/`` (listed in ``.gitignore``), named by a hash of the source,
+the shared ``csrc/*.cuh`` headers and the flags, so an edited kernel is
+rebuilt and an unchanged one is not.
 Several kernels build in parallel: ``build`` starts one ``nvcc`` per
 source and then waits for all of them.
 
@@ -49,7 +50,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of kernel ``name``, named by a hash of its source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -17,6 +17,11 @@ model's ``fit_X``/``half_sq_norms`` read by the plain version
 arithmetic order and tie order). The corpus is not padded: the kernel
 scans exactly S rows.
 
+Launch shape (``launch_shape``, pure Python so the CPU tests check it):
+the rows per warp, chosen from (N, k). Every warp scans the whole corpus
+for its rows, so fewer rows per warp is how a small N fills the card.
+``launches`` counts wrapper calls that launch, one each.
+
 ``topk_sim_idx`` takes a CPU tensor to the plain version and launches the
 kernel on a CUDA tensor — or raises. There is no fallback.
 """
@@ -38,6 +43,46 @@ MAX_NEIGHBORS = 128  # kMaxNeighbors in csrc/knn_topk.cu
 MAX_FEATURES = 15  # kMaxFeatures in csrc/knn_topk.cu
 RECORD = 16  # floats per corpus record
 ROW_CHUNK = 65536  # rows per step of the plain version
+THREADS = 256  # kThreads: 8 warps per block
+WARPS = THREADS // 32
+CHUNK = 128  # kChunk: records a warp takes at once (4 per lane)
+SMS = 132  # streaming multiprocessors of an H100 SXM
+MAX_ROWS_PER_WARP = 16  # kMaxRowsPerWarp in csrc/knn_topk.cu
+
+
+def list_slots(k: int) -> int:
+    """Slots per lane of the kernel's top-k list (KS): 1 for k <= 32, 4
+    for k <= 128."""
+    return 1 if k <= 32 else MAX_NEIGHBORS // 32
+
+
+def rows_per_warp_choices(k: int) -> tuple[int, ...]:
+    """The rows per warp a launch may take, most first: up to 16 for
+    k <= 32, two for larger k (whose lists take four times the shared
+    memory). Eight is left out: it was the fastest at no size timed
+    (PERF.md, ``tools/torch_kernel_sweep.py``)."""
+    return (16, 4, 2, 1) if k <= 32 else (2, 1)
+
+
+def blocks(n_rows: int, rows_per_warp: int) -> int:
+    """Blocks of a launch: 8 warps of ``rows_per_warp`` rows each."""
+    return -(-n_rows // (WARPS * rows_per_warp))
+
+
+def launch_shape(n_rows: int, k: int) -> int:
+    """Rows per warp: the most that still gives a block per SM, else one
+    row per warp."""
+    for r in rows_per_warp_choices(k):
+        if blocks(n_rows, r) >= SMS:
+            return r
+    return 1
+
+
+def instance(g) -> str:
+    """The template arguments of the kernel instance a launch on ``g``
+    uses, as in ``knn_topk_kernel<1, 12>``: the list slots per lane, and
+    the features fixed at compile time (12) or 0 for any other F."""
+    return f"{list_slots(g.n_neighbors)}, {12 if g.n_features == 12 else 0}"
 
 
 @dataclass
@@ -98,7 +143,9 @@ def _launcher():
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # X, n_rows, n_features
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # records, S, k
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # vals, idx, stream
+        ctypes.c_int,  # rows per warp
+        ctypes.c_void_p, ctypes.c_void_p,  # vals, idx
+        ctypes.c_void_p,  # stream
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -121,10 +168,19 @@ def topk_sim_idx(g: KnnKernelOperands, X: torch.Tensor):
     """((N, k) f32 similarities, (N, k) int32 indices) of the k most
     similar corpus rows, descending, ties to the lowest index. A CPU
     tensor goes to the plain version; a CUDA tensor launches the kernel on
-    the current stream or raises."""
+    the current stream, in ``launch_shape``, or raises."""
     _check(g, X)
     if X.device.type == "cpu":
         return topk_sim_idx_plain(g, X)
+    return _launch(g, X, launch_shape(X.shape[0], g.n_neighbors))
+
+
+def _launch(g: KnnKernelOperands, X: torch.Tensor, rows_per_warp: int):
+    """Launches the kernel on the CUDA tensor ``X`` with ``rows_per_warp``
+    rows per warp, and counts the launch in ``topk_sim_idx.launches``. The
+    card tests and ``tools/torch_kernel_sweep.py`` force each shape through
+    it; the result does not depend on the shape."""
+    _check(g, X)
     if X.device.type != "cuda":
         raise ValueError(f"topk_sim_idx runs on cpu or cuda, not {X.device}")
     if not X.is_contiguous():
@@ -141,7 +197,7 @@ def topk_sim_idx(g: KnnKernelOperands, X: torch.Tensor):
     with torch.cuda.device(X.device):
         rc = _launcher()(
             X.data_ptr(), N, X.shape[1],
-            g.records.data_ptr(), g.n_rows, k,
+            g.records.data_ptr(), g.n_rows, k, rows_per_warp,
             vals.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream(X.device).cuda_stream,
         )

@@ -17,6 +17,11 @@ coefficients in 32..47 — read by the kernel, and the model's ``sv_hi``,
 padding: the kernel sums exactly S support vectors. γ is kept as a
 Python float too, so a launch reads no device scalar.
 
+Launch shape (``launch_shape``, pure Python so the CPU tests check it):
+the rows per block, from N. The support vectors are never split across
+blocks — each (row, pair) sum is one thread's, in support-vector order —
+so fewer rows per block is how a small N fills the card.
+
 ``partial_decision`` takes a CPU tensor to the plain version and launches
 the kernel on a CUDA tensor — or raises. There is no fallback.
 """
@@ -39,6 +44,33 @@ MAX_PAIRS = 15  # kMaxPairs: the pairs of 6 classes
 RECORD = 48  # floats per support-vector record
 LO_SLOT, COEF_SLOT = 16, 32
 ROW_CHUNK = 65536  # rows per step of the plain version
+STAGE = 32  # kStage: support vectors per shared-memory stage
+ROWS_PER_BLOCK = (64, 16, 4)  # the kernel's instances, most first
+SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def threads_per_block(rows_per_block: int) -> int:
+    """threads_for in the kernel: 32 per row, at most 256."""
+    return min(256, 32 * rows_per_block)
+
+
+def launch_shape(n_rows: int) -> int:
+    """Rows per block: the most that still gives a block per SM, else
+    the fewest, 4."""
+    for r in ROWS_PER_BLOCK:
+        if -(-n_rows // r) >= SMS:
+            return r
+    return ROWS_PER_BLOCK[-1]
+
+
+def instance(g, rows_per_block: int, has_xlo: bool) -> str:
+    """The template arguments of the kernel instance a launch on ``g``
+    uses, as in ``rbf_decision_kernel<64, 12, 15, false>``: F and P are
+    fixed at compile time for the reference's 12 features and 15 pairs,
+    else 0."""
+    fixed = (g.n_features, g.n_pairs) == (12, 15)
+    return (f"{rows_per_block}, {12 if fixed else 0}, {15 if fixed else 0}, "
+            f"{'true' if has_xlo else 'false'}")
 
 
 @dataclass
@@ -112,6 +144,7 @@ def _launcher():
         ctypes.c_int, ctypes.c_int,  # n_rows, n_features
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # records, S, P
         ctypes.c_float,  # gamma
+        ctypes.c_int,  # rows per block
         ctypes.c_void_p, ctypes.c_void_p,  # out, stream
     ]
     fn.restype = ctypes.c_int
@@ -143,10 +176,21 @@ def partial_decision(g: SvcKernelOperands, X: torch.Tensor,
                      X_lo=None) -> torch.Tensor:
     """(N, P) ``K @ coef`` with NO intercept. A CPU tensor goes to the
     plain version; a CUDA tensor launches the kernel on the current stream
-    or raises."""
+    in ``launch_shape``, or raises."""
     _check(g, X, X_lo)
     if X.device.type == "cpu":
         return partial_decision_plain(g, X, X_lo)
+    return _launch(g, X, X_lo, launch_shape(X.shape[0]))
+
+
+def _launch(g: SvcKernelOperands, X: torch.Tensor, X_lo,
+            rows_per_block: int) -> torch.Tensor:
+    """Launches the kernel on the CUDA tensor ``X`` with ``rows_per_block``
+    rows per block, and counts the launch in
+    ``partial_decision.launches``. The card tests and
+    ``tools/torch_kernel_sweep.py`` force each shape through it; the
+    result does not depend on the shape."""
+    _check(g, X, X_lo)
     if X.device.type != "cuda":
         raise ValueError(f"partial_decision runs on cpu or cuda, not {X.device}")
     if not X.is_contiguous() or (X_lo is not None and not X_lo.is_contiguous()):
@@ -164,7 +208,8 @@ def partial_decision(g: SvcKernelOperands, X: torch.Tensor,
             X.data_ptr(), None if X_lo is None else X_lo.data_ptr(),
             X.shape[0], X.shape[1],
             g.records.data_ptr(), g.n_sv, g.n_pairs, g.gamma,
-            out.data_ptr(), torch.cuda.current_stream(X.device).cuda_stream,
+            rows_per_block, out.data_ptr(),
+            torch.cuda.current_stream(X.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"rbf_decision kernel launch failed: CUDA error {rc}")
