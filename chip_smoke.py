@@ -16,13 +16,16 @@ the script exits non-zero:
    1,048,576, on seeded models of the reference checkpoints' shapes (the
    reference pickles are not in the repository):
    - forest_proba: 100 trees, node counts 25-101, depth <= 14, 6 classes,
-     12 features; probabilities bitwise equal;
+     12 features; probabilities bitwise equal, also on a copy of the
+     65,536 rows with NaN/+inf/-inf features (``with_nonfinite``);
    - knn_topk: a 4448-row corpus, k = 5, 6 classes; neighbor indices and
      similarities bitwise equal;
    - rbf_decision: 2281 support vectors split over 6 classes, 15 pairs;
      decisions bitwise equal;
-   labels equal for all three; CUDA-event median times, the plain
-   version's time, and the bound (least time the card could take);
+   labels equal for all three; CUDA-event median times of single calls,
+   the time of 20 calls back to back over 20, the plain version's time,
+   the bound (least time the card could take), and each launch shape with
+   its instance's ptxas registers, shared memory and spills;
 4. serve — the port CLI in-process (``<subcommand> --source synthetic
    --synthetic-flows 65536 --capacity 65536 --max-ticks 6 --print-every
    2``) for ``Randomforest``, ``knearest`` and ``svm`` on those models:
@@ -227,41 +230,53 @@ def synthetic_table(n_flows: int, ticks: int, device):
 
 def node_visits(k, X) -> int:
     """Node visits the walk makes on these inputs (the data-dependent
-    operation count of the forest kernel), counted with torch ops."""
+    operation count of the forest kernel), counted with torch ops on the
+    rows' effective features."""
     import torch
 
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+
     T, D = k.n_trees, k.n_internal
-    nodes = k.nodes.view(T, D, 4)
+    feat, thr, left, right = fk.unpack_records(k)
     trees = torch.arange(T, device=X.device)[None, :]
     total = 0
     for i in range(0, X.shape[0], 1 << 17):
-        x = X[i: i + (1 << 17)]
+        x = fk.effective_features(X[i: i + (1 << 17)])
         code = torch.zeros((x.shape[0], T), dtype=torch.int64, device=X.device)
         active = torch.ones_like(code, dtype=torch.bool)
         while bool(active.any()):
-            nd = nodes[trees, code.clamp_min(0)]  # (n, T, 4)
-            xv = torch.gather(x, 1, nd[..., 0].long())
-            nxt = torch.where(
-                xv <= nd[..., 1].view(torch.float32), nd[..., 2], nd[..., 3]
-            ).long()
+            c = code.clamp_max(D - 1)
+            xv = torch.gather(x, 1, feat[trees, c])
+            nxt = torch.where(xv <= thr[trees, c], left[trees, c], right[trees, c])
             total += int(active.sum())
             code = torch.where(active, nxt, code)
-            active &= code >= 0
+            active &= code < D
     return total
 
 
 def forest_bound(k, X, visits: int) -> tuple[float, str]:
     """(ms, "bytes"|"operations"): the larger of the bytes the function
-    must move (X in, (N, C) out, node records and leaf values once) over
-    the HBM rate, and its operations (one compare per node visit, C adds
-    per tree per row) over the card's float32 rate."""
+    must move (X in, (N, C) out, the tree blobs once) over the HBM rate,
+    and its operations (one compare per node visit, C adds per tree per
+    row) over the card's float32 rate."""
     N = X.shape[0]
-    nbytes = (
-        X.numel() * 4 + N * k.n_classes * 4
-        + k.nodes.numel() * 4 + k.leaf_values.numel() * 4
-    )
+    nbytes = X.numel() * 4 + N * k.n_classes * 4 + k.forest.numel() * 4
     ops = visits + N * k.n_trees * k.n_classes
     return _bound(nbytes, ops)
+
+
+def with_nonfinite(X, every: int = 7):
+    """A copy of X with NaN, +inf or -inf (in turn) in one feature of every
+    ``every``-th row, and a second one in every other such row."""
+    X = X.clone()
+    F = X.shape[1]
+    rows = list(range(0, X.shape[0], every))
+    kinds = (float("nan"), float("inf"), float("-inf"))
+    for j, i in enumerate(rows):
+        X[i, (5 * j) % F] = kinds[j % 3]
+        if j % 2:
+            X[i, (5 * j + 1 + j % (F - 1)) % F] = kinds[(j // 2) % 3]
+    return X
 
 
 def knn_pair_ops(g) -> int:
@@ -317,6 +332,24 @@ def cuda_median_ms(fn, runs: int, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_back_to_back_ms(fn, launches: int = 20, warmup: int = 3) -> float:
+    """``launches`` calls back to back between two CUDA events, divided by
+    ``launches``: the rate at which calls follow one another, against the
+    single-call median, which also holds the wrapper's host work."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
 
 
 def parse_tables(text: str) -> list[list[tuple[int, str]]]:
@@ -421,7 +454,9 @@ def phase_build() -> dict:
     return instances
 
 
-def _check_forest(k, X, N: int) -> dict:
+def _forest_equal(k, X, what: str) -> float:
+    """Holds the forest kernel to its plain version on X, bitwise and in
+    labels; returns the max |difference| (0)."""
     import torch
 
     from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
@@ -430,23 +465,49 @@ def _check_forest(k, X, N: int) -> dict:
     want = fk.forest_proba_plain(k, X)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    if not torch.equal(got, want):
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
         raise AssertionError(
-            f"forest kernel != plain version at N={N}: max |diff| {err}"
+            f"forest kernel != plain version on {what}: max |diff| {err}"
         )
     if not torch.equal(got.argmax(-1), want.argmax(-1)):
-        raise AssertionError(f"forest kernel labels differ at N={N}")
+        raise AssertionError(f"forest kernel labels differ on {what}")
+    return err
+
+
+def _check_forest(k, X, N: int) -> dict:
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+
+    err = _forest_equal(k, X, f"N={N}")
+    if N == CAPACITY:
+        Xn = with_nonfinite(X)
+        err = max(err, _forest_equal(k, Xn, f"N={N} with NaN/inf features"))
+        print(f"[kernels] forest_proba N={N}: bitwise equal on a copy with "
+              f"NaN/+inf/-inf in {-(-N // 7)} rows (one or two features)")
     visits = node_visits(k, X)
     bound_ms, bound_by = forest_bound(k, X, visits)
     ms = cuda_median_ms(lambda: fk.forest_proba(k, X), TIMED_RUNS)
+    b2b_ms = cuda_back_to_back_ms(lambda: fk.forest_proba(k, X))
     plain_ms = cuda_median_ms(lambda: fk.forest_proba_plain(k, X), TIMED_RUNS)
+    R, per_chunk = fk.launch_shape(N, k)
+    inst = fk.instance(R)
     print(f"[kernels] forest_proba N={N}: bitwise equal, kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
-          f"({bound_by}), {visits / (N * k.n_trees):.2f} visits/tree")
+          f"{ms:.4f} ms (back to back {b2b_ms:.4f}), plain {plain_ms:.3f} "
+          f"ms, bound {bound_ms:.5f} ms ({bound_by}), "
+          f"{visits / (N * k.n_trees):.2f} visits/tree")
+    design = "a thread per row" if fk.row_design(R) else "warps on (tree, 32 rows)"
+    print(f"[kernels] forest_proba N={N}: launch shape {R} rows per tile "
+          f"({design}), {per_chunk} trees per stage "
+          f"({len(fk.tree_chunks(k.n_trees, per_chunk))} stage(s)): "
+          f"{fk.blocks(N, R)} blocks of {fk.threads(R)} threads, "
+          f"{fk.smem_bytes(k, R, per_chunk)} bytes of shared memory; instance "
+          f"forest_proba_kernel<{inst}>: "
+          f"{INSTANCES.get(('forest_proba', inst), 'not in the build log')}")
     return {
-        "rows": N, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "rows": N, "max_abs_err": err, "ms": ms, "back_to_back_ms": b2b_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "mean_visits_per_tree": visits / (N * k.n_trees),
+        "launch_shape": {"rows_per_tile": R, "trees_per_chunk": per_chunk,
+                         "blocks": fk.blocks(N, R)},
     }
 
 
@@ -472,13 +533,15 @@ def _check_knn(g, X, N: int) -> dict:
         raise AssertionError(f"knn_topk kernel labels differ at N={N}")
     bound_ms, bound_by = knn_bound(g, X)
     ms = cuda_median_ms(lambda: kk.topk_sim_idx(g, X), TIMED_RUNS)
+    b2b_ms = cuda_back_to_back_ms(lambda: kk.topk_sim_idx(g, X))
     plain_ms = cuda_median_ms(lambda: kk.topk_sim_idx_plain(g, X),
                               PLAIN_RUNS[N], warmup=1)
     counts = torch.bincount(labels.long(), minlength=g.n_classes).tolist()
     rw = kk.launch_shape(N, g.n_neighbors)
     inst = kk.instance(g)
     print(f"[kernels] knn_topk N={N}: indices and values bitwise equal, "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"kernel {ms:.4f} ms (back to back {b2b_ms:.4f}), plain "
+          f"{plain_ms:.3f} ms, bound "
           f"{bound_ms:.5f} ms ({bound_by}; {knn_pair_ops(g)} operations per "
           f"pair); labels per class {counts}")
     print(f"[kernels] knn_topk N={N}: launch shape {rw} row(s) per warp: "
@@ -495,7 +558,8 @@ def _check_knn(g, X, N: int) -> dict:
         )
         print(f"[kernels] knn_topk N={N}: context only (not the same "
               f"rounding or tie order): torch.matmul + torch.topk {lib_ms:.4f} ms")
-    return {"rows": N, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    return {"rows": N, "max_abs_err": err, "ms": ms,
+            "back_to_back_ms": b2b_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "context_only_ms": lib_ms, "launch_shape": {
                 "rows_per_warp": rw, "blocks": kk.blocks(N, rw)},
@@ -523,11 +587,12 @@ def _check_svc(g, X, N: int) -> dict:
     D = got + g.intercept[None, :]
     bound_ms, bound_by = svc_bound(g, X)
     ms = cuda_median_ms(lambda: rk.partial_decision(g, X), TIMED_RUNS)
+    b2b_ms = cuda_back_to_back_ms(lambda: rk.partial_decision(g, X))
     plain_ms = cuda_median_ms(lambda: rk.partial_decision_plain(g, X),
                               PLAIN_RUNS[N], warmup=1)
     counts = torch.bincount(labels.long(), minlength=g.n_classes).tolist()
     print(f"[kernels] rbf_decision N={N}: decisions bitwise equal, kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+          f"{ms:.4f} ms (back to back {b2b_ms:.4f}), plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
           f"({bound_by}; {svc_pair_ops(g)} operations per pair); max |K @ coef| {float(got.abs().max()):.3f}, min |D| "
           f"{float(D.abs().min()):.3e}; labels per class {counts}")
     R = rk.launch_shape(N)
@@ -546,7 +611,8 @@ def _check_svc(g, X, N: int) -> dict:
         print(f"[kernels] rbf_decision N={N}: context only (hi parts only, "
               f"not the same rounding): torch.cdist + exp + matmul "
               f"{lib_ms:.4f} ms")
-    return {"rows": N, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    return {"rows": N, "max_abs_err": err, "ms": ms,
+            "back_to_back_ms": b2b_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "context_only_ms": lib_ms,
             "launch_shape": {"rows_per_block": R, "blocks": -(-N // R)},
@@ -759,6 +825,33 @@ KERNEL_ROWS = {
 }
 
 
+def kernel_entries(results: dict, launches: dict) -> list[dict]:
+    """The ``{"kernels": [...]}`` entries: each kernel's numbers at the
+    main path's 65,536 rows, its launches in the serve, and every size
+    under ``by_rows``."""
+    kernels = []
+    for family, (name, source, replaces) in KERNEL_ROWS.items():
+        by_rows = results[family]
+        main_path = by_rows[CAPACITY]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"traffic_classifier_sdn_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": launches[family],
+            "max_abs_err": max(r["max_abs_err"] for r in by_rows.values()),
+            "ms": main_path["ms"],
+            "back_to_back_ms": main_path["back_to_back_ms"],
+            "plain_ms": main_path["plain_ms"],
+            "bound_ms": main_path["bound_ms"],
+            "bound_by": main_path["bound_by"],
+            "library_ms": None,
+            "rows": CAPACITY,
+            "by_rows": [by_rows[n] for n in SHAPES],
+        })
+    return kernels
+
+
 def main() -> int:
     try:
         import torch
@@ -783,25 +876,7 @@ def main() -> int:
         family: phase_serve(family, models[family], ops[family], device)
         for family in SERVES
     }
-    kernels = []
-    for family, (name, source, replaces) in KERNEL_ROWS.items():
-        by_rows = results[family]
-        main_path = by_rows[CAPACITY]
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": f"traffic_classifier_sdn_tpu_torch/csrc/{source}",
-            "replaces": replaces,
-            "launches": launches[family],
-            "max_abs_err": max(r["max_abs_err"] for r in by_rows.values()),
-            "ms": main_path["ms"],
-            "plain_ms": main_path["plain_ms"],
-            "bound_ms": main_path["bound_ms"],
-            "bound_by": main_path["bound_by"],
-            "library_ms": None,
-            "rows": CAPACITY,
-            "by_rows": [by_rows[n] for n in SHAPES],
-        })
+    kernels = kernel_entries(results, launches)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -64,14 +64,13 @@ def test_random_forest_has_reference_shape(forest):
 
 
 def _walk_visits(k, X) -> int:
-    nodes = k.nodes.numpy().reshape(k.n_trees, k.n_internal, 4)
+    feat, thr, left, right = (a.numpy() for a in fk.unpack_records(k))
     visits = 0
-    for x in X:
+    for x in fk.effective_features(torch.from_numpy(X)).numpy():
         for t in range(k.n_trees):
             code = 0
-            while code >= 0:
-                f, thr, lc, rc = nodes[t, code]
-                code = lc if x[f] <= np.int32(thr).view(np.float32) else rc
+            while code < k.n_internal:
+                code = (left if x[feat[t, code]] <= thr[t, code] else right)[t, code]
                 visits += 1
     return visits
 
@@ -83,6 +82,19 @@ def test_node_visits_and_bound(table, forest):
     assert visits == _walk_visits(k, X.numpy())
     ms, by = chip_smoke.forest_bound(k, X, visits)
     assert by in ("bytes", "operations") and ms > 0
+    Xn = chip_smoke.with_nonfinite(X, every=3)
+    assert chip_smoke.node_visits(k, Xn) == _walk_visits(k, Xn.numpy())
+
+
+def test_with_nonfinite_marks_one_or_two_features(table):
+    X = ft.features12(table)[:70]
+    Xn = chip_smoke.with_nonfinite(X)
+    bad = ~torch.isfinite(Xn)
+    assert torch.equal(bad.any(1), torch.arange(70) % 7 == 0)
+    assert set(bad.sum(1)[::7].tolist()) == {1, 2}
+    assert torch.isnan(Xn).any() and torch.isposinf(Xn).any()
+    assert torch.isneginf(Xn).any()
+    assert torch.equal(Xn[~bad.any(1)], X[~bad.any(1)])
 
 
 def test_parse_tables_reads_cli_output(tmp_path, capsys, forest):
@@ -148,6 +160,32 @@ def test_knn_svc_bounds_and_plain_labels(table):
                        rk.predict(gs, X).long())
 
 
+def test_kernel_entries_carry_every_key():
+    """Each ``{"kernels": ...}`` entry has the keys the contract names,
+    the back-to-back time beside the single-call median, taken at the
+    main path's rows."""
+    results = {
+        family: {n: {"max_abs_err": 0.0, "ms": n * 1e-6,
+                     "back_to_back_ms": n * 5e-7, "plain_ms": 1.0,
+                     "bound_ms": 1e-3, "bound_by": "bytes"}
+                 for n in chip_smoke.SHAPES}
+        for family in chip_smoke.KERNEL_ROWS
+    }
+    entries = chip_smoke.kernel_entries(results, {f: 3 for f in results})
+    assert [e["name"] for e in entries] == ["forest_proba", "knn_topk",
+                                            "rbf_decision"]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "back_to_back_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms"}
+    for e in entries:
+        assert keys <= set(e)
+        assert e["ms"] == chip_smoke.CAPACITY * 1e-6
+        assert e["back_to_back_ms"] == chip_smoke.CAPACITY * 5e-7
+        assert e["launches"] == 3 and e["route"] == "cuda"
+        assert [r["back_to_back_ms"] for r in e["by_rows"]] == [
+            n * 5e-7 for n in chip_smoke.SHAPES]
+
+
 def test_main_refuses_without_cuda(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main() == 1
@@ -165,6 +203,28 @@ ptxas info    : Function properties for _ZN48_GLOBAL__N__490736b2_15_rbf_decisio
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 54 registers, used 1 barriers, 36352 bytes smem
 """
+
+
+FOREST_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119forest_proba_kernelILb1EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119forest_proba_kernelILb1EEEvNS_4ArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119forest_proba_kernelILb0EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119forest_proba_kernelILb0EEEvNS_4ArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers
+"""
+
+
+def test_ptxas_instances_name_the_forest_instance():
+    """The forest kernel's instances are keyed by the design, as
+    ``forest_kernel.instance`` writes it for a launch's rows per tile."""
+    found = chip_smoke.ptxas_instances({"forest_proba": FOREST_PTXAS_LOG})
+    assert [fk.instance(r) for r in (32, 128, 1024)] == ["false", "false",
+                                                         "true"]
+    assert "Used 40 registers" in found[("forest_proba", fk.instance(32))]
+    assert "Used 56 registers" in found[("forest_proba", fk.instance(1024))]
 
 
 def test_ptxas_instances_name_what_the_wrappers_launch(table):

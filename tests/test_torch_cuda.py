@@ -11,6 +11,7 @@ which configures JAX). Without a card every test skips.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -37,9 +38,11 @@ def cuda():
     return torch.device("cuda")
 
 
+@functools.cache
 def _forests():
-    """Stumps, a root-leaf tree, a reference-shaped random forest, and a
-    deep one (up to 150 internal nodes per tree, depth up to 20)."""
+    """Stumps, a root-leaf tree, a reference-shaped random forest, a deep
+    one (up to 150 internal nodes per tree, depth up to 20), and one
+    larger than a shared-memory stage (60 such trees)."""
     rng = np.random.RandomState(0)
     sample = (rng.gamma(1.0, 100.0, (2000, 12))).astype(np.float32)
     root_leaf = _synth_forest(n_trees=3)
@@ -52,30 +55,55 @@ def _forests():
         "deep": chip_smoke.random_forest(
             2, sample, n_trees=10, node_count=(129, 301), max_depth=20
         ),
+        "multistage": chip_smoke.random_forest(
+            4, sample, n_trees=60, node_count=(201, 301), max_depth=20
+        ),
     }
 
 
-@pytest.mark.parametrize("name", ["stumps", "root_leaf", "random", "deep"])
-def test_kernel_bitwise_equals_plain(cuda, name):
+FOREST_ROWS = (1, 33, 777, 4097, 65536)
+
+
+@pytest.mark.parametrize("n_rows", FOREST_ROWS)
+@pytest.mark.parametrize("name", ["stumps", "root_leaf", "random", "deep",
+                                  "multistage"])
+def test_kernel_bitwise_equals_plain(cuda, name, n_rows):
+    """The wrapper's launch and every forced shape (32, 128 and 1024 rows
+    per tile; the most trees per stage, a third of that, and one), on rows
+    with inputs exactly on thresholds and on a copy with NaN/+inf/-inf
+    features: bitwise equal to the plain version on the card, and to the
+    CPU's plain version up to 4,097 rows."""
     d = _forests()[name]
     k = fk.compile_forest(d, n_features=12, device=cuda)
+    if name == "multistage":
+        assert all(fk.trees_per_chunk(k, r) < k.n_trees for r in fk.ROWS_PER_TILE)
     rng = np.random.RandomState(3)
-    X = (rng.gamma(1.0, 100.0, (777, 12))).astype(np.float32)
+    X = (rng.gamma(1.0, 100.0, (n_rows, 12))).astype(np.float32)
     # some inputs exactly on split thresholds (the <= edge)
     internal = np.argwhere(d["left"] != -1)
-    for i, (t, n) in enumerate(internal[:300]):
+    for i, (t, n) in enumerate(internal[:min(300, n_rows)]):
         X[i, d["feature"][t, n]] = np.float32(d["threshold"][t, n])
     Xc = torch.from_numpy(X).to(cuda)
-    launches = fk.forest_proba.launches
-    got = fk.forest_proba(k, Xc)
-    torch.cuda.synchronize()
-    assert fk.forest_proba.launches == launches + 1
-    assert torch.equal(got, fk.forest_proba_plain(k, Xc))
     cpu = fk.compile_forest(d, n_features=12, device="cpu")
-    np.testing.assert_array_equal(
-        got.cpu().numpy().view(np.uint32),
-        fk.forest_proba(cpu, torch.from_numpy(X)).numpy().view(np.uint32),
-    )
+    for x in (Xc, chip_smoke.with_nonfinite(Xc, every=3)):
+        want = fk.forest_proba_plain(k, x)
+        launches = fk.forest_proba.launches
+        got = fk.forest_proba(k, x)
+        torch.cuda.synchronize()
+        assert fk.forest_proba.launches == launches + 1
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        for R in fk.ROWS_PER_TILE:
+            most = fk.trees_per_chunk(k, R)
+            for per_chunk in sorted({most, max(1, most // 3), 1}):
+                got = fk._launch(k, x, R, per_chunk)
+                torch.cuda.synchronize()
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)), (R, per_chunk)
+        if n_rows <= 4097:
+            np.testing.assert_array_equal(
+                want.cpu().numpy().view(np.uint32),
+                fk.forest_proba(cpu, x.cpu()).numpy().view(np.uint32),
+            )
 
 
 def test_wrapper_on_card(cuda):
