@@ -10,7 +10,8 @@ the script exits non-zero:
 1. environment — the card's name and power limit, torch/CUDA versions,
    the TF32 settings;
 2. build — every CUDA kernel of the port, from ``csrc/``, all ``nvcc``
-   processes started together;
+   processes started together, and beside them (g++) the port's C++
+   ingest engine, ``native/flow_engine.cpp``;
 3. kernels against their plain versions on the card, with X from
    ``features12`` of synthetic flow tables at N = 777, 65,536 and
    1,048,576, on seeded models of the reference checkpoints' shapes (the
@@ -25,15 +26,38 @@ the script exits non-zero:
    labels equal for all three; CUDA-event median times of single calls,
    the time of 20 calls back to back over 20, the plain version's time,
    the bound (least time the card could take), and each launch shape with
-   its instance's ptxas registers, shared memory and spills;
-4. serve — the port CLI in-process (``<subcommand> --source synthetic
-   --synthetic-flows 65536 --capacity 65536 --max-ticks 6 --print-every
-   2``) for ``Randomforest``, ``knearest`` and ``svm`` on those models:
-   65,536 flows tracked, one launch of the family's kernel per render tick
-   (every launch count set to 0 just before the serve and read just
-   after), 64 rows per rendered table, and the last table's labels equal
-   to the plain version's labels on the same table;
-5. summary — a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
+   its instance's ptxas registers, shared memory and spills; then the
+   forest kernel at every dirty bucket of incremental labels (16 to
+   16,384 rows), bitwise, with its single-call and back-to-back times;
+4. serve — the port CLI in-process at its defaults (native ingest,
+   incremental labels; ``<subcommand> --source synthetic --synthetic-flows
+   65536 --capacity 65536 --max-ticks 6 --print-every 2``) for
+   ``Randomforest``, ``knearest`` and ``svm`` on those models: 65,536
+   flows tracked, one launch of the family's kernel per render tick
+   (every conversation reports every tick, so each render predicts the
+   full table; every launch count set to 0 just before the serve and
+   read just after), 64 rows per rendered table, and the last table's
+   labels equal to the plain version's labels on the same table;
+5. incremental serve — ``Randomforest --source replay --native-ingest on
+   --incremental auto --print-every 1`` on a churn capture of 65,536
+   conversations (``churn_capture``: two full ticks, then 1 %, 0 %, 20 %
+   and 100 % of them reporting): every table's labels equal the plain
+   version's on the table it rendered, the forest kernel launches once on
+   each render tick with a dirty row and never on the others, and stdout
+   is byte-identical to the same capture served with ``--incremental off
+   --native-ingest off``;
+6. ryu serve — ``Randomforest --source ryu --monitor-cmd "<emitter>"
+   --native-ingest on``: a script written to a temporary directory prints
+   the churn capture's ticks to its stdout, paced apart; every flow is
+   tracked, every line parsed, the kernel launches on each render tick
+   with a dirty row, and the last table's labels equal the plain
+   version's;
+7. breakdown — host seconds per tick of 131,072 records into 65,536 flows
+   through the Python spine, the native spine from records and the
+   native spine from raw bytes (each with ``step()`` and a device sync),
+   and the device time of each step of the incremental label plan at 0,
+   1, 20 and 100 % churn beside the full re-predict;
+8. summary — a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
    power-limit line, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -46,12 +70,14 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -73,6 +99,10 @@ CLASSES = ("dns", "game", "ping", "quake", "telnet", "voice")
 # non-tensor-core float32 operations/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+# churn of each tick of the incremental serve's capture: two full ticks,
+# then 1 % (655 conversations, dirty bucket 1,024), 0 %, 20 % (13,107,
+# bucket 16,384) and 100 % (above the largest bucket: full predict)
+CHURN_SCHEDULE = (1.0, 1.0, 0.01, 0.0, 0.2, 1.0)
 
 
 def random_forest(seed: int, X_sample: np.ndarray, n_trees: int = N_TREES,
@@ -436,6 +466,7 @@ def ptxas_instances(logs: dict) -> dict:
 
 def phase_build() -> dict:
     """Builds every kernel; returns ``ptxas_instances`` of the build."""
+    from traffic_classifier_sdn_tpu_torch.native import engine as native_engine
     from traffic_classifier_sdn_tpu_torch.ops import (
         cuda_build,
         forest_kernel,
@@ -444,10 +475,14 @@ def phase_build() -> dict:
     )
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(
-        [forest_kernel.KERNEL, knn_kernel.KERNEL, rbf_kernel.KERNEL]
-    )
-    print(f"[build] {len(logs)} kernel(s) in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(native_engine.build)  # g++ beside the nvccs
+        logs = cuda_build.build(
+            [forest_kernel.KERNEL, knn_kernel.KERNEL, rbf_kernel.KERNEL]
+        )
+        lib = native.result()
+    print(f"[build] {len(logs)} kernel(s) and the native flow engine "
+          f"({lib.name}) in {time.perf_counter() - t0:.2f} s")
     instances = ptxas_instances(logs)
     for (name, args), report in instances.items():
         print(f"[build] {name}_kernel<{args}>: {report}")
@@ -702,12 +737,23 @@ def _plain_labels(family: str, g, X):
     return svc_plain_predict(g, X)
 
 
+def _serve(argv: list) -> tuple[str, object, float]:
+    """(stdout, summary, wall seconds) of one in-process CLI serve."""
+    from traffic_classifier_sdn_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        summary = cli.main(argv)
+    return out.getvalue(), summary, time.perf_counter() - t0
+
+
 def phase_serve(family: str, model: dict, g, device) -> int:
     """The port CLI's serve of ``family`` at capacity 65,536; returns its
     kernel's launches in that run."""
     import torch
 
-    from traffic_classifier_sdn_tpu_torch import cli, interop
+    from traffic_classifier_sdn_tpu_torch import interop
     from traffic_classifier_sdn_tpu_torch.io import checkpoint
 
     subcommand, builder = SERVES[family]
@@ -723,22 +769,23 @@ def phase_serve(family: str, model: dict, g, device) -> int:
             "--max-ticks", "6", "--print-every", "2",
             "--native-checkpoint", ckpt,
         ]
-        out = io.StringIO()
         for c in counters.values():  # count the main path's launches only
             c.launches = 0
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            summary = cli.main(argv)
-        wall = time.perf_counter() - t0
+        out, summary, wall = _serve(argv)
         launches = {f: c.launches for f, c in counters.items()}
     engine = summary.engine
-    tables = parse_tables(out.getvalue())
+    tables = parse_tables(out)
     tag = f"[serve {subcommand}]"
     print(f"{tag} {summary.ticks} ticks in {wall:.2f} s; per tick (s): "
           + ", ".join(f"{s:.3f}" for s in summary.tick_seconds)
-          + "; of which ingest (parse, batcher, wire scatter): "
+          + "; of which ingest (parse, native engine, wire scatter): "
           + ", ".join(f"{s:.3f}" for s in summary.ingest_seconds)
-          + f"; render ticks {summary.render_ticks}")
+          + f"; render ticks {summary.render_ticks}; label plans "
+          f"{summary.render_plans}")
+    if not engine.native or len(summary.render_plans) != len(tables):
+        raise AssertionError(
+            "the serve did not run at its defaults (native ingest, "
+            "incremental labels)")
     if engine.num_flows() != CAPACITY:
         raise AssertionError(f"{engine.num_flows()} flows tracked, want {CAPACITY}")
     own = launches[family]
@@ -769,9 +816,325 @@ def phase_serve(family: str, model: dict, g, device) -> int:
           f"{[len(t) for t in tables]} rows, last table's labels equal the "
           f"plain version's (classes shown: {', '.join(shown)})")
     print(f"{tag} end of the last table:\n"
-          + "\n".join(out.getvalue().splitlines()[-6:]))
+          + "\n".join(out.splitlines()[-6:]))
     render_breakdown(engine, family, g, device)
     return own
+
+
+def churn_capture(path: str, n_flows: int,
+                  schedule=CHURN_SCHEDULE) -> list[int]:
+    """Writes a replay capture of ``SyntheticFlows(n_flows)`` whose k-th
+    tick has churn ``schedule[k]``: that share of the conversations
+    reports, both directions. A tick at churn 0 holds one line of a
+    conversation outside the population instead: a serve at capacity
+    ``n_flows`` drops it (the table is full), so that tick dirties no row.
+    Returns the conversations reporting in each tick."""
+    from traffic_classifier_sdn_tpu_torch.ingest.replay import SyntheticFlows
+
+    syn = SyntheticFlows(n_flows=n_flows)
+    reporting = []
+    with open(path, "wb") as f:
+        for churn in schedule:
+            syn.churn = churn
+            t = syn.t
+            blob = syn.tick_bytes()
+            reporting.append(blob.count(b"\n") // 2)
+            if not blob:
+                blob = (f"data\t{t}\t1\t1\t{syn._mac(n_flows, 0)}\t"
+                        f"{syn._mac(n_flows, 1)}\t2\t1\t100\n").encode()
+            f.write(blob)
+    return reporting
+
+
+def _check_tables(tag: str, tables: list, plain: list) -> None:
+    """Every rendered table's labels equal the plain version's labels on
+    the table it rendered."""
+    for k, (table, want) in enumerate(zip(tables, plain, strict=True)):
+        wrong = [(s, lab) for s, lab in table if CLASSES[want[s]] != lab]
+        if wrong or len(table) != 64:
+            raise AssertionError(
+                f"{tag} table {k + 1}: {len(table)} rows, labels differing "
+                f"from the plain version's: {wrong[:5]}")
+
+
+def phase_incremental_serve(model: dict, k, device) -> int:
+    """The forest serve through incremental labels on ``churn_capture``;
+    returns the forest kernel's launches in that run."""
+    from traffic_classifier_sdn_tpu_torch import cli, interop
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+
+    tag = "[incremental Randomforest]"
+    counters = {f: wrapper for f, (wrapper, _) in _kernels().items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, capture = os.path.join(tmp, "ckpt"), os.path.join(tmp, "capture")
+        checkpoint.save_model(ckpt, "forest",
+                              interop.forest_params_from_numpy(model, device),
+                              classes=CLASSES)
+        reporting = churn_capture(capture, CAPACITY)
+        common = ["Randomforest", "--source", "replay", "--capture", capture,
+                  "--capacity", str(CAPACITY), "--print-every", "1",
+                  "--native-checkpoint", ckpt]
+        plain, per_render = [], []
+        render = cli._print_table
+
+        def render_checked(engine, *args):
+            # the plain version's labels on the table about to render, and
+            # the kernel launches of this render tick's labels
+            plain.append(fk.forest_proba_plain(k, engine.features())
+                         .argmax(-1).cpu())
+            before = fk.forest_proba.launches
+            plan = render(engine, *args)
+            per_render.append(fk.forest_proba.launches - before)
+            return plan
+
+        cli._print_table = render_checked
+        try:
+            for c in counters.values():  # count the main path's launches only
+                c.launches = 0
+            out, summary, wall = _serve(
+                common + ["--native-ingest", "on", "--incremental", "auto"])
+            launches = {f: c.launches for f, c in counters.items()}
+        finally:
+            cli._print_table = render
+        ref_out, ref_summary, ref_wall = _serve(
+            common + ["--native-ingest", "off", "--incremental", "off"])
+    plans = summary.render_plans
+    print(f"{tag} conversations reporting per tick {reporting}; "
+          f"{summary.ticks} ticks in {wall:.2f} s, per tick (s): "
+          + ", ".join(f"{s:.3f}" for s in summary.tick_seconds)
+          + "; of which ingest: "
+          + ", ".join(f"{s:.3f}" for s in summary.ingest_seconds))
+    print(f"{tag} label plan per render tick (kind, dirty rows): {plans}; "
+          f"forest kernel launches per render tick: {per_render}")
+    print(f"{tag} the same capture with --incremental off --native-ingest "
+          f"off: {ref_wall:.2f} s, per tick (s): "
+          + ", ".join(f"{s:.3f}" for s in ref_summary.tick_seconds))
+    kinds = [kind for kind, _ in plans]
+    if kinds != ["full", "full", "subset", "none", "subset", "full"]:
+        raise AssertionError(f"{tag} label plans {kinds}")
+    if not summary.engine.native or ref_summary.engine.native:
+        raise AssertionError(f"{tag} --native-ingest was not honoured")
+    if per_render != [int(n > 0) for _, n in plans]:
+        raise AssertionError(
+            f"{tag} forest launches per render tick {per_render}, want one "
+            "on each tick with a dirty row and none on the others")
+    others = {f: n for f, n in launches.items() if f != "forest" and n}
+    if launches["forest"] != sum(per_render) or others:
+        raise AssertionError(f"{tag} kernel launches {launches}")
+    _check_tables(tag, parse_tables(out), plain)
+    if out != ref_out:
+        raise AssertionError(f"{tag} stdout differs from --incremental off "
+                             "--native-ingest off")
+    if summary.engine.num_flows() != CAPACITY or summary.engine.dropped != 1:
+        raise AssertionError(
+            f"{tag} {summary.engine.num_flows()} flows tracked, "
+            f"{summary.engine.dropped} dropped (want {CAPACITY} and 1)")
+    print(f"{tag} every table's labels equal the plain version's; stdout "
+          f"byte-identical to --incremental off --native-ingest off "
+          f"({len(parse_tables(out))} tables)")
+    return launches["forest"]
+
+
+EMITTER = """\
+import sys, time
+ticks = {}
+for line in open(sys.argv[1], "rb"):
+    ticks.setdefault(line.split(b"\\t", 2)[1], []).append(line)
+out = sys.stdout.buffer
+out.write(b"loading app simple_monitor_13.py\\n")
+for lines in ticks.values():
+    out.write(b"".join(lines))
+    out.flush()
+    time.sleep(float(sys.argv[2]))
+"""
+
+
+def phase_ryu_serve(model: dict, k, device) -> int:
+    """The forest serve on ``--source ryu``: a monitor command that prints
+    ``churn_capture``'s ticks to its stdout, paced ``pause`` s apart, read
+    as raw pipe bytes by the native engine. Returns the forest kernel's
+    launches."""
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+
+    tag = "[ryu Randomforest]"
+    pause = 1.0
+    counters = {f: wrapper for f, (wrapper, _) in _kernels().items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, capture = os.path.join(tmp, "ckpt"), os.path.join(tmp, "capture")
+        emitter = os.path.join(tmp, "emitter.py")
+        checkpoint.save_model(ckpt, "forest",
+                              interop.forest_params_from_numpy(model, device),
+                              classes=CLASSES)
+        reporting = churn_capture(capture, CAPACITY)
+        with open(emitter, "w") as f:
+            f.write(EMITTER)
+        lines = sum(2 * n or 1 for n in reporting)
+        for c in counters.values():
+            c.launches = 0
+        out, summary, wall = _serve([
+            "Randomforest", "--source", "ryu", "--monitor-cmd",
+            f"{sys.executable} {emitter} {capture} {pause}",
+            "--native-ingest", "on", "--capacity", str(CAPACITY),
+            "--print-every", "1", "--native-checkpoint", ckpt,
+        ])
+        launches = {f: c.launches for f, c in counters.items()}
+    engine = summary.engine
+    tables = parse_tables(out)
+    plans = summary.render_plans
+    print(f"{tag} {summary.ticks} polls in {wall:.2f} s (ticks paced "
+          f"{pause} s apart); per poll (s): "
+          + ", ".join(f"{s:.3f}" for s in summary.tick_seconds)
+          + "; of which ingest (raw bytes into the native engine, wire "
+          "scatter): " + ", ".join(f"{s:.3f}" for s in summary.ingest_seconds))
+    print(f"{tag} label plan per render tick: {plans}; launches {launches}")
+    if not engine.native or engine.batcher.parsed != lines:
+        raise AssertionError(
+            f"{tag} native={engine.native}, {engine.batcher.parsed} lines "
+            f"parsed, want {lines}")
+    if engine.num_flows() != CAPACITY or engine.dropped != 1:
+        raise AssertionError(f"{tag} {engine.num_flows()} flows tracked, "
+                             f"{engine.dropped} dropped")
+    want = sum(1 for _, n in plans if n)
+    others = {f: n for f, n in launches.items() if f != "forest" and n}
+    if launches["forest"] != want or want == 0 or others:
+        raise AssertionError(f"{tag} kernel launches {launches}, want {want} "
+                             "forest launches (render ticks with a dirty row)")
+    plain = fk.forest_proba_plain(k, engine.features()).argmax(-1).cpu()
+    _check_tables(tag, tables[-1:], [plain])
+    print(f"{tag} {engine.num_flows()} flows tracked from "
+          f"{engine.batcher.parsed} parsed lines, {launches['forest']} "
+          f"forest launches over {len(tables)} render ticks, last table's "
+          "labels equal the plain version's")
+    return launches["forest"]
+
+
+def phase_dirty_buckets(k, device) -> list[dict]:
+    """The forest kernel at every dirty bucket of incremental labels at
+    capacity 65,536, on the first rows of a served table: bitwise equal to
+    its plain version, with single-call and back-to-back times."""
+    from traffic_classifier_sdn_tpu_torch.core import flow_table as ft
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+    from traffic_classifier_sdn_tpu_torch.serving.incremental import (
+        dirty_buckets,
+    )
+
+    X_cap = ft.features12(synthetic_table(CAPACITY, 3, device))
+    out = []
+    for b in dirty_buckets(CAPACITY):
+        X = X_cap[:b].contiguous()
+        err = _forest_equal(k, X, f"dirty bucket {b}")
+        ms = cuda_median_ms(lambda: fk.forest_proba(k, X), TIMED_RUNS)
+        b2b = cuda_back_to_back_ms(lambda: fk.forest_proba(k, X))
+        bound_ms, bound_by = forest_bound(k, X, node_visits(k, X))
+        R = fk.launch_shape(b, k)[0]
+        print(f"[kernels] forest_proba dirty bucket {b}: bitwise equal, "
+              f"kernel {ms:.4f} ms (back to back {b2b:.4f}), bound "
+              f"{bound_ms:.5f} ms ({bound_by}), {R} rows per tile, "
+              f"{fk.blocks(b, R)} blocks")
+        out.append({"rows": b, "max_abs_err": err, "ms": ms,
+                    "back_to_back_ms": b2b, "bound_ms": bound_ms,
+                    "bound_by": bound_by})
+    return out
+
+
+def phase_ingest_breakdown(k, device) -> None:
+    """Host seconds per tick of ``SyntheticFlows(65536)`` (131,072 records)
+    through each ingest spine, and the device time of each step of the
+    incremental label plan at 0, 1, 20 and 100 % churn."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch.core import flow_table as ft
+    from traffic_classifier_sdn_tpu_torch.ingest.batcher import FlowStateEngine
+    from traffic_classifier_sdn_tpu_torch.ingest.replay import SyntheticFlows
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+    from traffic_classifier_sdn_tpu_torch.serving.incremental import (
+        IncrementalLabels,
+    )
+
+    tag = "[breakdown ingest]"
+    ticks = 3
+    syn_r, syn_b = SyntheticFlows(CAPACITY), SyntheticFlows(CAPACITY)
+    records = [syn_r.tick() for _ in range(ticks)]
+    blobs = [syn_b.tick_bytes() for _ in range(ticks)]  # the same telemetry
+    spines = {
+        "Python spine, ingest(records)": (False, records, "ingest"),
+        "native spine, ingest(records)": (True, records, "ingest"),
+        "native spine, ingest_bytes(raw)": (True, blobs, "ingest_bytes"),
+    }
+    features = []
+    for name, (native, batches, method) in spines.items():
+        eng = FlowStateEngine(CAPACITY, device=device, native=native)
+        secs = []
+        for batch in batches:
+            t0 = time.perf_counter()
+            eng.mark_tick()
+            getattr(eng, method)(batch)
+            eng.step()
+            torch.cuda.synchronize(device)
+            secs.append(time.perf_counter() - t0)
+        features.append(eng.features())
+        print(f"{tag} {name}: {len(batch)} "
+              f"{'bytes' if method == 'ingest_bytes' else 'records'} a tick; "
+              "host s per tick (create, update, update): "
+              + ", ".join(f"{s:.4f}" for s in secs))
+    if not all(torch.equal(f.view(torch.int32), features[0].view(torch.int32))
+               for f in features):
+        raise AssertionError(f"{tag} the three spines built different tables")
+
+    tag = "[breakdown incremental]"
+    eng = FlowStateEngine(CAPACITY, device=device, native=True,
+                          track_dirty=True)
+    syn = SyntheticFlows(CAPACITY)
+    inc = IncrementalLabels(eng, fk.predict, k)
+    for _ in range(2):
+        eng.ingest_bytes(syn.tick_bytes())
+        eng.step()
+    inc.labels()  # the first render predicts the whole table
+    for churn in (0.0, 0.01, 0.2, 1.0):
+        syn.churn = churn
+        eng.mark_tick()
+        eng.ingest_bytes(syn.tick_bytes())
+        eng.step()
+        mask = eng.dirty.clone()
+        n = int(ft.dirty_count(mask))
+        bucket = next((b for b in inc.buckets if n <= b), None)
+        steps = {"count": lambda: ft.dirty_count(mask)}
+        if n and bucket:
+            idx = ft.compact_dirty(mask, bucket)
+            Xd = ft.features12_at(eng.table, idx)
+            labels = fk.predict(k, Xd)
+            cache = inc._cache.clone()
+            steps.update({
+                "compact": lambda: ft.compact_dirty(mask, bucket),
+                "gather": lambda: ft.features12_at(eng.table, idx),
+                f"predict ({bucket} rows)": lambda: fk.predict(k, Xd),
+                "merge": lambda: ft.merge_labels(cache, idx, labels),
+            })
+        elif n:
+            X = ft.features12(eng.table)
+            steps.update({
+                "features12": lambda: ft.features12(eng.table),
+                f"predict ({CAPACITY} rows)": lambda: fk.predict(k, X),
+            })
+        ms = {name: cuda_median_ms(fn, TIMED_RUNS) for name, fn in steps.items()}
+        host = []
+        for _ in range(10):
+            eng.dirty.copy_(mask)
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            inc.labels()
+            torch.cuda.synchronize(device)
+            host.append((time.perf_counter() - t0) * 1e3)
+        full = cuda_median_ms(
+            lambda: fk.predict(k, ft.features12(eng.table)), TIMED_RUNS)
+        print(f"{tag} churn {churn:.0%}: {n} dirty rows; device ms "
+              + ", ".join(f"{name} {t:.4f}" for name, t in ms.items())
+              + f" (sum {sum(ms.values()):.4f}); the whole label step "
+              f"(host clock, with its one sync) {statistics.median(host):.4f} "
+              f"ms; full re-predict (features12 + predict) {full:.4f} ms")
 
 
 def render_breakdown(engine, family: str, g, device) -> None:
@@ -825,14 +1188,22 @@ KERNEL_ROWS = {
 }
 
 
-def kernel_entries(results: dict, launches: dict) -> list[dict]:
+def kernel_entries(results: dict, launches: dict, paths: dict | None = None,
+                   buckets: list | None = None) -> list[dict]:
     """The ``{"kernels": [...]}`` entries: each kernel's numbers at the
-    main path's 65,536 rows, its launches in the serve, and every size
-    under ``by_rows``."""
+    main path's 65,536 rows, its launches in the serve, every size under
+    ``by_rows``, its launches on each path driven (``paths``: {path:
+    {family: launches}}) and, for the forest, each dirty bucket
+    (``buckets``)."""
     kernels = []
     for family, (name, source, replaces) in KERNEL_ROWS.items():
         by_rows = results[family]
         main_path = by_rows[CAPACITY]
+        extra = {"launches_by_path": {
+            path: n[family] for path, n in (paths or {}).items()
+        }}
+        if family == "forest" and buckets:
+            extra["by_dirty_bucket"] = buckets
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -848,6 +1219,7 @@ def kernel_entries(results: dict, launches: dict) -> list[dict]:
             "library_ms": None,
             "rows": CAPACITY,
             "by_rows": [by_rows[n] for n in SHAPES],
+            **extra,
         })
     return kernels
 
@@ -872,11 +1244,22 @@ def main() -> int:
     device = torch.device("cuda")
     INSTANCES.update(phase_build())
     models, ops, results = phase_kernels(device)
+    buckets = phase_dirty_buckets(ops["forest"], device)
     launches = {
         family: phase_serve(family, models[family], ops[family], device)
         for family in SERVES
     }
-    kernels = kernel_entries(results, launches)
+    paths = {f"serve {SERVES[f][0]}": {g: int(f == g) * n for g in SERVES}
+             for f, n in launches.items()}
+    paths["incremental Randomforest"] = {
+        "forest": phase_incremental_serve(models["forest"], ops["forest"],
+                                          device),
+        "knn": 0, "svc": 0}
+    paths["ryu Randomforest"] = {
+        "forest": phase_ryu_serve(models["forest"], ops["forest"], device),
+        "knn": 0, "svc": 0}
+    phase_ingest_breakdown(ops["forest"], device)
+    kernels = kernel_entries(results, launches, paths, buckets)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,10 +3,13 @@ CUDA card): the seeded forest, KNN and SVC have the reference checkpoints'
 shapes, the bulk synthetic table equals the one the Python ingest path
 builds, the table parser reads what the CLI prints, the node-visit count
 matches a walk, the bounds follow their operation counts, the plain-label
-helpers agree with the serving predicts, and the script refuses to run
-without a card."""
+helpers agree with the serving predicts, the churn capture and its
+emitter carry the schedule, and the script refuses to run without a
+card."""
 
 import dataclasses
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -184,6 +187,44 @@ def test_kernel_entries_carry_every_key():
         assert e["launches"] == 3 and e["route"] == "cuda"
         assert [r["back_to_back_ms"] for r in e["by_rows"]] == [
             n * 5e-7 for n in chip_smoke.SHAPES]
+
+
+def test_kernel_entries_carry_paths_and_buckets():
+    results = {
+        family: {n: {"max_abs_err": 0.0, "ms": 1.0, "back_to_back_ms": 1.0,
+                     "plain_ms": 1.0, "bound_ms": 1e-3, "bound_by": "bytes"}
+                 for n in chip_smoke.SHAPES}
+        for family in chip_smoke.KERNEL_ROWS
+    }
+    paths = {"serve Randomforest": {"forest": 3, "knn": 0, "svc": 0},
+             "incremental Randomforest": {"forest": 5, "knn": 0, "svc": 0}}
+    buckets = [{"rows": 16, "ms": 0.01}]
+    entries = chip_smoke.kernel_entries(results, {"forest": 3, "knn": 3,
+                                                  "svc": 3}, paths, buckets)
+    assert entries[0]["launches_by_path"] == {
+        "serve Randomforest": 3, "incremental Randomforest": 5}
+    assert entries[0]["by_dirty_bucket"] == buckets
+    assert entries[1]["launches_by_path"]["incremental Randomforest"] == 0
+    assert "by_dirty_bucket" not in entries[1]
+
+
+def test_churn_capture_and_its_emitter(tmp_path):
+    """The capture holds the schedule's share of the conversations per
+    tick (both directions), one line of an outside conversation on the
+    0 % tick, and the emitter prints it, after one log line."""
+    path = tmp_path / "capture"
+    reporting = chip_smoke.churn_capture(str(path), 200)
+    assert reporting == [200, 200, 2, 0, 40, 200]
+    lines = path.read_bytes().splitlines(True)
+    times = [int(line.split(b"\t")[1]) for line in lines]
+    assert [times.count(t) for t in range(1, 7)] == [400, 400, 4, 1, 80, 400]
+    outside = lines[times.index(4)].split(b"\t")[4].decode()
+    assert outside == SyntheticFlows(200)._mac(200, 0)
+    emitter = tmp_path / "emitter.py"
+    emitter.write_text(chip_smoke.EMITTER)
+    out = subprocess.run([sys.executable, str(emitter), str(path), "0"],
+                         capture_output=True, timeout=60, check=True).stdout
+    assert out == b"loading app simple_monitor_13.py\n" + path.read_bytes()
 
 
 def test_main_refuses_without_cuda(monkeypatch, capsys):

@@ -377,3 +377,137 @@ def test_kernels_generic_instances_bitwise(cuda):
     for r in rk.ROWS_PER_BLOCK:
         got = rk._launch(gs, Xc, None, r)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), r
+
+
+def _dirty_engines(cuda, churn_schedule=(1.0, 1.0, 0.03, 0.4)):
+    """Engines on the CPU and on the card (native ingest, dirty tracking)
+    after the same churned ticks, the masks cleared before the last; and
+    their telemetry sources."""
+    from traffic_classifier_sdn_tpu_torch.ingest.batcher import FlowStateEngine
+
+    engines = {d: FlowStateEngine(4096, device=d, native=True,
+                                  track_dirty=True) for d in ("cpu", cuda)}
+    syn = {d: SyntheticFlows(n_flows=4000, seed=6) for d in engines}
+    for i, churn in enumerate(churn_schedule):
+        for d, eng in engines.items():
+            if i == len(churn_schedule) - 1:
+                eng.dirty.zero_()
+            syn[d].churn = churn
+            eng.ingest_bytes(syn[d].tick_bytes())
+            eng.step()
+    return engines["cpu"], engines[cuda], syn
+
+
+def test_dirty_tracking_on_card_equals_cpu(cuda):
+    """The dirty-fused scatter, eviction's dirty bits, the count, the
+    compaction at every bucket, the dirty-row gather, the label-cache
+    scatter and the packed stale scan: bitwise the CPU's."""
+    from traffic_classifier_sdn_tpu_torch.serving.incremental import (
+        dirty_buckets,
+    )
+
+    a, b, _ = _dirty_engines(cuda)
+    assert torch.equal(a.dirty, b.dirty.cpu())
+    assert torch.equal(a.features(), b.features().cpu())
+    n = int(ft.dirty_count(b.dirty))
+    assert n == int(ft.dirty_count(a.dirty)) > 0
+    for bucket in dirty_buckets(4096):
+        ia, ib = ft.compact_dirty(a.dirty, bucket), ft.compact_dirty(b.dirty, bucket)
+        assert torch.equal(ia, ib.cpu()), bucket
+        Xa, Xb = ft.features12_at(a.table, ia), ft.features12_at(b.table, ib)
+        assert torch.equal(Xa.view(torch.int32), Xb.view(torch.int32).cpu())
+        labels = torch.arange(bucket, dtype=torch.int32) % 6
+        ca = ft.merge_labels(torch.zeros(4097, dtype=torch.int32), ia, labels)
+        cb = ft.merge_labels(torch.zeros(4097, dtype=torch.int32, device=cuda),
+                             ib, labels.to(cuda))
+        assert torch.equal(ca[:-1], cb[:-1].cpu())
+    slots = np.array([3, 70, 4095], np.int64)
+    assert a.evict_slots(slots) == b.evict_slots(slots) == 3
+    assert torch.equal(a.dirty, b.dirty.cpu()) and bool(b.dirty[70])
+    for now, idle in ((4, 1), (9, 3)):
+        assert torch.equal(ft.stale_bits(a.table, now, idle),
+                           ft.stale_bits(b.table, now, idle).cpu())
+
+
+def test_incremental_labels_on_card_equal_cpu(cuda):
+    """The label cache on the card, through the forest kernel on dirty
+    subsets, equals the CPU's plain-version cache and a full predict."""
+    from traffic_classifier_sdn_tpu_torch.serving.incremental import (
+        IncrementalLabels,
+    )
+
+    a, b, syn = _dirty_engines(cuda, churn_schedule=(1.0,))
+    d = chip_smoke.random_forest(0, a.features().numpy()[:4000], n_trees=24)
+    k = {"cpu": fk.compile_forest(d, n_features=12, device="cpu"),
+         cuda: fk.compile_forest(d, n_features=12, device=cuda)}
+    inc = {"cpu": IncrementalLabels(a, fk.predict, k["cpu"]),
+           cuda: IncrementalLabels(b, fk.predict, k[cuda])}
+    for churn in (0.0, 0.003, 0.05, 0.2, 1.0):
+        labels = {}
+        for dev, eng in (("cpu", a), (cuda, b)):
+            syn[dev].churn = churn
+            eng.ingest_bytes(syn[dev].tick_bytes())
+            eng.step()
+            launches = fk.forest_proba.launches
+            plan = inc[dev].dispatch()
+            labels[dev] = inc[dev].finish(plan)
+        # the card's plan launches the kernel once, unless nothing is dirty
+        assert fk.forest_proba.launches - launches == (plan.kind != "none")
+        assert torch.equal(labels["cpu"], labels[cuda].cpu()), churn
+        assert torch.equal(labels[cuda], fk.predict(k[cuda], b.features()))
+
+
+def test_forest_kernel_every_dirty_bucket_bitwise(cuda):
+    """The forest kernel on dirty-row gathers of every bucket of capacity
+    65,536 (16 to 16,384 rows, padding rows included): bitwise its plain
+    version, one launch each."""
+    from traffic_classifier_sdn_tpu_torch.serving.incremental import (
+        dirty_buckets,
+    )
+
+    table = chip_smoke.synthetic_table(65536, 3, cuda)
+    X = ft.features12(table)
+    sample = X[::16][:4096].cpu().numpy()
+    k = fk.compile_forest(chip_smoke.random_forest(0, sample), n_features=12,
+                          device=cuda)
+    rng = np.random.RandomState(1)
+    for bucket in dirty_buckets(65536):
+        dirty = torch.zeros(65537, dtype=torch.bool)
+        dirty[rng.choice(65536, bucket - bucket // 8, replace=False)] = True
+        idx = ft.compact_dirty(dirty.to(cuda), bucket)
+        Xd = ft.features12_at(table, idx)
+        launches = fk.forest_proba.launches
+        got = fk.forest_proba(k, Xd)
+        assert fk.forest_proba.launches == launches + 1
+        want = fk.forest_proba_plain(k, Xd)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), bucket
+
+
+def test_label_plan_waits_for_the_device_once(cuda):
+    """A subset plan (count, compaction, gather, the forest kernel, the
+    cache merge) waits for the card once: the dirty count's fetch."""
+    import warnings
+
+    from traffic_classifier_sdn_tpu_torch.serving.incremental import (
+        IncrementalLabels,
+    )
+
+    a, b, syn = _dirty_engines(cuda, churn_schedule=(1.0,))
+    d = chip_smoke.random_forest(0, a.features().numpy()[:4000], n_trees=24)
+    inc = IncrementalLabels(b, fk.predict,
+                            fk.compile_forest(d, n_features=12, device=cuda))
+    inc.labels()  # the first render predicts the whole table
+    syn[cuda].churn = 0.01
+    b.ingest_bytes(syn[cuda].tick_bytes())
+    b.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            plan = inc.dispatch()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert plan.kind == "subset" and plan.n_dirty == 40
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, syncs

@@ -12,8 +12,10 @@ tile, with as many trees per stage as fit; KNN rows per warp; SVC rows
 per block) against the plain version on the card
 (bitwise), times each one (CUDA-event median of 20 calls, the best of 3
 such medians), and names the shape the wrapper chooses and the fastest.
-For the forest it first prints the host time of a wrapper call at 777
-rows and of two of its parts (host clock over 2,000 calls).
+It first prints the host time of one call of each selected kernel's
+wrapper at 16 and 777 rows (the smallest dirty bucket of incremental
+labels, and a size below a wave), and of two parts of the forest's at 777
+rows (host clock, median of 2,000 calls, each from an idle device).
 The default sizes include one at which each shape is the one chosen:
 forest 32 rows per tile at 33 to 6,000 rows, 128 at 12,000 and 65,536,
 1024 (a thread per row) at 131,072 and 2^20; KNN 1 row per warp at 33
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -87,27 +90,42 @@ def sweep_forest(k, X: torch.Tensor) -> int:
 
 
 def host_us(fn, calls: int = 2000) -> float:
-    """Host time of one call of ``fn`` in microseconds: ``calls`` calls on
-    the host clock, the device synchronized before and not waited for
-    within (a launch returns once it is queued)."""
+    """Host time of one call of ``fn`` in microseconds: the median over
+    ``calls`` calls, each on the host clock from an idle device
+    (synchronized before the call and not waited for within it: a launch
+    returns once it is queued). One call at a time, so a full launch
+    queue never makes the host wait for the device."""
     for _ in range(100):
         fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    times = []
     for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
-    t1 = time.perf_counter()
+        times.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    return (t1 - t0) / calls * 1e6
+    return statistics.median(times) * 1e6
+
+
+HOST_ROWS = (16, 777)
+
+
+def host_work(wrappers: dict, X_cap: torch.Tensor) -> None:
+    """Prints the host time of one call of each wrapper (name → fn(X)) on
+    the first rows of X_cap, at each size of ``HOST_ROWS``."""
+    for N in HOST_ROWS:
+        X = X_cap[:N].contiguous()
+        times = ", ".join(f"{name} {host_us(lambda: fn(X)):.2f} us"
+                          for name, fn in wrappers.items())
+        print(f"host work of one wrapper call at N={N}: {times}")
 
 
 def forest_host_work(k, X: torch.Tensor) -> None:
-    """Prints the host time of a forest wrapper call on X and of two of its
-    parts: the output's allocation and the current stream's raw handle,
-    beside what building the Python Stream object would cost."""
+    """Prints the host time of two parts of a forest wrapper call on X:
+    the output's allocation and the current stream's raw handle, beside
+    what building the Python Stream object would cost."""
     N, dev = X.shape[0], X.device
     parts = {
-        "forest_proba": lambda: fk.forest_proba(k, X),
         "torch.empty of the output": lambda: torch.empty(
             (N, k.n_classes), dtype=torch.float32, device=dev),
         "raw stream handle": lambda: torch._C._cuda_getCurrentRawStream(
@@ -153,6 +171,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
          "-lms", "500"], stdout=subprocess.PIPE, text=True)
     failed = 0
+    wrappers = {  # kernel → (wrapper name, call)
+        "forest": ("forest_proba", lambda X: fk.forest_proba(gf, X)),
+        "knn": ("topk_sim_idx", lambda X: kk.topk_sim_idx(gk, X)),
+        "svc": ("partial_decision", lambda X: rk.partial_decision(gs, X)),
+    }
+    host_work(dict(w for name, w in wrappers.items() if name in kernels),
+              X_cap)
     if "forest" in kernels:
         forest_host_work(gf, X_cap[:777].contiguous())
     for N in sizes:

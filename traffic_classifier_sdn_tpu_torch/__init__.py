@@ -7,8 +7,9 @@ JAX package; where it needs code from a jax-free module there, it keeps
 its own copy.
 
 It covers the serial ``Randomforest``, ``knearest`` and ``svm`` classify
-serves: Python ingest, a full-table predict through a hand-written CUDA
-kernel (``csrc/forest_proba.cu``, ``csrc/knn_topk.cu``,
-``csrc/rbf_decision.cu``), and the activity-ranked render. Entry points
-run on CUDA unless the caller asks for the CPU.
+serves: the monitor pipe or a replay/synthetic source, the C++ ingest
+engine (``native/``) or the Python batcher, incremental labels predicted
+through a hand-written CUDA kernel (``csrc/forest_proba.cu``,
+``csrc/knn_topk.cu``, ``csrc/rbf_decision.cu``), and the activity-ranked
+render. Entry points run on CUDA unless the caller asks for the CPU.
 """

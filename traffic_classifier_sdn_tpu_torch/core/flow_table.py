@@ -23,6 +23,8 @@ Numerical design — exact semantics without float64:
 Row ``capacity`` is reserved as a scratch row so fixed-shape update
 batches can pad harmlessly. Functions return new tables (the JAX
 reference is functional); the serving engine rebinds ``engine.table``.
+The incremental path's dirty mask and label cache are updated in place
+(JAX donates them), and returned for the same rebinding.
 """
 
 from __future__ import annotations
@@ -169,10 +171,47 @@ def widen_wire(w: np.ndarray) -> np.ndarray:
     return out
 
 
+class WireStage:
+    """Reusable host staging for packed wire batches — the zero-copy half
+    of native ingest (native/engine.NativeBatcher.flush_wire): the C++
+    engine writes each flushed generation straight into one of these
+    buffers in the ``pack_wire`` layout, and the view handed back goes to
+    ``apply_wire`` untouched. Two rotating buffers: the previous flush's
+    view, whose copy to the device may still be in flight, is never
+    overwritten by the next flush (the engine's staging guard covers the
+    flush after that). Buffers are flat 32-bit words so one allocation
+    serves both wire widths. With ``pin`` (an engine on CUDA) they are
+    page-locked, so the copy to the card can be asynchronous."""
+
+    def __init__(self, max_rows: int, pin: bool = False):
+        self._bufs = tuple(
+            torch.empty(max_rows * 6, dtype=torch.int32, pin_memory=pin)
+            for _ in range(2)
+        )
+        self._views = tuple(b.numpy().view(np.uint32) for b in self._bufs)
+        self._i = 0
+
+    def buffer(self) -> np.ndarray:
+        """The buffer the NEXT flush writes into (flat uint32)."""
+        return self._views[self._i]
+
+    def view(self, rows: int, width: int) -> np.ndarray:
+        """Consume the current buffer as a (rows, width) wire matrix and
+        rotate — the caller owns the view until the flush after next."""
+        buf = self._views[self._i]
+        self._i ^= 1
+        return buf[: rows * width].reshape(rows, width)
+
+
 def wire_tensor(w: np.ndarray, device) -> torch.Tensor:
     """A host uint32 wire matrix as an int32 bit-pattern tensor on
-    ``device`` (torch has no general uint32 arithmetic)."""
-    return torch.from_numpy(np.ascontiguousarray(w).view(np.int32)).to(device)
+    ``device`` (torch has no general uint32 arithmetic). The copy to a
+    card does not block the host; from pageable memory CUDA has taken the
+    bytes by the time it returns, from a pinned ``WireStage`` buffer the
+    caller keeps the buffer until the copy is done."""
+    return torch.from_numpy(np.ascontiguousarray(w).view(np.int32)).to(
+        device, non_blocking=True
+    )
 
 
 def _u32_to_f32(lo: torch.Tensor) -> torch.Tensor:
@@ -205,6 +244,29 @@ def apply_wire(table: FlowTable, w: torch.Tensor) -> FlowTable:
     """``apply_batch`` over the packed wire tensor — the serving spine's
     per-flush entry point: one host→device buffer per batch."""
     return apply_batch(table, unpack_wire(w))
+
+
+def mark_dirty_wire(dirty: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Set the dirty bit of every slot a packed wire batch touches, in
+    place, and return the mask.
+
+    ``dirty`` is the per-slot (capacity+1,) bool mask behind incremental
+    prediction (serving/incremental.py): the ingest scatter is the only
+    thing that changes a row's 12 serving features, so the slots in the
+    wire are exactly the rows whose cached labels went stale. Padding
+    rows carry the scratch slot and land on the scratch bit, which no
+    reader consults."""
+    dirty[(w[:, 0] & _SLOT_MASK).to(torch.int64)] = True
+    return dirty
+
+
+def apply_wire_dirty(
+    table: FlowTable, dirty: torch.Tensor, w: torch.Tensor
+) -> tuple[FlowTable, torch.Tensor]:
+    """``apply_wire`` with the dirty-bit scatter of the same wire: one
+    wire transfer covers the table update and the staleness
+    bookkeeping."""
+    return apply_batch(table, unpack_wire(w)), mark_dirty_wire(dirty, w)
 
 
 def _inverse_index(mask, slot, n: int) -> torch.Tensor:
@@ -369,11 +431,87 @@ def clear_slots(table: FlowTable, slot: torch.Tensor) -> FlowTable:
     )
 
 
+def clear_slots_dirty(
+    table: FlowTable, dirty: torch.Tensor, slot: torch.Tensor
+) -> tuple[FlowTable, torch.Tensor]:
+    """``clear_slots`` with cache invalidation: an evicted slot's features
+    drop to zero, so its cached label is stale and its dirty bit comes up
+    (in place) with the clear. A reassigned slot would be marked by its
+    create scatter anyway; this covers the window where it sits empty."""
+    return clear_slots(table, slot), mark_dirty_slots(dirty, slot)
+
+
+def mark_dirty_slots(dirty: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """Set the dirty bit of an explicit slot batch (padded with the
+    scratch slot), in place — the re-invalidation path."""
+    dirty[slot.to(torch.int64)] = True
+    return dirty
+
+
+def dirty_count(dirty: torch.Tensor) -> torch.Tensor:
+    """Number of set dirty bits outside the scratch row, a 0-d int32
+    tensor on the mask's device — the one scalar the host fetches per
+    render tick to pick a compaction bucket."""
+    return dirty[:-1].sum(dtype=torch.int32)
+
+
+def compact_dirty(dirty: torch.Tensor, bucket: int) -> torch.Tensor:
+    """(bucket,) int32 indices of the dirty rows (scratch excluded),
+    ascending, padded with ``capacity`` — the static-shape compaction of
+    ``jnp.nonzero(size=bucket, fill_value=capacity)``, and like it keeping
+    the first ``bucket`` rows when more are dirty. ``nonzero_static`` has
+    a static shape, so nothing waits for the device (``torch.nonzero``
+    would)."""
+    n = dirty.shape[0] - 1
+    idx = torch.nonzero_static(dirty[:-1], size=bucket, fill_value=n)
+    return idx[:, 0].to(torch.int32)
+
+
+def features12_at(table: FlowTable, idx: torch.Tensor) -> torch.Tensor:
+    """(len(idx), 12) feature rows of exactly the given slots — the
+    dirty-set gather: ``features12(table)[idx]``, the same
+    ``_feature12_cols`` and in-use zeroing, so a dirty-set predict is
+    bitwise a full-table one's on those rows. The columns are stacked for
+    the whole table and then gathered once: on the card one gather costs
+    less than twelve. Padding entries (``idx == capacity``) read the
+    scratch row: never in use, so they project to zeros, and their labels
+    land on the label cache's scratch entry (``merge_labels``)."""
+    idx = idx.to(torch.int64)
+    X = torch.stack(_feature12_cols(table), dim=1)[idx]
+    return torch.where(table.in_use[idx, None], X, torch.zeros_like(X))
+
+
+def merge_labels(cache: torch.Tensor, idx: torch.Tensor,
+                 labels: torch.Tensor) -> torch.Tensor:
+    """Scatter the dirty rows' fresh labels into the label cache, in
+    place, and return it. The cache has ``capacity + 1`` entries: padding
+    indices (``idx == capacity``) write the last one, which readers never
+    see (they read ``cache[:capacity]``) — the port's form of JAX's
+    out-of-bounds ``mode="drop"``, which torch indexing does not have."""
+    cache[idx.to(torch.int64)] = labels
+    return cache
+
+
 def stale_mask(table: FlowTable, now: int, idle_seconds: int) -> torch.Tensor:
     """(capacity+1,) bool: in-use slots with no telemetry in either
     direction for ``idle_seconds``."""
     last = torch.maximum(table.fwd.last_time, table.rev.last_time)
     return table.in_use & (now - last >= idle_seconds)
+
+
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def stale_bits(table: FlowTable, now: int, idle_seconds: int) -> torch.Tensor:
+    """Bit-packed ``stale_mask``, as ``np.packbits`` packs it (big-endian
+    within each byte, the last byte zero-padded): the eviction scan's one
+    device-to-host transfer shrinks 8×. The host unpacks it with
+    ``np.unpackbits(count=capacity + 1)``."""
+    m = stale_mask(table, now, idle_seconds)
+    pad = -m.shape[0] % 8
+    m = torch.cat([m, m.new_zeros(pad)]).view(-1, 8).to(torch.uint8)
+    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=m.device)
+    return (m * w).sum(1, dtype=torch.uint8)
 
 
 def _activity_score(table: FlowTable, floor: int) -> torch.Tensor:

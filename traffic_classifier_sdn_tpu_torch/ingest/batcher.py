@@ -1,24 +1,27 @@
 """Host-side control plane: slot assignment, direction folding, and padded
-update batches for the device flow table — the Python ingest path of
+update batches for the device flow table — the port of
 ``traffic_classifier_sdn_tpu/ingest/batcher.py``.
 
 The host only decides *where* each record goes (slot index + direction +
 create flag); all counter math happens on the device in
-``flow_table.apply_batch``. Batches are padded to bucketed sizes so the
-wire shapes stay few and fixed, as in the JAX spine.
+``flow_table.apply_batch``. Two spines do that: the Python ``FlowIndex``
++ ``Batcher`` here, and the C++ engine of native/ (``native=True``), which
+also takes raw monitor bytes. Both feed the same wire scatter. Batches are
+padded to bucketed sizes so the wire shapes stay few and fixed, as in the
+JAX spine.
 """
 
 from __future__ import annotations
 
 from collections.abc import Iterable, Sequence
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
 from ..core import flow_table as ft
 from ..device import resolve_device
-from .protocol import TelemetryRecord, stable_flow_key
+from .protocol import PREFIX, TelemetryRecord, parse_line, stable_flow_key
 
 _U32 = np.uint64(0xFFFFFFFF)
 
@@ -41,12 +44,14 @@ class SlotAssignment:
 class FlowIndex:
     """key → slot map with direction folding (reference :157-165). Keys
     are namespaced by the record's telemetry source
-    (``protocol.stable_flow_key(source=)``)."""
+    (``protocol.stable_flow_key(source=)``); ``slot_source`` remembers the
+    namespace of each slot outside the default one (source 0)."""
 
     capacity: int
     key_to_slot: dict = field(default_factory=dict)
     slot_to_key: dict = field(default_factory=dict)
     slot_meta: dict = field(default_factory=dict)  # slot → (src, dst) for UI
+    slot_source: dict = field(default_factory=dict)  # slot → source id
     free: list = field(default_factory=list)
     next_slot: int = 0
 
@@ -73,13 +78,23 @@ class FlowIndex:
         self.key_to_slot[key] = slot
         self.slot_to_key[slot] = key
         self.slot_meta[slot] = (r.eth_src, r.eth_dst)
+        if r.source:
+            self.slot_source[slot] = r.source
         return SlotAssignment(slot, True, True)
+
+    def slots_for_source(self, source: int) -> list[int]:
+        """Every live slot in ``source``'s namespace. Source 0 (the
+        default namespace) is the complement of the tagged slots."""
+        if source:
+            return [s for s, sid in self.slot_source.items() if sid == source]
+        return [s for s in self.slot_to_key if s not in self.slot_source]
 
     def release_slot(self, slot: int) -> None:
         key = self.slot_to_key.pop(slot, None)
         if key is not None:
             self.key_to_slot.pop(key, None)
             self.slot_meta.pop(slot, None)
+            self.slot_source.pop(slot, None)
             self.free.append(slot)
 
     def release_slots(self, slots) -> None:
@@ -172,13 +187,32 @@ class Batcher:
 
 class HostSpine:
     """The host half of a serving spine — batcher/index wiring, record
-    ingest, the tick clock, and slot-metadata lookups.
-    ``FlowStateEngine`` owns the device half. Subclass must call
-    ``_init_spine`` and define ``step()``."""
+    and raw-byte ingest (native C++ or the Python batcher), the tick
+    clock, and slot-metadata lookups. ``FlowStateEngine`` owns the device
+    half. Subclass must call ``_init_spine`` and define ``step()``."""
 
-    def _init_spine(self, capacity: int, buckets) -> None:
-        self.index = FlowIndex(capacity)
-        self.batcher = Batcher(self.index, buckets)
+    def _init_spine(self, capacity: int, buckets, native: bool,
+                    pin: bool = False) -> None:
+        self.native = native
+        if native:
+            from ..native.engine import NativeBatcher
+
+            self.index = None
+            self.batcher = NativeBatcher(capacity, buckets, pin=pin)
+        else:
+            self.index = FlowIndex(capacity)
+            self.batcher = Batcher(self.index, buckets)
+        self.buckets = tuple(buckets)
+        # partial lines carried across ingest_bytes calls, per source: one
+        # source's half line is never completed by another source's bytes
+        # (the native engine keeps the same map)
+        self._tails: dict[int, bytes] = {}
+        # native flushes whose wire copy may be in flight — the step()
+        # staging guard's state, kept across calls
+        self._staged_flushes = 0
+        # malformed telemetry lines of the Python parser, per source — the
+        # counterpart of the C++ engine's counters
+        self._parse_errors: dict[int, int] = {}
         self._last_time = 0
         # freshness floor for the activity-ranked render sample
         self._tick_floor = 0
@@ -196,9 +230,48 @@ class HostSpine:
             n += 1
         return n
 
+    def ingest_bytes(self, data: bytes, source: int = 0) -> int:
+        """Bulk raw-byte ingest (monitor pipe chunks). On the native path
+        no line crosses into Python; the fallback parses each line with
+        ``protocol.parse_line``. ``source`` is the namespace the bytes
+        belong to (0 = the default). Returns records parsed."""
+        if self.native:
+            return self.batcher.feed(data, source)
+        data = self._tails.get(source, b"") + data
+        # split on \n only, the native engine's framing; the last part is
+        # the partial-line tail
+        parts = data.split(b"\n")
+        self._tails[source] = parts.pop()
+        n = 0
+        for line in parts:
+            r = parse_line(line + b"\n")
+            if r is not None:
+                if source:
+                    r = replace(r, source=source)
+                self.ingest([r])
+                n += 1
+            elif line.startswith(PREFIX):
+                # telemetry-shaped but unparseable: malformed, as the C++
+                # engine counts it (noise lines are free)
+                self._parse_errors[source] = (
+                    self._parse_errors.get(source, 0) + 1
+                )
+        return n
+
+    def parse_errors(self, source: int | None = None) -> int:
+        """Malformed telemetry lines rejected by the parser (in total, or
+        of one source) — the native and Python paths count alike."""
+        if self.native:
+            return self.batcher.parse_errors(source)
+        if source is None:
+            return sum(self._parse_errors.values())
+        return self._parse_errors.get(source, 0)
+
     @property
     def last_time(self) -> int:
         """Max telemetry timestamp ingested — the idle-eviction clock."""
+        if self.native:
+            return max(self._last_time, self.batcher.last_time)
         return self._last_time
 
     @property
@@ -207,6 +280,8 @@ class HostSpine:
 
     def num_flows(self) -> int:
         """Tracked (in-use) flow count — O(1) host work."""
+        if self.native:
+            return self.batcher.num_flows()
         return len(self.index.slot_meta)
 
     def mark_tick(self) -> None:
@@ -222,6 +297,13 @@ class HostSpine:
 
     def _slot_meta_for(self, slots) -> dict:
         """slot → (eth_src, eth_dst) for exactly the given slots."""
+        if self.native:
+            out = {}
+            for s in slots:
+                meta = self.batcher.slot_meta(int(s))
+                if meta is not None:
+                    out[int(s)] = meta
+            return out
         return {
             int(s): self.index.slot_meta[s]
             for s in slots
@@ -233,14 +315,33 @@ class HostSpine:
 
 
 class FlowStateEngine(HostSpine):
-    """The host↔device ingest spine: records in, feature matrix out. The
-    table lives on ``device`` (default CUDA, see device.py); every flush
-    crosses as one packed wire."""
+    """The host↔device ingest spine: records or raw bytes in, feature
+    matrix out. The table lives on ``device`` (default CUDA, see
+    device.py); every flush crosses as one packed wire. ``native`` routes
+    ingest through the C++ engine (native/engine.py), ``track_dirty``
+    keeps the per-slot dirty mask of incremental labels
+    (serving/incremental.py)."""
 
-    def __init__(self, capacity: int, buckets=DEFAULT_BUCKETS, device=None):
+    def __init__(self, capacity: int, buckets=DEFAULT_BUCKETS, device=None,
+                 native: bool = False, track_dirty: bool = False):
         self.device = resolve_device(device)
         self.table = ft.make_table(capacity, self.device)
-        self._init_spine(capacity, buckets)
+        self.dirty = None
+        on_card = self.device.type == "cuda"
+        # recorded after each staged wire copy: the staging guard waits on
+        # it, not on the whole device
+        self._staged = torch.cuda.Event() if on_card else None
+        self._init_spine(capacity, buckets, native, pin=on_card)
+        if track_dirty:
+            self.enable_dirty_tracking()
+
+    def enable_dirty_tracking(self) -> None:
+        """Start keeping the per-slot dirty mask that incremental labels
+        read. It starts all dirty: whatever the table already holds
+        predates the label cache, so the first render predicts it all."""
+        self.dirty = torch.ones(
+            self.table.capacity + 1, dtype=torch.bool, device=self.device
+        )
 
     def render_sample(self, labels: torch.Tensor, n: int) -> list[tuple]:
         """Activity-ranked render rows with O(n) host transfer:
@@ -265,20 +366,57 @@ class FlowStateEngine(HostSpine):
         exactly ``slots``."""
         if slots is not None:
             return self._slot_meta_for(slots)
-        return dict(self.index.slot_meta)
+        if not self.native:
+            return dict(self.index.slot_meta)
+        in_use = self.table.in_use[:-1].cpu().numpy()
+        return self._slot_meta_for(np.nonzero(in_use)[0])
 
     def step(self) -> bool:
         """Flush all pending records into the device table; False if idle.
-        Loops because one tick can exceed the largest batch bucket."""
+        Loops because one tick can exceed the largest batch bucket.
+
+        Native path: the C++ engine writes each generation in the packed
+        wire layout into the double-buffered staging (``flush_wire``), and
+        the wire goes to ``apply_wire`` as it is. The Python batcher keeps
+        the record-object route. Both feed the same scatter (the
+        dirty-tracking one when the label cache is live)."""
         applied = False
+        if self.native:
+            # gated on pending records, so the guard runs only ahead of a
+            # real flush (flush_wire itself writes the staging buffer)
+            while len(self.batcher):
+                if self._staged_flushes >= 2:
+                    # flush k reuses flush k-2's buffer, and its copy to
+                    # the card may still be in flight: wait for the last
+                    # staged copy before the C++ side overwrites it. The
+                    # count persists across step() calls because the
+                    # hazard spans ticks.
+                    if self._staged is not None:
+                        self._staged.synchronize()
+                    self._staged_flushes = 0
+                if (w := self.batcher.flush_wire()) is None:
+                    break
+                self._apply_wire(w)
+                if self._staged is not None:
+                    self._staged.record(torch.cuda.current_stream(self.device))
+                self._staged_flushes += 1
+                applied = True
+            return applied
         while (batch := self.batcher.flush()) is not None:
             self._apply_wire(ft.pack_wire(batch))
             applied = True
         return applied
 
     def _apply_wire(self, w: np.ndarray) -> None:
-        """One packed wire batch into the device table."""
-        self.table = ft.apply_wire(self.table, ft.wire_tensor(w, self.device))
+        """One packed wire batch into the device table (with the dirty
+        bits of its slots when the label cache is live)."""
+        wire = ft.wire_tensor(w, self.device)
+        if self.dirty is None:
+            self.table = ft.apply_wire(self.table, wire)
+        else:
+            self.table, self.dirty = ft.apply_wire_dirty(
+                self.table, self.dirty, wire
+            )
 
     def features(self) -> torch.Tensor:
         """(capacity, 12) device feature matrix (classifier input)."""
@@ -290,27 +428,62 @@ class FlowStateEngine(HostSpine):
         # Flush pending records first: device last_time must be current,
         # and no stale pending row may outlive its slot's eviction.
         self.step()
-        stale = ft.stale_mask(self.table, now, idle_seconds)[:-1]
-        return np.nonzero(stale.cpu().numpy())[0]
+        # decided on the device, crossing to the host bit-packed
+        stale = np.unpackbits(
+            ft.stale_bits(self.table, now, idle_seconds).cpu().numpy(),
+            count=self.table.capacity + 1,
+        ).astype(bool)[:-1]
+        return np.nonzero(stale)[0]
 
     def evict_slots(self, slots: np.ndarray) -> int:
         """Release an explicit slot batch chosen by ``stale_slots`` — the
         release half of idle eviction. Returns the evicted count."""
-        step = self.batcher.buckets[-1]
-        capacity = self.table.capacity
-        for i in range(0, slots.size, step):
-            chunk = slots[i: i + step]
-            size = bucket_size(chunk.size, self.batcher.buckets)
-            padded = np.full(size, capacity, np.int64)
-            padded[: chunk.size] = chunk
-            self.table = ft.clear_slots(
-                self.table, torch.from_numpy(padded).to(self.device)
-            )
-        self.index.release_slots(slots)
-        return int(slots.size)
+        return self._clear_and_release(slots)
 
     def evict_idle(self, now: int, idle_seconds: int) -> int:
         """Release flows with no telemetry in either direction for
         ``idle_seconds`` — the capacity-reclaim the reference lacks.
         Returns the number of evicted flows."""
         return self.evict_slots(self.stale_slots(now, idle_seconds))
+
+    def _clear_and_release(self, slots: np.ndarray) -> int:
+        """Clear and release an explicit slot batch: bucketed clears, the
+        dirty bits of the cleared rows when the label cache is live (their
+        features are zeros now), one bulk index release."""
+        step = self.buckets[-1]
+        capacity = self.table.capacity
+        for i in range(0, slots.size, step):
+            chunk = slots[i: i + step]
+            size = bucket_size(chunk.size, self.buckets)
+            padded = np.full(size, capacity, np.int64)
+            padded[: chunk.size] = chunk
+            slot = torch.from_numpy(padded).to(self.device)
+            if self.dirty is None:
+                self.table = ft.clear_slots(self.table, slot)
+            else:
+                self.table, self.dirty = ft.clear_slots_dirty(
+                    self.table, self.dirty, slot
+                )
+        (self.batcher if self.native else self.index).release_slots(slots)
+        return int(slots.size)
+
+    def slots_for_source(self, source: int) -> np.ndarray:
+        """The slots a source's namespace owns, on either spine."""
+        if self.native:
+            return self.batcher.slots_for_source(source).astype(np.int64)
+        return np.asarray(
+            sorted(self.index.slots_for_source(source)), np.int64
+        )
+
+    def evict_source(self, source: int) -> int:
+        """Evict every flow of one telemetry source's namespace, and drop
+        its carried partial line on both spines (a restarted stream's
+        first chunk must not complete the dead one's fragment). Returns
+        the number of evicted flows."""
+        # flush first: a pending row of an about-to-clear slot would
+        # scatter stale counters into a freed row
+        self.step()
+        self._tails.pop(source, None)
+        if self.native:
+            self.batcher.reset_tail(source)
+        return self._clear_and_release(self.slots_for_source(source))

@@ -12,14 +12,16 @@ stable 64-bit BLAKE2b digest instead, with the same direction-folding rule:
 a record keys to an existing reverse-key flow as that flow's reverse
 direction (reference :161-165).
 
-A copy of ``traffic_classifier_sdn_tpu/ingest/protocol.py`` without the
-latency-provenance stamp, which the port does not serve yet.
+A copy of ``traffic_classifier_sdn_tpu/ingest/protocol.py``.
 """
 
 from __future__ import annotations
 
 import hashlib
-from dataclasses import dataclass
+import time as _time
+from dataclasses import dataclass, field
+
+from ..utils.faults import FaultInjected, fault_point
 
 PREFIX = b"data"
 _I64_MAX = (1 << 63) - 1
@@ -30,7 +32,12 @@ class TelemetryRecord:
     """One parsed flow-stats line.
 
     ``source`` is NOT on the wire: it is the fan-in namespace tag folded
-    into the flow key. Source 0 is the default namespace."""
+    into the flow key. Source 0 is the default namespace.
+
+    ``emit_ts`` is NOT on the wire either: the latency-provenance emit
+    stamp (``time.perf_counter`` domain) that ``stamp_records`` sets where
+    a collector reads the record. ``compare=False``: records carrying the
+    same telemetry are equal whenever they were stamped."""
 
     time: int
     datapath: str
@@ -41,6 +48,28 @@ class TelemetryRecord:
     packets: int
     bytes: int
     source: int = 0
+    emit_ts: float | None = field(default=None, compare=False)
+
+
+def stamp_records(records, ts: float | None = None) -> bool:
+    """Set each record's ``emit_ts`` in place, once: a record that already
+    carries a stamp keeps it. In place through ``object.__setattr__`` on
+    the frozen dataclass — the stamp is set by the owning reader before
+    the record is published to a queue, and the wire fields stay
+    immutable.
+
+    Fault site ``obs.stamp`` (absorbed): a fire leaves the batch
+    unstamped and delivers it all the same. Returns False then."""
+    try:
+        fault_point("obs.stamp")
+    except FaultInjected:
+        return False
+    if ts is None:
+        ts = _time.perf_counter()
+    for r in records:
+        if r.emit_ts is None:
+            object.__setattr__(r, "emit_ts", ts)
+    return True
 
 
 def format_line(r: TelemetryRecord) -> bytes:

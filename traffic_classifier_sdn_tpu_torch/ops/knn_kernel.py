@@ -194,17 +194,27 @@ def _launch(g: KnnKernelOperands, X: torch.Tensor, rows_per_warp: int):
     idx = torch.empty((N, k), dtype=torch.int32, device=X.device)
     if N == 0:
         return vals, idx
-    with torch.cuda.device(X.device):
-        rc = _launcher()(
-            X.data_ptr(), N, X.shape[1],
-            g.records.data_ptr(), g.n_rows, k, rows_per_warp,
-            vals.data_ptr(), idx.data_ptr(),
-            torch.cuda.current_stream(X.device).cuda_stream,
-        )
+    if X.device.index == torch.cuda.current_device():
+        rc = _call(g, X, rows_per_warp, vals, idx)
+    else:
+        with torch.cuda.device(X.device):
+            rc = _call(g, X, rows_per_warp, vals, idx)
     if rc != 0:
         raise RuntimeError(f"knn_topk kernel launch failed: CUDA error {rc}")
     topk_sim_idx.launches += 1
     return vals, idx
+
+
+def _call(g, X, rows_per_warp, vals, idx) -> int:
+    # The raw handle of the current stream: building the Python Stream
+    # object (torch.cuda.current_stream()) takes more host time than the
+    # kernel takes at small N (tools/torch_kernel_sweep.py times both).
+    stream = torch._C._cuda_getCurrentRawStream(X.device.index)
+    return _launcher()(
+        X.data_ptr(), X.shape[0], X.shape[1],
+        g.records.data_ptr(), g.n_rows, g.n_neighbors, rows_per_warp,
+        vals.data_ptr(), idx.data_ptr(), stream,
+    )
 
 
 topk_sim_idx.launches = 0  # kernel launches (CUDA tensors only)

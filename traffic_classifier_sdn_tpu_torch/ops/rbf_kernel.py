@@ -203,18 +203,28 @@ def _launch(g: SvcKernelOperands, X: torch.Tensor, X_lo,
                       device=X.device)
     if X.shape[0] == 0:
         return out
-    with torch.cuda.device(X.device):
-        rc = _launcher()(
-            X.data_ptr(), None if X_lo is None else X_lo.data_ptr(),
-            X.shape[0], X.shape[1],
-            g.records.data_ptr(), g.n_sv, g.n_pairs, g.gamma,
-            rows_per_block, out.data_ptr(),
-            torch.cuda.current_stream(X.device).cuda_stream,
-        )
+    if X.device.index == torch.cuda.current_device():
+        rc = _call(g, X, X_lo, rows_per_block, out)
+    else:
+        with torch.cuda.device(X.device):
+            rc = _call(g, X, X_lo, rows_per_block, out)
     if rc != 0:
         raise RuntimeError(f"rbf_decision kernel launch failed: CUDA error {rc}")
     partial_decision.launches += 1
     return out
+
+
+def _call(g, X, X_lo, rows_per_block, out) -> int:
+    # The raw handle of the current stream: building the Python Stream
+    # object (torch.cuda.current_stream()) takes more host time than the
+    # kernel takes at small N (tools/torch_kernel_sweep.py times both).
+    stream = torch._C._cuda_getCurrentRawStream(X.device.index)
+    return _launcher()(
+        X.data_ptr(), None if X_lo is None else X_lo.data_ptr(),
+        X.shape[0], X.shape[1],
+        g.records.data_ptr(), g.n_sv, g.n_pairs, g.gamma,
+        rows_per_block, out.data_ptr(), stream,
+    )
 
 
 partial_decision.launches = 0  # kernel launches (CUDA tensors only)

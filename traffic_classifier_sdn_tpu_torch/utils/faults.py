@@ -1,0 +1,177 @@
+"""Deterministic fault injection at the ingest and label-cache seams.
+
+The port's copy of ``traffic_classifier_sdn_tpu/utils/faults.py``, with
+the registry cut to the sites this package threads. A named *fault site*
+sits at each seam (collector reads, supervisor restart, native engine
+load and parse, the latency stamp, the incremental label path); a test
+installs a seeded ``FaultPlan`` that fires scripted failures at exact
+hit counts (or seeded probabilities).
+
+1. **Inert by default.** With no plan installed every site is one module
+   attribute load and an ``is None`` branch. The serve loop's sites are
+   per tick or per chunk, never per record.
+2. **Deterministic.** A plan is seeded; probability schedules draw from a
+   private ``random.Random``. Count schedules (``after``/``times``) do
+   not touch the RNG.
+3. **Scripted, not ambient.** Plans install explicitly (``install`` /
+   ``installed``) and tests always clear them.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import random
+from dataclasses import dataclass, field
+
+# The sites this package threads. Keys are the exact strings passed to
+# fault_point()/fault_bytes(); values say where the seam lives and what a
+# fire simulates.
+SITES: dict[str, str] = {
+    "collector.read": (
+        "ingest/collector raw reader, per pipe chunk; 'truncate' drops "
+        "the chunk tail mid-record (framing must poison the seam), "
+        "'raise' kills the monitor mid-stream"
+    ),
+    "supervisor.restart": (
+        "ingest/supervisor — the restart attempt itself fails (spawn "
+        "failure); consumes one restart-budget slot and re-enters "
+        "backoff"
+    ),
+    "ingest.native_parse": (
+        "native/engine.NativeBatcher.feed — one line of a native-ingest "
+        "poll batch is corrupt (a fire == a torn/garbled wire line at "
+        "the C++ parse seam); ABSORBED exactly like a real malformed "
+        "line: counted against ITS source (parse_errors) and skipped, "
+        "the rest of the batch parses normally — never a crash, never "
+        "a torn row, and every other source's telemetry is untouched"
+    ),
+    "obs.stamp": (
+        "ingest/protocol.stamp_records — the latency-provenance emit "
+        "stamp itself fails; ABSORBED at the stamping seam: the batch "
+        "is delivered unstamped and telemetry is NEVER dropped"
+    ),
+    "native.load": (
+        "native/engine.available() — the C++ engine is unavailable "
+        "(build/dlopen failure)"
+    ),
+    "serve.dirty_mask": (
+        "serving/incremental.IncrementalLabels dirty-mask consult — the "
+        "per-slot dirty bookkeeping behind incremental prediction is "
+        "suspect this tick; ABSORBED: the tick degrades to a direct "
+        "full-table re-predict (served fresh, cache and mask untouched "
+        "on the fault path) and the mask/cache pair is rebuilt from "
+        "scratch at the next render — a stale label is never served as "
+        "fresh"
+    ),
+    "serve.label_cache": (
+        "serving/incremental.IncrementalLabels cache-merge seam — the "
+        "device-resident label cache cannot accept this tick's dirty-"
+        "row labels; ABSORBED: the tick degrades to a direct full-table "
+        "re-predict served fresh, the cache and dirty mask are left "
+        "untouched, and the dirty rows re-predict at the next render"
+    ),
+}
+
+
+class FaultInjected(RuntimeError):
+    """Raised by a firing fault site (``kind="raise"``)."""
+
+    def __init__(self, site: str, hit: int):
+        super().__init__(f"injected fault at site {site!r} (hit #{hit})")
+        self.site = site
+        self.hit = hit
+
+
+@dataclass
+class FaultRule:
+    """One scheduled failure at one site.
+
+    ``after`` eligible hits are skipped, then the rule fires up to
+    ``times`` times (None = every subsequent hit). ``p`` gates each
+    otherwise-eligible hit on a seeded coin flip — with count scheduling
+    alone (``p=1.0``) the RNG is never consulted, so count plans are
+    exactly reproducible regardless of seed.
+    """
+
+    site: str
+    after: int = 0
+    times: int | None = 1
+    p: float = 1.0
+    kind: str = "raise"  # or "truncate" (byte sites only)
+    fired: int = field(default=0, compare=False)
+
+
+class FaultPlan:
+    """Seeded schedule of FaultRules, keyed by site name."""
+
+    def __init__(self, rules, seed: int = 0):
+        self.rules: dict[str, list[FaultRule]] = {}
+        for r in rules:
+            self.rules.setdefault(r.site, []).append(r)
+        self.seed = seed
+        self._rng = random.Random(seed)
+        self.hits: dict[str, int] = {}  # site → eligible-hit count
+        self.fires: list[tuple[str, int]] = []  # (site, hit) audit log
+
+    def check(self, site: str) -> FaultRule | None:
+        """Record one hit at ``site``; the firing rule, or None."""
+        hit = self.hits.get(site, 0) + 1
+        self.hits[site] = hit
+        for r in self.rules.get(site, ()):
+            if hit <= r.after:
+                continue
+            if r.times is not None and r.fired >= r.times:
+                continue
+            if r.p < 1.0 and self._rng.random() >= r.p:
+                continue
+            r.fired += 1
+            self.fires.append((site, hit))
+            return r
+        return None
+
+
+# The active plan. ``None`` means every site is inert; sites guard on this
+# before doing any other work.
+_plan: FaultPlan | None = None
+
+
+def install(plan: FaultPlan | None) -> None:
+    global _plan
+    _plan = plan
+
+
+def clear() -> None:
+    install(None)
+
+
+@contextlib.contextmanager
+def installed(plan: FaultPlan):
+    """Scoped install — the tests' idiom; always clears."""
+    install(plan)
+    try:
+        yield plan
+    finally:
+        clear()
+
+
+def fault_point(site: str) -> None:
+    """Raise ``FaultInjected`` if a rule fires at ``site``; else no-op."""
+    if _plan is None:
+        return
+    r = _plan.check(site)
+    if r is not None:
+        raise FaultInjected(site, _plan.hits[site])
+
+
+def fault_bytes(site: str, data: bytes) -> bytes:
+    """Byte-stream site: pass ``data`` through, truncated to its first
+    half on a ``truncate`` fire (a torn read — the tail of the chunk,
+    usually mid-record, is lost), or raise on a ``raise`` fire."""
+    if _plan is None:
+        return data
+    r = _plan.check(site)
+    if r is None:
+        return data
+    if r.kind == "truncate":
+        return data[: len(data) // 2]
+    raise FaultInjected(site, _plan.hits[site])
