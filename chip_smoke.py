@@ -29,17 +29,48 @@ the script exits non-zero:
    its instance's ptxas registers, shared memory and spills; then the
    forest kernel at every dirty bucket of incremental labels (16 to
    16,384 rows), bitwise, with its single-call and back-to-back times;
-4. serve — the port CLI in-process at its defaults (native ingest,
-   incremental labels; ``<subcommand> --source synthetic --synthetic-flows
-   65536 --capacity 65536 --max-ticks 6 --print-every 2``) for
-   ``Randomforest``, ``knearest`` and ``svm`` on those models: 65,536
-   flows tracked, one launch of the family's kernel per render tick
-   (every conversation reports every tick, so each render predicts the
-   full table; every launch count set to 0 just before the serve and
-   read just after), 64 rows per rendered table, and the last table's
-   labels equal to the plain version's labels on the same table;
+   The KNN and SVC kernels are also held bitwise to their plain versions
+   on a copy of the rows with NaN/+inf/-inf features in every third row
+   (``with_nonfinite(X, every=3)``) at 777 and 65,536 rows and every
+   launch shape, every KNN index in [0, S);
+4. serve — the port CLI in-process, serial (``<subcommand> --source
+   synthetic --synthetic-flows 65536 --capacity 65536 --max-ticks 6
+   --print-every 2 --pipeline off --degrade off``; native ingest and
+   incremental labels at their defaults) for ``Randomforest``,
+   ``knearest`` and ``svm`` on those models: 65,536 flows tracked, one
+   launch of the family's kernel per render tick (every conversation
+   reports every tick, so each render predicts the full table; every
+   launch count set to 0 just before the serve and read just after), 64
+   rows per rendered table, and the last table's labels equal to the
+   plain version's labels on the same table;
+4b. default serve — the same three serves with no flag at all: the JAX
+   defaults, pipelined (serving/pipeline.py), through the degrade ladder
+   (serving/degrade.py) and host-mode incremental labels. Every printed
+   table's labels equal the plain version's on the table its render was
+   dispatched against; the ladder stays HEALTHY with no fallback call and
+   no transition; each render launches the kernel once (each predicts the
+   whole table); ``ticks_coalesced`` and the host and device stages' busy
+   seconds are printed. These are the main path: their launches are the
+   ``launches`` of the kernels line;
+4c. ladder drills — for each family, the no-flag serve (forest and KNN
+   at 65,536 flows, SVC at 4,096, ``DRILL_FLOWS``; 10 ticks) with
+   ``degrade.dispatch_error`` armed on the second device call (``--probe-every
+   0 --probe-successes 2``): the ladder demotes, the demoted tables'
+   labels (the host rung's) equal the plain version's, and it re-promotes
+   after two clean probes, probes failing before that only on parity;
+   then ``degrade.dispatch_stall`` armed the same way with
+   ``--device-deadline 1``: every render stays within twice the
+   deadline; then the kernel's wrapper raising from its second call, no
+   site armed: the serve ends with that error and the ladder does not
+   demote. The transitions are printed. One call of each host rung on
+   65,536 rows is timed, its labels equal to the plain version's but on
+   near-ties (``near_ties``);
+4d. warmup — the no-flag forest serve of 65,536 flows with and without
+   ``--warmup``: what warmup warmed, its seconds, and each render's time
+   on the device stage, the first against the later ones;
 5. incremental serve — ``Randomforest --source replay --native-ingest on
-   --incremental auto --print-every 1`` on a churn capture of 65,536
+   --incremental auto --print-every 1 --pipeline off --degrade off`` on a
+   churn capture of 65,536
    conversations (``churn_capture``: two full ticks, then 1 %, 0 %, 20 %
    and 100 % of them reporting): every table's labels equal the plain
    version's on the table it rendered, the forest kernel launches once on
@@ -47,11 +78,18 @@ the script exits non-zero:
    is byte-identical to the same capture served with ``--incremental off
    --native-ingest off``;
 6. ryu serve — ``Randomforest --source ryu --monitor-cmd "<emitter>"
-   --native-ingest on``: a script written to a temporary directory prints
+   --native-ingest on --pipeline off --degrade off``: a script written to a
+   temporary directory prints
    the churn capture's ticks to its stdout, paced apart; every flow is
    tracked, every line parsed, the kernel launches on each render tick
    with a dirty row, and the last table's labels equal the plain
    version's;
+6b. 2^20 flows — the no-flag forest serve of ``--capacity 1048576`` fed as
+   raw pipe bytes through ``--source ryu`` by an emitter that generates
+   four ticks of ``SyntheticFlows(1048576)`` (~2.1 M lines, ~120 MB each)
+   in memory: every flow tracked, every line parsed, the last table's
+   labels equal the plain version's; each poll's host time, each
+   render's label time on the device stage and ``ticks_coalesced``;
 7. breakdown — host seconds per tick of 131,072 records into 65,536 flows
    through the Python spine, the native spine from records and the
    native spine from raw bytes (each with ``step()`` and a device sync),
@@ -467,6 +505,8 @@ def ptxas_instances(logs: dict) -> dict:
 def phase_build() -> dict:
     """Builds every kernel; returns ``ptxas_instances`` of the build."""
     from traffic_classifier_sdn_tpu_torch.native import engine as native_engine
+    from traffic_classifier_sdn_tpu_torch.native import forest as native_forest
+    from traffic_classifier_sdn_tpu_torch.native import knn as native_knn
     from traffic_classifier_sdn_tpu_torch.ops import (
         cuda_build,
         forest_kernel,
@@ -475,14 +515,17 @@ def phase_build() -> dict:
     )
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
-        native = pool.submit(native_engine.build)  # g++ beside the nvccs
+    with ThreadPoolExecutor(3) as pool:
+        # g++ beside the nvccs: the ingest engine and the ladder's host rungs
+        native = [pool.submit(m.build)
+                  for m in (native_engine, native_forest, native_knn)]
         logs = cuda_build.build(
             [forest_kernel.KERNEL, knn_kernel.KERNEL, rbf_kernel.KERNEL]
         )
-        lib = native.result()
-    print(f"[build] {len(logs)} kernel(s) and the native flow engine "
-          f"({lib.name}) in {time.perf_counter() - t0:.2f} s")
+        libs = [f.result().name for f in native]
+    print(f"[build] {len(logs)} kernel(s) and the native flow engine, "
+          f"forest and KNN evaluators ({', '.join(libs)}) in "
+          f"{time.perf_counter() - t0:.2f} s")
     instances = ptxas_instances(logs)
     for (name, args), report in instances.items():
         print(f"[build] {name}_kernel<{args}>: {report}")
@@ -702,8 +745,53 @@ def phase_kernels(device):
         X = X_cap[:N] if N <= CAPACITY else X_big
         for name, check in checks.items():
             results[name][N] = check(ops[name], X, N)
+        if N <= CAPACITY:
+            _check_nonfinite(g_knn, g_svc, X, N)
     return models, ops, results
 
+
+def _check_nonfinite(g_knn, g_svc, X, N: int) -> None:
+    """The KNN and SVC kernels on a copy of X with NaN/+inf/-inf in every
+    third row, at the wrapper's launch and every launch shape: bitwise
+    equal to their plain versions, every KNN index a corpus row."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk
+    from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
+
+    Xn = with_nonfinite(X, every=3)
+    want_v, want_i = kk.topk_sim_idx_plain(g_knn, Xn)
+    runs = [("wrapper", kk.topk_sim_idx(g_knn, Xn))] + [
+        (f"{rw} rows/warp", kk._launch(g_knn, Xn, rw))
+        for rw in kk.rows_per_warp_choices(g_knn.n_neighbors)]
+    for shape, (v, i) in runs:
+        if not torch.equal(i, want_i) or not torch.equal(
+                v.view(torch.int32), want_v.view(torch.int32)):
+            raise AssertionError(
+                f"knn_topk kernel != plain version on NaN/inf rows at N={N}, "
+                f"{shape}: {int((i != want_i).any(1).sum())} rows differ")
+        if not bool(((i >= 0) & (i < g_knn.n_rows)).all()):
+            raise AssertionError(f"knn_topk index out of [0, S) at N={N}")
+    want = rk.partial_decision_plain(g_svc, Xn)
+    shapes = [("wrapper", rk.partial_decision(g_svc, Xn))] + [
+        (f"{R} rows/block", rk._launch(g_svc, Xn, None, R))
+        for R in rk.ROWS_PER_BLOCK]
+    for shape, got in shapes:
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(
+                f"rbf_decision kernel != plain version on NaN/inf rows at "
+                f"N={N}, {shape}")
+    bad = ~torch.isfinite(Xn).all(1)
+    print(f"[kernels] knn_topk and rbf_decision N={N}: bitwise equal to "
+          f"their plain versions on a copy with NaN/+inf/-inf in "
+          f"{int(bad.sum())} rows, at the wrapper's launch and every launch "
+          f"shape ({len(runs) - 1} and {len(shapes) - 1}); every KNN index "
+          f"in [0, {g_knn.n_rows}), rows with a NaN decision: "
+          f"{int(torch.isnan(want).any(1).sum())}")
+
+
+# the serial bare-kernel serve (the JAX defaults turn both on)
+SERIAL = ("--pipeline", "off", "--degrade", "off")
 
 # family → (CLI subcommand, interop builder of the port's model)
 SERVES = {
@@ -767,7 +855,7 @@ def phase_serve(family: str, model: dict, g, device) -> int:
             subcommand, "--source", "synthetic",
             "--synthetic-flows", str(CAPACITY), "--capacity", str(CAPACITY),
             "--max-ticks", "6", "--print-every", "2",
-            "--native-checkpoint", ckpt,
+            "--native-checkpoint", ckpt, *SERIAL,
         ]
         for c in counters.values():  # count the main path's launches only
             c.launches = 0
@@ -819,6 +907,458 @@ def phase_serve(family: str, model: dict, g, device) -> int:
           + "\n".join(out.splitlines()[-6:]))
     render_breakdown(engine, family, g, device)
     return own
+
+
+class _WatchedRead:
+    """A dispatched read of the pipelined serve, watched: the kernel
+    launches and seconds of its device-stage work (``rows()`` for a printed
+    render, ``commit()`` for a coalesced one) go to ``log`` under its
+    dispatch index."""
+
+    def __init__(self, read, k: int, counter, log: list):
+        self._read, self._k, self._counter, self._log = read, k, counter, log
+        self.n_flows = read.n_flows
+
+    def _watch(self, what: str, fn):
+        before, t0 = self._counter.launches, time.perf_counter()
+        out = fn()
+        self._log.append((what, self._k, self._counter.launches - before,
+                          time.perf_counter() - t0))
+        return out
+
+    def commit(self):
+        return self._watch("commit", self._read.commit)
+
+    def rows(self):
+        return self._watch("rows", self._read.rows)
+
+
+@contextlib.contextmanager
+def watched_dispatch(family: str):
+    """While active, every render the pipelined serve dispatches records
+    the feature matrix of the table it was dispatched against
+    (``features``, by dispatch index: ``engine.features()`` is a fresh
+    tensor, so later ticks do not change it) and its device-stage work
+    (``log``, see ``_WatchedRead``)."""
+    from traffic_classifier_sdn_tpu_torch.serving import pipeline
+
+    counter = _kernels()[family][0]
+    features, log = [], []
+    dispatch = pipeline.dispatch_read
+
+    def watched(engine, *args, **kw):
+        features.append(engine.features())
+        read = dispatch(engine, *args, **kw)
+        return _WatchedRead(read, len(features) - 1, counter, log)
+
+    pipeline.dispatch_read = watched
+    try:
+        yield features, log
+    finally:
+        pipeline.dispatch_read = dispatch
+
+
+def _check_printed(tag: str, tables: list, family: str, g, features: list,
+                   log: list, rows: int | None = 64) -> list[int]:
+    """Every printed table's labels equal the plain version's on the table
+    its render was dispatched against; returns the printed dispatches."""
+    printed = [k for what, k, *_ in log if what == "rows"]
+    if len(printed) != len(tables):
+        raise AssertionError(f"{tag} {len(tables)} tables printed, "
+                             f"{len(printed)} renders ran")
+    for table, k in zip(tables, printed):
+        want = _plain_labels(family, g, features[k]).cpu()
+        wrong = [(s, lab) for s, lab in table if CLASSES[want[s]] != lab]
+        if wrong or (rows is not None and len(table) != rows):
+            raise AssertionError(
+                f"{tag} render {k + 1}: {len(table)} rows, labels differing "
+                f"from the plain version's: {wrong[:5]}")
+    return printed
+
+
+def phase_default_serve(family: str, model: dict, g, device) -> int:
+    """The port CLI's serve of ``family`` at capacity 65,536 with no flag:
+    pipelined, the degrade ladder, host-mode incremental labels. Returns
+    its kernel's launches."""
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+
+    subcommand, carry = SERVES[family]
+    counters = {f: wrapper for f, (wrapper, _) in _kernels().items()}
+    tag = f"[default {subcommand}]"
+    with tempfile.TemporaryDirectory() as ckpt:
+        checkpoint.save_model(
+            ckpt, family, getattr(interop, carry)(model, device),
+            classes=CLASSES,
+        )
+        argv = [
+            subcommand, "--source", "synthetic",
+            "--synthetic-flows", str(CAPACITY), "--capacity", str(CAPACITY),
+            "--max-ticks", "6", "--print-every", "2",
+            "--native-checkpoint", ckpt,
+        ]
+        with watched_dispatch(family) as (features, log):
+            for c in counters.values():  # count the main path's launches only
+                c.launches = 0
+            out, summary, wall = _serve(argv)
+            launches = {f: c.launches for f, c in counters.items()}
+    engine, st, pipe = summary.engine, summary.degrade, summary.pipeline
+    tables = parse_tables(out)
+    print(f"{tag} {summary.ticks} ticks in {wall:.2f} s; per tick on the "
+          "host stage (s): "
+          + ", ".join(f"{x:.3f}" for x in summary.tick_seconds)
+          + "; of which ingest: "
+          + ", ".join(f"{x:.3f}" for x in summary.ingest_seconds)
+          + f"; render ticks {summary.render_ticks}; label plans "
+          f"{summary.render_plans}")
+    print(f"{tag} device stage per render (kind, dispatch, launches, s): "
+          + ", ".join(f"({w}, {k + 1}, {n}, {x:.4f})" for w, k, n, x in log)
+          + f"; ticks_coalesced {summary.ticks_coalesced}; host stage busy "
+          f"{pipe['host_busy_s']:.3f} s, device stage busy "
+          f"{pipe['device_busy_s']:.3f} s, overlap {pipe['overlap_s']:.3f} s")
+    print(f"{tag} ladder {st}")
+    if not engine.native or not summary.render_plans:
+        raise AssertionError(f"{tag} not at the defaults (native ingest, "
+                             "incremental labels)")
+    if (st["state"] != "HEALTHY" or st["fallback_calls"]
+            or st["degrade_transitions"] or st["fallback"] is None):
+        raise AssertionError(f"{tag} the unarmed ladder left HEALTHY or "
+                             f"called its fallback: {st}")
+    if engine.num_flows() != CAPACITY:
+        raise AssertionError(f"{tag} {engine.num_flows()} flows tracked")
+    want = [int(kind != "none") for kind, _ in summary.render_plans]
+    per_render = [0] * len(want)
+    for _, k, n, _ in log:
+        per_render[k] += n
+    others = {f: n for f, n in launches.items() if f != family and n}
+    if per_render != want or launches[family] != sum(want) or others:
+        raise AssertionError(
+            f"{tag} launches per render {per_render}, want {want} (plans "
+            f"{summary.render_plans}); all launches {launches}")
+    printed = _check_printed(tag, tables, family, g, features, log)
+    if len(tables) + summary.ticks_coalesced != len(summary.render_ticks):
+        raise AssertionError(f"{tag} {len(tables)} tables + "
+                             f"{summary.ticks_coalesced} coalesced != "
+                             f"{len(summary.render_ticks)} renders")
+    print(f"{tag} {len(tables)} tables printed (renders {[k + 1 for k in printed]}), "
+          "each one's labels equal the plain version's on the table it was "
+          f"dispatched against; {launches[family]} kernel launches, one per "
+          "render; the ladder stayed HEALTHY with no fallback call")
+    return launches[family]
+
+
+# Flows of each family's drill serve: the serve's own size where the host
+# rung keeps a demoted render under the stall drill's 2 s bound (the native
+# forest and KNN), 4,096 for SVC, whose host rung (the plain version on the
+# CPU) takes about 1 s a render at 4,096 rows. One demoted SVC render at
+# 65,536 rows is timed on its own (``demoted_render_at_size``).
+DRILL_FLOWS = {"forest": CAPACITY, "knn": CAPACITY, "svc": 4096}
+
+
+def phase_drills(family: str, model: dict, g, device) -> dict:
+    """The ladder drills of ``family`` on the card: an armed dispatch error
+    (demote, host-rung labels equal to the plain version's, re-promote
+    after two clean probes; probes before them may fail only on parity),
+    then an armed dispatch stall with a 1 s
+    deadline (every render within 2 s), then an unarmed fault of the
+    kernel's wrapper, which must end the serve instead of demoting.
+    Returns the kernel's launches."""
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+    from traffic_classifier_sdn_tpu_torch.utils import faults
+
+    subcommand, carry = SERVES[family]
+    counter = _kernels()[family][0]
+    deadline = 1.0
+    total = 0
+    flows = DRILL_FLOWS[family]
+    with tempfile.TemporaryDirectory() as ckpt:
+        checkpoint.save_model(
+            ckpt, family, getattr(interop, carry)(model, device),
+            classes=CLASSES,
+        )
+        argv = [
+            subcommand, "--source", "synthetic",
+            "--synthetic-flows", str(flows),
+            "--capacity", str(flows), "--max-ticks", "10",
+            "--print-every", "1", "--probe-every", "0",
+            "--probe-successes", "2", "--native-checkpoint", ckpt,
+        ]
+        for site, extra in (("degrade.dispatch_error", []),
+                            ("degrade.dispatch_stall",
+                             ["--device-deadline", str(deadline)])):
+            tag = f"[drill {subcommand} {site} {flows} flows]"
+            plan = faults.FaultPlan([faults.FaultRule(site, after=1)])
+            counter.launches = 0
+            with watched_dispatch(family) as (features, log), \
+                    faults.installed(plan):
+                out, summary, wall = _serve(argv + extra)
+            total += counter.launches
+            st = summary.degrade
+            edges = summary.degrade_transitions
+            print(f"{tag} fired at device calls {[h for _, h in plan.fires]}"
+                  f"; transitions {edges}; final {st['state']}, "
+                  f"{st['fallback_calls']} fallback calls "
+                  f"({st['fallback']}), {st['device_calls']} device calls; "
+                  "device stage per render (s): "
+                  + ", ".join(f"{x:.4f}" for w, _, _, x in log if w == "rows"))
+            reason = "deadline" if site.endswith("stall") else \
+                "error:FaultInjected"
+            # between the demotion and the promotion, probes may fail only
+            # on parity: the host rung and the kernel order near-ties
+            # differently (``near_ties``; ROADMAP Queue 3)
+            retry = [("DEGRADED", "PROBING", "probe-due"),
+                     ("PROBING", "DEGRADED", "probe-failed:parity-mismatch")]
+            middle = edges[1:-2]
+            if (edges[:1] != [("HEALTHY", "DEGRADED", reason)]
+                    or edges[-2:] != [("DEGRADED", "PROBING", "probe-due"),
+                                      ("PROBING", "HEALTHY", "promoted")]
+                    or middle != retry * (len(middle) // 2)
+                    or st["state"] != "HEALTHY"):
+                raise AssertionError(f"{tag} transitions {edges}")
+            if st["fallback_calls"] < 1 or len(plan.fires) != 1:
+                raise AssertionError(f"{tag} {st}")
+            _check_printed(tag, parse_tables(out), family, g, features, log,
+                           rows=None)
+            slow = [x for w, _, _, x in log if w == "rows" and x > 2 * deadline]
+            if site.endswith("stall") and slow:
+                raise AssertionError(f"{tag} renders took {slow} s, over twice "
+                                     f"the {deadline} s deadline")
+            print(f"{tag} demoted, served the host rung's labels (equal to "
+                  "the plain version's on every printed table), and "
+                  f"re-promoted after 2 clean probes in {wall:.2f} s; "
+                  f"{len(middle) // 2} probes failed on parity")
+        total += _drill_kernel_fault(family, argv + ["--max-ticks", "4"])
+    demoted_render_at_size(family, model, g, device)
+    return total
+
+
+def _drill_kernel_fault(family: str, argv: list) -> int:
+    """The no-flag serve with the kernel's wrapper raising from its second
+    call on (an unarmed fault: no fault site): the serve must end with
+    that error, the ladder must not demote. Returns the launches made."""
+    import importlib
+
+    subcommand = SERVES[family][0]
+    tag = f"[drill {subcommand} kernel fault]"
+    wrapper = _kernels()[family][0]
+    mod = importlib.import_module(wrapper.__module__)
+    calls = {"n": 0}
+
+    def failing(*a, **kw):
+        calls["n"] += 1
+        if calls["n"] > 1:
+            raise RuntimeError("simulated kernel launch failure")
+        return wrapper(*a, **kw)
+
+    # the wrapper counts its launches on the module's name, now ``failing``
+    failing.launches = 0
+    err = io.StringIO()
+    setattr(mod, wrapper.__name__, failing)
+    try:
+        with contextlib.redirect_stderr(err):
+            _serve(argv)
+    except RuntimeError as e:
+        if "simulated kernel launch failure" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"{tag} the serve absorbed a kernel fault")
+    finally:
+        setattr(mod, wrapper.__name__, wrapper)
+    if "DEGRADE:" in err.getvalue() or calls["n"] < 2:
+        raise AssertionError(f"{tag} {calls['n']} wrapper calls; stderr: "
+                             f"{err.getvalue()[-2000:]}")
+    print(f"{tag} the serve ended with the wrapper's error at its call "
+          f"{calls['n']}; the ladder did not demote")
+    return failing.launches
+
+
+def near_ties(family: str, model: dict, g, X, fb, rows: np.ndarray) -> np.ndarray:
+    """Which of ``rows`` (where the host rung's labels differ from the
+    plain version's) are near-ties that the two arithmetics may order
+    differently:
+
+    - forest: the host rung sums the trees' class distributions in
+      float64, the kernel and its plain version in float32; a row is a
+      near-tie when its top two float64 probabilities lie within
+      ``T · 2⁻²³ · p_max`` (T trees, one float32 rounding per tree's
+      addition on either side);
+    - KNN: the host rung ranks float64 squared distances, the kernel the
+      float32 similarity ``x·s − ½‖s‖²``; a near-tie when the k-th and
+      (k+1)-th nearest distances lie within ``1e-6 · (‖x‖² + max ‖s‖²)``,
+      the rounding of a 12-term float32 dot product at that scale;
+    - SVC: the smallest |decision| within 1e-5 of the largest coefficient
+      sum (the CPU and the card round ``exp`` differently; the parity
+      tests' tolerance)."""
+    from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
+
+    Xr = X[rows.tolist()]
+    if family == "forest":
+        p = np.sort(fb.scores(Xr.cpu().numpy()), axis=1)
+        tol = len(model["values"]) * 2.0 ** -23 * p[:, -1]
+        return p[:, -1] - p[:, -2] <= tol
+    if family == "knn":
+        fit = model["fit_X"].astype(np.float64)
+        k = int(model["n_neighbors"])
+        near = []
+        for x in Xr.cpu().numpy().astype(np.float64):
+            d = np.sort(((fit - x) ** 2).sum(1))
+            near.append(d[k] - d[k - 1]
+                        <= 1e-6 * (x @ x + (fit ** 2).sum(1).max()))
+        return np.asarray(near, bool)
+    D = rk.partial_decision_plain(g, Xr) + g.intercept[None, :]
+    tol = 1e-5 * float(g.coef_t.abs().sum(0).max())
+    return D.abs().min(1).values.cpu().numpy() <= tol
+
+
+def demoted_render_at_size(family: str, model: dict, g, device) -> float:
+    """One call of ``family``'s host rung (``models.resolve_fallback``, what
+    a demoted render runs) on the 65,536 rows of a synthetic table, timed,
+    its labels held to the plain version's on the card: equal on every
+    row but near-ties (``near_ties``). Returns the seconds."""
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.core import flow_table as ft
+    from traffic_classifier_sdn_tpu_torch.models import resolve_fallback
+
+    subcommand, carry = SERVES[family]
+    tag = f"[demoted {subcommand} {CAPACITY} rows]"
+    fb = resolve_fallback(family, getattr(interop, carry)(model, device))
+    X = ft.features12(synthetic_table(CAPACITY, 3, device))
+    X_host = X.cpu().numpy()
+    t0 = time.perf_counter()
+    got = fb.predict(X_host)
+    seconds = time.perf_counter() - t0
+    want = _plain_labels(family, g, X).cpu().numpy()
+    differ = np.flatnonzero(got != want)
+    near = near_ties(family, model, g, X, fb, differ)
+    if not near.all() or got.shape != want.shape:
+        raise AssertionError(f"{tag} {fb.kind} labels differ from the plain "
+                             f"version's on rows {differ[~near][:8].tolist()}"
+                             ", which are not near-ties")
+    print(f"{tag} the host rung ({fb.kind}) took {seconds:.4f} s for one "
+          f"render's labels; they differ from the plain version's on "
+          f"{differ.size} rows, each a near-tie")
+    return seconds
+
+
+def phase_warmup(model: dict, k, device) -> int:
+    """The no-flag forest serve of 65,536 flows with and without
+    ``--warmup``: what warmup does and costs, and each render's time on
+    the device stage. Returns the forest kernel's launches."""
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+
+    tag = "[warmup Randomforest]"
+    total = 0
+    with tempfile.TemporaryDirectory() as ckpt:
+        checkpoint.save_model(ckpt, "forest",
+                              interop.forest_params_from_numpy(model, device),
+                              classes=CLASSES)
+        argv = ["Randomforest", "--source", "synthetic", "--synthetic-flows",
+                str(CAPACITY), "--capacity", str(CAPACITY), "--max-ticks",
+                "4", "--print-every", "1", "--native-checkpoint", ckpt]
+        for warm in (False, True):
+            fk.forest_proba.launches = 0
+            with watched_dispatch("forest") as (features, log):
+                out, summary, wall = _serve(argv + ["--warmup"] * warm)
+            total += fk.forest_proba.launches
+            _check_printed(tag, parse_tables(out), "forest", k, features, log)
+            renders = [x for w, _, _, x in log if w == "rows"]
+            what = "with --warmup" if warm else "without --warmup"
+            st = summary.degrade
+            if st["state"] != "HEALTHY" or st["fallback_calls"]:
+                raise AssertionError(f"{tag} {what}: the unarmed ladder left "
+                                     f"HEALTHY or called its fallback: {st}")
+            if warm:
+                w = summary.warmup
+                print(f"{tag} warmup warmed {len(w['warmed'])} steps in "
+                      f"{w['seconds']:.3f} s: {', '.join(w['warmed'])}")
+                if not w["warmed"] or summary.degrade["device_calls"] <= len(
+                        renders):
+                    raise AssertionError(f"{tag} warmup {w}")
+            print(f"{tag} {what}: host ticks (s) "
+                  + ", ".join(f"{x:.4f}" for x in summary.tick_seconds)
+                  + "; renders on the device stage (s) "
+                  + ", ".join(f"{x:.4f}" for x in renders)
+                  + f"; first render / median of the later ones "
+                  f"{renders[0] / statistics.median(renders[1:]):.2f}")
+    return total
+
+
+BIG_FLOWS = 1 << 20
+BIG_EMITTER = """\
+import sys, time
+sys.path.insert(0, sys.argv[1])
+from traffic_classifier_sdn_tpu_torch.ingest.replay import SyntheticFlows
+syn = SyntheticFlows(n_flows=int(sys.argv[2]))
+out = sys.stdout.buffer
+out.write(b"loading app simple_monitor_13.py\\n")
+out.flush()
+for _ in range(int(sys.argv[3])):
+    blob = syn.tick_bytes()
+    out.write(blob)
+    out.flush()
+    time.sleep(float(sys.argv[4]))
+"""
+
+
+def phase_big_serve(model: dict, k, device) -> int:
+    """The no-flag forest serve of 2^20 flows, fed as raw pipe bytes through
+    ``--source ryu`` by an emitter that generates four ticks in memory.
+    Returns the forest kernel's launches."""
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+
+    tag = "[2^20 Randomforest]"
+    ticks, pause = 4, 1.0
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, emitter = os.path.join(tmp, "ckpt"), os.path.join(tmp, "emit.py")
+        checkpoint.save_model(ckpt, "forest",
+                              interop.forest_params_from_numpy(model, device),
+                              classes=CLASSES)
+        with open(emitter, "w") as f:
+            f.write(BIG_EMITTER)
+        fk.forest_proba.launches = 0
+        with watched_dispatch("forest") as (features, log):
+            out, summary, wall = _serve([
+                "Randomforest", "--source", "ryu", "--monitor-cmd",
+                f"{sys.executable} {emitter} {root} {BIG_FLOWS} {ticks} "
+                f"{pause}",
+                "--capacity", str(BIG_FLOWS), "--print-every", "1",
+                "--native-checkpoint", ckpt,
+            ])
+        launches = fk.forest_proba.launches
+    engine, st, pipe = summary.engine, summary.degrade, summary.pipeline
+    print(f"{tag} {summary.ticks} polls in {wall:.2f} s (emitter: {ticks} "
+          f"ticks of {2 * BIG_FLOWS} lines, {pause} s apart); per poll on "
+          "the host stage (s): "
+          + ", ".join(f"{x:.3f}" for x in summary.tick_seconds)
+          + "; of which ingest (raw bytes, native engine, wire scatter): "
+          + ", ".join(f"{x:.3f}" for x in summary.ingest_seconds))
+    print(f"{tag} label plans {summary.render_plans}; device stage per "
+          "render (kind, dispatch, launches, s): "
+          + ", ".join(f"({w}, {i + 1}, {n}, {x:.4f})" for w, i, n, x in log)
+          + f"; ticks_coalesced {summary.ticks_coalesced}; host stage busy "
+          f"{pipe['host_busy_s']:.3f} s, device stage busy "
+          f"{pipe['device_busy_s']:.3f} s; ladder {st['state']}, "
+          f"{st['fallback_calls']} fallback calls")
+    if engine.num_flows() != BIG_FLOWS or engine.batcher.parsed != (
+            ticks * 2 * BIG_FLOWS):
+        raise AssertionError(f"{tag} {engine.num_flows()} flows, "
+                             f"{engine.batcher.parsed} lines parsed")
+    if st["state"] != "HEALTHY" or st["fallback_calls"]:
+        raise AssertionError(f"{tag} the unarmed ladder left HEALTHY: {st}")
+    tables = parse_tables(out)
+    printed = _check_printed(tag, tables[-1:], "forest", k, features,
+                             [e for e in log if e[0] == "rows"][-1:])
+    print(f"{tag} {engine.num_flows()} flows tracked from "
+          f"{engine.batcher.parsed} lines, {launches} forest launches, "
+          f"{len(tables)} tables; the last (render {printed[0] + 1}) equals "
+          "the plain version's labels")
+    return launches
 
 
 def churn_capture(path: str, n_flows: int,
@@ -874,17 +1414,17 @@ def phase_incremental_serve(model: dict, k, device) -> int:
         reporting = churn_capture(capture, CAPACITY)
         common = ["Randomforest", "--source", "replay", "--capture", capture,
                   "--capacity", str(CAPACITY), "--print-every", "1",
-                  "--native-checkpoint", ckpt]
+                  "--native-checkpoint", ckpt, *SERIAL]
         plain, per_render = [], []
         render = cli._print_table
 
-        def render_checked(engine, *args):
+        def render_checked(engine, *args, **kw):
             # the plain version's labels on the table about to render, and
             # the kernel launches of this render tick's labels
             plain.append(fk.forest_proba_plain(k, engine.features())
                          .argmax(-1).cpu())
             before = fk.forest_proba.launches
-            plan = render(engine, *args)
+            plan = render(engine, *args, **kw)
             per_render.append(fk.forest_proba.launches - before)
             return plan
 
@@ -978,7 +1518,7 @@ def phase_ryu_serve(model: dict, k, device) -> int:
             "Randomforest", "--source", "ryu", "--monitor-cmd",
             f"{sys.executable} {emitter} {capture} {pause}",
             "--native-ingest", "on", "--capacity", str(CAPACITY),
-            "--print-every", "1", "--native-checkpoint", ckpt,
+            "--print-every", "1", "--native-checkpoint", ckpt, *SERIAL,
         ])
         launches = {f: c.launches for f, c in counters.items()}
     engine = summary.engine
@@ -1245,18 +1785,36 @@ def main() -> int:
     INSTANCES.update(phase_build())
     models, ops, results = phase_kernels(device)
     buckets = phase_dirty_buckets(ops["forest"], device)
-    launches = {
+    serial = {
         family: phase_serve(family, models[family], ops[family], device)
         for family in SERVES
     }
-    paths = {f"serve {SERVES[f][0]}": {g: int(f == g) * n for g in SERVES}
-             for f, n in launches.items()}
+    # the main path: the three serves with no flag
+    launches = {
+        family: phase_default_serve(family, models[family], ops[family],
+                                    device)
+        for family in SERVES
+    }
+    paths = {}
+    for prefix, counts in (("serve", serial), ("default", launches)):
+        for f, n in counts.items():
+            paths[f"{prefix} {SERVES[f][0]}"] = {
+                g: int(f == g) * n for g in SERVES}
+    for f in SERVES:
+        n = phase_drills(f, models[f], ops[f], device)
+        paths[f"drills {SERVES[f][0]}"] = {g: int(f == g) * n for g in SERVES}
+    paths["warmup Randomforest"] = {
+        "forest": phase_warmup(models["forest"], ops["forest"], device),
+        "knn": 0, "svc": 0}
     paths["incremental Randomforest"] = {
         "forest": phase_incremental_serve(models["forest"], ops["forest"],
                                           device),
         "knn": 0, "svc": 0}
     paths["ryu Randomforest"] = {
         "forest": phase_ryu_serve(models["forest"], ops["forest"], device),
+        "knn": 0, "svc": 0}
+    paths["2^20 Randomforest"] = {
+        "forest": phase_big_serve(models["forest"], ops["forest"], device),
         "knn": 0, "svc": 0}
     phase_ingest_breakdown(ops["forest"], device)
     kernels = kernel_entries(results, launches, paths, buckets)

@@ -26,6 +26,8 @@ from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
 from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk
 from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
 from traffic_classifier_sdn_tpu_torch.ops import tree_gemm
+from traffic_classifier_sdn_tpu_torch.serving import degrade as tdegrade
+from traffic_classifier_sdn_tpu_torch.utils import faults as tfaults
 
 
 @pytest.fixture(scope="module")
@@ -109,7 +111,7 @@ def test_parse_tables_reads_cli_output(tmp_path, capsys, forest):
         "Randomforest", "--source", "synthetic", "--synthetic-flows", "90",
         "--capacity", "128", "--max-ticks", "4", "--print-every", "2",
         "--table-rows", "16", "--native-checkpoint", str(tmp_path),
-        "--device", "cpu",
+        "--device", "cpu", "--pipeline", "off", "--degrade", "off",
     ])
     tables = chip_smoke.parse_tables(capsys.readouterr().out)
     assert [len(t) for t in tables] == [16, 16]
@@ -290,3 +292,104 @@ def test_ptxas_instances_name_what_the_wrappers_launch(table):
     assert "Used 54 registers" in found[svc_key]
     assert kk.instance(dataclasses.replace(gk, n_neighbors=33)) == "4, 12"
     assert rk.instance(dataclasses.replace(gs, n_pairs=3), 4, True) == "4, 0, 0, true"
+
+
+@pytest.fixture
+def small_card_phases(monkeypatch):
+    """The script's serve phases on the CPU at a small size: serves get
+    ``--device cpu``, and each plain version counts a call in its kernel
+    wrapper's ``launches`` as a launch would."""
+    serve = chip_smoke._serve
+    monkeypatch.setattr(chip_smoke, "_serve",
+                        lambda argv: serve(list(argv) + ["--device", "cpu"]))
+    monkeypatch.setattr(chip_smoke, "CAPACITY", 256)
+    monkeypatch.setattr(chip_smoke, "DRILL_FLOWS",
+                        {f: 128 for f in chip_smoke.DRILL_FLOWS})
+    # the card's rule: only an injected fault (or a missed deadline) moves
+    # the ladder, so the kernel-fault drill ends its serve here too
+    monkeypatch.setattr(tdegrade.DegradeLadder, "_absorbs",
+                        lambda self, e, X: isinstance(e, tfaults.FaultInjected))
+    monkeypatch.setattr(chip_smoke, "BIG_FLOWS", 512)
+    for mod, plain, wrapper in ((fk, "forest_proba_plain", fk.forest_proba),
+                                (kk, "topk_sim_idx_plain", kk.topk_sim_idx),
+                                (rk, "partial_decision_plain",
+                                 rk.partial_decision)):
+        def counted(*a, _plain=getattr(mod, plain), _w=wrapper, **kw):
+            _w.launches += 1
+            return _plain(*a, **kw)
+        monkeypatch.setattr(mod, plain, counted)
+    X = ft.features12(chip_smoke.synthetic_table(256, 3, "cpu"))
+    sample = X.numpy()
+    models = {"forest": chip_smoke.random_forest(0, sample, n_trees=8),
+              "knn": chip_smoke.random_knn(0, sample, n_rows=200),
+              "svc": chip_smoke.random_svc(0, sample, n_sv=60)}
+    ops = {"forest": fk.compile_forest(models["forest"], n_features=12,
+                                       device="cpu"),
+           "knn": kk.compile_knn(interop.knn_params_from_numpy(
+               models["knn"], "cpu")),
+           "svc": rk.compile_svc(interop.svc_params_from_numpy(
+               models["svc"], "cpu"))}
+    return models, ops
+
+
+@pytest.mark.parametrize("family", ["forest", "knn", "svc"])
+def test_default_serve_and_drill_phases_run_on_cpu(small_card_phases,
+                                                   capsys, family):
+    """``phase_default_serve`` (no flag: pipelined, the ladder) and
+    ``phase_drills`` (armed dispatch error and stall, an unarmed kernel
+    fault, the host rung at size) pass their own checks: labels of every
+    printed table against the plain version on the table it was
+    dispatched against, one launch per render, the transitions of a
+    demotion and a re-promotion, a kernel fault ending the serve."""
+    models, ops = small_card_phases
+    device = torch.device("cpu")
+    assert chip_smoke.phase_default_serve(family, models[family],
+                                          ops[family], device) == 3
+    assert chip_smoke.phase_drills(family, models[family], ops[family],
+                                   device) > 0
+    out = capsys.readouterr().out
+    assert "stayed HEALTHY" in out and out.count("re-promoted") == 2
+    assert "the ladder did not demote" in out and "[demoted " in out
+
+
+def test_warmup_and_big_serve_phases_run_on_cpu(small_card_phases, capsys):
+    models, ops = small_card_phases
+    device = torch.device("cpu")
+    assert chip_smoke.phase_warmup(models["forest"], ops["forest"],
+                                   device) > 0
+    assert chip_smoke.phase_big_serve(models["forest"], ops["forest"],
+                                      device) > 0
+    out = capsys.readouterr().out
+    assert "warmup warmed" in out and "equals the plain version" in out
+
+
+def test_near_ties_tells_rounding_ties_from_real_disagreements():
+    """``chip_smoke.near_ties`` explains a differing label only where the
+    two arithmetics may order the classes differently: top two forest
+    probabilities within ``T · 2⁻²³ · p_max``, k-th and (k+1)-th KNN
+    distances within ``1e-6 · (‖x‖² + max ‖s‖²)``."""
+
+    class _Scores:
+        def __init__(self, p):
+            self.p = np.asarray(p, np.float64)
+
+        def scores(self, X):
+            return self.p[: len(X)]
+
+    T = 100
+    forest = {"values": np.zeros((T, 3, 2))}
+    gap_ok = 0.5 * T * 2.0 ** -23 * 0.4
+    probs = [[0.4, 0.4 - gap_ok, 0.2], [0.4, 0.39, 0.21]]
+    X = torch.zeros((2, 12))
+    got = chip_smoke.near_ties("forest", forest, None, X, _Scores(probs),
+                               np.arange(2))
+    assert got.tolist() == [True, False]
+
+    fit = np.zeros((4, 12), np.float32)
+    fit[:, 0] = [1.0, 2.0, 3.0, 3.0]  # rows 2 and 3 tie for x = 0
+    knn_model = {"fit_X": fit, "n_neighbors": 3}
+    got = chip_smoke.near_ties("knn", knn_model, None, X, None, np.arange(2))
+    assert got.tolist() == [True, True]
+    knn_model["n_neighbors"] = 2  # 2nd nearest 4.0 against 3rd 9.0
+    got = chip_smoke.near_ties("knn", knn_model, None, X, None, np.arange(1))
+    assert got.tolist() == [False]

@@ -281,7 +281,8 @@ def test_ryu_serve_ends_where_the_replay_serve_ends(tmp_path, capture,
     ckpt = _checkpoint(tmp_path)
     common = ["Randomforest", "--native-checkpoint", ckpt, "--device", "cpu",
               "--capacity", str(N_FLOWS), "--print-every", "1",
-              "--idle-timeout", "0", "--native-ingest", native]
+              "--idle-timeout", "0", "--native-ingest", native,
+              "--pipeline", "off", "--degrade", "off"]
     ref = cli.main(common + ["--source", "replay", "--capture", str(capture)])
     capsys.readouterr()
     cmd = _emitter_cmd(capture, pause=0.05, marker=tmp_path / "died",
@@ -305,7 +306,7 @@ def test_ryu_serve_without_supervision_ends_with_the_monitor(tmp_path,
     ckpt = _checkpoint(tmp_path)
     common = ["Randomforest", "--native-checkpoint", ckpt, "--device", "cpu",
               "--capacity", str(N_FLOWS), "--print-every", "1",
-              "--idle-timeout", "0"]
+              "--idle-timeout", "0", "--pipeline", "off", "--degrade", "off"]
     head = tmp_path / "head.capture"
     lines = capture.read_bytes().splitlines(True)
     head.write_bytes(b"".join(ln for ln in lines if ln.split(b"\t")[1] in

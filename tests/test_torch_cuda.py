@@ -156,7 +156,8 @@ def test_serve_on_card_prints_what_the_cpu_serve_prints(cuda, tmp_path, capsys):
     )
     argv = ["Randomforest", "--native-checkpoint", str(tmp_path),
             "--source", "synthetic", "--synthetic-flows", "300",
-            "--capacity", "512", "--max-ticks", "4", "--print-every", "2"]
+            "--capacity", "512", "--max-ticks", "4", "--print-every", "2",
+            "--pipeline", "off", "--degrade", "off"]
     launches = fk.forest_proba.launches
     summary = cli.main(argv)  # CUDA by default
     on_card = capsys.readouterr().out
@@ -193,13 +194,32 @@ def _knn_cases():
          "y": rng.randint(0, 6, 5), "n_neighbors": 5, "classes": np.arange(6)},
         rng.randint(0, 4, (130, 12)).astype(np.float32),
     )
+    # NaN/±inf features in every third row, at k = 5 and k = 40 (the
+    # four-slot lists), and signed zeros: x = −1 against rows 0 and 2x
+    for k in (5, 40):
+        cases[f"nonfinite-k{k}"] = (
+            chip_smoke.random_knn(k, X, n_rows=300, n_neighbors=k),
+            chip_smoke.with_nonfinite(torch.from_numpy(X[:777].copy()),
+                                      every=3).numpy(),
+        )
+    x = -np.ones(12)
+    cases["signed-zeros"] = (
+        {"fit_X": np.stack([np.zeros(12), 2 * x, 5 * np.ones(12)] * 60),
+         "y": np.arange(180) % 6, "n_neighbors": 7, "classes": np.arange(6)},
+        np.stack([x, np.zeros(12), -x]).astype(np.float32),
+    )
     return cases
 
 
 @pytest.mark.parametrize("name", ["ties-k1", "ties-k5", "ties-k20",
                                   "served-k1", "served-k5", "served-k20",
-                                  "ties-S==k"])
+                                  "ties-S==k", "nonfinite-k5",
+                                  "nonfinite-k40", "signed-zeros"])
 def test_knn_kernel_bitwise_equals_plain(cuda, name):
+    """Indices and similarities bitwise equal to the plain version on the
+    card and on the CPU, under the total order (NaN rows and signed zeros
+    included), at the wrapper's launch and at every rows-per-warp shape;
+    every index a corpus row."""
     d, X = _knn_cases()[name]
     g = kk.compile_knn(knn.KnnModel.from_numpy(d, device=cuda))
     Xc = torch.from_numpy(X).to(cuda)
@@ -210,21 +230,36 @@ def test_knn_kernel_bitwise_equals_plain(cuda, name):
     want_v, want_i = kk.topk_sim_idx_plain(g, Xc)
     assert torch.equal(idx, want_i)
     assert torch.equal(vals.view(torch.int32), want_v.view(torch.int32))
+    assert bool(((idx >= 0) & (idx < g.n_rows)).all())
+    for rw in kk.rows_per_warp_choices(g.n_neighbors):
+        v, i = kk._launch(g, Xc, rw)
+        assert torch.equal(i, want_i), rw
+        assert torch.equal(v.view(torch.int32), want_v.view(torch.int32)), rw
+    # against the CPU on finite rows: a NaN the arithmetic makes (inf·0)
+    # has the CPU's sign and payload there and the card's here, and the
+    # total order ranks NaNs by their bits
+    finite = np.isfinite(X).all(1)
     cpu = kk.compile_knn(knn.KnnModel.from_numpy(d, device="cpu"))
-    cv, ci = kk.topk_sim_idx(cpu, torch.from_numpy(X))
-    np.testing.assert_array_equal(idx.cpu().numpy(), ci.numpy())
-    np.testing.assert_array_equal(vals.cpu().numpy().view(np.uint32),
+    cv, ci = kk.topk_sim_idx(cpu, torch.from_numpy(X[finite]))
+    np.testing.assert_array_equal(idx.cpu().numpy()[finite], ci.numpy())
+    np.testing.assert_array_equal(vals.cpu().numpy()[finite].view(np.uint32),
                                   cv.numpy().view(np.uint32))
 
 
-@pytest.mark.parametrize("lo", [False, True], ids=["no-X_lo", "X_lo"])
+@pytest.mark.parametrize("lo", [False, True, "nonfinite"],
+                         ids=["no-X_lo", "X_lo", "nonfinite"])
 def test_svc_kernel_bitwise_equals_plain(cuda, lo):
     """Decisions on the card against the plain version on the card
-    (the same ``expf``), bitwise; against the plain version on the CPU
-    (another ``exp``) within 1e-5 of the largest possible sum, labels
-    equal off that rounding."""
+    (the same ``expf``), bitwise, at the wrapper's launch and every
+    rows-per-block shape; against the plain version on the CPU (another
+    ``exp``) within 1e-5 of the largest possible sum, labels equal off
+    that rounding. ``nonfinite``: NaN/±inf in every third row."""
     X = _served()[:1111]
     d = chip_smoke.random_svc(0, X, n_sv=700)
+    if lo == "nonfinite":
+        X = chip_smoke.with_nonfinite(torch.from_numpy(X.copy()),
+                                      every=3).numpy()
+        lo = False
     Xh, Xl = X, None
     if lo:
         X64 = X.astype(np.float64) * (1 + 1e-4 * np.random.RandomState(1).rand(*X.shape))
@@ -238,6 +273,9 @@ def test_svc_kernel_bitwise_equals_plain(cuda, lo):
     assert rk.partial_decision.launches == launches + 1
     want = rk.partial_decision_plain(g, Xc, Xlc)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for R in rk.ROWS_PER_BLOCK:
+        shaped = rk._launch(g, Xc, Xlc, R)
+        assert torch.equal(shaped.view(torch.int32), want.view(torch.int32)), R
     plain_labels = torch.argmax(svc.votes_from_decision(
         want + g.intercept, g.vote_i, g.vote_j, g.n_classes), dim=-1)
     assert torch.equal(rk.predict(g, Xc, Xlc).long(), plain_labels)
@@ -291,7 +329,8 @@ def test_knn_svc_serve_on_card_prints_what_the_cpu_serve_prints(
                           classes=chip_smoke.CLASSES)
     argv = [sub, "--native-checkpoint", str(tmp_path),
             "--source", "synthetic", "--synthetic-flows", "300",
-            "--capacity", "512", "--max-ticks", "4", "--print-every", "2"]
+            "--capacity", "512", "--max-ticks", "4", "--print-every", "2",
+            "--pipeline", "off", "--degrade", "off"]
     launches = counter.launches
     summary = cli.main(argv)  # CUDA by default
     on_card = capsys.readouterr().out
@@ -511,3 +550,107 @@ def test_label_plan_waits_for_the_device_once(cuda):
     assert plan.kind == "subset" and plan.n_dirty == 40
     syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
     assert len(syncs) == 1, syncs
+
+
+def test_ladder_device_call_syncs_once(cuda):
+    """The ladder's HEALTHY device call (the kernel and its labels' copy
+    to the host) waits for the card once per render."""
+    import warnings
+
+    from traffic_classifier_sdn_tpu_torch.serving.degrade import DegradeLadder
+
+    X = torch.from_numpy(_served()[:4096]).to(cuda)
+    d = chip_smoke.random_forest(0, X.cpu().numpy(), n_trees=24)
+    k = fk.compile_forest(d, n_features=12, device=cuda)
+    # deadline 0: the call runs on this thread, where the warning is raised
+    lad = DegradeLadder(fk.predict, None, deadline=0)
+    try:
+        want = fk.predict(k, X).cpu().numpy()
+        lad(k, X)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                got = lad(k, X)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        np.testing.assert_array_equal(got, want)
+        assert lad.state == "HEALTHY"
+        syncs = [str(w.message) for w in caught
+                 if "synchroniz" in str(w.message)]
+        assert len(syncs) == 1, syncs
+    finally:
+        lad.close()
+
+
+def test_ladder_on_card_raises_a_kernel_fault(cuda, monkeypatch):
+    """On CUDA features a device error that is neither injected nor a
+    missed deadline ends the ladder's call instead of demoting; an armed
+    ``degrade.dispatch_error`` still demotes."""
+    from traffic_classifier_sdn_tpu_torch.serving.degrade import DegradeLadder
+    from traffic_classifier_sdn_tpu_torch.utils import faults
+
+    X = torch.from_numpy(_served()[:512]).to(cuda)
+    d = chip_smoke.random_forest(0, X.cpu().numpy(), n_trees=8)
+    k = fk.compile_forest(d, n_features=12, device=cuda)
+
+    def broken(g, Xq):
+        raise RuntimeError("CUDA error: unspecified launch failure")
+
+    lad = DegradeLadder(broken, None, deadline=5.0)
+    try:
+        with pytest.raises(RuntimeError, match="launch failure"):
+            lad(k, X)
+        assert lad.state == "HEALTHY" and lad.transitions == []
+    finally:
+        lad.close()
+    lad = DegradeLadder(fk.predict, None, deadline=5.0)
+    plan = faults.FaultPlan([faults.FaultRule("degrade.dispatch_error")])
+    try:
+        with faults.installed(plan):
+            lad(k, X)
+        assert lad.transitions[0] == ("HEALTHY", "DEGRADED",
+                                      "error:FaultInjected")
+    finally:
+        lad.close()
+
+
+@pytest.mark.parametrize("sub", ["Randomforest", "knearest", "svm"])
+def test_pipelined_serve_on_card_prints_what_the_serial_serve_prints(
+        cuda, tmp_path, capsys, monkeypatch, sub):
+    """The no-flag serve on the card (pipelined, the ladder, host-mode
+    labels), with a handoff deeper than its renders, prints what the
+    serial bare-kernel serve on the card prints; the ladder stays
+    HEALTHY and the kernel launches once per render that predicts."""
+    table = chip_smoke.synthetic_table(300, 2, "cpu")
+    X = ft.features12(table).numpy()
+    family, carry, counter, size = {
+        "Randomforest": ("forest", interop.forest_params_from_numpy,
+                         fk.forest_proba, {"n_trees": 16}),
+        "knearest": ("knn", interop.knn_params_from_numpy, kk.topk_sim_idx,
+                     {"n_rows": 500}),
+        "svm": ("svc", interop.svc_params_from_numpy, rk.partial_decision,
+                {"n_sv": 200}),
+    }[sub]
+    make = {"forest": chip_smoke.random_forest, "knn": chip_smoke.random_knn,
+            "svc": chip_smoke.random_svc}[family]
+    checkpoint.save_model(str(tmp_path), family,
+                          carry(make(0, X, **size), "cpu"),
+                          classes=chip_smoke.CLASSES)
+    monkeypatch.setattr(cli, "PIPELINE_DEPTH", 64)
+    capture = str(tmp_path / "churn.capture")
+    chip_smoke.churn_capture(capture, 300)
+    argv = [sub, "--native-checkpoint", str(tmp_path), "--source", "replay",
+            "--capture", capture, "--capacity", "300", "--print-every", "1",
+            "--idle-timeout", "2"]
+    cli.main(argv + ["--pipeline", "off", "--degrade", "off"])
+    serial = capsys.readouterr().out
+    launches = counter.launches
+    summary = cli.main(argv)
+    assert capsys.readouterr().out == serial
+    assert summary.ticks_coalesced == 0
+    assert summary.degrade["state"] == "HEALTHY"
+    assert summary.degrade["fallback_calls"] == 0
+    predicting = [p for p in summary.render_plans if p[0] != "none"]
+    assert counter.launches - launches == len(predicting)

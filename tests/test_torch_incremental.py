@@ -377,7 +377,8 @@ def test_cli_incremental_stdout_identical(tmp_path, capsys, monkeypatch,
         for inc in ("auto", "off"):
             summary = tcli.main(common + [
                 "--native-checkpoint", tdir, "--device", "cpu",
-                "--native-ingest", native, "--incremental", inc])
+                "--native-ingest", native, "--incremental", inc,
+                "--pipeline", "off", "--degrade", "off"])
             runs[native, inc] = capsys.readouterr().out
             assert summary.engine.native == (native == "on")
             if inc == "auto":

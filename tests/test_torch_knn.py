@@ -181,27 +181,32 @@ def test_half_sq_norms():
     np.testing.assert_array_equal(own.fit_X_lo.numpy(), np.asarray(jp.fit_X_lo))
 
 
-SENTINEL = np.iinfo(np.int32).max  # kSentinel: an empty slot's index
+def _key(v: np.float32) -> int:
+    """The total-order key of a float32 (``knn.total_order_key``)."""
+    bits = int(np.array(v, np.float32).view(np.int32))
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
 
 
-def _offer(vals, idx, v, s):
-    """WarpList::offer for one candidate: it enters if it beats the k-th
-    value, after every entry >= it; the entries behind move down."""
-    if not v > vals[-1]:
+def _offer(keys, idx, key, s):
+    """WarpList::insert for one candidate: it enters if its key beats the
+    k-th key, after every entry whose key is >= its own; the entries
+    behind move down."""
+    if not key > keys[-1]:
         return
-    p = sum(1 for u in vals if u >= v)
-    vals.insert(p, v)
+    p = sum(1 for u in keys if u >= key)
+    keys.insert(p, key)
     idx.insert(p, s)
-    del vals[-1], idx[-1]
+    del keys[-1], idx[-1]
 
 
 def _kernel_scan(g: kk.KnnKernelOperands, X: np.ndarray):
     """The CUDA kernel's procedure in numpy: the corpus taken 128 records
     at a time, record 32·j + lane of a chunk in lane ``lane``'s column j,
     padded past the corpus's end with zeros and a half norm of +inf; the
-    similarity in its order; the first chunk's k best (value desc, index
-    asc) filling the empty list (k <= 32), every later candidate offered
-    column by column, lane by lane. Empty slots are (-inf, SENTINEL)."""
+    similarity in its order, ranked by its total-order key; the first
+    chunk's k best (key desc, index asc) among corpus rows filling the
+    empty list, every later corpus row offered column by column, lane by
+    lane. Pads are kept out by their index, never by their value."""
     rec = g.records.numpy()
     k, F, S = g.n_neighbors, g.n_features, g.n_rows
     pad = np.zeros(kk.RECORD, np.float32)
@@ -210,7 +215,7 @@ def _kernel_scan(g: kk.KnnKernelOperands, X: np.ndarray):
     out_i = np.zeros((X.shape[0], k), np.int32)
     with np.errstate(invalid="ignore"):
         for row, x in enumerate(X):
-            vals, idx = [np.float32(-np.inf)] * k, [SENTINEL] * k
+            keys, idx = [], []
             for base in range(0, S, kk.CHUNK):
                 cand = []  # column by column, lane by lane
                 for j in range(kk.CHUNK // 32):
@@ -220,16 +225,18 @@ def _kernel_scan(g: kk.KnnKernelOperands, X: np.ndarray):
                         acc = np.float32(x[0] * r[0])
                         for f in range(1, F):
                             acc = np.float32(acc + np.float32(x[f] * r[f]))
-                        cand.append((np.float32(acc - r[-1]), s))
-                if base == 0 and k <= 32:  # fill: the chunk's k best
-                    best = sorted((c for c in cand if c[0] > -np.inf),
-                                  key=lambda c: (-c[0], c[1]))[:k]
-                    for q, (v, s) in enumerate(best):
-                        vals[q], idx[q] = v, s
+                        if s < S:
+                            cand.append((_key(np.float32(acc - r[-1])), s))
+                if base == 0:  # fill: the chunk's k best
+                    best = sorted(cand, key=lambda c: (-c[0], c[1]))[:k]
+                    keys, idx = [c[0] for c in best], [c[1] for c in best]
                     continue
-                for v, s in cand:
-                    _offer(vals, idx, v, s)
-            out_v[row], out_i[row] = vals, idx
+                for key, s in cand:
+                    _offer(keys, idx, key, s)
+            out_i[row] = idx
+            out_v[row] = np.array(
+                [_key(np.array(c, np.int32).view(np.float32)) for c in keys],
+                np.int32).view(np.float32)
     return out_v, out_i
 
 
@@ -323,3 +330,81 @@ def test_rejections_match_jax():
     assert kk.predict(g, X).shape == (4,)
     assert kk.topk_sim_idx(g, torch.zeros((0, 12)))[1].shape == (0, 5)
     assert kk.topk_sim_idx.launches == launches  # the CPU twin never counts
+
+
+def _lax_top_k_idx(sim: torch.Tensor, k: int) -> np.ndarray:
+    """``lax.top_k``'s indices on the port's similarities."""
+    return np.asarray(lax.top_k(jnp.asarray(sim.numpy()), k)[1])
+
+
+def _signed_zero_case():
+    """x = (−1, …, −1) against corpus rows [0, 2x, 5·1, 0, 2x], k = 2: the
+    similarities are [−0, +0, −210, −0, +0], where ``lax.top_k`` takes
+    the two +0 (indices 1 and 4) over the −0."""
+    x = -np.ones((1, 12), np.float32)
+    fit = np.stack([np.zeros(12), 2 * x[0], 5 * np.ones(12), np.zeros(12),
+                    2 * x[0]]).astype(np.float64)
+    d = {"fit_X": fit, "y": np.arange(5) % 3, "n_neighbors": 2,
+         "classes": np.arange(3)}
+    return kk.compile_knn(tknn.KnnModel.from_numpy(d, device="cpu")), x
+
+
+def test_topk_order_on_signed_zeros_matches_lax_top_k():
+    g, x = _signed_zero_case()
+    sim = tknn.dot_expansion_sim(torch.from_numpy(x), g.fit_X, g.half_sq)
+    np.testing.assert_array_equal(
+        sim.numpy().view(np.uint32),
+        np.array([[0x80000000, 0, 0xC3520000, 0x80000000, 0]], np.uint32))
+    vals, idx = kk.topk_sim_idx(g, torch.from_numpy(x))
+    np.testing.assert_array_equal(idx.numpy(), [[1, 4]])
+    np.testing.assert_array_equal(idx.numpy(), _lax_top_k_idx(sim, 2))
+    got_v, got_i = _kernel_scan(g, x)
+    np.testing.assert_array_equal(got_i, idx.numpy())
+    np.testing.assert_array_equal(got_v.view(np.uint32),
+                                  vals.numpy().view(np.uint32))
+
+
+def test_topk_stable_total_order_matches_lax_top_k():
+    """[1, −NaN, −0, +0, +NaN, inf, −inf, +0, −0, 1] sorted whole, and
+    NaNs of several payloads and signs: the IEEE total order."""
+    a = np.array([1, 0, -0.0, 0, np.nan, np.inf, -np.inf, 0, -0.0, 1],
+                 np.float32)
+    a.view(np.uint32)[1] = 0xFFC00000
+    b = np.array([0xFFFFFFFF, 0xFF800000, 0x80000000, 0x7FFFFFFF,
+                  0x7FC00000, 0x7F800001, 0xFFC00001, 0x3F800000],
+                 np.uint32).view(np.float32)
+    for sim, want in ((a, [4, 5, 0, 9, 3, 7, 2, 8, 6, 1]),
+                      (b, [3, 4, 5, 7, 2, 1, 6, 0])):
+        t = torch.from_numpy(sim)[None]
+        vals, idx = tknn.topk_stable(t, sim.size)
+        np.testing.assert_array_equal(idx.numpy()[0], want)
+        np.testing.assert_array_equal(idx.numpy(), _lax_top_k_idx(t, sim.size))
+        np.testing.assert_array_equal(vals.numpy().view(np.uint32),
+                                      sim[None, want].view(np.uint32))
+        keys = tknn.total_order_key(t)
+        np.testing.assert_array_equal(  # the key is its own inverse
+            tknn.total_order_key(keys.view(torch.float32)).numpy(),
+            t.view(torch.int32).numpy())
+
+
+@pytest.mark.parametrize("k", [5, 40])
+def test_nonfinite_rows_get_real_neighbors(served, k):
+    """A 300-row corpus and 12 served rows of which every third has a
+    NaN/±inf feature: the plain version and the kernel's procedure return
+    ``lax.top_k``'s indices on the port's similarities, all in [0, S),
+    bitwise the same (k = 40 takes the kernel's four-slot lists)."""
+    X, _ = served
+    d = chip_smoke.random_knn(0, X, n_rows=300, n_neighbors=k)
+    g = kk.compile_knn(tknn.KnnModel.from_numpy(d, device="cpu"))
+    Xn = chip_smoke.with_nonfinite(torch.from_numpy(X[:12].copy()), every=3)
+    assert not torch.isfinite(Xn[::3]).all(1).any()
+    sim = tknn.dot_expansion_sim(Xn, g.fit_X, g.half_sq)
+    vals, idx = kk.topk_sim_idx(g, Xn)
+    np.testing.assert_array_equal(idx.numpy(), _lax_top_k_idx(sim, k))
+    assert ((idx >= 0) & (idx < 300)).all()
+    got_v, got_i = _kernel_scan(g, Xn.numpy())
+    np.testing.assert_array_equal(got_i, idx.numpy())
+    np.testing.assert_array_equal(got_v.view(np.uint32),
+                                  vals.numpy().view(np.uint32))
+    labels = kk.predict(g, Xn)
+    assert labels.shape == (12,) and ((labels >= 0) & (labels < 6)).all()

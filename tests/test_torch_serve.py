@@ -50,6 +50,9 @@ from traffic_classifier_sdn_tpu_torch.io import checkpoint as tck
 CLASSES = ("dns", "game", "ping", "quake", "telnet", "voice")
 JAX_SLICE_FLAGS = ["--pipeline", "off", "--incremental", "off",
                    "--degrade", "off", "--native-ingest", "off"]
+# the port's serial serve, compared with the JAX serial serve above (the
+# no-flag pipelined serve is tests/test_torch_pipeline.py's)
+PORT_SERIAL = ["--pipeline", "off", "--degrade", "off"]
 
 
 def _mac(i: int) -> str:
@@ -111,7 +114,7 @@ def _serve_both(capsys, jdir, tdir, argv):
                *JAX_SLICE_FLAGS])
     jax_io = capsys.readouterr()
     summary = tcli.main(["Randomforest", "--native-checkpoint", tdir, *argv,
-                         "--device", "cpu"])
+                         "--device", "cpu", *PORT_SERIAL])
     port_io = capsys.readouterr()
     return jax_io, port_io, summary
 
@@ -225,7 +228,7 @@ def _serve_family(capsys, monkeypatch, sub, jdir, tdir, argv):
     jcli.main([sub, "--native-checkpoint", jdir, *argv, *JAX_SLICE_FLAGS])
     jax_io = capsys.readouterr()
     summary = tcli.main([sub, "--native-checkpoint", tdir, *argv,
-                         "--device", "cpu"])
+                         "--device", "cpu", *PORT_SERIAL])
     return jax_io, capsys.readouterr(), summary
 
 

@@ -1,9 +1,10 @@
 """Command-line interface of the port: the ``Randomforest``, ``knearest``
 (alias ``kneighbors``) and ``svm`` classify serves.
 
-The serial serve of the JAX CLI (``traffic_classifier_sdn_tpu/cli.py``
-``_serve_loop`` and ``_print_table``, run with ``--pipeline off --degrade
-off``), with the same flag names and defaults. Each poll tick:
+The serve of the JAX CLI (``traffic_classifier_sdn_tpu/cli.py``
+``_serve_loop``, ``_dispatch_render``, ``_print_table``), with the same flag
+names and defaults: with no flag it runs what the JAX CLI runs with no
+flag. Each poll tick, on the host stage:
 
 1. poll one tick of telemetry: raw monitor pipe bytes (``--source ryu``
    with the native engine) or parsed records;
@@ -25,6 +26,20 @@ and every ``--print-every`` ticks, after idle eviction:
 5. the activity-ranked ``top_active_render`` picks ``--table-rows`` rows;
 6. ``utils/table.render_table`` prints them.
 
+``--degrade auto`` (the default) runs the predict through the degradation
+ladder (serving/degrade.py): the kernel's labels come back to the host
+under a watchdog deadline, and a dispatch past its deadline demotes to a
+host fallback (the native C++ forest or KNN, the plain torch version on
+the CPU for SVC) until probes re-promote it; labels are then host arrays,
+read through the host-mode label cache. On the card any other error of
+the device predict (a CUDA error, a fault in a kernel wrapper) ends the
+serve: only a missed deadline or an armed fault site (utils/faults.py)
+demotes. ``--pipeline auto`` (the default)
+runs steps 4-6 on a device-stage worker (serving/pipeline.py): the host
+stage dispatches each render and goes on ingesting; when the worker falls
+behind, renders coalesce (``ticks_coalesced``). ``--pipeline off
+--degrade off`` is the serial, bare-kernel serve.
+
 The model family comes from the checkpoint and must match the subcommand.
 KNN serves one exact top-k, the semantics of the JAX default ``--knn-topk
 sort``; the ``--knn-topk`` menu is not ported. SVC serves the two-float
@@ -43,6 +58,7 @@ cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 from dataclasses import dataclass, field
@@ -50,6 +66,8 @@ from dataclasses import dataclass, field
 import torch
 
 SUBCOMMANDS = ("Randomforest", "randomforest", "knearest", "kneighbors", "svm")
+# renders the pipelined serve's handoff holds before new ones coalesce
+PIPELINE_DEPTH = 2
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -115,6 +133,50 @@ def _build_parser() -> argparse.ArgumentParser:
         "'off' predicts the whole table every render tick",
     )
     p.add_argument(
+        "--pipeline", choices=("auto", "on", "off"), default="auto",
+        help="pipelined serving (serving/pipeline.py): overlap host "
+        "poll/parse/scatter with device predict/render through a bounded "
+        "two-deep handoff (auto = on). When the device stage falls "
+        "behind, render ticks coalesce (ticks_coalesced) instead of "
+        "queueing unboundedly; 'off' restores the serial poll -> parse "
+        "-> scatter -> predict -> render chain",
+    )
+    p.add_argument(
+        "--degrade", choices=("auto", "off"), default="auto",
+        help="degradation ladder (serving/degrade.py): wrap the device "
+        "predict in a watchdog and demote to a host fallback (native C++ "
+        "forest/KNN, the plain torch version on the CPU otherwise) "
+        "instead of wedging when a dispatch misses its deadline; probes "
+        "re-promote after recovery. On a CUDA device any other device "
+        "error ends the serve. 'off' restores the bare predict path",
+    )
+    p.add_argument(
+        "--device-deadline", type=float, default=2.0, metavar="SECS",
+        help="watchdog deadline per device-stage dispatch, the labels' "
+        "copy to the host included (default 2.0; 0 disables the deadline "
+        "— wedged dispatches then block). The "
+        "first dispatch gets 10x (min 60 s)",
+    )
+    p.add_argument(
+        "--probe-every", type=float, default=5.0, metavar="SECS",
+        help="base interval between recovery probes while degraded "
+        "(default 5.0); failed probes back off exponentially from this "
+        "base with full jitter",
+    )
+    p.add_argument(
+        "--probe-successes", type=int, default=3, metavar="N",
+        help="consecutive clean probes required to re-promote the device "
+        "kernel (default 3); any failed probe resets the chain",
+    )
+    p.add_argument(
+        "--warmup", action="store_true",
+        help="pay the serve's first-use costs at startup "
+        "(serving/warmup.py: kernel build, pinned wire stages, the "
+        "predict at full capacity and at every dirty bucket, the degrade "
+        "ladder's first call and host rung, the ranked render) so the "
+        "first tick runs hot",
+    )
+    p.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
         help="device of the flow table and the model (default cuda; "
         "there is no fallback to the CPU)",
@@ -126,11 +188,18 @@ def _build_parser() -> argparse.ArgumentParser:
 class ServeSummary:
     """What one serve did: the engine at the end, and per-tick host times.
     ``ingest_seconds`` covers parse, batcher and the wire scatter, and
-    ``tick_seconds`` the whole tick; both end with a device sync, so they
-    cover their device work. ``render_ticks`` are the 1-based ticks that
-    printed a table; under ``--incremental auto`` ``render_plans`` holds
-    each one's label plan, ``(kind, rows)``: ``none``, ``subset`` or
-    ``full`` and the dirty count behind it."""
+    ``tick_seconds`` the whole tick; both end with a wait on the serve
+    loop's stream, so they cover their device work (the pipelined tick
+    covers the host stage: its renders finish on the device stage).
+    ``render_ticks`` are the 1-based ticks that rendered (pipelined: that
+    dispatched a render, ``ticks_coalesced`` of which were superseded
+    before they printed); under ``--incremental auto`` ``render_plans``
+    holds each one's label plan, ``(kind, rows)``: ``none``, ``subset`` or
+    ``full`` and the dirty count behind it. ``degrade`` is the ladder's
+    final ``status()`` (None under ``--degrade off``) and
+    ``degrade_transitions`` its ``(from, to, reason)`` edges, ``pipeline`` the
+    pipeline's ``stats()`` (None under ``--pipeline off``), ``warmup``
+    what ``--warmup`` returned."""
 
     engine: object
     ticks: int = 0
@@ -138,6 +207,11 @@ class ServeSummary:
     tick_seconds: list = field(default_factory=list)
     render_ticks: list = field(default_factory=list)
     render_plans: list = field(default_factory=list)
+    ticks_coalesced: int = 0
+    degrade: dict | None = None
+    degrade_transitions: list = field(default_factory=list)
+    pipeline: dict | None = None
+    warmup: dict | None = None
 
 
 def _use_native(args) -> bool:
@@ -198,106 +272,220 @@ def _tick_source(args, raw: bool = False):
 
 
 def _sync(device: torch.device) -> None:
+    """Wait for the serve loop's own stream (not the pipeline's device
+    stage, which runs on a stream of its own)."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
-def _serve_loop(args, engine, model, predict, serve_params,
-                inc=None) -> ServeSummary:
+def _serve_loop(args, engine, model, predict, serve_params, inc=None,
+                degrade=None) -> ServeSummary:
+    from .serving.pipeline import ServePipeline, coalesce_renders
+
     summary = ServeSummary(engine=engine)
     dropped_seen = 0
     errors_seen = 0
+    # Pipelined serving: this thread (the host stage) polls, parses,
+    # scatters and DISPATCHES each render; one worker (the device stage)
+    # waits for it and prints. The handoff is bounded; 'off' keeps the
+    # serial chain.
+    pipe = None
+    host_busy = contextlib.nullcontext
+    if args.pipeline != "off":
+        pipe = ServePipeline(consume=lambda job: job(), depth=PIPELINE_DEPTH,
+                             merge=coalesce_renders).start()
+        host_busy = pipe.host_stage
     # raw bytes wherever the native engine can take them: the pipe source
     source = _tick_source(args, raw=engine.native and args.source == "ryu")
     try:
         for batch in source:
+            if pipe is not None:
+                # a dead device stage must end the serve, not let the
+                # host stage spin on
+                pipe.raise_if_failed()
             t0 = time.perf_counter()
-            engine.mark_tick()  # freshness floor for the render
-            if isinstance(batch, bytes):
-                engine.ingest_bytes(batch)
-            else:
-                engine.ingest(batch)
-            engine.step()
-            _sync(engine.device)
-            summary.ingest_seconds.append(time.perf_counter() - t0)
-            summary.ticks += 1
-            if summary.ticks % args.print_every == 0:
-                if engine.dropped > dropped_seen:
-                    print(
-                        f"WARNING: flow table full — "
-                        f"{engine.dropped - dropped_seen} new flows dropped "
-                        f"since last report (capacity {args.capacity}, "
-                        f"idle-timeout {args.idle_timeout}s)",
-                        file=sys.stderr,
-                    )
-                    dropped_seen = engine.dropped
-                if engine.parse_errors() > errors_seen:
-                    print(
-                        f"WARNING: {engine.parse_errors() - errors_seen} "
-                        f"malformed telemetry lines skipped since last "
-                        f"report",
-                        file=sys.stderr,
-                    )
-                    errors_seen = engine.parse_errors()
-                if args.idle_timeout and engine.last_time:
-                    engine.evict_idle(engine.last_time, args.idle_timeout)
-                plan = _print_table(engine, model, predict, serve_params,
-                                    args, inc)
-                summary.render_ticks.append(summary.ticks)
-                if plan is not None:
-                    summary.render_plans.append((plan.kind, plan.n_dirty))
-            _sync(engine.device)
+            with host_busy():
+                engine.mark_tick()  # freshness floor for the render
+                if isinstance(batch, bytes):
+                    engine.ingest_bytes(batch)
+                else:
+                    engine.ingest(batch)
+                engine.step()
+                _sync(engine.device)
+                summary.ingest_seconds.append(time.perf_counter() - t0)
+                summary.ticks += 1
+                if summary.ticks % args.print_every == 0:
+                    if engine.dropped > dropped_seen:
+                        print(
+                            f"WARNING: flow table full — "
+                            f"{engine.dropped - dropped_seen} new flows "
+                            f"dropped since last report (capacity "
+                            f"{args.capacity}, idle-timeout "
+                            f"{args.idle_timeout}s)",
+                            file=sys.stderr,
+                        )
+                        dropped_seen = engine.dropped
+                    if engine.parse_errors() > errors_seen:
+                        print(
+                            f"WARNING: {engine.parse_errors() - errors_seen}"
+                            f" malformed telemetry lines skipped since "
+                            f"last report",
+                            file=sys.stderr,
+                        )
+                        errors_seen = engine.parse_errors()
+                    if pipe is not None:
+                        plan = _dispatch_render(
+                            args, engine, model, predict, serve_params,
+                            pipe, inc=inc, degrade=degrade,
+                        )
+                    else:
+                        if args.idle_timeout and engine.last_time:
+                            engine.evict_idle(engine.last_time,
+                                              args.idle_timeout)
+                        plan = _print_table(engine, model, predict,
+                                            serve_params, args, inc,
+                                            degrade=degrade)
+                    summary.render_ticks.append(summary.ticks)
+                    if plan is not None:
+                        summary.render_plans.append(plan)
+                _sync(engine.device)
             summary.tick_seconds.append(time.perf_counter() - t0)
             if args.max_ticks and summary.ticks >= args.max_ticks:
                 break
+        if pipe is not None:
+            # end of stream: staged renders print before the loop returns,
+            # and a device-stage failure surfaces here
+            pipe.shutdown(drain=True)
+            pipe.raise_if_failed()
     finally:
+        if pipe is not None:
+            pipe.shutdown(drain=False)  # idempotent; error paths drop
         source.close()
+    if pipe is not None:
+        summary.pipeline = pipe.stats()
+        summary.ticks_coalesced = summary.pipeline["ticks_coalesced"]
     return summary
 
 
-def _print_table(engine, model, predict, serve_params, args, inc=None):
-    """Label the table and print the tick's table; returns the incremental
-    label plan (None under ``--incremental off``)."""
+def _dispatch_render(args, engine, model, predict, serve_params, pipe,
+                     inc=None, degrade=None):
+    """Host-stage half of one pipelined render tick: evict, dispatch the
+    read side against THIS tick's table, and stage the device-stage job.
+    It prints what the serial render of the same tick prints: ``n_flows``
+    is taken at dispatch, the dispatched tensors are fixed against tick
+    N's state, and eviction waits for renders in flight (a released
+    slot's metadata must outlive its render). Returns the incremental
+    label plan, ``(kind, dirty rows)`` (None under ``--incremental
+    off``)."""
+    from .serving.pipeline import RenderJob, dispatch_read
+
+    idle = args.idle_timeout or None
+    if idle is not None and engine.last_time:
+        # Whether to evict is decided from data time alone, so the stale
+        # set is the same in every run; only when the worker is busy is
+        # wall-clock. Draining only on ticks that evict keeps the output
+        # deterministic under host load.
+        stale = engine.stale_slots(engine.last_time, idle)
+        if stale.size:
+            if not pipe.idle():
+                pipe.drain(timeout=10.0)
+            if pipe.idle():
+                engine.evict_slots(stale)
+    read = dispatch_read(engine, predict, serve_params, args.table_rows,
+                         inc=inc)
+
+    def render(read):
+        rows = read.rows()
+        # the stale verdict postdates the predict attempt: a ladder trip
+        # during rows() marks this tick's render
+        stale = degrade is not None and degrade.render_stale
+        if args.table_rows > 0:
+            _print_ranked(engine, model, rows, read.n_flows, stale=stale)
+        else:
+            _print_full(model, rows, stale=stale)
+
+    pipe.submit(RenderJob(read, render))
+    return None if inc is None else inc.last_plan
+
+
+def _stale_fields(fields, rows, stale):
+    """Append the ``Label State = STALE`` column when the degrade ladder
+    serves last-known-good labels (the BROKEN rung): the column exists
+    only while labels are stale, so a no-fault table is unchanged."""
+    if not stale:
+        return fields, rows
+    return (tuple(fields) + ("Label State",),
+            [tuple(r) + ("STALE",) for r in rows])
+
+
+def _label_name(model, c: int) -> str:
+    names = model.classes.names
+    return names[c] if c < len(names) else "?"
+
+
+def _print_ranked(engine, model, ranked, n_flows, stale=False) -> None:
+    """Render activity-ranked ``(slot, label, fwd, rev)`` rows."""
     from .utils.table import CLASSIFIER_FIELDS, render_table, status_str
 
+    sample = engine.slot_metadata(slots=[s for s, *_ in ranked])
+    rows = [
+        (slot, *sample[slot], _label_name(model, c), status_str(fa),
+         status_str(ra))
+        for slot, c, fa, ra in ranked
+        if slot in sample
+    ]
+    fields, rows = _stale_fields(CLASSIFIER_FIELDS, rows, stale)
+    print(render_table(fields, rows), flush=True)
+    if n_flows > len(rows):
+        print(f"... showing {len(rows)} of {n_flows} tracked flows",
+              flush=True)
+
+
+def _print_full(model, rows, stale=False) -> None:
+    """Render the unbounded (``--table-rows 0``) table from
+    ``(slot, src, dst, label, fwd, rev)`` rows."""
+    from .utils.table import CLASSIFIER_FIELDS, render_table, status_str
+
+    out = [
+        (slot, src, dst, _label_name(model, c), status_str(f), status_str(r))
+        for slot, src, dst, c, f, r in rows
+    ]
+    fields, out = _stale_fields(CLASSIFIER_FIELDS, out, stale)
+    print(render_table(fields, out), flush=True)
+
+
+def _print_table(engine, model, predict, serve_params, args, inc=None,
+                 degrade=None):
+    """The serial render: label the table and print the tick's table;
+    returns the incremental label plan, ``(kind, dirty rows)`` (None under
+    ``--incremental off``)."""
     plan = None
     if inc is not None:
         # only this tick's dirty rows are predicted; the rest come from
         # the label cache
-        plan = inc.dispatch()
-        labels = inc.finish(plan)
+        labels = inc.labels()
+        plan = inc.last_plan
     else:
-        labels = predict(serve_params, engine.features())  # on the device
-    names = model.classes.names
-
-    def name(c: int) -> str:
-        return names[c] if c < len(names) else "?"
-
+        labels = predict(serve_params, engine.features())
+    # the stale verdict postdates the predict attempt
+    stale = degrade is not None and degrade.render_stale
+    n_flows = engine.num_flows()
     if args.table_rows > 0:
         # activity-ranked sample: O(table_rows) crosses to the host
-        ranked = engine.render_sample(labels, args.table_rows)
-        sample = engine.slot_metadata(slots=[s for s, *_ in ranked])
-        rows = [
-            (slot, *sample[slot], name(c), status_str(fa), status_str(ra))
-            for slot, c, fa, ra in ranked
-            if slot in sample
-        ]
-        print(render_table(CLASSIFIER_FIELDS, rows), flush=True)
-        n_flows = engine.num_flows()
-        if n_flows > len(rows):
-            print(f"... showing {len(rows)} of {n_flows} tracked flows",
-                  flush=True)
+        _print_ranked(engine, model,
+                      engine.render_sample(labels, args.table_rows),
+                      n_flows, stale=stale)
         return plan
-    idx = labels.cpu().numpy()
+    if isinstance(labels, torch.Tensor):
+        labels = labels.cpu().numpy()
     fwd_active = engine.table.fwd.active[:-1].cpu().numpy()
     rev_active = engine.table.rev.active[:-1].cpu().numpy()
     rows = [
-        (slot, src, dst, name(int(idx[slot])),
-         status_str(bool(fwd_active[slot])),
-         status_str(bool(rev_active[slot])))
+        (slot, src, dst, int(labels[slot]), bool(fwd_active[slot]),
+         bool(rev_active[slot]))
         for slot, (src, dst) in sorted(engine.slot_metadata().items())
     ]
-    print(render_table(CLASSIFIER_FIELDS, rows), flush=True)
+    _print_full(model, rows, stale=stale)
     return plan
 
 
@@ -316,17 +504,59 @@ def run_classify(args) -> ServeSummary:
         )
     if model.classes is None:
         sys.exit("--native-checkpoint stores no class names")
+    # the serving pair; on a card this builds and loads the kernel, so a
+    # kernel that does not build raises here, before the serve starts
     predict, serve_params = model.serving_path()
     engine = FlowStateEngine(
         args.capacity, device=device, native=_use_native(args),
         track_dirty=args.incremental != "off",
     )
-    inc = None
-    if args.incremental != "off":
-        from .serving.incremental import IncrementalLabels
+    # The degradation ladder wraps the kernel predict, built BEFORE warmup
+    # so warmup routes through it (its first device call, on its grace
+    # deadline, happens there, and its host rung is primed).
+    degrade = None
+    if args.degrade != "off" and not getattr(predict, "host_native", False):
+        from .models import resolve_fallback
+        from .serving.degrade import DegradeLadder
 
-        inc = IncrementalLabels(engine, predict, serve_params)
-    return _serve_loop(args, engine, model, predict, serve_params, inc)
+        degrade = DegradeLadder(
+            predict, resolve_fallback(model.name, model.params),
+            deadline=args.device_deadline,
+            probe_every=args.probe_every,
+            probe_successes=args.probe_successes,
+        )
+        predict = degrade
+    try:
+        wstats = None
+        if args.warmup:
+            from .serving.warmup import warmup_serving
+
+            wstats = warmup_serving(
+                engine, predict, serve_params,
+                table_rows=args.table_rows, idle_timeout=args.idle_timeout,
+                incremental=args.incremental != "off",
+            )
+            print(
+                f"warmup: warmed {len(wstats['warmed'])} serving steps in "
+                f"{wstats['seconds']:.2f}s ({', '.join(wstats['warmed'])})",
+                file=sys.stderr,
+            )
+        inc = None
+        if args.incremental != "off":
+            from .serving.incremental import IncrementalLabels
+
+            inc = IncrementalLabels(engine, predict, serve_params,
+                                    degrade=degrade)
+        summary = _serve_loop(args, engine, model, predict, serve_params,
+                              inc, degrade=degrade)
+    finally:
+        if degrade is not None:
+            degrade.close()
+    summary.warmup = wstats
+    if degrade is not None:
+        summary.degrade = degrade.status()
+        summary.degrade_transitions = list(degrade.transitions)
+    return summary
 
 
 def main(argv=None) -> ServeSummary:

@@ -191,6 +191,12 @@ class WireStage:
         self._views = tuple(b.numpy().view(np.uint32) for b in self._bufs)
         self._i = 0
 
+    def touch(self) -> None:
+        """Write every page of both buffers (warmup): the first serve tick
+        must not pay their first-touch page faults."""
+        for b in self._bufs:
+            b.zero_()
+
     def buffer(self) -> np.ndarray:
         """The buffer the NEXT flush writes into (flat uint32)."""
         return self._views[self._i]
@@ -542,6 +548,21 @@ def top_active_slots(table: FlowTable, n: int, floor: int):
     score = _activity_score(table, floor)
     idx = torch.sort(score, descending=True, stable=True).indices[:n]
     return idx, table.in_use[:-1][idx]
+
+
+def top_active_flags(table: FlowTable, n: int, floor: int):
+    """``top_active_render`` minus the label gather: ``(idx, valid,
+    fwd_active[idx], rev_active[idx])`` for the ≤n most active slots. The
+    host-label serve paths (the degrade ladder's) compute this at dispatch,
+    fixing the ranked set against the tick's table, and join the labels
+    on the host later."""
+    idx, valid = top_active_slots(table, n, floor)
+    return (
+        idx,
+        valid,
+        table.fwd.active[:-1][idx],
+        table.rev.active[:-1][idx],
+    )
 
 
 def top_active_render(table: FlowTable, labels, n: int, floor: int):

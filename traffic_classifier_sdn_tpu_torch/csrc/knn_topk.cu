@@ -27,11 +27,11 @@
 //     chains per row, the row's x a broadcast from shared memory, loaded
 //     a row ahead with the row's k-th value. A row step is the 100
 //     arithmetic instructions of its 128 pairs, a few loads, and one
-//     branch, taken when a candidate beats the row's k-th value.
+//     branch, taken when a candidate may beat the row's k-th value.
 //   - The top-k list of a row lives in shared memory, slot e in
 //     lane e % 32 (k <= 32: one slot per lane; k <= 128: four, the other
 //     instance). A row step reads only the k-th value. When a candidate
-//     beats it (about 11 of a row's 35 chunks for k = 5 and the reference
+//     may beat it (about 11 of a row's 35 chunks for k = 5 and the reference
 //     corpus), the warp loads the list into its lanes and inserts the
 //     winners one by one: a ballot counts the entries that stay ahead, a
 //     shuffle moves the rest down. The first chunk, into an empty list,
@@ -50,16 +50,32 @@
 // Exactness: the similarity is summed over features in ascending order
 //   with every product and sum rounded on its own, then the half norm is
 //   subtracted -- the order of the plain version (models/knn.py
-//   dot_expansion_sim), so the values agree bit for bit. The corpus is
-//   offered in ascending index order (lane order within a column of 32,
-//   columns and chunks in order); a candidate enters only if it is
-//   strictly greater than the k-th value, and goes after every entry >=
-//   it, so the list is the top-k by (value desc, index asc) -- the order
-//   of a stable descending sort and of lax.top_k; the argmax fill of the
-//   first chunk picks the same k. The result does not depend on the rows
-//   per warp. Records past the end of the corpus are staged as zeros with
-//   a half norm of +inf, so their similarity is -inf or NaN and never
-//   enters. No atomics.
+//   dot_expansion_sim), so the values agree bit for bit. Candidates are
+//   ranked by the total-order key of their float bits (key = bits ^
+//   ((bits >> 31) & 0x7fffffff), as int32; models/knn.py
+//   total_order_key), so +NaN > +inf > ... > +0 > -0 > ... > -inf > -NaN,
+//   as lax.top_k orders them; a key maps back to its float bits by the
+//   same expression. The corpus is offered in
+//   ascending index order (lane order within a column of 32, columns and
+//   chunks in order); the first chunk fills the list with its k best by
+//   (key desc, index asc), one warp argmax a slot (the chunk holds at
+//   least min(S, 128) >= k corpus rows, so every slot takes a real
+//   index); a later candidate enters only if its key is strictly greater
+//   than the k-th key, and goes after every entry whose key is >= its
+//   own. So the list is the top-k by (key desc, index asc) -- the order of
+//   the plain version's stable descending sort and of lax.top_k -- and
+//   every row, NaN or +-inf features included, gets k indices in [0, S).
+//   The result does not depend on the rows per warp. Records past the
+//   end of the corpus (staged as zeros with a half norm of +inf) are kept
+//   out by their index, never by their value: under the total order a
+//   NaN pad would outrank every real row. No atomics.
+//
+// The hot test is one float compare per pair, !(sim < kth) with kth the
+//   k-th value: true for every candidate whose key beats the k-th (a
+//   larger value, +0 over -0, a NaN), and for some that do not (an equal
+//   value, a pad), which the exact key test behind it turns away. The
+//   lists hold values; keys are taken only behind that test, so the hot
+//   loop is the one it was before the total order.
 //
 // Corpus records: (S, 16) float32, features 0..F-1 (F <= 15), zeros, and
 //   0.5|s|^2 in slot 15.
@@ -86,7 +102,7 @@ constexpr int kRecord4 = 4;        // float4 per corpus record
 constexpr int kMaxFeatures = 15;   // slot 15 holds the half norm
 constexpr int kMaxNeighbors = 128;
 constexpr int kMaxRowsPerWarp = 16;
-constexpr int kSentinel = INT_MAX;  // index of a slot never filled
+constexpr int kSentinel = INT_MAX;  // index of a slot not yet filled
 constexpr unsigned kFull = 0xffffffffu;
 
 // Lanes whose slot lane + 32 t is one of the first k.
@@ -95,9 +111,20 @@ __device__ __forceinline__ unsigned slot_mask(int k, int t) {
   return n >= 32 ? kFull : (n <= 0 ? 0u : (1u << n) - 1u);
 }
 
+// The total-order key of a float (see Exactness above); applied to a key
+// it gives the float's bits back.
+__device__ __forceinline__ int order_key(int bits) {
+  return bits ^ ((bits >> 31) & 0x7fffffff);
+}
+
+__device__ __forceinline__ float key_value(int key) {
+  return __int_as_float(order_key(key));
+}
+
 // k <= 32 * KS: the list spread over the warp, lane l holding slots
-// l + 32 t, t < KS (value desc, index asc); an insertion is a ballot and
-// shuffles.
+// l + 32 t, t < KS (key desc, index asc); an insertion is a ballot and
+// shuffles. The list holds the values; their keys are taken when an
+// insertion compares them.
 template <int KS>
 struct WarpList {
   static constexpr int kSlots = 32 * KS;
@@ -121,24 +148,26 @@ struct WarpList {
     }
   }
 
-  __device__ __forceinline__ float kth_value(int k) const {
+  __device__ __forceinline__ int kth_key(int k) const {
     float x = v[0];
 #pragma unroll
     for (int t = 1; t < KS; ++t) {
       if (((k - 1) >> 5) == t) x = v[t];
     }
-    return __shfl_sync(kFull, x, (k - 1) & 31);
+    return order_key(__float_as_int(__shfl_sync(kFull, x, (k - 1) & 31)));
   }
 
-  // Inserts (val, idx), which beats the k-th entry and has a higher index
-  // than every entry of equal value: it goes after every entry >= val
-  // (a ballot counts them), and the entries behind it move down a slot.
-  __device__ __forceinline__ void insert(float val, int idx, int k,
+  // Inserts (val, idx), whose key beats the k-th entry's and whose index
+  // is higher than every entry's of equal key: it goes after every entry
+  // whose key is >= its own (a ballot counts them), and the entries
+  // behind it move down a slot.
+  __device__ __forceinline__ void insert(float val, int key, int idx, int k,
                                          int lane) {
     int p = 0;
 #pragma unroll
     for (int t = 0; t < KS; ++t) {
-      p += __popc(__ballot_sync(kFull, v[t] >= val) & slot_mask(k, t));
+      p += __popc(__ballot_sync(kFull, order_key(__float_as_int(v[t])) >= key) &
+                  slot_mask(k, t));
     }
 #pragma unroll
     for (int t = KS - 1; t >= 0; --t) {
@@ -164,49 +193,59 @@ struct WarpList {
   }
 };
 
-// The first chunk, into an empty list: slots 0..k-1 take the
-// chunk's k best candidates by (value desc, index asc), one warp argmax a
-// slot, instead of the many insertions of a list that is still filling.
-// Lane l's candidate c[j] has index base + 32 j + l; a candidate that is
-// not > -inf (a slot past the corpus) is never taken.
+// The first chunk, into an empty list: slots 0..k-1 take the chunk's k
+// best candidates by (key desc, index asc), one warp argmax a slot,
+// instead of the many insertions of a list that is still filling. Lane
+// l's candidate c[j] has index base + 32 j + l; one at or past
+// `n_corpus` (a pad) is never taken. The chunk holds at least k corpus
+// rows (S >= k), so every slot is filled.
 template <int KS, int J>
-__device__ __forceinline__ void fill(WarpList<KS>& list, float (&c)[J],
-                                     int base, int k, int lane) {
+__device__ __forceinline__ void fill(WarpList<KS>& list, const float (&c)[J],
+                                     int base, int n_corpus, int k,
+                                     int lane) {
+  int ck[J];
+  bool live[J];
 #pragma unroll
   for (int j = 0; j < J; ++j) {
-    if (!(c[j] > -CUDART_INF_F)) c[j] = -CUDART_INF_F;
+    ck[j] = order_key(__float_as_int(c[j]));
+    live[j] = base + 32 * j + lane < n_corpus;
   }
   for (int q = 0; q < k; ++q) {
-    float bv = c[0];
+    bool bl = false;
+    int bv = INT_MIN;
     int bj = 0;
 #pragma unroll
-    for (int j = 1; j < J; ++j) {
-      if (c[j] > bv) {  // equal values keep the lower column: lower index
-        bv = c[j];
+    for (int j = 0; j < J; ++j) {
+      // equal keys keep the lower column: the lower index
+      if (live[j] && (!bl || ck[j] > bv)) {
+        bl = true;
+        bv = ck[j];
         bj = j;
       }
     }
-    int bi = base + 32 * bj + lane;
+    // a lane with no corpus row left holds index kSentinel
+    int bi = bl ? base + 32 * bj + lane : kSentinel;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, bv, o);
+      const int ov = __shfl_xor_sync(kFull, bv, o);
       const int oi = __shfl_xor_sync(kFull, bi, o);
-      if (ov > bv || (ov == bv && oi < bi)) {
+      if (oi != kSentinel && (bi == kSentinel || ov > bv ||
+                              (ov == bv && oi < bi))) {
         bv = ov;
         bi = oi;
       }
     }
-    if (!(bv > -CUDART_INF_F)) return;  // fewer than k candidates
+    if (bi == kSentinel) return;  // none left (the host refuses S < k)
 #pragma unroll
     for (int t = 0; t < KS; ++t) {
       if (lane + 32 * t == q) {
-        list.v[t] = bv;
+        list.v[t] = key_value(bv);
         list.i[t] = bi;
       }
     }
 #pragma unroll
     for (int j = 0; j < J; ++j) {
-      if (bi == base + 32 * j + lane) c[j] = -CUDART_INF_F;
+      if (bi == base + 32 * j + lane) live[j] = false;
     }
   }
 }
@@ -286,7 +325,7 @@ __global__ void __launch_bounds__(kThreads, 2) knn_topk_kernel(
       float4* d = dst + e * kRecord4 + (part ^ ((e >> 1) & 3));
       if (rec < n_corpus) {
         tcsdn::cp_async16(d, records + static_cast<size_t>(rec) * kRecord4 + part);
-      } else {  // past the corpus: similarity -inf (or NaN), never enters
+      } else {  // past the corpus: kept out by its index
         *d = make_float4(0.0f, 0.0f, 0.0f, part == 3 ? CUDART_INF_F : 0.0f);
       }
     }
@@ -355,28 +394,35 @@ __global__ void __launch_bounds__(kThreads, 2) knn_topk_kernel(
 #pragma unroll
         for (int j = 0; j < kJ; ++j) {
           sim[j] = similarity<F, kF>(x, r[j], norm[j], nf);
-          hit |= sim[j] > kth;
+          hit |= !(sim[j] < kth);  // may beat the k-th key: test it
         }
-        if (st == 0 && cc == 0 && KS == 1) {  // the list is empty: fill it
+        if (st == 0 && cc == 0) {  // the list is empty: fill it
           List L;
           L.load(lv, li, lane);
-          fill(L, sim, base, k, lane);
+          fill(L, sim, base, n_corpus, k, lane);
           L.store(lv, li, lane);
           __syncwarp();
-        } else if (__any_sync(kFull, hit)) {  // some candidate enters
+        } else if (__any_sync(kFull, hit)) {  // some candidate may enter
           List L;
           L.load(lv, li, lane);
-          unsigned m[kJ];  // the candidates that beat kth, per column
+          int kkey = order_key(__float_as_int(kth));
+          int key[kJ];
+          unsigned m[kJ];  // the corpus rows whose key beats kth, per column
 #pragma unroll
-          for (int j = 0; j < kJ; ++j) m[j] = __ballot_sync(kFull, sim[j] > kth);
+          for (int j = 0; j < kJ; ++j) {
+            key[j] = order_key(__float_as_int(sim[j]));
+            m[j] = __ballot_sync(
+                kFull, base + 32 * j + lane < n_corpus && key[j] > kkey);
+          }
 #pragma unroll
           for (int j = 0; j < kJ; ++j) {
             for (unsigned b = m[j]; b != 0; b &= b - 1) {  // lane order
               const int src = __ffs(b) - 1;
-              const float v = __shfl_sync(kFull, sim[j], src);
-              if (v > kth) {  // kth may have risen since the ballot
-                L.insert(v, base + 32 * j + src, k, lane);
-                kth = L.kth_value(k);
+              const int v = __shfl_sync(kFull, key[j], src);
+              if (v > kkey) {  // the k-th may have risen since the ballot
+                L.insert(__shfl_sync(kFull, sim[j], src), v,
+                         base + 32 * j + src, k, lane);
+                kkey = L.kth_key(k);
               }
             }
           }

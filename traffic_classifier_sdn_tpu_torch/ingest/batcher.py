@@ -343,18 +343,28 @@ class FlowStateEngine(HostSpine):
             self.table.capacity + 1, dtype=torch.bool, device=self.device
         )
 
-    def render_sample(self, labels: torch.Tensor, n: int) -> list[tuple]:
+    def render_sample(self, labels, n: int) -> list[tuple]:
         """Activity-ranked render rows with O(n) host transfer:
         ``(slot, label, fwd_active, rev_active)`` for the ≤n most active
-        flows this tick, most active first."""
+        flows this tick, most active first. ``labels`` is the (capacity,)
+        vector on the device, or on the host (a numpy array: the degrade
+        ladder's labels), where the ranked slots pick their labels."""
         n = min(n, self.table.capacity)
         if n <= 0:
             return []
-        idx, valid, lab, fa, ra = (
-            t.cpu().numpy() for t in ft.top_active_render(
-                self.table, labels, n, self._tick_floor
+        if isinstance(labels, np.ndarray):
+            idx, valid, fa, ra = (
+                t.cpu().numpy() for t in ft.top_active_flags(
+                    self.table, n, self._tick_floor
+                )
             )
-        )
+            lab = labels[idx]
+        else:
+            idx, valid, lab, fa, ra = (
+                t.cpu().numpy() for t in ft.top_active_render(
+                    self.table, labels, n, self._tick_floor
+                )
+            )
         return [
             (int(s), int(c), bool(f), bool(r))
             for s, v, c, f, r in zip(idx, valid, lab, fa, ra)

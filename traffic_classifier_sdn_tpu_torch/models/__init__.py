@@ -10,6 +10,7 @@ serving-optimized ``(predict_fn, params)`` pair.
 
 from __future__ import annotations
 
+import copy
 from collections.abc import Callable
 from dataclasses import dataclass
 from typing import Any
@@ -48,21 +49,109 @@ def _build_serving_path(name: str, params) -> tuple[Callable, Any]:
       ``TCSDN_SVC_KERNEL=chunked``; ``dot`` is not ported)."""
     if name == "forest":
         from ..core.features import NUM_FEATURES
-        from ..ops import forest_kernel
+        from ..ops import forest_kernel as mod
 
-        return forest_kernel.predict, forest_kernel.compile_forest(
+        operands = mod.compile_forest(
             params.node_arrays(), n_features=NUM_FEATURES,
             device=params.left.device,
         )
+    elif name == "knn":
+        from ..ops import knn_kernel as mod
+
+        operands = mod.compile_knn(params)
+    elif name == "svc":
+        from ..ops import rbf_kernel as mod
+
+        operands = mod.compile_svc(params)
+    else:
+        raise ValueError(f"no serving path for model family {name!r}")
+    if next(params.buffers()).device.type == "cuda":
+        # build and load the kernel here, at model load: a kernel that does
+        # not build raises before any serve (or degrade ladder) exists
+        mod._launcher()
+    return mod.predict, operands
+
+
+@dataclass(frozen=True)
+class ServingFallback:
+    """A degraded-rung predict: ``predict(X) -> labels`` as a plain host
+    call on host (numpy) features with the params baked in, the kind the
+    ladder reports, and ``scores(X) -> (N, C)``, the rung's score surface
+    (``argmax(scores) == predict``)."""
+
+    predict: Callable
+    kind: str
+    scores: Callable | None = None
+
+
+def resolve_fallback(name: str, params) -> ServingFallback | None:
+    """The degrade ladder's per-family host rung (serving/degrade.py): what
+    still classifies when the card's dispatch stalls or errors.
+
+    - forest / knn: the native C++ host evaluators of this package
+      (native/forest_eval.cpp, native/knn_eval.cpp);
+    - svc, and forest / knn where g++ cannot build those: the family's
+      plain torch version on the CPU, with the params copied to the CPU
+      once here, so a sick card is never entered again. It is the kernel
+      module's CPU path: the KNN and SVC plain versions run over
+      65,536-row slices, so a table of 2²⁰ rows never builds an (N, S)
+      matrix. This is the counterpart of the JAX package's eager-CPU
+      fallback.
+
+    The feature matrix itself still comes from the card's flow table, so
+    a total loss of the card also stalls the feature fetch, which the
+    ladder bounds with its deadline (the BROKEN rung)."""
+    import numpy as np
+    import torch
+
+    if name == "forest":
+        from ..native import forest as native_forest
+
+        if native_forest.available():
+            from ..core.features import NUM_FEATURES
+
+            nf = native_forest.NativeForest(
+                dict(params.node_arrays(), n_features=NUM_FEATURES)
+            )
+            return ServingFallback(
+                lambda X: nf.predict(np.asarray(X, np.float32)),
+                "native-forest",
+                scores=lambda X: nf.predict_proba(np.asarray(X, np.float32)),
+            )
     if name == "knn":
-        from ..ops import knn_kernel
+        from ..native import knn as native_knn
 
-        return knn_kernel.predict, knn_kernel.compile_knn(params)
-    if name == "svc":
-        from ..ops import rbf_kernel
+        if native_knn.available():
+            hk = native_knn.NativeKnn({
+                "fit_X": params.fit_X.cpu().numpy(),
+                "y": params.fit_y.cpu().numpy(),
+                "n_neighbors": params.n_neighbors,
+                "classes": np.arange(params.n_classes),
+            })
+            return ServingFallback(
+                lambda X: hk.predict(np.asarray(X, np.float32)),
+                "native-knn",
+                scores=lambda X: hk.votes(np.asarray(X, np.float32)),
+            )
+    if name not in MODEL_CLASSES:
+        return None
+    from ..ops import forest_kernel, knn_kernel, rbf_kernel
 
-        return rbf_kernel.predict, rbf_kernel.compile_svc(params)
-    raise ValueError(f"no serving path for model family {name!r}")
+    predict, operands = _build_serving_path(
+        name, copy.deepcopy(params).to("cpu")
+    )
+    scores = {"forest": forest_kernel.forest_proba, "knn": knn_kernel.scores,
+              "svc": rbf_kernel.scores}[name]
+
+    def plain_cpu(X):
+        Xc = torch.from_numpy(np.ascontiguousarray(X, np.float32))
+        return predict(operands, Xc).numpy()
+
+    def plain_cpu_scores(X):
+        Xc = torch.from_numpy(np.ascontiguousarray(X, np.float32))
+        return scores(operands, Xc).numpy()
+
+    return ServingFallback(plain_cpu, "plain-cpu", scores=plain_cpu_scores)
 
 
 @dataclass(frozen=True)

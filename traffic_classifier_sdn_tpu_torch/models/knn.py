@@ -10,8 +10,10 @@ Both are summed over features in ascending order with every product and
 sum rounded on its own (``acc = x0·s0; acc = acc + x1·s1; …``): the order
 of the CUDA kernel ``csrc/knn_topk.cu`` (ops/knn_kernel.py), so this
 module is that kernel's plain version. The top-k is a *stable*
-descending sort, which orders by (value desc, index asc) — the order of
-``lax.top_k``. ``torch.topk`` promises no tie order and is not used.
+descending sort of the similarities' total-order keys
+(``total_order_key``), which orders by (value desc, index asc) with −0
+below +0 and NaNs at the ends by sign — the order of ``lax.top_k``.
+``torch.topk`` promises no tie order and is not used.
 
 Only the exact ``sort`` tier of the JAX package is ported; its
 ``argmax``/``hier``/``screened``/``native``/``ivf`` tiers and the
@@ -49,13 +51,25 @@ def dot_expansion_sim(X: torch.Tensor, fit_X: torch.Tensor,
     return acc - half_sq[None, :]
 
 
+def total_order_key(x: torch.Tensor) -> torch.Tensor:
+    """int32 keys of float32 values that order as the IEEE total order
+    does (+NaN > +inf > … > +0 > −0 > … > −inf > −NaN, NaNs by payload):
+    a negative value's magnitude bits are flipped, so its key falls as
+    its magnitude grows. The map is its own inverse."""
+    bits = x.contiguous().view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
 def topk_stable(sim: torch.Tensor, k: int):
     """((N, k) values, (N, k) int32 indices) of the k largest columns by
-    (value desc, index asc) — ``lax.top_k``'s order."""
+    (total-order key desc, index asc) — ``lax.top_k``'s order, signed
+    zeros and NaNs included, so every row gets k real indices."""
     if sim.shape[1] < k:
         raise ValueError(f"corpus has {sim.shape[1]} rows < n_neighbors={k}")
-    vals, idx = torch.sort(sim, dim=1, descending=True, stable=True)
-    return vals[:, :k], idx[:, :k].to(torch.int32)
+    _, idx = torch.sort(total_order_key(sim), dim=1, descending=True,
+                        stable=True)
+    idx = idx[:, :k]
+    return torch.gather(sim, 1, idx), idx.to(torch.int32)
 
 
 def count_votes(fit_y: torch.Tensor, n_classes: int,

@@ -215,6 +215,10 @@ class NativeBatcher:
             is_create=padded(self._is_create, 0, bool),
         )
 
+    def warm_stage(self) -> None:
+        """Touch every wire-staging page (warmup)."""
+        self._wire_stage.touch()
+
     def flush_wire(self) -> np.ndarray | None:
         """Pop the oldest pending generation directly as a packed wire
         matrix (``flow_table.pack_wire`` layout): C++ writes the padded

@@ -4,7 +4,10 @@ The port's counterpart of ``traffic_classifier_sdn_tpu/native/loader.py``
 (plain C ABI + ctypes, no pybind11). A library is compiled on first use
 from a source in this package into ``csrc/build/`` (listed in
 ``.gitignore``), named by a hash of its source and flags, so an edited
-source is rebuilt and an unchanged one is not. The compiler writes to a
+source is rebuilt and an unchanged one is not. A library built with
+``-march=native`` also hashes the target options g++ resolves for this
+host, so a tree copied to another CPU rebuilds it instead of loading code
+that CPU may not run. The compiler writes to a
 temporary file that ``os.replace`` moves into place, so concurrent
 processes (test workers) never load a half-written library. The CDLL, and
 a build failure, are cached per process.
@@ -21,6 +24,24 @@ from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parents[1] / "csrc" / "build"
 
+_host_target: bytes | None = None
+
+
+def host_target() -> bytes:
+    """The target options ``g++ -march=native`` resolves on this host (the
+    CPU's ISA extensions and tuning), cached per process; empty when g++
+    cannot say, and then the build itself fails."""
+    global _host_target
+    if _host_target is None:
+        try:
+            _host_target = subprocess.run(
+                ["g++", "-march=native", "-Q", "--help=target"],
+                check=True, capture_output=True,
+            ).stdout
+        except (OSError, subprocess.CalledProcessError):
+            _host_target = b""
+    return _host_target
+
 
 class LazyLib:
     def __init__(self, src: str | os.PathLike, name: str,
@@ -35,10 +56,12 @@ class LazyLib:
     @property
     def path(self) -> Path:
         """The library file: ``csrc/build/<stem>-<hash>.so``, the hash
-        over the source and the compiler flags."""
-        digest = hashlib.sha256(
-            self._src.read_bytes() + " ".join(self._flags).encode()
-        ).hexdigest()
+        over the source, the compiler flags and, for ``-march=native``,
+        the host's resolved target options."""
+        key = self._src.read_bytes() + " ".join(self._flags).encode()
+        if "-march=native" in self._flags:
+            key += host_target()
+        digest = hashlib.sha256(key).hexdigest()
         return BUILD_DIR / f"{self._src.stem}-{digest[:16]}.so"
 
     def _build(self, out: Path) -> None:

@@ -1,6 +1,5 @@
 """Incremental labels: dirty-row prediction into a persistent label cache
-on the device — the serial, device-mode path of
-``traffic_classifier_sdn_tpu/serving/incremental.py``.
+— the port of ``traffic_classifier_sdn_tpu/serving/incremental.py``.
 
 A row with no telemetry this tick projects the same 12 features it did
 last tick (the reference freezes them when its deltas are zero,
@@ -25,6 +24,18 @@ with per-tick churn, not with the table:
 The cache holds what a full-table predict would label each row today, so
 the rendered output is byte-identical to ``--incremental off``.
 
+Two modes, chosen by the predict callable:
+
+- **device** (a kernel predict): the cache is a device tensor, and the
+  whole plan — predict and merge included — is queued at ``dispatch``;
+- **host** (a ``host_native`` predict: the degrade ladder, which returns
+  host labels): ``dispatch`` (the pipeline's host stage) fixes the tick's
+  rows and features on the device, and ``finish`` (the device-stage
+  worker) runs the predict and commits its labels to a numpy cache. A
+  tick whose labels came back STALE (the ladder's BROKEN rung) never
+  commits: the cache is the true last-known-good vector, and the rows it
+  tried are queued to be marked dirty again at the next plan.
+
 The label source may change under the cache (a model promotion or a
 degrade rung change, in the JAX serve): the predict callable's
 ``label_epoch`` attribute, when it has one, invalidates the whole cache
@@ -40,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import threading
 
+import numpy as np
 import torch
 
 from ..core import flow_table as ft
@@ -75,9 +87,10 @@ class IncrementalLabels:
     """The serve loop's label source under ``--incremental auto``: a
     persistent (capacity,) label vector kept by dirty-set prediction.
 
-    ``labels()`` is the serial entry point. ``dispatch()`` plans and runs
-    the tick's predict, ``finish()`` returns its labels; every step but the
-    dirty count is queued on the device without waiting. ``metrics``
+    ``labels()`` is the serial entry point. ``dispatch()`` plans the tick
+    (and in device mode queues its predict), ``finish()`` returns its
+    labels (and in host mode runs the predict and commits it); nothing in
+    ``dispatch`` waits on the device but the dirty count. ``metrics``
     (``inc``/``set``), ``recorder`` (``record``) and ``tracer`` (``span``)
     are optional observers."""
 
@@ -94,13 +107,19 @@ class IncrementalLabels:
         self._tracer = tracer
         self.capacity = engine.table.capacity
         self.buckets = dirty_buckets(self.capacity)
+        self.host_native = bool(getattr(predict, "host_native", False))
+        # shared by the host stage and the device-stage worker in the
+        # pipelined host mode; never held across a predict
         self._lock = threading.Lock()
-        # (capacity + 1,) labels: the last entry takes the padding rows'
-        # labels (merge_labels); readers see [:capacity]
+        # device mode: (capacity + 1,) labels, the last entry taking the
+        # padding rows' labels (merge_labels); readers see [:capacity]
         self._cache: torch.Tensor | None = None
+        self._host_cache: np.ndarray | None = None  # host mode (capacity,)
+        self._pending_redirty: list[np.ndarray] = []
         self._invalidate = False
         self._epoch = self._current_epoch()
         self._last_dirty = 0
+        self.last_plan: tuple[str, int] | None = None  # (kind, dirty rows)
         self._invalidations = 0
         self._full_predicts = 0
         self._subset_predicts = 0
@@ -127,7 +146,7 @@ class IncrementalLabels:
             full = self._full_predicts
             subset = self._subset_predicts
         return {
-            "mode": "device",
+            "mode": "host" if self.host_native else "device",
             "coverage": round(1.0 - dirty / max(1, self.capacity), 6),
             "dirty_rows": dirty,
             "invalidations": inv,
@@ -135,35 +154,83 @@ class IncrementalLabels:
             "subset_predicts": subset,
         }
 
-    def labels(self) -> torch.Tensor:
-        """This tick's (capacity,) label vector on the device, refreshed by
-        dirty-set prediction."""
+    def labels(self):
+        """This tick's (capacity,) label vector, refreshed by dirty-set
+        prediction: a device tensor in device mode, a numpy array in host
+        mode."""
         return self.finish(self.dispatch())
 
     def dispatch(self) -> _Pending:
-        """Plan this render tick against the current table and run its
-        predict. Nothing waits on the device but the dirty count."""
+        """Plan this render tick against the current table; in device mode
+        also queue its predict and merge. Nothing waits on the device but
+        the dirty count."""
         span = (
             self._tracer.span("compact") if self._tracer is not None
             else contextlib.nullcontext()
         )
         with span:
             plan = self._plan()
+        self.last_plan = (plan.kind, plan.n_dirty)
         if plan.kind in ("full", "full-nocommit"):
             plan.X = ft.features12(self._engine.table)
             with self._lock:
                 self._full_predicts += 1
-        if plan.kind == "none":
+        if self.host_native or plan.kind == "none":
             return plan
         return self._device_run(plan)
 
-    def finish(self, plan: _Pending) -> torch.Tensor:
-        """The label vector of a dispatched plan: its fresh labels, or the
-        cache on a tick with nothing to predict."""
-        if plan.labels is not None:
-            return plan.labels
+    def finish(self, plan: _Pending):
+        """The label vector of a dispatched plan. Device mode: its fresh
+        labels, or the cache on a tick with nothing to predict. Host mode
+        (the pipeline's device-stage worker): run the predict and commit
+        it; jobs run one at a time, so commits land in dispatch order."""
+        if not self.host_native:
+            if plan.labels is not None:
+                return plan.labels
+            with self._lock:
+                return self._cache[: self.capacity]
+        if plan.kind == "none":
+            with self._lock:
+                return self._host_cache
+        labels = np.asarray(self._predict(self._params, plan.X))
+        if self._stale_now():
+            # the ladder served last-known-good (BROKEN): never commit;
+            # the rows this tick tried are marked dirty again
+            if plan.kind == "subset":
+                idx_host = plan.idx.cpu().numpy()  # before taking the lock
+                with self._lock:
+                    self._pending_redirty.append(idx_host)
+            else:
+                self.invalidate("stale-predict")
+            with self._lock:
+                cached = self._host_cache
+            if cached is not None:
+                return cached
+            return np.zeros(self.capacity, labels.dtype)
+        if self._current_epoch() != self._epoch:
+            # the label source changed under this predict: its labels are
+            # fresh on the new source, the rest of the cache is not
+            self.invalidate("epoch-mid-flight")
+        if plan.kind == "full-nocommit":
+            return labels
+        if plan.kind == "subset":
+            idx = plan.idx.cpu().numpy()
+            valid = idx < self.capacity
+            with self._lock:
+                cache = self._host_cache
+                if cache is not None and cache.dtype == labels.dtype:
+                    cache[idx[valid]] = labels[valid]
+                    return cache
+            # the cache was dropped under this subset: mark its rows again
+            with self._lock:
+                self._pending_redirty.append(idx)
+                cached = self._host_cache
+            return (cached if cached is not None
+                    else np.zeros(self.capacity, labels.dtype))
+        cache = np.array(labels)  # owned: the cache outlives the tick
         with self._lock:
-            return self._cache[: self.capacity]
+            self._host_cache = cache
+        return cache
 
     # -- the plan ----------------------------------------------------------
     def _plan(self) -> _Pending:
@@ -179,7 +246,8 @@ class IncrementalLabels:
         with self._lock:
             invalidate = self._invalidate
             self._invalidate = False
-            primed = self._cache is not None
+            redirty, self._pending_redirty = self._pending_redirty, []
+            primed = self._cache is not None or self._host_cache is not None
         try:
             faults.fault_point("serve.dirty_mask")
         except faults.FaultInjected:
@@ -187,8 +255,14 @@ class IncrementalLabels:
             # predict, touch neither cache nor mask, rebuild both next tick
             self._record_fault("serve.dirty_mask")
             self.invalidate("fault:serve.dirty_mask")
+            with self._lock:
+                self._pending_redirty = redirty + self._pending_redirty
             self._note(self.capacity)
             return _Pending("full-nocommit", n_dirty=self.capacity)
+        for slots in redirty:
+            ft.mark_dirty_slots(
+                eng.dirty, torch.from_numpy(slots).to(eng.dirty.device)
+            )
         if invalidate or not primed or self._ladder_rung() not in (
             None, "HEALTHY"
         ):
@@ -252,6 +326,10 @@ class IncrementalLabels:
     def _current_epoch(self):
         return getattr(self._predict, "label_epoch", None)
 
+    def _stale_now(self) -> bool:
+        return (self._degrade is not None
+                and bool(getattr(self._degrade, "render_stale", False)))
+
     def _ladder_rung(self) -> str | None:
         if self._degrade is None:
             return None
@@ -263,3 +341,80 @@ class IncrementalLabels:
     def _record_fault(self, site: str) -> None:
         if self._recorder is not None:
             self._recorder.record("label_cache.fault_absorbed", site=site)
+
+
+# ---------------------------------------------------------------------------
+# Pipelined read objects (serving/pipeline.dispatch_read builds them when
+# the serve is incremental; the contract of pipeline.RankedRead/FullRead)
+# ---------------------------------------------------------------------------
+
+
+class IncRankedRead:
+    """A ranked render through the label cache in host mode: the host stage
+    dispatched the incremental plan (``pending``) and the ranked flags
+    against the tick's table; ``rows()`` (the device-stage worker) runs the
+    predict, commits the cache and joins labels by slot."""
+
+    __slots__ = ("_inc", "_pending", "_flags", "_fence", "n_flows")
+
+    def __init__(self, inc: IncrementalLabels, pending: _Pending, flags,
+                 n_flows: int, fence):
+        self._inc = inc
+        self._pending = pending
+        self._flags = flags
+        self._fence = fence
+        self.n_flows = n_flows
+
+    def commit(self) -> None:
+        """Commit the plan without rendering (a coalesced render)."""
+        with self._fence.enter():
+            self._inc.finish(self._pending)
+
+    def rows(self) -> list[tuple]:
+        with self._fence.enter():
+            labels = np.asarray(self._inc.finish(self._pending))
+            idx, valid, fa, ra = (t.cpu().numpy() for t in self._flags)
+        return [
+            (int(s), int(labels[int(s)]), bool(f), bool(r))
+            for s, v, f, r in zip(idx, valid, fa, ra)
+            if v
+        ]
+
+
+class IncFullRead:
+    """The unbounded (``--table-rows 0``) render through the label cache:
+    the worker takes the whole label vector (device mode: a copy taken at
+    dispatch, since the next plan merges into the cache in place; host
+    mode: ``finish``) and joins the dispatch-time metadata snapshot."""
+
+    __slots__ = ("_inc", "_pending", "_labels", "_fa", "_ra", "_meta",
+                 "_fence", "n_flows")
+
+    def __init__(self, inc: IncrementalLabels, pending: _Pending, labels,
+                 fa, ra, meta, n_flows: int, fence):
+        self._inc = inc
+        self._pending = pending
+        self._labels = labels  # device mode's copy; None in host mode
+        self._fa = fa
+        self._ra = ra
+        self._meta = meta
+        self._fence = fence
+        self.n_flows = n_flows
+
+    def commit(self) -> None:
+        if self._labels is None:
+            with self._fence.enter():
+                self._inc.finish(self._pending)
+
+    def rows(self) -> list[tuple]:
+        with self._fence.enter():
+            labels = (self._inc.finish(self._pending)
+                      if self._labels is None else self._labels)
+            if isinstance(labels, torch.Tensor):
+                labels = labels.cpu().numpy()
+            fa, ra = self._fa.cpu().numpy(), self._ra.cpu().numpy()
+        return [
+            (slot, src, dst, int(labels[slot]), bool(fa[slot]),
+             bool(ra[slot]))
+            for slot, (src, dst) in sorted(self._meta.items())
+        ]

@@ -3,7 +3,8 @@
 The port's copy of ``traffic_classifier_sdn_tpu/utils/faults.py``, with
 the registry cut to the sites this package threads. A named *fault site*
 sits at each seam (collector reads, supervisor restart, native engine
-load and parse, the latency stamp, the incremental label path); a test
+load and parse, the latency stamp, the pipeline handoff, the degrade
+ladder's dispatch and probe, the incremental label path); a test
 installs a seeded ``FaultPlan`` that fires scripted failures at exact
 hit counts (or seeded probabilities).
 
@@ -53,6 +54,33 @@ SITES: dict[str, str] = {
     "native.load": (
         "native/engine.available() — the C++ engine is unavailable "
         "(build/dlopen failure)"
+    ),
+    "pipeline.handoff": (
+        "serving/pipeline.Handoff.put — the host-to-device-stage handoff "
+        "itself fails mid-tick; the host stage must surface it, not wedge "
+        "behind a dead device stage"
+    ),
+    "pipeline.coalesce": (
+        "serving/pipeline.Handoff.put, coalesce branch — fires only under "
+        "backpressure, when a full queue merges the new tick into the "
+        "staged one"
+    ),
+    "degrade.dispatch_stall": (
+        "serving/degrade.DegradeLadder device path — a fire simulates a "
+        "WEDGED device dispatch: the ladder converts it into a watchdog "
+        "deadline trip, so the FaultInjected never escapes — the ladder "
+        "absorbs it and demotes to the fallback rung"
+    ),
+    "degrade.dispatch_error": (
+        "serving/degrade.DegradeLadder device path — a fire simulates an "
+        "ERRORING device dispatch (a CUDA error mid-kernel); absorbed by "
+        "the ladder like dispatch_stall, driving the error edge of "
+        "HEALTHY->DEGRADED instead of the deadline edge"
+    ),
+    "degrade.probe": (
+        "serving/degrade.DegradeLadder probe path — the shadow-batch "
+        "re-probe itself fails: consumes the probe attempt, resets the "
+        "consecutive-success counter, and grows the full-jitter backoff"
     ),
     "serve.dirty_mask": (
         "serving/incremental.IncrementalLabels dirty-mask consult — the "
