@@ -90,6 +90,24 @@ the script exits non-zero:
    in memory: every flow tracked, every line parsed, the last table's
    labels equal the plain version's; each poll's host time, each
    render's label time on the device stage and ``ticks_coalesced``;
+6c. fan-in — the no-flag forest serve through the fan-in tier
+   (``--sources 3 --source synthetic --synthetic-flows 65536
+   --source-lockstep --source-quarantine 0``, 8 ticks): 21,845 flows per
+   namespace fed as raw bytes into the C++ engine under each source's id;
+   source 1 is killed after tick 2 (``kill_after``). Exactly its namespace
+   is evicted, sources 0 and 2 keep their slots and render on, every
+   printed table's labels equal the plain version's on the table its
+   render was dispatched against, the roster ends HEALTHY, DEAD, HEALTHY
+   and the ladder stays HEALTHY; each tick's host-stage and ingest seconds
+   and the eviction's seconds are printed;
+6d. families — the no-flag serves of ``logistic``, ``gaussiannb`` and
+   ``kmeans`` at 65,536 synthetic flows (plain torch ops on the card: no
+   kernel is launched): every printed table's labels equal the same
+   module's labels on the CPU for the features its render was dispatched
+   against, but on near-ties (``near_ties``); each family's predict on the
+   65,536 served rows timed (CUDA-event median); then a
+   ``degrade.dispatch_error`` drill of ``gaussiannb`` that demotes to the
+   ``plain-cpu`` rung and re-promotes;
 7. breakdown — host seconds per tick of 131,072 records into 65,536 flows
    through the Python spine, the native spine from records and the
    native spine from raw bytes (each with ``step()`` and a device sync),
@@ -127,6 +145,7 @@ NODE_COUNT = (25, 101)  # reference checkpoint: node_count min/max
 MAX_DEPTH = 14  # reference checkpoint: max_depth max
 KNN_ROWS, KNN_NEIGHBORS = 4448, 5  # reference checkpoint KNeighbors
 SVC_VECTORS = 2281  # reference checkpoint SVC: support vectors, 15 pairs
+KMEANS_CLUSTERS = 4  # reference checkpoint KMeans_Clustering
 CAPACITY = 65536
 SHAPES = (777, 65536, 1 << 20)
 TIMED_RUNS = 30
@@ -247,6 +266,44 @@ def random_svc(seed: int, X_sample: np.ndarray, n_sv: int = SVC_VECTORS,
         "intercept": rng.normal(0.0, 0.5, n_pairs),
         "gamma": 1.0 / (X_sample.shape[1] * X_sample.astype(np.float64).var()),
     }
+
+
+def random_logreg(seed: int, X_sample: np.ndarray,
+                  n_classes: int = N_CLASSES) -> dict:
+    """A seeded multinomial logistic regression in importer layout
+    (``coef`` (C, F), ``intercept`` (C,), float64). Each coefficient is a
+    normal draw over its feature's spread in ``X_sample``, so every feature
+    moves the scores of served rows alike, and the intercepts center each
+    class's score on the sample mean, so several classes win."""
+    rng = np.random.RandomState(seed)
+    X = X_sample.astype(np.float64)
+    coef = rng.randn(n_classes, X.shape[1]) / (X.std(0) + 1.0)
+    intercept = -(X.mean(0) @ coef.T) + rng.normal(0.0, 0.5, n_classes)
+    return {"coef": coef, "intercept": intercept}
+
+
+def random_gnb(seed: int, X_sample: np.ndarray,
+               n_classes: int = N_CLASSES) -> dict:
+    """A seeded Gaussian naive Bayes in importer layout (``theta``, ``var``
+    (C, F), ``class_prior`` (C,)): class means are rows near served ones
+    (``_jittered_rows``), variances the sample's own scaled by a gamma
+    draw per class and feature, and the priors a Dirichlet draw."""
+    rng = np.random.RandomState(seed)
+    F = X_sample.shape[1]
+    return {
+        "theta": _jittered_rows(rng, X_sample, n_classes),
+        "var": X_sample.astype(np.float64).var(0)[None, :]
+        * rng.gamma(2.0, 0.5, (n_classes, F)) + 1.0,
+        "class_prior": rng.dirichlet(np.full(n_classes, 5.0)),
+    }
+
+
+def random_kmeans(seed: int, X_sample: np.ndarray,
+                  n_clusters: int = KMEANS_CLUSTERS) -> dict:
+    """A seeded k-means in importer layout (``cluster_centers`` (K, F)):
+    centers are rows near served ones (``_jittered_rows``)."""
+    rng = np.random.RandomState(seed)
+    return {"cluster_centers": _jittered_rows(rng, X_sample, n_clusters)}
 
 
 def tick_wire(syn, create: bool) -> np.ndarray:
@@ -722,6 +779,7 @@ def phase_kernels(device):
         "forest": random_forest(SEED, sample),
         "knn": random_knn(SEED, sample),
         "svc": random_svc(SEED, sample),
+        **{f: build(SEED, sample) for f, (_, _, build) in FAMILY_SERVES.items()},
     }
     ops = {
         "forest": fk.compile_forest(models["forest"], n_features=N_FEATURES,
@@ -919,10 +977,13 @@ class _WatchedRead:
         self._read, self._k, self._counter, self._log = read, k, counter, log
         self.n_flows = read.n_flows
 
+    def _launches(self) -> int:
+        return 0 if self._counter is None else self._counter.launches
+
     def _watch(self, what: str, fn):
-        before, t0 = self._counter.launches, time.perf_counter()
+        before, t0 = self._launches(), time.perf_counter()
         out = fn()
-        self._log.append((what, self._k, self._counter.launches - before,
+        self._log.append((what, self._k, self._launches() - before,
                           time.perf_counter() - t0))
         return out
 
@@ -939,10 +1000,11 @@ def watched_dispatch(family: str):
     the feature matrix of the table it was dispatched against
     (``features``, by dispatch index: ``engine.features()`` is a fresh
     tensor, so later ticks do not change it) and its device-stage work
-    (``log``, see ``_WatchedRead``)."""
+    (``log``, see ``_WatchedRead``; a family without a kernel logs no
+    launches)."""
     from traffic_classifier_sdn_tpu_torch.serving import pipeline
 
-    counter = _kernels()[family][0]
+    counter = _kernels().get(family, (None,))[0]
     features, log = [], []
     dispatch = pipeline.dispatch_read
 
@@ -974,6 +1036,19 @@ def _check_printed(tag: str, tables: list, family: str, g, features: list,
                 f"{tag} render {k + 1}: {len(table)} rows, labels differing "
                 f"from the plain version's: {wrong[:5]}")
     return printed
+
+
+def _per_render_launches(tag: str, summary, log: list) -> list[int]:
+    """Kernel launches of each dispatched render (from the watched log),
+    held to one for each render with a dirty row and none otherwise."""
+    want = [int(kind != "none") for kind, _ in summary.render_plans]
+    per_render = [0] * len(want)
+    for _, k, n, _ in log:
+        per_render[k] += n
+    if per_render != want:
+        raise AssertionError(f"{tag} launches per render {per_render}, want "
+                             f"{want} (plans {summary.render_plans})")
+    return per_render
 
 
 def phase_default_serve(family: str, model: dict, g, device) -> int:
@@ -1026,15 +1101,11 @@ def phase_default_serve(family: str, model: dict, g, device) -> int:
                              f"called its fallback: {st}")
     if engine.num_flows() != CAPACITY:
         raise AssertionError(f"{tag} {engine.num_flows()} flows tracked")
-    want = [int(kind != "none") for kind, _ in summary.render_plans]
-    per_render = [0] * len(want)
-    for _, k, n, _ in log:
-        per_render[k] += n
+    per_render = _per_render_launches(tag, summary, log)
     others = {f: n for f, n in launches.items() if f != family and n}
-    if per_render != want or launches[family] != sum(want) or others:
-        raise AssertionError(
-            f"{tag} launches per render {per_render}, want {want} (plans "
-            f"{summary.render_plans}); all launches {launches}")
+    if launches[family] != sum(per_render) or others:
+        raise AssertionError(f"{tag} all launches {launches}, per render "
+                             f"{per_render}")
     printed = _check_printed(tag, tables, family, g, features, log)
     if len(tables) + summary.ticks_coalesced != len(summary.render_ticks):
         raise AssertionError(f"{tag} {len(tables)} tables + "
@@ -1189,10 +1260,22 @@ def near_ties(family: str, model: dict, g, X, fb, rows: np.ndarray) -> np.ndarra
       the rounding of a 12-term float32 dot product at that scale;
     - SVC: the smallest |decision| within 1e-5 of the largest coefficient
       sum (the CPU and the card round ``exp`` differently; the parity
-      tests' tolerance)."""
+      tests' tolerance);
+    - logreg, gnb, kmeans (``fb`` unused): each score is a float32 sum of
+      12 terms, which the card and the CPU (or two libraries) add in their
+      own orders, each within ``12 · 2⁻²⁴ · scale`` of the exact sum
+      (``scale``: the sum of the terms' absolute values, ``family_scores``);
+      a near-tie when the top two float64 scores lie within
+      ``2 · 12 · 2⁻²⁴`` times the larger scale of the row."""
     from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
 
     Xr = X[rows.tolist()]
+    if family in FAMILY_SERVES:
+        S, scale = family_scores(family, model, Xr.cpu().numpy())
+        top = np.argsort(S, axis=1)[:, -2:]
+        gap = np.take_along_axis(S, top[:, 1:], 1) - np.take_along_axis(
+            S, top[:, :1], 1)
+        return gap[:, 0] <= 24 * 2.0 ** -24 * scale.max(1)
     if family == "forest":
         p = np.sort(fb.scores(Xr.cpu().numpy()), axis=1)
         tol = len(model["values"]) * 2.0 ** -23 * p[:, -1]
@@ -1209,6 +1292,36 @@ def near_ties(family: str, model: dict, g, X, fb, rows: np.ndarray) -> np.ndarra
     D = rk.partial_decision_plain(g, Xr) + g.intercept[None, :]
     tol = 1e-5 * float(g.coef_t.abs().sum(0).max())
     return D.abs().min(1).values.cpu().numpy() <= tol
+
+
+def family_scores(family: str, model: dict, X) -> tuple:
+    """(scores, scale), (N, C) float64 each, of a logreg/gnb/kmeans
+    importer dict on host rows X: the exact scores of the float32 model
+    and the sum of the absolute values of each score's terms (non-finite
+    rows give NaN or ±inf quietly)."""
+    X = np.asarray(X, np.float32).astype(np.float64)
+    with np.errstate(invalid="ignore", over="ignore"):
+        return _family_scores(family, model, X)
+
+
+def _family_scores(family: str, model: dict, X: np.ndarray) -> tuple:
+    from traffic_classifier_sdn_tpu_torch.models import gnb
+
+    if family == "logreg":
+        coef = np.float32(model["coef"]).astype(np.float64)
+        b = np.float32(model["intercept"]).astype(np.float64)
+        return X @ coef.T + b, np.abs(X) @ np.abs(coef).T + np.abs(b)
+    if family == "gnb":
+        f = {k: np.float32(v).astype(np.float64)
+             for k, v in gnb.fold(model).items()}
+        q = ((X[:, None, :] - f["theta"][None]) ** 2
+             * f["inv_var"][None]).sum(-1)
+        const = f["log_const"][None, :]
+        return const - 0.5 * q, np.where(np.isfinite(const),
+                                         np.abs(const), 0.0) + 0.5 * q
+    c = np.float32(model["cluster_centers"]).astype(np.float64)
+    q = ((X[:, None, :] - c[None]) ** 2).sum(-1)
+    return -q, q
 
 
 def demoted_render_at_size(family: str, model: dict, g, device) -> float:
@@ -1359,6 +1472,291 @@ def phase_big_serve(model: dict, k, device) -> int:
           f"{len(tables)} tables; the last (render {printed[0] + 1}) equals "
           "the plain version's labels")
     return launches
+
+
+FANIN_SOURCES = 3
+FANIN_TICKS = 8
+FANIN_KILL_AFTER = 2  # ticks before source 1 is killed
+# seconds from its death to its namespace's eviction: none, so the eviction
+# lands in the tick that sees the death (or the first one after it with no
+# render in flight) however fast the ticks run
+FANIN_QUARANTINE = 0.0
+
+
+@contextlib.contextmanager
+def kill_after(tick: int, sid: int):
+    """While active, every fan-in tier kills source ``sid`` (an unclean
+    death: ``FanInIngest.kill_source``) once the serve has consumed
+    ``tick`` of its ticks."""
+    from traffic_classifier_sdn_tpu_torch.ingest import fanin
+
+    ticks = fanin.FanInIngest.ticks
+
+    def killing(self, *a, **kw):
+        for i, batch in enumerate(ticks(self, *a, **kw)):
+            yield batch
+            if i + 1 == tick:
+                self.kill_source(sid)
+
+    fanin.FanInIngest.ticks = killing
+    try:
+        yield
+    finally:
+        fanin.FanInIngest.ticks = ticks
+
+
+def phase_fanin(model: dict, k, device) -> int:
+    """The no-flag forest serve through the fan-in tier: ``--sources 3
+    --source synthetic --synthetic-flows 65536 --source-lockstep`` (21,845
+    flows per namespace, raw bytes into the C++ engine under each source's
+    id), source 1 killed after tick 2 with no quarantine. Exactly
+    source 1's namespace is evicted, sources 0 and 2 render on, every
+    printed table's labels equal the plain version's on the features its
+    render was dispatched against, the roster ends HEALTHY, DEAD, HEALTHY
+    and the ladder stays HEALTHY; no source's poll is dropped (the queue
+    holds a poll of every flow). Returns the forest kernel's launches."""
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+
+    per = CAPACITY // FANIN_SOURCES
+    tag = f"[fanin Randomforest {FANIN_SOURCES} x {per} flows]"
+    counters = {f: wrapper for f, (wrapper, _) in _kernels().items()}
+    with tempfile.TemporaryDirectory() as ckpt:
+        checkpoint.save_model(ckpt, "forest",
+                              interop.forest_params_from_numpy(model, device),
+                              classes=CLASSES)
+        argv = ["Randomforest", "--source", "synthetic", "--synthetic-flows",
+                str(CAPACITY), "--sources", str(FANIN_SOURCES),
+                "--source-lockstep", "--source-quarantine",
+                str(FANIN_QUARANTINE), "--capacity", str(CAPACITY),
+                "--max-ticks", str(FANIN_TICKS), "--print-every", "2",
+                "--native-checkpoint", ckpt]
+        with watched_dispatch("forest") as (features, log), \
+                kill_after(FANIN_KILL_AFTER, 1):
+            for c in counters.values():  # count this path's launches only
+                c.launches = 0
+            out, summary, wall = _serve(argv)
+            launches = {f: c.launches for f, c in counters.items()}
+    engine, st = summary.engine, summary.degrade
+    tables = parse_tables(out)
+    print(f"{tag} {summary.ticks} ticks in {wall:.2f} s; per tick on the "
+          "host stage (s): "
+          + ", ".join(f"{x:.3f}" for x in summary.tick_seconds)
+          + "; of which ingest (3 raw batches, native engine, wire "
+          "scatter): " + ", ".join(f"{x:.3f}" for x in summary.ingest_seconds)
+          + f"; render ticks {summary.render_ticks}; label plans "
+          f"{summary.render_plans}")
+    print(f"{tag} evictions (tick, source, flows, s): "
+          + ", ".join(f"({t}, {sid}, {n}, {x:.4f})"
+                      for t, sid, n, x in summary.source_evictions)
+          + "; roster " + "; ".join(
+              f"{r['id']}: {r['state']} clean={r['clean']} ticks={r['ticks']}"
+              f" records={r['records']} drops={r['drops']}"
+              for r in summary.roster))
+    if not engine.native:
+        raise AssertionError(f"{tag} not on the native engine")
+    evictions = [(sid, n) for _, sid, n, _ in summary.source_evictions]
+    if evictions != [(1, per)]:
+        raise AssertionError(f"{tag} evictions {evictions}, want [(1, {per})]")
+    slots = {sid: int(engine.slots_for_source(sid).size)
+             for sid in range(FANIN_SOURCES)}
+    if slots != {0: per, 1: 0, 2: per} or engine.num_flows() != 2 * per:
+        raise AssertionError(f"{tag} slots per namespace {slots}, "
+                             f"{engine.num_flows()} flows")
+    rows = {r["id"]: r for r in summary.roster}
+    states = {sid: r["state"] for sid, r in rows.items()}
+    ticks = {sid: r["ticks"] for sid, r in rows.items()}
+    drops = {sid: r["drops"] for sid, r in rows.items()}
+    if (states != {0: "HEALTHY", 1: "DEAD", 2: "HEALTHY"}
+            or ticks != {0: summary.ticks, 1: FANIN_KILL_AFTER,
+                         2: summary.ticks} or any(drops.values())):
+        raise AssertionError(f"{tag} roster states {states}, ticks {ticks}, "
+                             f"records dropped {drops}")
+    if (st["state"] != "HEALTHY" or st["fallback_calls"]
+            or st["degrade_transitions"]):
+        raise AssertionError(f"{tag} the unarmed ladder left HEALTHY: {st}")
+    evicted_at = summary.source_evictions[0][0]
+    # a render dispatched in the eviction's own tick follows the eviction
+    if not any(t >= evicted_at for t in summary.render_ticks):
+        raise AssertionError(f"{tag} no render after the eviction at tick "
+                             f"{evicted_at}")
+    per_render = _per_render_launches(tag, summary, log)
+    others = {f: n for f, n in launches.items() if f != "forest" and n}
+    if launches["forest"] != sum(per_render) or others:
+        raise AssertionError(f"{tag} all launches {launches}, per render "
+                             f"{per_render}")
+    printed = _check_printed(tag, tables, "forest", k, features, log)
+    print(f"{tag} source 1's namespace ({per} flows) evicted at tick "
+          f"{evicted_at}; sources 0 and 2 kept their {per} slots each and "
+          f"rendered on ({len(tables)} tables, renders "
+          f"{[i + 1 for i in printed]}, each one's labels equal the plain "
+          "version's on the table it was dispatched against); "
+          f"{launches['forest']} forest kernel launches; the ladder stayed "
+          "HEALTHY")
+    return launches["forest"]
+
+
+# family → (CLI subcommand, interop builder, seeded importer-dict builder)
+FAMILY_SERVES = {
+    "logreg": ("logistic", "logreg_params_from_numpy", random_logreg),
+    "gnb": ("gaussiannb", "gnb_params_from_numpy", random_gnb),
+    "kmeans": ("kmeans", "kmeans_params_from_numpy", random_kmeans),
+}
+
+
+def family_classes(family: str) -> tuple:
+    """Label names a family's checkpoint stores: the six classes, or the
+    reference k-means checkpoint's cluster map."""
+    from traffic_classifier_sdn_tpu_torch.models import kmeans
+
+    return kmeans.CLUSTER_LABELS_CHECKPOINT if family == "kmeans" else CLASSES
+
+
+def _check_family_printed(tag: str, tables: list, family: str, model: dict,
+                          cpu_model, features: list, log: list,
+                          rows: int | None = 64) -> int:
+    """Every printed table's labels equal the module's labels on the CPU
+    for the features its render was dispatched against, except on
+    near-ties (``near_ties``). Returns the near-tie rows met."""
+    names = family_classes(family)
+    printed = [k for what, k, *_ in log if what == "rows"]
+    if len(printed) != len(tables):
+        raise AssertionError(f"{tag} {len(tables)} tables printed, "
+                             f"{len(printed)} renders ran")
+    ties = 0
+    for table, k in zip(tables, printed):
+        X = features[k].cpu()
+        want = cpu_model.predict(X).numpy()
+        wrong = np.asarray([s for s, lab in table if names[want[s]] != lab],
+                           np.int64)
+        near = near_ties(family, model, None, X, None, wrong)
+        ties += int(near.sum())
+        if not near.all() or (rows is not None and len(table) != rows):
+            raise AssertionError(
+                f"{tag} render {k + 1}: {len(table)} rows, labels differing "
+                f"from the CPU's off near-ties at {wrong[~near][:5].tolist()}")
+    return ties
+
+
+def phase_families(models: dict, device) -> dict:
+    """The no-flag serves of ``logistic``, ``gaussiannb`` and ``kmeans`` at
+    65,536 synthetic flows (plain torch predicts on the card: the JAX
+    package computes these families in XLA, so none has a kernel), each
+    printed table's labels held to the module's labels on the CPU; each
+    family's predict on the 65,536 served rows timed (CUDA-event median)
+    and held to the CPU's labels but on near-ties; then one
+    ``degrade.dispatch_error`` drill of ``gaussiannb``. Returns {family:
+    predict ms}."""
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+
+    counters = {f: wrapper for f, (wrapper, _) in _kernels().items()}
+    times = {}
+    for family, (subcommand, carry, _) in FAMILY_SERVES.items():
+        model = models[family]
+        tag = f"[families {subcommand}]"
+        g = getattr(interop, carry)(model, device)
+        cpu_model = getattr(interop, carry)(model, "cpu")
+        with tempfile.TemporaryDirectory() as ckpt:
+            checkpoint.save_model(ckpt, family, g,
+                                  classes=family_classes(family))
+            argv = [subcommand, "--source", "synthetic", "--synthetic-flows",
+                    str(CAPACITY), "--capacity", str(CAPACITY),
+                    "--max-ticks", "6", "--print-every", "2",
+                    "--native-checkpoint", ckpt]
+            with watched_dispatch(family) as (features, log):
+                for c in counters.values():
+                    c.launches = 0
+                out, summary, wall = _serve(argv)
+                launches = {f: c.launches for f, c in counters.items()}
+            engine, st = summary.engine, summary.degrade
+            tables = parse_tables(out)
+            print(f"{tag} {summary.ticks} ticks in {wall:.2f} s; per tick on "
+                  "the host stage (s): "
+                  + ", ".join(f"{x:.3f}" for x in summary.tick_seconds)
+                  + "; renders on the device stage (s): "
+                  + ", ".join(f"{x:.4f}" for w, _, _, x in log if w == "rows")
+                  + f"; label plans {summary.render_plans}; ladder {st}")
+            if (not engine.native or not summary.render_plans
+                    or engine.num_flows() != CAPACITY):
+                raise AssertionError(f"{tag} not at the defaults or "
+                                     f"{engine.num_flows()} flows tracked")
+            if (st["state"] != "HEALTHY" or st["fallback_calls"]
+                    or st["fallback"] != "plain-cpu"):
+                raise AssertionError(f"{tag} ladder {st}")
+            if any(launches.values()):
+                raise AssertionError(f"{tag} launched kernels: {launches}")
+            ties = _check_family_printed(tag, tables, family, model,
+                                         cpu_model, features, log)
+            shown = sorted({lab for t in tables for _, lab in t})
+            X = engine.features()
+            # the table's most active rows may all fall in one class; the
+            # whole table must not
+            counts = np.bincount(g.predict(X).cpu().numpy(),
+                                 minlength=len(family_classes(family)))
+            if (counts > 0).sum() < 2:
+                raise AssertionError(f"{tag} every row has one label: "
+                                     f"{counts.tolist()}")
+            times[family] = cuda_median_ms(lambda: g.predict(X), TIMED_RUNS)
+            got = g.predict(X).cpu().numpy()
+            want = cpu_model.predict(X.cpu()).numpy()
+            differ = np.flatnonzero(got != want)
+            near = near_ties(family, model, None, X, None, differ)
+            if not near.all():
+                raise AssertionError(f"{tag} card labels differ from the "
+                                     "CPU's off near-ties at rows "
+                                     f"{differ[~near][:8].tolist()}")
+            print(f"{tag} {len(tables)} tables, each one's labels equal the "
+                  f"CPU module's on its dispatched features ({ties} near-tie "
+                  f"rows); classes shown {shown}, rows per class in the table "
+                  f"{counts.tolist()}; predict on {CAPACITY} rows "
+                  f"{times[family]:.4f} ms (CUDA-event median of "
+                  f"{TIMED_RUNS}), card labels equal the CPU's on all but "
+                  f"{differ.size} near-tie rows; no kernel launched")
+            if family == "gnb":
+                _drill_family(tag, family, model, cpu_model, ckpt)
+    return times
+
+
+def _drill_family(tag: str, family: str, model: dict, cpu_model,
+                  ckpt: str) -> None:
+    """The no-flag serve of 65,536 flows with ``degrade.dispatch_error``
+    armed on the second device call (``--probe-every 0 --probe-successes
+    2``, 10 ticks): the ladder demotes to the ``plain-cpu`` rung, every
+    printed table's labels equal the CPU module's but on near-ties, and it
+    re-promotes (probes before that may fail only on parity)."""
+    from traffic_classifier_sdn_tpu_torch.utils import faults
+
+    tag = f"{tag} drill degrade.dispatch_error"
+    plan = faults.FaultPlan([faults.FaultRule("degrade.dispatch_error",
+                                              after=1)])
+    drill = [FAMILY_SERVES[family][0], "--source", "synthetic",
+             "--synthetic-flows", str(CAPACITY), "--capacity", str(CAPACITY),
+             "--max-ticks", "10", "--print-every", "1", "--probe-every", "0",
+             "--probe-successes", "2", "--native-checkpoint", ckpt]
+    with watched_dispatch(family) as (features, log), faults.installed(plan):
+        out, summary, wall = _serve(drill)
+    st, edges = summary.degrade, summary.degrade_transitions
+    retry = [("DEGRADED", "PROBING", "probe-due"),
+             ("PROBING", "DEGRADED", "probe-failed:parity-mismatch")]
+    middle = edges[1:-2]
+    if (edges[:1] != [("HEALTHY", "DEGRADED", "error:FaultInjected")]
+            or edges[-2:] != [("DEGRADED", "PROBING", "probe-due"),
+                              ("PROBING", "HEALTHY", "promoted")]
+            or middle != retry * (len(middle) // 2)
+            or st["state"] != "HEALTHY" or st["fallback"] != "plain-cpu"
+            or st["fallback_calls"] < 1 or len(plan.fires) != 1):
+        raise AssertionError(f"{tag} transitions {edges}; {st}")
+    _check_family_printed(tag, parse_tables(out), family, model, cpu_model,
+                          features, log, rows=None)
+    print(f"{tag} transitions {edges}; {st['fallback_calls']} fallback calls "
+          f"({st['fallback']}); device stage per render (s): "
+          + ", ".join(f"{x:.4f}" for w, _, _, x in log if w == "rows")
+          + "; host stage per tick (s): "
+          + ", ".join(f"{x:.3f}" for x in summary.tick_seconds)
+          + f"; demoted, served the CPU module's labels and re-promoted in "
+          f"{wall:.2f} s; {len(middle) // 2} probes failed on parity")
 
 
 def churn_capture(path: str, n_flows: int,
@@ -1816,6 +2214,11 @@ def main() -> int:
     paths["2^20 Randomforest"] = {
         "forest": phase_big_serve(models["forest"], ops["forest"], device),
         "knn": 0, "svc": 0}
+    paths["fanin Randomforest"] = {
+        "forest": phase_fanin(models["forest"], ops["forest"], device),
+        "knn": 0, "svc": 0}
+    phase_families(models, device)
+    paths["families"] = {"forest": 0, "knn": 0, "svc": 0}
     phase_ingest_breakdown(ops["forest"], device)
     kernels = kernel_entries(results, launches, paths, buckets)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -63,7 +63,7 @@ def test_load_rejects_newer_format_and_dtype_mismatch(tmp_path):
 def test_save_rejects_unknown_family(tmp_path):
     port = interop.forest_params_from_numpy(_synth_forest(), device="cpu")
     with pytest.raises(ValueError, match="unknown model family"):
-        tck.save_model(str(tmp_path), "gnb", port)  # not ported yet
+        tck.save_model(str(tmp_path), "xgboost", port)  # no such family
 
 
 def test_loaded_model_predicts_like_source(tmp_path):

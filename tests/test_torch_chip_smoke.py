@@ -322,7 +322,9 @@ def small_card_phases(monkeypatch):
     sample = X.numpy()
     models = {"forest": chip_smoke.random_forest(0, sample, n_trees=8),
               "knn": chip_smoke.random_knn(0, sample, n_rows=200),
-              "svc": chip_smoke.random_svc(0, sample, n_sv=60)}
+              "svc": chip_smoke.random_svc(0, sample, n_sv=60),
+              **{f: build(0, sample) for f, (_, _, build)
+                 in chip_smoke.FAMILY_SERVES.items()}}
     ops = {"forest": fk.compile_forest(models["forest"], n_features=12,
                                        device="cpu"),
            "knn": kk.compile_knn(interop.knn_params_from_numpy(
@@ -393,3 +395,95 @@ def test_near_ties_tells_rounding_ties_from_real_disagreements():
     knn_model["n_neighbors"] = 2  # 2nd nearest 4.0 against 3rd 9.0
     got = chip_smoke.near_ties("knn", knn_model, None, X, None, np.arange(1))
     assert got.tolist() == [False]
+
+
+def test_fanin_phase_runs_on_cpu(small_card_phases, capsys):
+    """``phase_fanin`` passes its own checks at 256 flows: source 1's
+    namespace (85 flows) evicted, sources 0 and 2 rendering on with the
+    plain version's labels, the roster HEALTHY, DEAD, HEALTHY."""
+    models, ops = small_card_phases
+    assert chip_smoke.phase_fanin(models["forest"], ops["forest"],
+                                  torch.device("cpu")) > 0
+    out = capsys.readouterr().out
+    assert "source 1's namespace (85 flows) evicted" in out
+
+
+def test_families_phase_runs_on_cpu(small_card_phases, monkeypatch, capsys):
+    """``phase_families`` passes its own checks at 256 flows: each family's
+    no-flag serve prints the CPU module's labels, launches no kernel, and
+    the gaussiannb drill demotes to ``plain-cpu`` and re-promotes."""
+    models, _ = small_card_phases
+    monkeypatch.setattr(chip_smoke, "cuda_median_ms",
+                        lambda fn, runs: (fn(), 0.0)[1])
+    times = chip_smoke.phase_families(models, torch.device("cpu"))
+    assert sorted(times) == ["gnb", "kmeans", "logreg"]
+    out = capsys.readouterr().out
+    assert out.count("no kernel launched") == 3
+    assert "re-promoted" in out and "(plain-cpu)" in out
+
+
+def test_random_family_models_have_reference_shapes(table):
+    X = ft.features12(table).numpy()
+    lr = chip_smoke.random_logreg(0, X)
+    assert lr["coef"].shape == (6, 12) and lr["intercept"].shape == (6,)
+    g = chip_smoke.random_gnb(0, X)
+    assert g["theta"].shape == g["var"].shape == (6, 12)
+    assert (g["var"] > 0).all() and np.isclose(g["class_prior"].sum(), 1.0)
+    km = chip_smoke.random_kmeans(0, X)
+    assert km["cluster_centers"].shape == (chip_smoke.KMEANS_CLUSTERS, 12)
+    assert chip_smoke.family_classes("kmeans") == ("dns", "ping", "telnet",
+                                                   "voice")
+
+
+@pytest.mark.parametrize("family", ["logreg", "gnb", "kmeans"])
+def test_family_scores_are_the_modules_scores(table, family):
+    """``family_scores`` is the float64 image of the port module's scores
+    (the float32 module agrees to its rounding), and its scale bounds
+    each score."""
+    X = ft.features12(table).numpy()
+    model = chip_smoke.FAMILY_SERVES[family][2](0, X)
+    m = getattr(interop, chip_smoke.FAMILY_SERVES[family][1])(model, "cpu")
+    S, scale = chip_smoke.family_scores(family, model, X)
+    got = m.scores(torch.from_numpy(X)).numpy().astype(np.float64)
+    assert (np.abs(got - S) <= 24 * 2.0 ** -24 * scale).all()
+    assert (np.abs(S) <= scale + 1e-9).all()
+
+
+def test_near_ties_of_the_families():
+    """A family row is a near-tie only when its top two float64 scores lie
+    within ``2 · 12 · 2⁻²⁴`` of the row's scale."""
+    X = torch.zeros((3, 12))
+    X[:, 0] = torch.tensor([1.0, 2.0, 3.0])
+    eps = 24 * 2.0 ** -24
+    # kmeans: centers at 0 and 2 along feature 0 tie exactly for x = 1;
+    # a third center just off the tie
+    km = {"cluster_centers": np.zeros((3, 12))}
+    km["cluster_centers"][:, 0] = [0.0, 2.0, 2.0 + 4.0]
+    got = chip_smoke.near_ties("kmeans", km, None, X, None, np.arange(3))
+    assert got.tolist() == [True, False, False]
+    lr = {"coef": np.zeros((2, 12)), "intercept": np.asarray([0.0, 0.0])}
+    lr["coef"][:, 0] = [1.0, 1.0 + 0.5 * eps]
+    got = chip_smoke.near_ties("logreg", lr, None, X, None, np.arange(1))
+    assert got.tolist() == [True]
+    lr["coef"][1, 0] = 1.0 + 4 * eps
+    got = chip_smoke.near_ties("logreg", lr, None, X, None, np.arange(1))
+    assert got.tolist() == [False]
+
+
+def test_kill_after_kills_the_source_once_the_tick_is_consumed():
+    from traffic_classifier_sdn_tpu_torch.ingest import fanin
+
+    specs = [fanin.SourceSpec(kind="synthetic", sid=i, n_flows=2, seed=i,
+                              mac_base=2 * i, lockstep=True) for i in range(2)]
+    tier = fanin.FanInIngest(specs, quarantine_s=60.0)
+    with chip_smoke.kill_after(1, 1):
+        gen = tier.ticks(tick_timeout=5.0)
+        try:
+            first = next(gen)
+            assert {r.source for r in first} == {0, 1}
+            later = [next(gen) for _ in range(3)]
+        finally:
+            gen.close()
+    assert all({r.source for r in b} == {0} for b in later[1:])
+    assert tier.roster()[1]["ticks"] == 1
+    assert fanin.FanInIngest.ticks.__name__ == "ticks"

@@ -654,3 +654,50 @@ def test_pipelined_serve_on_card_prints_what_the_serial_serve_prints(
     assert summary.degrade["fallback_calls"] == 0
     predicting = [p for p in summary.render_plans if p[0] != "none"]
     assert counter.launches - launches == len(predicting)
+
+
+@pytest.mark.parametrize("row", [[1.0, np.nan, 3.0, np.nan],
+                                 [np.nan, 5.0, np.nan, 1.0],
+                                 [-np.inf] * 4, [2.0, 2.0, 1.0, 2.0],
+                                 [-0.0, 0.0, -0.0, 0.0]],
+                         ids=["nan-after-max", "nan-first", "all-neg-inf",
+                              "ties", "signed-zeros"])
+def test_argmax_on_card_picks_as_on_cpu(cuda, row):
+    """The families' argmax (``models.base.argmax_labels``) on the card
+    picks what it picks on the CPU, where it is held to ``jnp.argmax``: the
+    first maximum, the first NaN counting as the maximum — also in a batch
+    large enough for the card's multi-block reduction."""
+    from traffic_classifier_sdn_tpu_torch.models.base import argmax_labels
+
+    x = torch.tensor([row] * 70000, dtype=torch.float32)
+    want = argmax_labels(x)
+    got = argmax_labels(x.to(cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("family", sorted(chip_smoke.FAMILY_SERVES))
+def test_family_predict_on_card_equals_cpu(cuda, family):
+    """logreg, gnb and kmeans on the card against the same module on the
+    CPU, on served rows and on non-finite ones: scores within the rounding
+    of a 12-term float32 sum (``chip_smoke.family_scores``), labels equal
+    but on near-ties (``chip_smoke.near_ties``)."""
+    X = _served()
+    _, carry, build = chip_smoke.FAMILY_SERVES[family]
+    model = build(0, X)
+    cpu_m = getattr(interop, carry)(model, "cpu")
+    card_m = getattr(interop, carry)(model, cuda)
+    Xt = torch.from_numpy(X)
+    for Xc in (Xt, chip_smoke.with_nonfinite(Xt, every=3)):
+        want_l, want = cpu_m.predict_scores(Xc)
+        got_l, got = card_m.predict_scores(Xc.to(cuda))
+        got, got_l = got.cpu(), got_l.cpu()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        fin = torch.isfinite(want)
+        assert torch.equal(got[~fin & ~torch.isnan(want)],
+                           want[~fin & ~torch.isnan(want)])
+        _, scale = chip_smoke.family_scores(family, model, Xc.numpy())
+        err = (got[fin].double() - want[fin].double()).abs().numpy()
+        assert (err <= 24 * 2.0 ** -24 * scale[fin.numpy()]).all()
+        differ = np.flatnonzero((got_l != want_l).numpy())
+        near = chip_smoke.near_ties(family, model, None, Xc, None, differ)
+        assert near.all(), differ[~near]

@@ -45,7 +45,7 @@ import chip_smoke
 leaked = sorted(m for m in sys.modules if blocked(m))
 assert not leaked, leaked
 assert not blocked("traffic_classifier_sdn_tpu_torch")
-print(len(names))
+print(" ".join(names))
 '''
 
 
@@ -59,7 +59,12 @@ def test_port_imports_with_jax_blocked():
         cwd=ROOT, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20  # every module of the port
+    names = set(proc.stdout.split())
+    assert len(names) >= 20  # every module of the port
+    # the fan-in tier and the logistic, GNB and k-means families among them
+    assert {f"traffic_classifier_sdn_tpu_torch.{m}" for m in (
+        "ingest.fanin", "models.logreg", "models.gnb", "models.kmeans",
+    )} <= names
 
 
 def _imported_names(path: pathlib.Path) -> list[str]:

@@ -161,7 +161,7 @@ def test_without_gpp_forest_and_knn_fall_back_to_the_plain_version(
     predict, operands = models._build_serving_path(family, params)
     np.testing.assert_array_equal(
         fb.predict(X), predict(operands, torch.from_numpy(X)).numpy())
-    assert models.resolve_fallback("gnb", params) is None
+    assert models.resolve_fallback("xgboost", params) is None
 
 
 def test_top_active_flags_bitwise_equals_jax():

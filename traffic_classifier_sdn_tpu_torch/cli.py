@@ -1,5 +1,6 @@
 """Command-line interface of the port: the ``Randomforest``, ``knearest``
-(alias ``kneighbors``) and ``svm`` classify serves.
+(alias ``kneighbors``), ``svm``, ``logistic``, ``gaussiannb`` and
+``kmeans`` classify serves.
 
 The serve of the JAX CLI (``traffic_classifier_sdn_tpu/cli.py``
 ``_serve_loop``, ``_dispatch_render``, ``_print_table``), with the same flag
@@ -20,9 +21,11 @@ and every ``--print-every`` ticks, after idle eviction:
    last render are gathered (``features12_at``) and predicted, into a
    persistent label cache (serving/incremental.py); under ``off``
    ``features12`` projects the whole table and all ``capacity`` rows are
-   predicted. Either way the model runs its CUDA kernel: the forest walk
-   (ops/forest_kernel.py), the KNN top-k (ops/knn_kernel.py) or the
-   RBF-SVC decision (ops/rbf_kernel.py);
+   predicted. The forest, KNN and SVC run their CUDA kernel: the forest
+   walk (ops/forest_kernel.py), the KNN top-k (ops/knn_kernel.py) or the
+   RBF-SVC decision (ops/rbf_kernel.py); logistic regression, Gaussian
+   naive Bayes and k-means run as plain torch ops (the JAX package
+   computes them in XLA, in no hand-written kernel);
 5. the activity-ranked ``top_active_render`` picks ``--table-rows`` rows;
 6. ``utils/table.render_table`` prints them.
 
@@ -48,8 +51,13 @@ difference form, the JAX default ``TCSDN_SVC_KERNEL=chunked``.
 Sources: ``ryu`` (the default: a monitor subprocess, ``--monitor-cmd``,
 whose stdout is the telemetry pipe, restarted up to ``--monitor-restarts``
 times when it dies), ``replay`` (recorded capture file) and ``synthetic``
-(generated flow population). The serve runs on CUDA unless ``--device
-cpu`` is given.
+(generated flow population). ``--sources N`` or ``--source-spec KIND:ARG``
+(repeatable) serve many sources through the fan-in tier
+(ingest/fanin.py), each in its own flow-table namespace: with the native
+engine every source's poll batch goes into it as raw bytes under its
+source id, and a source that dies uncleanly has exactly its own
+namespace evicted once ``--source-quarantine`` expires. The serve runs on
+CUDA unless ``--device cpu`` is given.
 
     python -m traffic_classifier_sdn_tpu_torch.cli knearest \\
         --native-checkpoint DIR --source synthetic --max-ticks 4 --print-every 2
@@ -65,7 +73,8 @@ from dataclasses import dataclass, field
 
 import torch
 
-SUBCOMMANDS = ("Randomforest", "randomforest", "knearest", "kneighbors", "svm")
+SUBCOMMANDS = ("logistic", "kmeans", "knearest", "kneighbors", "svm",
+               "Randomforest", "randomforest", "gaussiannb")
 # renders the pipelined serve's handoff holds before new ones coalesce
 PIPELINE_DEPTH = 2
 
@@ -93,6 +102,42 @@ def _build_parser() -> argparse.ArgumentParser:
         help="override the spawned monitor command (--source ryu)",
     )
     p.add_argument("--capture", help="capture file for --source replay")
+    p.add_argument(
+        "--sources", type=int, default=0, metavar="N",
+        help="fan-in ingest tier (ingest/fanin.py): serve N "
+        "independently supervised telemetry sources of the base "
+        "--source kind through one bounded MPSC queue, each in its own "
+        "flow-table namespace (source id folded into the flow key). A "
+        "dead source quarantines and evicts only its own namespace; "
+        "every other source keeps serving. 0 (default) = the direct "
+        "single-collector path",
+    )
+    p.add_argument(
+        "--source-spec", action="append", metavar="KIND:ARG",
+        help="explicit fan-in source (repeatable; implies the fan-in "
+        "tier, source ids by position): cmd:<monitor command>, "
+        "capture:<path>, or synthetic:<n_flows> — mix live and replay "
+        "sources in one serve",
+    )
+    p.add_argument(
+        "--source-quarantine", type=float, default=5.0, metavar="SECS",
+        help="grace window between a source's unclean death and the "
+        "eviction of its namespace (default 5.0): a source restarted "
+        "within it re-registers into its old namespace with its flows "
+        "intact",
+    )
+    p.add_argument(
+        "--source-interval", type=float, default=1.0, metavar="SECS",
+        help="emission pacing for pull-paced fan-in sources "
+        "(capture/synthetic): one poll tick per SECS (default 1.0, "
+        "the reference monitor's cadence; 0 = flat out)",
+    )
+    p.add_argument(
+        "--source-lockstep", action="store_true",
+        help="pace pull-paced fan-in sources by consumer credit (one "
+        "emission per serve tick) instead of wall clock — "
+        "deterministic multi-source runs (tests, identity checks)",
+    )
     p.add_argument(
         "--synthetic-flows", type=int, default=1024,
         help="synthetic source size",
@@ -199,7 +244,10 @@ class ServeSummary:
     final ``status()`` (None under ``--degrade off``) and
     ``degrade_transitions`` its ``(from, to, reason)`` edges, ``pipeline`` the
     pipeline's ``stats()`` (None under ``--pipeline off``), ``warmup``
-    what ``--warmup`` returned."""
+    what ``--warmup`` returned. Under the fan-in tier ``roster`` is its
+    final ``roster()`` (one row per source) and ``source_evictions`` one
+    ``(tick, source id, flows evicted, seconds)`` per dead namespace
+    evicted."""
 
     engine: object
     ticks: int = 0
@@ -212,6 +260,13 @@ class ServeSummary:
     degrade_transitions: list = field(default_factory=list)
     pipeline: dict | None = None
     warmup: dict | None = None
+    roster: list | None = None
+    source_evictions: list = field(default_factory=list)
+
+    @property
+    def evicted_flows(self) -> int:
+        """Flows evicted with dead sources' namespaces."""
+        return sum(n for _, _, n, _ in self.source_evictions)
 
 
 def _use_native(args) -> bool:
@@ -225,11 +280,50 @@ def _use_native(args) -> bool:
     return ok
 
 
-def _tick_source(args, raw: bool = False):
+def _fanin_active(args) -> bool:
+    """The fan-in ingest tier engages on --sources N or any
+    --source-spec entry."""
+    return args.sources > 0 or bool(args.source_spec)
+
+
+def _fanin_tier(args, raw: bool):
+    """The fan-in tier of the CLI's fan-in flags (exits on a bad spec)."""
+    from .ingest import fanin
+    from .ingest.collector import DEFAULT_MONITOR_CMD
+
+    try:
+        specs = fanin.specs_from_cli(
+            args.source, max(1, args.sources), args.source_spec,
+            capture=args.capture,
+            monitor_cmd=args.monitor_cmd or DEFAULT_MONITOR_CMD,
+            synthetic_flows=args.synthetic_flows,
+            max_restarts=args.monitor_restarts or 0,
+            interval=args.source_interval,
+            lockstep=args.source_lockstep,
+        )
+    except ValueError as e:
+        sys.exit(f"ERROR: {e}")
+    # native ingest rides the raw wire end to end: pumps deliver bytes,
+    # ticks() yields RawTick batches, and the C++ keyer namespaces per
+    # (sid, payload) pair. The queue holds at least one poll of every
+    # tracked flow (two records each): under the JAX tier's fixed 65,536
+    # records, a table above 32,768 flows split over sources drops a
+    # whole source's poll whenever two polls queue together.
+    return fanin.FanInIngest(
+        specs, queue_records=max(1 << 16, 2 * args.capacity),
+        quarantine_s=args.source_quarantine, raw=raw,
+    )
+
+
+def _tick_source(args, raw: bool = False, tier=None):
     """Yield one batch of telemetry per poll tick: a list of
     TelemetryRecords, or raw pipe bytes when ``raw`` (the native engine's
-    bulk path — no per-line Python between the pipe and C++)."""
-    if args.source == "replay":
+    bulk path — no per-line Python between the pipe and C++). With the
+    fan-in ``tier`` the batches are its ticks (a ``RawTick`` of ``(source
+    id, bytes)`` pairs when raw)."""
+    if tier is not None:
+        yield from tier.ticks()
+    elif args.source == "replay":
         if not args.capture:
             sys.exit("--source replay requires --capture FILE")
         from .ingest.replay import iter_capture
@@ -278,11 +372,49 @@ def _sync(device: torch.device) -> None:
         torch.cuda.current_stream(device).synchronize()
 
 
+def _evict_dead_namespaces(tier, engine, pipe, summary) -> None:
+    """Evict namespaces whose source-death quarantine expired (fan-in
+    tier, ingest/fanin.py). A pipelined render in flight is waited for
+    first (bounded, as idle eviction does): a released slot's metadata
+    must outlive its render. The JAX serve only defers to a later tick
+    while a render is in flight, which never evicts when every host tick
+    is shorter than a render; waiting only on ticks with an eviction due
+    lands it in the same tick whatever the host load. A render still in
+    flight after the wait defers the eviction to the next tick (the tier
+    keeps the sid pending until it is taken)."""
+    if pipe is not None and not pipe.idle():
+        if not tier.evictions_due():
+            return
+        pipe.drain(timeout=10.0)
+        if not pipe.idle():
+            return
+    for sid in tier.take_evictions():
+        t0 = time.perf_counter()
+        # a namespace clear on either spine: the Python index walks its
+        # slot_source map, the C++ engine its per-slot namespace tags
+        n = engine.evict_source(sid)
+        _sync(engine.device)
+        summary.source_evictions.append(
+            (summary.ticks, sid, n, time.perf_counter() - t0))
+        print(
+            f"WARNING: telemetry source {sid} dead past quarantine — "
+            f"evicted {n} flows from its namespace",
+            file=sys.stderr,
+        )
+
+
 def _serve_loop(args, engine, model, predict, serve_params, inc=None,
                 degrade=None) -> ServeSummary:
+    from .ingest.fanin import RawTick
     from .serving.pipeline import ServePipeline, coalesce_renders
 
     summary = ServeSummary(engine=engine)
+    # raw bytes wherever the native engine can take them: the pipe
+    # source, and every fan-in kind (the tier's pumps render capture and
+    # synthetic ticks to the wire themselves)
+    fanin = _fanin_active(args)
+    raw = engine.native and (args.source == "ryu" or fanin)
+    tier = _fanin_tier(args, raw) if fanin else None
     dropped_seen = 0
     errors_seen = 0
     # Pipelined serving: this thread (the host stage) polls, parses,
@@ -295,8 +427,7 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
         pipe = ServePipeline(consume=lambda job: job(), depth=PIPELINE_DEPTH,
                              merge=coalesce_renders).start()
         host_busy = pipe.host_stage
-    # raw bytes wherever the native engine can take them: the pipe source
-    source = _tick_source(args, raw=engine.native and args.source == "ryu")
+    source = _tick_source(args, raw=raw, tier=tier)
     try:
         for batch in source:
             if pipe is not None:
@@ -308,12 +439,19 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
                 engine.mark_tick()  # freshness floor for the render
                 if isinstance(batch, bytes):
                     engine.ingest_bytes(batch)
+                elif isinstance(batch, RawTick):
+                    # native fan-in: one feed per (source, poll batch),
+                    # under that source's namespace
+                    for sid, data in batch:
+                        engine.ingest_bytes(data, sid)
                 else:
                     engine.ingest(batch)
                 engine.step()
                 _sync(engine.device)
                 summary.ingest_seconds.append(time.perf_counter() - t0)
                 summary.ticks += 1
+                if tier is not None:
+                    _evict_dead_namespaces(tier, engine, pipe, summary)
                 if summary.ticks % args.print_every == 0:
                     if engine.dropped > dropped_seen:
                         print(
@@ -360,6 +498,10 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
     finally:
         if pipe is not None:
             pipe.shutdown(drain=False)  # idempotent; error paths drop
+        if tier is not None:
+            # the sources as the serve left them, before closing the
+            # stream stops every pump
+            summary.roster = tier.roster()
         source.close()
     if pipe is not None:
         summary.pipeline = pipe.stats()

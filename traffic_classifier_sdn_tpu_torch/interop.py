@@ -17,7 +17,10 @@ import torch
 
 from .device import resolve_device
 from .models.forest import PARAM_FIELDS, ForestModel
+from .models.gnb import GnbModel
+from .models.kmeans import KmeansModel
 from .models.knn import KnnModel
+from .models.logreg import LogregModel
 from .models.svc import SvcModel
 
 KNN_FIELDS = ("fit_X", "fit_X_lo", "fit_y", "half_sq_norms")
@@ -85,3 +88,37 @@ def svc_params_from_numpy(d, device=None) -> SvcModel:
         **_tensors(get, SVC_FIELDS, device),
         n_classes=int(get("n_classes")), has_lo=bool(get("has_lo")),
     )
+
+
+def logreg_params_from_numpy(d, device=None) -> LogregModel:
+    """The JAX logistic-regression parameters — its ``Params`` fields or
+    the importer dict, both ``coef`` (C, F) and ``intercept`` (C,) — as
+    the port's ``LogregModel`` on ``device`` (default CUDA)."""
+    get = _getter(d)
+    return LogregModel.from_numpy(
+        {k: np.asarray(get(k)) for k in ("coef", "intercept")},
+        device=device,
+    )
+
+
+def gnb_params_from_numpy(d, device=None) -> GnbModel:
+    """The JAX Gaussian naive Bayes parameters as the port's ``GnbModel``
+    on ``device`` (default CUDA). Given the JAX ``Params`` fields
+    (``theta``, ``inv_var``, ``log_const``, already folded), every array
+    is carried over as it is; given an importer dict (``theta``, ``var``,
+    ``class_prior``), the port's own ``GnbModel.from_numpy`` folds it."""
+    if not _has(d, "inv_var"):
+        return GnbModel.from_numpy(d, device=device)
+    device = resolve_device(device)
+    return GnbModel(**_tensors(_getter(d), ("theta", "inv_var", "log_const"),
+                               device))
+
+
+def kmeans_params_from_numpy(d, device=None) -> KmeansModel:
+    """The JAX k-means parameters — its ``Params`` (``centers``) or the
+    importer dict (``cluster_centers``) — as the port's ``KmeansModel`` on
+    ``device`` (default CUDA)."""
+    get = _getter(d)
+    key = "centers" if _has(d, "centers") else "cluster_centers"
+    return KmeansModel.from_numpy({"cluster_centers": np.asarray(get(key))},
+                                  device=device)

@@ -1,5 +1,6 @@
-"""Classifier families of the port (so far the random forest, KNN and
-RBF-SVC) and the serving-path resolution — the torch counterpart of
+"""The six classifier families of the port (random forest, KNN, RBF-SVC,
+logistic regression, Gaussian naive Bayes, k-means) and the serving-path
+resolution — the torch counterpart of
 ``traffic_classifier_sdn_tpu/models/__init__.py``.
 
 Registry keys mirror the reference's CLI subcommands under normalized
@@ -15,30 +16,45 @@ from collections.abc import Callable
 from dataclasses import dataclass
 from typing import Any
 
-from . import forest, knn, svc
+from . import forest, gnb, kmeans, knn, logreg, svc
 from .base import ClassList
 
 MODEL_CLASSES = {
-    "forest": forest.ForestModel,
+    "logreg": logreg.LogregModel,
+    "gnb": gnb.GnbModel,
+    "kmeans": kmeans.KmeansModel,
     "knn": knn.KnnModel,
     "svc": svc.SvcModel,
+    "forest": forest.ForestModel,
 }
+# the families whose serving predict has a hand-written CUDA kernel; the
+# others serve their module's plain torch predict
+KERNEL_FAMILIES = ("forest", "knn", "svc")
 
 # reference CLI subcommand → normalized model name (traffic_classifier.py:189;
 # both 'knearest' and 'kneighbors' accepted, as in the JAX package)
 SUBCOMMAND_ALIASES = {
+    "logistic": "logreg",
+    "kmeans": "kmeans",
     "knearest": "knn",
     "kneighbors": "knn",
     "svm": "svc",
     "Randomforest": "forest",
     "randomforest": "forest",
+    "gaussiannb": "gnb",
 }
 
 
+def module_predict(params, X):
+    """The serving predict of a family without a kernel: its module's
+    plain torch ``predict`` (logreg, gnb, kmeans)."""
+    return params.predict(X)
+
+
 def _build_serving_path(name: str, params) -> tuple[Callable, Any]:
-    """(predict_fn, params) for full-table serving. Each family serves
-    through its kernel module — on CUDA tensors the hand-written kernel,
-    on CPU tensors its plain version:
+    """(predict_fn, params) for full-table serving. The kernel families
+    serve through their kernel module — on CUDA tensors the hand-written
+    kernel, on CPU tensors its plain version:
 
     - forest: ops/forest_kernel, the selector compiled at the framework's
       fixed 12-column feature width (a forest whose trees never split on
@@ -46,7 +62,11 @@ def _build_serving_path(name: str, params) -> tuple[Callable, Any]:
     - knn: ops/knn_kernel, the exact top-k (the JAX default ``sort``
       tier's semantics; the ``--knn-topk`` menu is not ported);
     - svc: ops/rbf_kernel, the two-float difference form (the JAX default
-      ``TCSDN_SVC_KERNEL=chunked``; ``dot`` is not ported)."""
+      ``TCSDN_SVC_KERNEL=chunked``; ``dot`` is not ported);
+    - logreg, gnb, kmeans: the module's own predict, plain torch ops on
+      either device (the JAX package serves their XLA predict)."""
+    if name in MODEL_CLASSES and name not in KERNEL_FAMILIES:
+        return module_predict, params
     if name == "forest":
         from ..core.features import NUM_FEATURES
         from ..ops import forest_kernel as mod
@@ -90,10 +110,11 @@ def resolve_fallback(name: str, params) -> ServingFallback | None:
 
     - forest / knn: the native C++ host evaluators of this package
       (native/forest_eval.cpp, native/knn_eval.cpp);
-    - svc, and forest / knn where g++ cannot build those: the family's
-      plain torch version on the CPU, with the params copied to the CPU
-      once here, so a sick card is never entered again. It is the kernel
-      module's CPU path: the KNN and SVC plain versions run over
+    - svc, logreg, gnb, kmeans, and forest / knn where g++ cannot build
+      those: the family's plain torch version on the CPU, with the params
+      copied to the CPU once here, so a sick card is never entered again.
+      For a kernel family it is the kernel module's CPU path: the KNN and
+      SVC plain versions run over
       65,536-row slices, so a table of 2²⁰ rows never builds an (N, S)
       matrix. This is the counterpart of the JAX package's eager-CPU
       fallback.
@@ -141,7 +162,7 @@ def resolve_fallback(name: str, params) -> ServingFallback | None:
         name, copy.deepcopy(params).to("cpu")
     )
     scores = {"forest": forest_kernel.forest_proba, "knn": knn_kernel.scores,
-              "svc": rbf_kernel.scores}[name]
+              "svc": rbf_kernel.scores}.get(name, lambda p, X: p.scores(X))
 
     def plain_cpu(X):
         Xc = torch.from_numpy(np.ascontiguousarray(X, np.float32))
@@ -177,7 +198,11 @@ class LoadedModel:
 
 
 def make_loaded_model(name: str, params, classes) -> LoadedModel:
-    """Assemble a LoadedModel (used by the checkpoint loader)."""
+    """Assemble a LoadedModel (used by the checkpoint loader). A k-means
+    model stored without class names decodes its cluster ids through
+    ``kmeans.CLUSTER_LABELS_CHECKPOINT``."""
+    if name == "kmeans" and classes is None:
+        classes = ClassList(kmeans.CLUSTER_LABELS_CHECKPOINT)
     return LoadedModel(
         name=name,
         params=params,

@@ -1,4 +1,5 @@
-"""Host-side label decode shared by the model families (a copy of
+"""Label helpers shared by the model families: the argmax that turns
+scores into class indices, and the host-side decode (a copy of
 ``ClassList`` from ``traffic_classifier_sdn_tpu/models/base.py``).
 
 Class *labels* (strings) never enter device code; ``ClassList`` decodes
@@ -9,6 +10,14 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+
+
+def argmax_labels(scores: torch.Tensor) -> torch.Tensor:
+    """(N,) int32 argmax over the last axis, as ``jnp.argmax`` picks it:
+    the first maximum wins, and a NaN counts as the maximum (the first
+    NaN of the row)."""
+    return torch.argmax(scores, dim=-1).to(torch.int32)
 
 
 @dataclass(frozen=True)

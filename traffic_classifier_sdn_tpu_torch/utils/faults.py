@@ -2,9 +2,10 @@
 
 The port's copy of ``traffic_classifier_sdn_tpu/utils/faults.py``, with
 the registry cut to the sites this package threads. A named *fault site*
-sits at each seam (collector reads, supervisor restart, native engine
-load and parse, the latency stamp, the pipeline handoff, the degrade
-ladder's dispatch and probe, the incremental label path); a test
+sits at each seam (collector reads, supervisor restart, the fan-in
+queue and source pumps, native engine load and parse, the latency
+stamp, the pipeline handoff, the degrade ladder's dispatch and probe,
+the incremental label path); a test
 installs a seeded ``FaultPlan`` that fires scripted failures at exact
 hit counts (or seeded probabilities).
 
@@ -37,6 +38,20 @@ SITES: dict[str, str] = {
         "ingest/supervisor — the restart attempt itself fails (spawn "
         "failure); consumes one restart-budget slot and re-enters "
         "backoff"
+    ),
+    "ingest.fanin_put": (
+        "ingest/fanin.FanInQueue.put — the MPSC enqueue from a source "
+        "pump fails (a fire == a queue-full drop burst); ABSORBED: the "
+        "batch is dropped and counted against ITS source only — the "
+        "producer is never blocked, the serve loop never sees the "
+        "failure, and every other source's telemetry flows untouched"
+    ),
+    "ingest.source_dead": (
+        "ingest/fanin.SourceWorker pump — one telemetry source dies "
+        "mid-stream; ABSORBED by the fan-in tier: the source goes DEAD "
+        "(unclean), its namespace quarantines and after the quarantine "
+        "window exactly its own slots are evicted, while every other "
+        "source keeps serving fresh labels every tick"
     ),
     "ingest.native_parse": (
         "native/engine.NativeBatcher.feed — one line of a native-ingest "
