@@ -108,6 +108,37 @@ the script exits non-zero:
    65,536 served rows timed (CUDA-event median); then a
    ``degrade.dispatch_error`` drill of ``gaussiannb`` that demotes to the
    ``plain-cpu`` rung and re-promotes;
+6e. knn-tiers — on 65,536 served rows (finite), the ``--knn-topk`` tiers
+   ``sort``, ``pallas`` (the kernel), ``argmax``, ``hier``, ``hier512``,
+   ``screened`` and ``screened64`` (torch tiers): each one's neighbor
+   indices bitwise equal to the kernel's, ``native`` labels equal to the
+   kernel's but on near-ties; each tier's predict timed beside the
+   kernel's, and ``torch.matmul + torch.topk`` warmed (context only);
+6f. ivf — the port's quantizer fit on the corpus on the card (K = 67):
+   at nprobe = K labels and ``ivf_top1`` bitwise equal to the exact
+   tier's, recall@1 at nprobe 1, 2 and 4, card labels equal to the CPU's
+   on the same quantizer but on near-ties, the native mirror equal to the
+   torch tier at nprobe = K but on near-ties; the build seconds and each
+   form's predict time at 65,536 rows;
+6g. svc-dot — ``TCSDN_SVC_KERNEL=dot`` on 65,536 served rows: its time
+   beside the kernel's, its disagreements with the kernel, and its labels
+   held to the CPU's dot form on every row outside ``dot_rule_rows`` (the
+   rows where the float32 dot expansion's error bound reaches a
+   decision's sign);
+6h. menu serves — the no-flag serves at 65,536 flows of ``knearest
+   --knn-topk hier``, ``knearest --knn-topk ivf`` (the native mirror, no
+   ladder), ``svm`` with ``TCSDN_SVC_KERNEL=dot`` and ``Randomforest``
+   with ``TCSDN_FOREST_KERNEL=native``, every printed table's labels equal
+   to the tier's own function on the table its render was dispatched
+   against;
+6i. controller — ``Randomforest --source controller --of-port <free
+   port>`` with no other flag: the port's own controller, spawned by the
+   serve, and ``tools/torch_fake_switch.py`` conversing 64 host pairs for
+   6 polls; the tables' labels equal the plain version's, and the
+   controller ends on the serve's SIGTERM; then ``--source workload``
+   on seeded training CSVs in the reference layout (20,480 flows, 6
+   ticks): tick seconds and labels per class against the generator's
+   ground truth;
 7. breakdown — host seconds per tick of 131,072 records into 65,536 flows
    through the Python spine, the native spine from records and the
    native spine from raw bytes (each with ``step()`` and a device sync),
@@ -138,6 +169,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 SEED = 0
+HERE = os.path.dirname(os.path.abspath(__file__))
 N_TREES = 100
 N_CLASSES = 6
 N_FEATURES = 12
@@ -1020,22 +1052,40 @@ def watched_dispatch(family: str):
         pipeline.dispatch_read = dispatch
 
 
-def _check_printed(tag: str, tables: list, family: str, g, features: list,
-                   log: list, rows: int | None = 64) -> list[int]:
-    """Every printed table's labels equal the plain version's on the table
-    its render was dispatched against; returns the printed dispatches."""
+def _check_dispatched(tag: str, tables: list, features: list, log: list,
+                      plain, allowed=None, names=CLASSES,
+                      rows: int | None = None) -> tuple[list[int], int]:
+    """Every printed table's labels equal ``plain(X)`` on the features its
+    render was dispatched against (and each table has ``rows`` rows, if
+    given); a row where they differ must be in ``allowed(X, rows)`` (a
+    bool mask) if that is given. Returns (the printed dispatches, the rows
+    allowed to differ that did)."""
     printed = [k for what, k, *_ in log if what == "rows"]
     if len(printed) != len(tables):
         raise AssertionError(f"{tag} {len(tables)} tables printed, "
                              f"{len(printed)} renders ran")
+    met = 0
     for table, k in zip(tables, printed):
-        want = _plain_labels(family, g, features[k]).cpu()
-        wrong = [(s, lab) for s, lab in table if CLASSES[want[s]] != lab]
-        if wrong or (rows is not None and len(table) != rows):
+        want = np.asarray(plain(features[k]))
+        wrong = np.asarray([s for s, lab in table if names[want[s]] != lab],
+                           np.int64)
+        ok = (np.zeros(wrong.size, bool) if allowed is None or not wrong.size
+              else allowed(features[k], wrong))
+        if not ok.all() or (rows is not None and len(table) != rows):
             raise AssertionError(
                 f"{tag} render {k + 1}: {len(table)} rows, labels differing "
-                f"from the plain version's: {wrong[:5]}")
-    return printed
+                f"from the plain version's: {wrong[~ok][:5].tolist()}")
+        met += int(wrong.size)
+    return printed, met
+
+
+def _check_printed(tag: str, tables: list, family: str, g, features: list,
+                   log: list, rows: int | None = 64) -> list[int]:
+    """Every printed table's labels equal the plain version's on the table
+    its render was dispatched against; returns the printed dispatches."""
+    return _check_dispatched(
+        tag, tables, features, log,
+        lambda X: _plain_labels(family, g, X).cpu(), rows=rows)[0]
 
 
 def _per_render_launches(tag: str, summary, log: list) -> list[int]:
@@ -1619,24 +1669,12 @@ def _check_family_printed(tag: str, tables: list, family: str, model: dict,
     """Every printed table's labels equal the module's labels on the CPU
     for the features its render was dispatched against, except on
     near-ties (``near_ties``). Returns the near-tie rows met."""
-    names = family_classes(family)
-    printed = [k for what, k, *_ in log if what == "rows"]
-    if len(printed) != len(tables):
-        raise AssertionError(f"{tag} {len(tables)} tables printed, "
-                             f"{len(printed)} renders ran")
-    ties = 0
-    for table, k in zip(tables, printed):
-        X = features[k].cpu()
-        want = cpu_model.predict(X).numpy()
-        wrong = np.asarray([s for s, lab in table if names[want[s]] != lab],
-                           np.int64)
-        near = near_ties(family, model, None, X, None, wrong)
-        ties += int(near.sum())
-        if not near.all() or (rows is not None and len(table) != rows):
-            raise AssertionError(
-                f"{tag} render {k + 1}: {len(table)} rows, labels differing "
-                f"from the CPU's off near-ties at {wrong[~near][:5].tolist()}")
-    return ties
+    return _check_dispatched(
+        tag, tables, features, log,
+        lambda X: cpu_model.predict(X.cpu()).numpy(),
+        allowed=lambda X, wrong: near_ties(family, model, None, X.cpu(),
+                                           None, wrong),
+        names=family_classes(family), rows=rows)[1]
 
 
 def phase_families(models: dict, device) -> dict:
@@ -1757,6 +1795,676 @@ def _drill_family(tag: str, family: str, model: dict, cpu_model,
           + ", ".join(f"{x:.3f}" for x in summary.tick_seconds)
           + f"; demoted, served the CPU module's labels and re-promoted in "
           f"{wall:.2f} s; {len(middle) // 2} probes failed on parity")
+
+
+# ---------------------------------------------------------------------------
+# the serving menus, the controller and workload sources
+
+MENU_VARS = ("TCSDN_KNN_TOPK", "TCSDN_SVC_KERNEL", "TCSDN_FOREST_KERNEL")
+KNN_TIERS = ("sort", "pallas", "argmax", "hier", "hier512", "screened",
+             "screened64")
+IVF_CHUNK = 16384  # rows per IVF call: the (N, nprobe·L) candidate gather
+HOST_RUNS = 3  # host (C++) calls timed per form
+
+
+@contextlib.contextmanager
+def serving_env(**values):
+    """Set the serving menus' environment variables (``TCSDN_KNN_TOPK``
+    and the others; a CLI's ``--knn-topk`` also sets it) for a block and
+    restore all of them after it, so later phases serve the defaults."""
+    saved = {v: os.environ.get(v) for v in MENU_VARS}
+    for v in MENU_VARS:
+        os.environ.pop(v, None)
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for v, old in saved.items():
+            if old is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = old
+
+
+def host_median_s(fn, runs: int = HOST_RUNS) -> float:
+    """Median host seconds of ``runs`` calls of a host (C++) function."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def served_rows(device):
+    """(65,536, 12) features of a synthetic table of 65,536 flows after 3
+    ticks: the rows the serves label (all finite)."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch.core import flow_table as ft
+
+    X = ft.features12(synthetic_table(CAPACITY, 3, device))
+    if not bool(torch.isfinite(X).all()):
+        raise AssertionError("served rows hold a non-finite feature")
+    return X
+
+
+def phase_knn_tiers(model: dict, g, device) -> dict:
+    """The ``--knn-topk`` tiers on 65,536 served rows: each exact tier's
+    serving predict (``sort`` and ``pallas``: the kernel; ``argmax``,
+    ``hier``, ``hier512``, ``screened``, ``screened64``: the torch tiers)
+    with its neighbor indices bitwise equal to the kernel's
+    (``knn_kernel.neighbor_idx``), each timed (CUDA-event median) beside
+    the kernel; ``native`` (the C++ host search) with labels equal to the
+    kernel's but on near-ties, timed on the host; and ``torch.matmul +
+    torch.topk`` (context only: another rounding and tie order) warmed.
+    Returns {tier: ms}."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch import interop, models
+    from traffic_classifier_sdn_tpu_torch.models import knn
+    from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk
+
+    tag = "[knn-tiers]"
+    X = served_rows(device)
+    kp = interop.knn_params_from_numpy(model, device)
+    want = kk.neighbor_idx(g, X)
+    want_labels = kk.predict(g, X)
+    kernel_ms = cuda_median_ms(lambda: kk.predict(g, X), TIMED_RUNS)
+    sim = knn.dot_expansion_sim(X, g.fit_X, g.half_sq)
+    times = {}
+    for tier in KNN_TIERS:
+        with serving_env(TCSDN_KNN_TOPK=tier):
+            fn, p = models._build_serving_path("knn", kp)
+        if tier in ("sort", "pallas"):
+            idx = kk.neighbor_idx(p, X)
+        else:
+            idx = knn.neighbor_idx(sim, g.n_neighbors, tier)
+        if not torch.equal(idx, want):
+            bad = int((idx != want).any(1).sum())
+            raise AssertionError(f"{tag} {tier}: {bad} rows' neighbor "
+                                 "indices differ from the kernel's")
+        if not torch.equal(fn(p, X).long(), want_labels.long()):
+            raise AssertionError(f"{tag} {tier}: labels differ")
+        times[tier] = cuda_median_ms(lambda: fn(p, X), 10, warmup=2)
+    del sim
+    with serving_env(TCSDN_KNN_TOPK="native"):
+        fn, _ = models._build_serving_path("knn", kp)
+    got = fn(None, X)
+    times["native"] = host_median_s(lambda: fn(None, X)) * 1e3
+    wl = want_labels.cpu().numpy()
+    differ = np.flatnonzero(got != wl)
+    near = near_ties("knn", model, g, X, None, differ)
+    if not near.all():
+        raise AssertionError(f"{tag} native labels differ from the kernel's "
+                             f"off near-ties at {differ[~near][:8].tolist()}")
+    fit_t = g.fit_X.t().contiguous()
+    lib_ms = cuda_median_ms(
+        lambda: torch.topk(torch.matmul(X, fit_t) - g.half_sq,
+                           g.n_neighbors), TIMED_RUNS)
+    print(f"{tag} {X.shape[0]} served rows, corpus {g.n_rows}, k = "
+          f"{g.n_neighbors}: every exact tier's neighbor indices equal the "
+          f"kernel's bitwise; native labels equal the kernel's but on "
+          f"{differ.size} near-tie rows")
+    print(f"{tag} predict ms (CUDA-event median; native: host median of "
+          f"{HOST_RUNS}): kernel {kernel_ms:.4f}, "
+          + ", ".join(f"{t} {ms:.4f}" for t, ms in times.items())
+          + f"; context only (not the same rounding or tie order): "
+          f"torch.matmul + torch.topk {lib_ms:.4f} ms warmed")
+    return {"kernel": kernel_ms, **times, "matmul_topk": lib_ms}
+
+
+def _ivf_chunks(fn, X):
+    """``fn`` over ``IVF_CHUNK``-row slices of X, concatenated."""
+    import torch
+
+    return torch.cat([fn(X[i:i + IVF_CHUNK])
+                      for i in range(0, X.shape[0], IVF_CHUNK)])
+
+
+def ivf_recall(ivf, X, nprobe: int) -> float:
+    """``recall_at_1`` over ``IVF_CHUNK``-row slices."""
+    from traffic_classifier_sdn_tpu_torch.ops import knn_ivf
+
+    hits = sum(knn_ivf.recall_at_1(ivf, X[i:i + IVF_CHUNK], nprobe)
+               * X[i:i + IVF_CHUNK].shape[0]
+               for i in range(0, X.shape[0], IVF_CHUNK))
+    return hits / X.shape[0]
+
+
+def phase_ivf(model: dict, g, device) -> dict:
+    """The IVF tier: the port's quantizer fit on the corpus on the card
+    (K = round(√4448) = 67 lists), then on 65,536 served rows: at nprobe
+    = K the torch tier's labels and ``ivf_top1`` equal the exact tier's
+    (the kernel's labels, ``exact_top1``) bitwise; recall@1 at nprobe 1,
+    2 and 4; the tier's labels on the card equal its labels on the CPU on
+    the same quantizer but on near-ties; the native mirror on the same
+    partition equals the torch tier at nprobe = K but on near-ties; the
+    build seconds and each form's predict ms at the default nprobe.
+    Returns the numbers."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.native import knn as native_knn
+    from traffic_classifier_sdn_tpu_torch.ops import knn_ivf
+    from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk
+
+    tag = "[ivf]"
+    X = served_rows(device)
+    kp = interop.knn_params_from_numpy(model, device)
+    sync = torch.cuda.synchronize if X.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    ivf = knn_ivf.build(kp)
+    sync()
+    build_s = time.perf_counter() - t0
+    K = ivf.n_lists
+    full = _ivf_chunks(lambda x: knn_ivf.predict(ivf, x, K), X)
+    if not torch.equal(full.long(), kk.predict(g, X).long()):
+        raise AssertionError(f"{tag} labels at nprobe = K differ from the "
+                             "exact tier's")
+    top1 = _ivf_chunks(lambda x: knn_ivf.ivf_top1(ivf, x, K), X)
+    if not torch.equal(top1, knn_ivf.exact_top1(kp, X)):
+        raise AssertionError(f"{tag} ivf_top1 at nprobe = K differs from "
+                             "exact_top1")
+    recall = {n: ivf_recall(ivf, X, n) for n in (1, 2, 4)}
+    card = knn_ivf.predict_chunked(ivf, X).cpu().numpy()
+    cpu_ivf = interop.ivf_params_from_numpy(
+        interop.knn_params_from_numpy(model, "cpu"), ivf.centers.cpu(),
+        ivf.list_idx.cpu(), ivf.nprobe)
+    cpu = knn_ivf.predict_chunked(cpu_ivf, X.cpu()).numpy()
+    differ = np.flatnonzero(card != cpu)
+    near = near_ties("knn", model, g, X, None, differ)
+    if not near.all():
+        raise AssertionError(f"{tag} card and CPU labels differ off near-"
+                             f"ties at {differ[~near][:8].tolist()}")
+    ms = cuda_median_ms(lambda: knn_ivf.predict_chunked(ivf, X), 10,
+                        warmup=2)
+    hk = native_knn.NativeKnn({"fit_X": kp.fit_X.cpu().numpy(),
+                               "y": kp.fit_y.cpu().numpy(),
+                               "n_neighbors": kp.n_neighbors,
+                               "classes": np.arange(kp.n_classes)})
+    hk.build_ivf(ivf.centers.cpu().numpy(), knn_ivf.assignments_of(ivf))
+    X_host = X.cpu().numpy()
+    mirror = hk.predict_ivf(X_host, K)
+    differ_n = np.flatnonzero(mirror != full.cpu().numpy())
+    near = near_ties("knn", model, g, X, None, differ_n)
+    if not near.all():
+        raise AssertionError(f"{tag} the native mirror at nprobe = K differs "
+                             f"off near-ties at {differ_n[~near][:8].tolist()}")
+    native_ms = host_median_s(lambda: hk.predict_ivf(X_host, ivf.nprobe)) * 1e3
+    sizes = (ivf.list_idx < kp.fit_X.shape[0]).sum(1)
+    print(f"{tag} quantizer fit on the card in {build_s:.3f} s: K = {K} "
+          f"lists of {int(sizes.min())}-{int(sizes.max())} corpus rows; at "
+          f"nprobe = K labels and ivf_top1 equal the exact tier's bitwise on "
+          f"{X.shape[0]} served rows")
+    print(f"{tag} recall@1 " + ", ".join(
+        f"nprobe {n}: {r:.6f}" for n, r in recall.items())
+        + f"; card vs CPU labels at nprobe {ivf.nprobe}: {differ.size} "
+        f"differ, all near-ties; native mirror vs torch tier at nprobe = K: "
+        f"{differ_n.size} differ, all near-ties")
+    print(f"{tag} predict at nprobe {ivf.nprobe} on {X.shape[0]} rows: torch "
+          f"tier {ms:.4f} ms (CUDA-event median), native mirror "
+          f"{native_ms:.3f} ms (host median of {HOST_RUNS})")
+    return {"K": K, "build_s": build_s, "recall": recall, "ms": ms,
+            "native_ms": native_ms}
+
+
+U32 = 2.0 ** -24  # float32 unit roundoff
+
+
+def dot_rule_rows(sp, X) -> np.ndarray:
+    """Which rows' SVC labels two implementations of the float32 dot form
+    (``SvcModel.predict_dot``: the card's matmuls and the CPU's) may
+    disagree on. Against the exact decision ``D`` (float64 on the card:
+    ``x − (s_hi + s_lo)`` squared and summed, exp, coefficients), each
+    implementation's decision lies within
+
+        B[p] = Σ_s |coef[p,s]|·(K⁺_s − K⁻_s)
+               + (S + 1)·u·(Σ_s |coef[p,s]|·K⁺_s + |b_p|)
+
+    where u = 2⁻²⁴, K± = exp(−γ·(d² ∓ E)·(1 ∓ u))·(1 ± 2u) (d² − E
+    clamped at 0) bound its kernel values, and E = (3F + 8)·u·(‖x‖² +
+    ‖s_hi‖²) bounds the dot expansion's d² error to first order: F
+    rounded terms each in ‖x‖², ‖s‖² and x·s, and the few adds, clamp
+    and lo corrections around them. Where every pair has |D[p]| > B[p],
+    both implementations vote as sign(D) on every pair, so their labels
+    agree; a row may differ only where some |D[p]| ≤ B[p]. Returns that
+    mask, over 8,192-row slices."""
+    import torch
+
+    F = X.shape[1]
+    sv = sp.sv_hi.double() + sp.sv_lo.double()
+    s_sq = (sp.sv_hi.double() ** 2).sum(1)
+    coef = sp.pair_coef.double()
+    abs_coef = coef.abs()
+    b = sp.intercept.double()
+    gamma = float(sp.gamma)
+    S = sv.shape[0]
+    out = []
+    for i in range(0, X.shape[0], 8192):
+        x = X[i:i + 8192].double()
+        d2 = torch.zeros((x.shape[0], S), dtype=torch.float64,
+                         device=X.device)
+        for f in range(F):
+            d2 += (x[:, f, None] - sv[None, :, f]) ** 2
+        E = (3 * F + 8) * U32 * ((x * x).sum(1)[:, None] + s_sq[None, :])
+        k_hi = torch.exp(-gamma * torch.clamp(d2 - E, min=0.0)
+                         * (1 - U32)) * (1 + 2 * U32)
+        k_lo = torch.exp(-gamma * (d2 + E) * (1 + U32)) * (1 - 2 * U32)
+        D = torch.exp(-gamma * d2) @ coef.t() + b
+        B = ((k_hi - k_lo) @ abs_coef.t()
+             + (S + 1) * U32 * (k_hi @ abs_coef.t() + b.abs()))
+        out.append((D.abs() <= B).any(1))
+    return torch.cat(out).cpu().numpy()
+
+
+def phase_svc_dot(model: dict, g, device) -> dict:
+    """``TCSDN_SVC_KERNEL=dot`` on 65,536 served rows on the card: its ms
+    (CUDA-event median) beside the kernel's, its disagreements with the
+    kernel (the difference form), and its labels held to the CPU's dot
+    form on every row outside ``dot_rule_rows``. Returns the numbers."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch import interop, models
+    from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
+
+    tag = "[svc-dot]"
+    X = served_rows(device)
+    sp = interop.svc_params_from_numpy(model, device)
+    with serving_env(TCSDN_SVC_KERNEL="dot"):
+        fn, p = models._build_serving_path("svc", sp)
+    card = fn(p, X).cpu().numpy()
+    ms = cuda_median_ms(lambda: fn(p, X), 10, warmup=2)
+    kernel_ms = cuda_median_ms(lambda: rk.predict(g, X), 10, warmup=2)
+    vs_kernel = int((card != rk.predict(g, X).cpu().numpy()).sum())
+    cpu = interop.svc_params_from_numpy(model, "cpu").predict_dot_chunked(
+        X.cpu()).numpy()
+    rule = dot_rule_rows(sp, X)
+    differ = np.flatnonzero(card != cpu)
+    if not rule[differ].all():
+        raise AssertionError(f"{tag} card and CPU dot-form labels differ "
+                             "outside the rule at rows "
+                             f"{differ[~rule[differ]][:8].tolist()}")
+    lib_ms = cuda_median_ms(
+        lambda: torch.exp(-g.gamma * torch.cdist(X, g.sv_hi) ** 2) @ g.coef_t,
+        TIMED_RUNS)
+    print(f"{tag} {X.shape[0]} served rows, {sp.sv_hi.shape[0]} support "
+          f"vectors: dot form {ms:.4f} ms, kernel {kernel_ms:.4f} ms "
+          f"(CUDA-event medians); dot-form labels differ from the kernel's "
+          f"on {vs_kernel} rows; card vs CPU dot form: {differ.size} rows "
+          f"differ, all {int(rule.sum())} rows the rule allows "
+          f"(dot_rule_rows) include them; context only (hi parts only, not "
+          f"the same rounding): torch.cdist + exp + matmul {lib_ms:.4f} ms "
+          "warmed")
+    return {"ms": ms, "kernel_ms": kernel_ms, "vs_kernel": vs_kernel,
+            "card_vs_cpu": int(differ.size), "rule_rows": int(rule.sum()),
+            "cdist_exp_matmul": lib_ms}
+
+
+@contextlib.contextmanager
+def watched_ivf_build():
+    """While active, every IVF bundle ``knn_ivf.build`` returns is kept in
+    the yielded list (the quantizer a serve built)."""
+    from traffic_classifier_sdn_tpu_torch.ops import knn_ivf
+
+    built, real = [], knn_ivf.build
+
+    def build(*a, **kw):
+        built.append(real(*a, **kw))
+        return built[-1]
+
+    knn_ivf.build = build
+    try:
+        yield built
+    finally:
+        knn_ivf.build = real
+
+
+def _menu_serve(tag: str, family: str, argv: list, env: dict,
+                watch_ivf: bool = False):
+    """One no-flag serve under ``env`` with its dispatched features, its
+    kernel launches and, with ``watch_ivf``, the IVF bundles it built."""
+    counters = {f: wrapper for f, (wrapper, _) in _kernels().items()}
+    ivf_ctx = watched_ivf_build() if watch_ivf else contextlib.nullcontext([])
+    with serving_env(**env), watched_dispatch(family) as (features, log), \
+            ivf_ctx as built:
+        for c in counters.values():
+            c.launches = 0
+        out, summary, wall = _serve(argv)
+        launches = {f: c.launches for f, c in counters.items()}
+    if not parse_tables(out):
+        raise AssertionError(f"{tag} printed no table")
+    print(f"{tag} {summary.ticks} ticks in {wall:.2f} s; host stage per "
+          "tick (s): " + ", ".join(f"{x:.3f}" for x in summary.tick_seconds)
+          + "; device stage per render (s): "
+          + ", ".join(f"{x:.4f}" for w, _, _, x in log if w == "rows")
+          + f"; label plans {summary.render_plans}; ladder "
+          f"{summary.degrade}; kernel launches {launches}")
+    return parse_tables(out), features, log, summary, launches, built
+
+
+def phase_menu_serves(models: dict, ops: dict, device) -> dict:
+    """The no-flag serves of the menus at 65,536 synthetic flows, each
+    printed table's labels held to the tier's own function on the table
+    its render was dispatched against: ``knearest --knn-topk hier`` (the
+    torch tier, under the ladder; equal to the kernel's plain version,
+    which it matches bitwise on finite rows), ``knearest --knn-topk ivf``
+    (the native mirror of the quantizer the serve built, no ladder),
+    ``svm`` with ``TCSDN_SVC_KERNEL=dot`` (``predict_dot`` on the card,
+    but on ``dot_rule_rows``) and ``Randomforest`` with
+    ``TCSDN_FOREST_KERNEL=native`` (the C++ walk, no ladder; and the
+    kernel's plain version but on near-ties). Returns {serve: kernel
+    launches}."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch import models as tmodels
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+    from traffic_classifier_sdn_tpu_torch.models import resolve_fallback
+    from traffic_classifier_sdn_tpu_torch.native import knn as native_knn
+    from traffic_classifier_sdn_tpu_torch.ops import knn_ivf
+
+    base = ["--source", "synthetic", "--synthetic-flows", str(CAPACITY),
+            "--capacity", str(CAPACITY), "--max-ticks", "6",
+            "--print-every", "2"]
+    found = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpts = {}
+        for family, (_, carry) in SERVES.items():
+            ckpts[family] = os.path.join(tmp, family)
+            checkpoint.save_model(
+                ckpts[family], family,
+                getattr(interop, carry)(models[family], device),
+                classes=CLASSES)
+        kp = interop.knn_params_from_numpy(models["knn"], device)
+        sp = interop.svc_params_from_numpy(models["svc"], device)
+
+        tag = "[menus knearest --knn-topk hier]"
+        tables, feats, log, summary, launches, _ = _menu_serve(
+            tag, "knn", ["knearest", *base, "--knn-topk", "hier",
+                         "--native-checkpoint", ckpts["knn"]], {})
+        _check_dispatched(tag, tables, feats, log,
+                      lambda X: knn_plain_predict(ops["knn"], X).cpu())
+        _check_dispatched(tag, tables, feats, log, lambda X: kp.predict_chunked(
+            X, top_k_impl="hier").cpu())
+        if summary.degrade["state"] != "HEALTHY" or any(launches.values()):
+            raise AssertionError(f"{tag} ladder {summary.degrade}, "
+                                 f"launches {launches}")
+        found["menus knearest hier"] = launches
+
+        tag = "[menus knearest --knn-topk ivf]"
+        tables, feats, log, summary, launches, built = _menu_serve(
+            tag, "knn", ["knearest", *base, "--knn-topk", "ivf",
+                         "--native-checkpoint", ckpts["knn"]], {},
+            watch_ivf=True)
+        if (summary.degrade is not None or len(built) != 1
+                or not native_knn.available() or any(launches.values())):
+            raise AssertionError(f"{tag} not the native mirror without the "
+                                 f"ladder: {summary.degrade}, {len(built)} "
+                                 f"builds, launches {launches}")
+        ivf = built[0]
+        hk = native_knn.NativeKnn({"fit_X": kp.fit_X.cpu().numpy(),
+                                   "y": kp.fit_y.cpu().numpy(),
+                                   "n_neighbors": kp.n_neighbors,
+                                   "classes": np.arange(kp.n_classes)})
+        hk.build_ivf(ivf.centers.cpu().numpy(), knn_ivf.assignments_of(ivf))
+        _check_dispatched(tag, tables, feats, log, lambda X: hk.predict_ivf(
+            X.cpu().numpy(), ivf.nprobe))
+        found["menus knearest ivf"] = launches
+
+        tag = "[menus svm TCSDN_SVC_KERNEL=dot]"
+        tables, feats, log, summary, launches, _ = _menu_serve(
+            tag, "svc", ["svm", *base, "--native-checkpoint", ckpts["svc"]],
+            {"TCSDN_SVC_KERNEL": "dot"})
+        _, met = _check_dispatched(
+            tag, tables, feats, log,
+            lambda X: sp.predict_dot_chunked(X).cpu(),
+            allowed=lambda X, rows: dot_rule_rows(sp, X[torch.as_tensor(
+                rows, device=X.device)]))
+        if summary.degrade["state"] != "HEALTHY" or any(launches.values()):
+            raise AssertionError(f"{tag} ladder {summary.degrade}, "
+                                 f"launches {launches}")
+        print(f"{tag} labels equal predict_dot's on the dispatched tables "
+              f"but on {met} rows the dot rule allows")
+        found["menus svm dot"] = launches
+
+        tag = "[menus Randomforest TCSDN_FOREST_KERNEL=native]"
+        tables, feats, log, summary, launches, _ = _menu_serve(
+            tag, "forest", ["Randomforest", *base, "--native-checkpoint",
+                            ckpts["forest"]], {"TCSDN_FOREST_KERNEL": "native"})
+        fp = interop.forest_params_from_numpy(models["forest"], device)
+        with serving_env(TCSDN_FOREST_KERNEL="native"):
+            walk, _ = tmodels._build_serving_path("forest", fp)
+        _check_dispatched(tag, tables, feats, log, lambda X: walk(None, X))
+        fb = resolve_fallback("forest", fp)
+        if fb.kind != "native-forest":
+            raise AssertionError(f"{tag} g++ did not build the C++ walk")
+        _, met = _check_dispatched(
+            tag, tables, feats, log,
+            lambda X: _plain_labels("forest", ops["forest"], X).cpu(),
+            allowed=lambda X, rows: near_ties("forest", models["forest"],
+                                              ops["forest"], X, fb, rows))
+        if summary.degrade is not None or any(launches.values()):
+            raise AssertionError(f"{tag} ladder {summary.degrade}, "
+                                 f"launches {launches}")
+        print(f"{tag} labels equal the C++ walk's on the dispatched tables, "
+              f"and the kernel's plain version's but on {met} near-ties")
+        found["menus Randomforest native"] = launches
+    return found
+
+
+CONTROLLER_PAIRS = 64  # host pairs the fake switch converses
+CONTROLLER_TICKS = 6
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def watched_monitors():
+    """While active, every monitor process a collector stops is kept in
+    the yielded list (its ``Popen``), so its end can be checked."""
+    from traffic_classifier_sdn_tpu_torch.ingest import collector
+
+    procs, real = [], collector.SubprocessCollector._kill_group
+
+    def kill_group(proc):
+        procs.append(proc)
+        real(proc)
+
+    collector.SubprocessCollector._kill_group = staticmethod(kill_group)
+    try:
+        yield procs
+    finally:
+        collector.SubprocessCollector._kill_group = staticmethod(real)
+
+
+def group_ended(pgid: int, timeout: float) -> bool:
+    """Whether no process of group ``pgid`` is left, waiting up to
+    ``timeout`` seconds (a child the group's leader left behind is reaped
+    by init a moment after it ends)."""
+    end = time.monotonic() + timeout
+    while True:
+        try:
+            os.killpg(pgid, 0)
+        except ProcessLookupError:
+            return True
+        if time.monotonic() > end:
+            return False
+        time.sleep(0.05)
+
+
+def phase_controller(model: dict, k, device) -> int:
+    """``Randomforest --source controller --of-port <free port>`` with no
+    other flag: the serve spawns the port's own OpenFlow controller
+    (``python -m traffic_classifier_sdn_tpu_torch.controller``, polling
+    each second), ``tools/torch_fake_switch.py`` connects and converses
+    64 host pairs, and 6 polls are served. Every printed table's labels
+    equal the plain version's on its dispatched table, the 64
+    conversations are tracked, and the controller ends on the serve's
+    SIGTERM with no process of its group left. Returns the forest
+    kernel's launches."""
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+
+    tag = "[controller Randomforest]"
+    port = free_port()
+    switch = subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "tools", "torch_fake_switch.py"),
+         "--port", str(port), "--hosts", str(2 * CONTROLLER_PAIRS),
+         "--duration", "300"],
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    try:
+        with tempfile.TemporaryDirectory() as ckpt:
+            checkpoint.save_model(
+                ckpt, "forest",
+                interop.forest_params_from_numpy(model, device),
+                classes=CLASSES)
+            argv = ["Randomforest", "--source", "controller", "--of-port",
+                    str(port), "--max-ticks", str(CONTROLLER_TICKS),
+                    "--print-every", "2", "--native-checkpoint", ckpt]
+            with watched_monitors() as procs:
+                tables, feats, log, summary, launches, _ = _menu_serve(
+                    tag, "forest", argv, {})
+    finally:
+        switch.terminate()
+        switch.wait(timeout=30)
+    _check_dispatched(tag, tables, feats, log,
+                  lambda X: _plain_labels("forest", k, X).cpu())
+    engine = summary.engine
+    if engine.num_flows() != CONTROLLER_PAIRS or summary.ticks != \
+            CONTROLLER_TICKS:
+        raise AssertionError(f"{tag} {engine.num_flows()} flows tracked in "
+                             f"{summary.ticks} ticks")
+    codes = []
+    for proc in procs:
+        try:
+            codes.append(proc.wait(timeout=10))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise AssertionError(f"{tag} the controller outlived the serve")
+        if not group_ended(proc.pid, timeout=10.0):
+            raise AssertionError(f"{tag} a process of the controller's "
+                                 "group is left")
+    if len(procs) != 1 or codes[0] not in (0, -15):
+        raise AssertionError(f"{tag} controller processes ended with {codes}")
+    print(f"{tag} {engine.num_flows()} conversations tracked from the port's "
+          f"controller; {len(tables)} tables, labels equal the plain "
+          f"version's on each dispatched table; {launches['forest']} forest "
+          f"kernel launches; the controller ended with {codes[0]} (the "
+          "serve's SIGTERM), no process of its group left")
+    return launches["forest"]
+
+
+WORKLOAD_FLOWS = 20480  # 4,096 conversations per class of 5
+WORKLOAD_TICKS = 6
+
+
+def phase_workload(model: dict, k, device) -> int:
+    """``Randomforest --source workload --data-dir <tmp>`` with no other
+    flag on seeded training CSVs in the reference layout
+    (``reference_csvs``): 20,480 conversations, 4,096 per class, 6
+    ticks. Every printed table's labels equal the plain version's on its
+    dispatched table; the tick seconds and the per-class label counts
+    against the generator's ground truth are printed (the forest is
+    seeded, not trained on these rows: no accuracy is asked of it).
+    Returns the forest kernel's launches."""
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.ingest.workload import (
+        ClassWorkload,
+        class_delta_pools,
+    )
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+
+    tag = "[workload Randomforest]"
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "datasets")
+        os.mkdir(data)
+        reference_csvs(data)
+        ckpt = os.path.join(tmp, "ckpt")
+        checkpoint.save_model(
+            ckpt, "forest", interop.forest_params_from_numpy(model, device),
+            classes=CLASSES)
+        argv = ["Randomforest", "--source", "workload", "--data-dir", data,
+                "--synthetic-flows", str(WORKLOAD_FLOWS), "--max-ticks",
+                str(WORKLOAD_TICKS), "--print-every", "2",
+                "--native-checkpoint", ckpt]
+        tables, feats, log, summary, launches, _ = _menu_serve(
+            tag, "forest", argv, {})
+        pools = class_delta_pools(data)
+    _check_dispatched(tag, tables, feats, log,
+                  lambda X: _plain_labels("forest", k, X).cpu())
+    engine = summary.engine
+    wl = ClassWorkload(pools, flows_per_class=WORKLOAD_FLOWS // len(pools))
+    if engine.num_flows() != len(wl.labels):
+        raise AssertionError(f"{tag} {engine.num_flows()} flows tracked, "
+                             f"{len(wl.labels)} generated")
+    flow_of = {mac: i for i in range(len(wl.labels))
+               for mac in wl.flow_macs(i)}
+    labels = _plain_labels("forest", k, engine.features()).cpu().numpy()
+    counts = {c: np.zeros(len(CLASSES), np.int64) for c in wl.classes}
+    for slot, (src, _) in engine.slot_metadata().items():
+        counts[wl.labels[flow_of[src]]][labels[slot]] += 1
+    print(f"{tag} {engine.num_flows()} conversations in {summary.ticks} "
+          f"ticks; tick seconds "
+          + ", ".join(f"{x:.3f}" for x in summary.tick_seconds)
+          + f"; {len(tables)} tables, labels equal the plain version's; "
+          f"{launches['forest']} forest kernel launches")
+    print(f"{tag} labels per class (columns {', '.join(CLASSES)}) by the "
+          "generator's ground truth: " + "; ".join(
+              f"{c} {v.tolist()}" for c, v in counts.items()))
+    return launches["forest"]
+
+
+# the per-class training CSVs of the reference repository's datasets/
+# (6_quake_training_data.csv is absent there): file name, delimiter
+REFERENCE_CSVS = {
+    "dns": ("dns_training_data.csv", "\t"),
+    "game": ("game_training_data.csv", ","),
+    "ping": ("ping_training_data.csv", "\t"),
+    "telnet": ("telnet_training_data.csv", "\t"),
+    "voice": ("voice_training_data.csv", "\t"),
+}
+
+
+def reference_csvs(path: str, rows: int = 256, seed: int = SEED) -> dict:
+    """Write seeded training CSVs in the reference layout (header: the 16
+    feature columns and ``Traffic Type``; game comma-delimited, the rest
+    tab-delimited) into ``path``, for ``--source workload``. Class c's
+    per-second packet deltas are gamma draws at 4^c times the first
+    class's rate and its bytes per packet 40 + 10c, forward and reverse
+    (reverse at half the packets), the cumulative and rate columns
+    following from them. Returns {class: rows}."""
+    from traffic_classifier_sdn_tpu_torch.core.features import (
+        CSV_COLUMNS_16,
+        LABEL_COLUMN,
+    )
+
+    rng = np.random.RandomState(seed)
+    out = {}
+    for c, (name, (fname, delim)) in enumerate(REFERENCE_CSVS.items()):
+        pkts = rng.gamma(4.0, 2.0 * 4.0 ** c, rows).round()
+        per_pkt = 40.0 + 10.0 * c
+        cols = []
+        for share in (1.0, 0.5):  # forward, reverse
+            dp = (pkts * share).round()
+            db = (dp * per_pkt).round()
+            cp, cb = np.cumsum(dp), np.cumsum(db)
+            t = np.arange(1, rows + 1, dtype=np.float64)
+            cols += [cp, cb, dp, db, dp, cp / t, db, cb / t]
+        table = np.stack(cols, 1)
+        with open(os.path.join(path, fname), "w") as f:
+            f.write(delim.join(CSV_COLUMNS_16 + (LABEL_COLUMN,)) + "\n")
+            for r in table:
+                f.write(delim.join(f"{v:g}" for v in r) + f"{delim}{name}\n")
+        out[name] = table
+    return out
 
 
 def churn_capture(path: str, n_flows: int,
@@ -2127,12 +2835,15 @@ KERNEL_ROWS = {
 
 
 def kernel_entries(results: dict, launches: dict, paths: dict | None = None,
-                   buckets: list | None = None) -> list[dict]:
+                   buckets: list | None = None,
+                   menus: dict | None = None) -> list[dict]:
     """The ``{"kernels": [...]}`` entries: each kernel's numbers at the
     main path's 65,536 rows, its launches in the serve, every size under
     ``by_rows``, its launches on each path driven (``paths``: {path:
-    {family: launches}}) and, for the forest, each dirty bucket
-    (``buckets``)."""
+    {family: launches}}), for the forest each dirty bucket (``buckets``)
+    and, under ``menus`` ({family: {...}}), the serving-menu forms timed
+    beside the kernel (``phase_knn_tiers``, ``phase_ivf``,
+    ``phase_svc_dot``)."""
     kernels = []
     for family, (name, source, replaces) in KERNEL_ROWS.items():
         by_rows = results[family]
@@ -2142,6 +2853,8 @@ def kernel_entries(results: dict, launches: dict, paths: dict | None = None,
         }}
         if family == "forest" and buckets:
             extra["by_dirty_bucket"] = buckets
+        if menus and family in menus:
+            extra["menus"] = menus[family]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -2219,8 +2932,19 @@ def main() -> int:
         "knn": 0, "svc": 0}
     phase_families(models, device)
     paths["families"] = {"forest": 0, "knn": 0, "svc": 0}
+    menus = {
+        "knn": {"tiers_ms": phase_knn_tiers(models["knn"], ops["knn"], device),
+                "ivf": phase_ivf(models["knn"], ops["knn"], device)},
+        "svc": {"dot_form": phase_svc_dot(models["svc"], ops["svc"], device)},
+    }
+    paths.update(phase_menu_serves(models, ops, device))
+    for name, phase in (("controller", phase_controller),
+                        ("workload", phase_workload)):
+        paths[f"{name} Randomforest"] = {
+            "forest": phase(models["forest"], ops["forest"], device),
+            "knn": 0, "svc": 0}
     phase_ingest_breakdown(ops["forest"], device)
-    kernels = kernel_entries(results, launches, paths, buckets)
+    kernels = kernel_entries(results, launches, paths, buckets, menus)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

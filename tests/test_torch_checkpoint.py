@@ -23,6 +23,18 @@ from traffic_classifier_sdn_tpu_torch.models.forest import PARAM_FIELDS
 CLASSES = ("dns", "game", "ping", "quake", "telnet", "voice")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _default_serving_menus():
+    """The serves here run the default serving menus. A CLI given
+    ``--knn-topk`` publishes it through TCSDN_KNN_TOPK for the rest of its
+    process, so a serve of another module may have left it set."""
+    with pytest.MonkeyPatch.context() as mp:
+        for var in ("TCSDN_KNN_TOPK", "TCSDN_SVC_KERNEL",
+                    "TCSDN_FOREST_KERNEL"):
+            mp.delenv(var, raising=False)
+        yield
+
+
 @pytest.mark.parametrize("n_trees", [1, 8])
 def test_jax_checkpoint_roundtrips_bitwise(tmp_path, n_trees):
     params = jforest.from_numpy(_synth_forest(n_trees), dtype=jnp.float32)

@@ -7,6 +7,7 @@ helpers agree with the serving predicts, the churn capture and its
 emitter carry the schedule, and the script refuses to run without a
 card."""
 
+import copy
 import dataclasses
 import subprocess
 import sys
@@ -28,6 +29,18 @@ from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
 from traffic_classifier_sdn_tpu_torch.ops import tree_gemm
 from traffic_classifier_sdn_tpu_torch.serving import degrade as tdegrade
 from traffic_classifier_sdn_tpu_torch.utils import faults as tfaults
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _default_serving_menus():
+    """The serves here run the default serving menus. A CLI given
+    ``--knn-topk`` publishes it through TCSDN_KNN_TOPK for the rest of its
+    process, so a serve of another module may have left it set."""
+    with pytest.MonkeyPatch.context() as mp:
+        for var in ("TCSDN_KNN_TOPK", "TCSDN_SVC_KERNEL",
+                    "TCSDN_FOREST_KERNEL"):
+            mp.delenv(var, raising=False)
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -487,3 +500,125 @@ def test_kill_after_kills_the_source_once_the_tick_is_consumed():
     assert all({r.source for r in b} == {0} for b in later[1:])
     assert tier.roster()[1]["ticks"] == 1
     assert fanin.FanInIngest.ticks.__name__ == "ticks"
+
+
+def test_reference_csvs_are_in_the_reference_layout(tmp_path):
+    """Five classes (the reference's datasets/ has no quake file), game
+    comma-delimited and the rest tab-delimited, every column the header
+    names, and ``io/datasets.py`` loads them."""
+    from traffic_classifier_sdn_tpu_torch.core.features import CSV_COLUMNS_16
+    from traffic_classifier_sdn_tpu_torch.io.datasets import (
+        load_reference_datasets,
+    )
+
+    tables = chip_smoke.reference_csvs(str(tmp_path), rows=32)
+    for name, (fname, delim) in chip_smoke.REFERENCE_CSVS.items():
+        head, first = (tmp_path / fname).read_text().splitlines()[:2]
+        assert head.split(delim) == list(CSV_COLUMNS_16) + ["Traffic Type"]
+        assert len(first.split(delim)) == 17 and first.endswith(name)
+        assert tables[name].shape == (32, 16)
+    ds = load_reference_datasets(str(tmp_path))
+    assert ds.classes == tuple(sorted(chip_smoke.REFERENCE_CSVS))
+    assert ds.X.shape == (160, 12) and np.isfinite(ds.X).all()
+
+
+def test_serving_env_sets_and_restores(monkeypatch):
+    monkeypatch.setenv("TCSDN_KNN_TOPK", "argmax")
+    monkeypatch.delenv("TCSDN_SVC_KERNEL", raising=False)
+    with chip_smoke.serving_env(TCSDN_SVC_KERNEL="dot"):
+        import os
+
+        assert "TCSDN_KNN_TOPK" not in os.environ
+        assert os.environ["TCSDN_SVC_KERNEL"] == "dot"
+        os.environ["TCSDN_KNN_TOPK"] = "hier"  # as a CLI's --knn-topk does
+    assert os.environ["TCSDN_KNN_TOPK"] == "argmax"
+    assert "TCSDN_SVC_KERNEL" not in os.environ
+
+
+def test_dot_rule_rows_widen_with_the_feature_scale(table):
+    """``dot_rule_rows`` flags the rows where the float32 dot expansion's
+    error bound reaches a decision's sign: few at the served scale, more
+    when the same rows sit far from the origin (‖x‖² ≫ d², where the
+    expansion cancels), and every row whose float32 dot-form label
+    differs from the exact (float64 difference-form) label."""
+    from traffic_classifier_sdn_tpu_torch.models import svc
+
+    X = ft.features12(table)
+    X = X[X.abs().sum(1) > 0][:300]
+    sp = interop.svc_params_from_numpy(
+        chip_smoke.random_svc(0, X.numpy(), n_sv=80), "cpu")
+    base = chip_smoke.dot_rule_rows(sp, X)
+    assert base.shape == (X.shape[0],) and base.sum() < X.shape[0] // 10
+    big = X + 1e6
+    sp_big = interop.svc_params_from_numpy(
+        chip_smoke.random_svc(0, big.numpy(), n_sv=80), "cpu")
+    flagged = chip_smoke.dot_rule_rows(sp_big, big)
+    assert flagged.sum() > base.sum()
+    exact = copy.deepcopy(sp_big).double().predict(big.double()).numpy()
+    differ = sp_big.predict_dot(big).numpy() != exact
+    assert flagged[differ].all()
+    # the bound holds the kernel values themselves: |K_dot − K| ≤ K⁺ − K⁻
+    x, sv = big.double(), sp_big.sv_hi.double() + sp_big.sv_lo.double()
+    gamma = float(sp_big.gamma)
+    d2 = ((x[:, None, :] - sv[None]) ** 2).sum(-1)
+    E = 44 * 2.0 ** -24 * ((x * x).sum(1)[:, None]
+                           + (sp_big.sv_hi.double() ** 2).sum(1)[None])
+    k_hi = torch.exp(-gamma * torch.clamp(d2 - E, min=0) * (1 - 2.0 ** -24))
+    err = (sp_big.rbf_kernel_dot(big).double() - torch.exp(-gamma * d2)).abs()
+    assert bool((err <= k_hi - torch.exp(-gamma * (d2 + E))).all())
+    assert isinstance(sp_big, svc.SvcModel)
+
+
+@pytest.fixture
+def cpu_timers(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "cuda_median_ms",
+                        lambda fn, runs, warmup=3: (fn(), 0.0)[1])
+    monkeypatch.setattr(chip_smoke, "HOST_RUNS", 1)
+
+
+def test_knn_tiers_ivf_and_svc_dot_phases_run_on_cpu(small_card_phases,
+                                                     cpu_timers, capsys):
+    """``phase_knn_tiers``, ``phase_ivf`` and ``phase_svc_dot`` pass their
+    own checks at 256 served rows against a 200-row corpus (K = 14) and
+    60 support vectors."""
+    models, ops = small_card_phases
+    cpu = torch.device("cpu")
+    tiers = chip_smoke.phase_knn_tiers(models["knn"], ops["knn"], cpu)
+    assert set(tiers) == {"kernel", *chip_smoke.KNN_TIERS, "native",
+                          "matmul_topk"}
+    ivf = chip_smoke.phase_ivf(models["knn"], ops["knn"], cpu)
+    assert ivf["K"] == 14 and ivf["recall"][4] >= ivf["recall"][1]
+    dot = chip_smoke.phase_svc_dot(models["svc"], ops["svc"], cpu)
+    assert dot["card_vs_cpu"] == 0  # one device: the same arithmetic
+    out = capsys.readouterr().out
+    assert "every exact tier's neighbor indices equal the kernel's" in out
+    assert "labels and ivf_top1 equal the exact tier's bitwise" in out
+
+
+def test_menu_serve_phases_run_on_cpu(small_card_phases, capsys):
+    models, ops = small_card_phases
+    found = chip_smoke.phase_menu_serves(models, ops, torch.device("cpu"))
+    assert sorted(found) == ["menus Randomforest native", "menus knearest hier",
+                             "menus knearest ivf", "menus svm dot"]
+    assert not any(n for f in found.values() for n in f.values())
+    out = capsys.readouterr().out
+    assert "labels equal the C++ walk's" in out
+
+
+def test_controller_and_workload_phases_run_on_cpu(small_card_phases,
+                                                   monkeypatch, capsys):
+    """The controller phase spawns the port's controller through the
+    serve and ends it; the workload phase serves seeded reference-layout
+    CSVs (100 flows here)."""
+    models, ops = small_card_phases
+    monkeypatch.setattr(chip_smoke, "CONTROLLER_PAIRS", 4)
+    monkeypatch.setattr(chip_smoke, "CONTROLLER_TICKS", 3)
+    monkeypatch.setattr(chip_smoke, "WORKLOAD_FLOWS", 100)
+    cpu = torch.device("cpu")
+    assert chip_smoke.phase_controller(models["forest"], ops["forest"],
+                                       cpu) > 0
+    assert chip_smoke.phase_workload(models["forest"], ops["forest"],
+                                     cpu) > 0
+    out = capsys.readouterr().out
+    assert "4 conversations tracked from the port's controller" in out
+    assert "labels per class" in out and "100 conversations" in out

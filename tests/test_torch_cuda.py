@@ -701,3 +701,76 @@ def test_family_predict_on_card_equals_cpu(cuda, family):
         differ = np.flatnonzero((got_l != want_l).numpy())
         near = chip_smoke.near_ties(family, model, None, Xc, None, differ)
         assert near.all(), differ[~near]
+
+
+TORCH_TIERS = ("argmax", "hier", "hier5", "hier512", "screened",
+               "screened1", "screened64")
+
+
+@pytest.mark.parametrize("name", ["ties-k5", "served-k1", "served-k5",
+                                  "served-k20"])
+def test_knn_tiers_on_card_equal_the_kernel(cuda, name):
+    """Each torch tier of ``--knn-topk`` on the card: neighbor indices
+    bitwise equal to the kernel's on finite rows without signed-zero
+    similarities (the tiers' shared precondition), and to the same tier
+    on the CPU."""
+    d, X = _knn_cases()[name]
+    g = kk.compile_knn(knn.KnnModel.from_numpy(d, device=cuda))
+    g_cpu = kk.compile_knn(knn.KnnModel.from_numpy(d, device="cpu"))
+    Xc = torch.from_numpy(X).to(cuda)
+    want = kk.neighbor_idx(g, Xc)
+    sim = knn.dot_expansion_sim(Xc, g.fit_X, g.half_sq)
+    sim_cpu = knn.dot_expansion_sim(torch.from_numpy(X), g_cpu.fit_X,
+                                    g_cpu.half_sq)
+    for tier in TORCH_TIERS:
+        if tier.startswith("hier") and int(tier[4:] or 128) < g.n_neighbors:
+            continue
+        got = knn.neighbor_idx(sim, g.n_neighbors, tier)
+        assert torch.equal(got, want), tier
+        assert torch.equal(got.cpu(), knn.neighbor_idx(
+            sim_cpu, g.n_neighbors, tier)), tier
+
+
+def test_ivf_torch_tier_on_card(cuda):
+    """The IVF tier on the card: the quantizer fit there is the same on a
+    second fit (seeded generator, deterministic matmuls), labels at nprobe
+    = K equal the kernel's, and the tier's labels and votes on the card
+    equal the CPU's on the same quantizer at every nprobe."""
+    from traffic_classifier_sdn_tpu_torch.ops import knn_ivf
+
+    X = _served()
+    d = chip_smoke.random_knn(0, X, n_rows=1000)
+    kp = knn.KnnModel.from_numpy(d, device=cuda)
+    ivf = knn_ivf.build(kp)
+    again = knn_ivf.build(kp)
+    assert torch.equal(ivf.centers, again.centers)
+    assert torch.equal(ivf.list_idx, again.list_idx)
+    Xc = torch.from_numpy(X).to(cuda)
+    K = ivf.n_lists
+    assert K == 32
+    assert torch.equal(knn_ivf.predict(ivf, Xc, K),
+                       kk.predict(kk.compile_knn(kp), Xc))
+    cpu_ivf = interop.ivf_params_from_numpy(
+        knn.KnnModel.from_numpy(d, device="cpu"), ivf.centers.cpu(),
+        ivf.list_idx.cpu(), ivf.nprobe)
+    for nprobe in (1, 2, 4, K):
+        assert torch.equal(
+            knn_ivf.neighbor_votes_ivf(ivf, Xc, nprobe).cpu(),
+            knn_ivf.neighbor_votes_ivf(cpu_ivf, torch.from_numpy(X), nprobe))
+
+
+def test_svc_dot_form_on_card(cuda):
+    """``TCSDN_SVC_KERNEL=dot`` on the card against the CPU's dot form:
+    labels equal on every row outside ``chip_smoke.dot_rule_rows``, and
+    decisions within the same bound."""
+    X = _served()
+    d = chip_smoke.random_svc(0, X, n_sv=300)
+    card = interop.svc_params_from_numpy(d, cuda)
+    cpu = interop.svc_params_from_numpy(d, "cpu")
+    Xt = torch.from_numpy(X)
+    got = card.predict_dot_chunked(Xt.to(cuda)).cpu()
+    want = cpu.predict_dot_chunked(Xt)
+    rule = chip_smoke.dot_rule_rows(card, Xt.to(cuda))
+    differ = (got != want).numpy()
+    assert rule[differ].all()
+    assert rule.sum() < X.shape[0] // 10

@@ -66,6 +66,18 @@ FAMILIES = {
 SUBCOMMANDS = {"logistic": "logreg", "gaussiannb": "gnb", "kmeans": "kmeans"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _default_serving_menus():
+    """The serves here run the default serving menus. A CLI given
+    ``--knn-topk`` publishes it through TCSDN_KNN_TOPK for the rest of its
+    process, so a serve of another module may have left it set."""
+    with pytest.MonkeyPatch.context() as mp:
+        for var in ("TCSDN_KNN_TOPK", "TCSDN_SVC_KERNEL",
+                    "TCSDN_FOREST_KERNEL"):
+            mp.delenv(var, raising=False)
+        yield
+
+
 def scores_scale(family: str, d: dict, X: np.ndarray) -> np.ndarray:
     """(N, C) float64 sum of the absolute values of each score's terms —
     the scale of its float32 rounding."""

@@ -5,11 +5,16 @@ and the port builds or loads no library from that package's tree.
 
 Checks: every module imports in a fresh interpreter with a meta-path
 blocker installed for those names (this test process already has JAX
-loaded); a source scan finds no such import statement, and no string
-outside a docstring that names the JAX package (the way a path into its
-tree would be spelled); and in a fresh interpreter that records every
-``ctypes.CDLL`` load and every process started, a build of the native
-engine and a native-ingest serve touch no path under that tree.
+loaded; the two ``__main__`` modules, which run an entry point when
+imported, run instead under the blocker as ``python -m`` does); a
+source scan of the port, ``chip_smoke.py`` and
+``tools/torch_fake_switch.py`` finds no such import statement, and no
+string outside a docstring that names the JAX package (the way a path
+into its tree would be spelled); in a fresh interpreter that records
+every ``ctypes.CDLL`` load and every process started, a build of the
+native engine and a native-ingest serve touch no path under that tree;
+and a spawned port controller, blocker installed, serves a fake switch's
+telemetry.
 """
 
 import ast
@@ -38,7 +43,8 @@ class Blocker:
 
 sys.meta_path.insert(0, Blocker())
 import traffic_classifier_sdn_tpu_torch as pkg
-names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
+         if not m.name.endswith(".__main__")]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -49,8 +55,11 @@ print(" ".join(names))
 '''
 
 
+FAKE_SWITCH = ROOT / "tools" / "torch_fake_switch.py"
+
+
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", FAKE_SWITCH]
 
 
 def test_port_imports_with_jax_blocked():
@@ -61,9 +70,13 @@ def test_port_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
     assert len(names) >= 20  # every module of the port
-    # the fan-in tier and the logistic, GNB and k-means families among them
+    # the fan-in tier, the logistic, GNB and k-means families, the IVF
+    # tier and its trainer, the controller, the workload source and the
+    # config among them
     assert {f"traffic_classifier_sdn_tpu_torch.{m}" for m in (
         "ingest.fanin", "models.logreg", "models.gnb", "models.kmeans",
+        "ops.knn_ivf", "train.kmeans", "controller.openflow",
+        "controller.switch", "ingest.workload", "io.datasets", "config",
     )} <= names
 
 
@@ -112,7 +125,8 @@ def _code_strings(path: pathlib.Path) -> list[str]:
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")), ids=lambda p: str(p.relative_to(ROOT))
+    "path", sorted(PORT.rglob("*.py")) + [FAKE_SWITCH],
+    ids=lambda p: str(p.relative_to(ROOT))
 )
 def test_source_names_no_path_into_the_jax_package(path):
     bad = [
@@ -161,3 +175,83 @@ def test_port_builds_and_loads_nothing_from_the_jax_tree():
     assert any(kind == "run" and source in cmd for kind, cmd in touched)
     bad = [t for t in touched if jax_tree in t[1]]
     assert not bad, f"the port touched the JAX package's tree: {bad}"
+
+
+MAIN = BLOCKER.split("import traffic_classifier_sdn_tpu_torch as pkg")[0] + '''
+import runpy
+sys.argv = [sys.argv[0]] + {argv!r}
+runpy.run_module({module!r}, run_name="__main__", alter_sys=True)
+'''
+
+
+def _blocked_main(module: str, argv: list, **kw) -> subprocess.Popen:
+    """``python -m module argv`` with the blocker installed."""
+    return subprocess.Popen(
+        [sys.executable, "-c",
+         MAIN.format(blocked=BLOCKED, module=module, argv=argv)],
+        cwd=ROOT, text=True, **kw)
+
+
+def test_package_main_runs_with_jax_blocked():
+    proc = _blocked_main("traffic_classifier_sdn_tpu_torch", ["--help"],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    out, err = proc.communicate(timeout=300)
+    assert proc.returncode == 0, err
+    assert "--knn-topk" in out and "controller" in out
+
+
+def test_spawned_port_controller_serves_with_jax_blocked():
+    """``python -m traffic_classifier_sdn_tpu_torch.controller`` under the
+    blocker: a fake switch (tools/torch_fake_switch.py) connects and
+    converses, and the controller prints flow-stats telemetry, so
+    nothing it runs imports JAX or the JAX package."""
+    import asyncio
+    import socket
+    import threading
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    from torch_fake_switch import FakeSwitch
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = _blocked_main(
+        "traffic_classifier_sdn_tpu_torch.controller",
+        ["--host", "127.0.0.1", "--port", str(port), "--poll", "0.1"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    lines, got = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("data\t"):
+                got.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+
+    async def switch():
+        sw = FakeSwitch(dpid=7, n_hosts=4)
+        for _ in range(300):  # the controller starts in a second or two
+            try:
+                await sw.connect("127.0.0.1", port)
+                break
+            except ConnectionRefusedError:
+                if proc.poll() is not None:
+                    return
+                await asyncio.sleep(0.1)
+        await sw.pump(0.3)
+        sw.converse(0, 1)
+        for _ in range(50):
+            await sw.pump(0.2)
+            if got.is_set():
+                break
+
+    try:
+        asyncio.run(asyncio.wait_for(switch(), timeout=120))
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+        reader.join(timeout=10)
+    assert got.is_set(), "".join(lines)[-2000:]
+    assert not any("ImportError" in line for line in lines)

@@ -306,7 +306,8 @@ def test_launch_shape_covers_every_row_and_corpus_row_once(N, k):
 
 def test_rejections_match_jax():
     """k > 128 and S < k are refused with the JAX kernel's messages; the
-    kernel has no two-float mode."""
+    kernel has no two-float mode; an unknown top-k tier is refused with
+    JAX's message."""
     rng = np.random.RandomState(5)
     for S, k in ((3, 5), (200, 129)):
         d = _tie_dict(rng, S, k=k)
@@ -323,9 +324,13 @@ def test_rejections_match_jax():
         kk.topk_sim_idx(g, torch.zeros((4, 11)))
     with pytest.raises(ValueError, match="float32"):
         kk.topk_sim_idx(g, torch.zeros((4, 12), dtype=torch.float64))
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="unknown top_k_impl") as jerr:
+        jknn.neighbor_votes(jknn.from_numpy(_tie_dict(rng, 20)),
+                            jnp.asarray(X.numpy()), top_k_impl="bogus")
+    with pytest.raises(ValueError, match="unknown top_k_impl") as terr:
         tknn.KnnModel.from_numpy(_tie_dict(rng, 20), device="cpu").neighbor_votes(
-            X, top_k_impl="argmax")
+            X, top_k_impl="bogus")
+    assert str(terr.value) == str(jerr.value)
     launches = kk.topk_sim_idx.launches
     assert kk.predict(g, X).shape == (4,)
     assert kk.topk_sim_idx(g, torch.zeros((0, 12)))[1].shape == (0, 5)

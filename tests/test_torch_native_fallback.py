@@ -38,6 +38,18 @@ from traffic_classifier_sdn_tpu_torch.native import loader
 from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _default_serving_menus():
+    """The serves here run the default serving menus. A CLI given
+    ``--knn-topk`` publishes it through TCSDN_KNN_TOPK for the rest of its
+    process, so a serve of another module may have left it set."""
+    with pytest.MonkeyPatch.context() as mp:
+        for var in ("TCSDN_KNN_TOPK", "TCSDN_SVC_KERNEL",
+                    "TCSDN_FOREST_KERNEL"):
+            mp.delenv(var, raising=False)
+        yield
+
+
 @pytest.fixture(scope="module")
 def served():
     """Served features of a synthetic table (nonzero rows), and a copy

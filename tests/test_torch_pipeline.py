@@ -41,6 +41,18 @@ IMPLS = {"jax": jpipeline, "port": tpipeline}
 both = pytest.mark.parametrize("impl", sorted(IMPLS))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _default_serving_menus():
+    """The serves here run the default serving menus. A CLI given
+    ``--knn-topk`` publishes it through TCSDN_KNN_TOPK for the rest of its
+    process, so a serve of another module may have left it set."""
+    with pytest.MonkeyPatch.context() as mp:
+        for var in ("TCSDN_KNN_TOPK", "TCSDN_SVC_KERNEL",
+                    "TCSDN_FOREST_KERNEL"):
+            mp.delenv(var, raising=False)
+        yield
+
+
 def _handoff_trace(mod, depth, merge, ops):
     """Apply ``ops`` ('p' put, 'g' get, 'd' done) to a Handoff; the
     (return value, queued, coalesced, idle) after each."""

@@ -55,6 +55,18 @@ JAX_SLICE_FLAGS = ["--pipeline", "off", "--incremental", "off",
 PORT_SERIAL = ["--pipeline", "off", "--degrade", "off"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _default_serving_menus():
+    """The serves here run the default serving menus. A CLI given
+    ``--knn-topk`` publishes it through TCSDN_KNN_TOPK for the rest of its
+    process, so a serve of another module may have left it set."""
+    with pytest.MonkeyPatch.context() as mp:
+        for var in ("TCSDN_KNN_TOPK", "TCSDN_SVC_KERNEL",
+                    "TCSDN_FOREST_KERNEL"):
+            mp.delenv(var, raising=False)
+        yield
+
+
 def _mac(i: int) -> str:
     return ":".join(f"{b:02x}" for b in i.to_bytes(6, "big"))
 

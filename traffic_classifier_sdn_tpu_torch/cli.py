@@ -44,14 +44,27 @@ behind, renders coalesce (``ticks_coalesced``). ``--pipeline off
 --degrade off`` is the serial, bare-kernel serve.
 
 The model family comes from the checkpoint and must match the subcommand.
-KNN serves one exact top-k, the semantics of the JAX default ``--knn-topk
-sort``; the ``--knn-topk`` menu is not ported. SVC serves the two-float
-difference form, the JAX default ``TCSDN_SVC_KERNEL=chunked``.
+The JAX package's serving menus pick the predict (models/__init__.py):
+``--knn-topk`` (or ``TCSDN_KNN_TOPK``; the flag wins) = ``sort`` (default)
+or ``pallas``: the KNN kernel; ``argmax``, ``hier[<group>]``,
+``screened[<group>]``: exact torch tiers; ``native``: the C++ host search;
+``ivf[<nprobe>]``: the approximate cluster-probed tier.
+``TCSDN_SVC_KERNEL`` = ``chunked`` (default: the SVC kernel) or ``dot``.
+``TCSDN_FOREST_KERNEL`` = ``gemm`` (default) or any other TPU layout name:
+the forest kernel; ``native``: the C++ host walk. A host predict
+(``native``, ``ivf`` with g++) serves without the degrade ladder.
 
 Sources: ``ryu`` (the default: a monitor subprocess, ``--monitor-cmd``,
 whose stdout is the telemetry pipe, restarted up to ``--monitor-restarts``
-times when it dies), ``replay`` (recorded capture file) and ``synthetic``
-(generated flow population). ``--sources N`` or ``--source-spec KIND:ARG``
+times when it dies), ``controller`` (the port's own OpenFlow 1.3
+controller as that subprocess, ``python -m
+traffic_classifier_sdn_tpu_torch.controller --port <--of-port>``;
+switches connect to it), ``replay`` (recorded capture file),
+``synthetic`` (generated flow population) and ``workload``
+(class-conditional flows whose deltas are sampled from the reference
+training CSVs under ``--data-dir``). ``--config FILE`` (config.py's JSON
+schema) fills the flags left unset; a flag given wins.
+``--sources N`` or ``--source-spec KIND:ARG``
 (repeatable) serve many sources through the fan-in tier
 (ingest/fanin.py), each in its own flow-table namespace: with the native
 engine every source's poll batch goes into it as raw bytes under its
@@ -67,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import sys
 import time
 from dataclasses import dataclass, field
@@ -87,19 +101,44 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("subcommand", choices=SUBCOMMANDS)
     p.add_argument(
-        "--native-checkpoint", required=True,
+        "--config", default=None,
+        help="JSON config file (config.py schema): fills the flags left "
+        "unset; a flag given wins",
+    )
+    # None defaults are sentinels: a --config file fills them, then main()
+    # applies the built-in defaults
+    p.add_argument(
+        "--native-checkpoint", default=None,
         help="model checkpoint directory in the port's format "
-        "(io/checkpoint.py: manifest.json + one .npy per array)",
+        "(io/checkpoint.py: manifest.json + one .npy per array); required, "
+        "here or as model.native_checkpoint in --config",
     )
     p.add_argument(
-        "--source", choices=("ryu", "replay", "synthetic"), default="ryu",
+        "--data-dir",
+        default=os.environ.get("TCSDN_DATA_DIR", "datasets"),
+        help="training CSV directory of --source workload (default "
+        "$TCSDN_DATA_DIR or ./datasets, the reference repo's own layout)",
+    )
+    p.add_argument(
+        "--source",
+        choices=("ryu", "controller", "replay", "synthetic", "workload"),
+        default="ryu",
         help="telemetry source: 'ryu' spawns the reference's monitor "
-        "command (or --monitor-cmd), 'replay' reads --capture, "
-        "'synthetic' generates flows",
+        "command (or --monitor-cmd), 'controller' spawns the port's own "
+        "OpenFlow 1.3 controller (controller/switch.py; switches connect "
+        "to --of-port), 'replay' reads --capture, 'synthetic' generates "
+        "flows, 'workload' generates class-conditional flows sampled from "
+        "the training CSVs under --data-dir",
+    )
+    p.add_argument(
+        "--of-port", type=int, default=6653,
+        help="OpenFlow listen port for --source controller",
     )
     p.add_argument(
         "--monitor-cmd", default=None,
-        help="override the spawned monitor command (--source ryu)",
+        help="override the spawned monitor command (--source ryu or "
+        "controller; for controller it replaces the built-in controller "
+        "and --of-port is ignored)",
     )
     p.add_argument("--capture", help="capture file for --source replay")
     p.add_argument(
@@ -142,13 +181,14 @@ def _build_parser() -> argparse.ArgumentParser:
         "--synthetic-flows", type=int, default=1024,
         help="synthetic source size",
     )
-    p.add_argument("--capacity", type=int, default=65536)
+    p.add_argument("--capacity", type=int, default=None,
+                   help="flow-table rows (default 65536)")
     p.add_argument(
-        "--idle-timeout", type=int, default=60,
+        "--idle-timeout", type=int, default=None,
         help="evict flows idle for N seconds (0 disables; default 60)",
     )
     p.add_argument(
-        "--print-every", type=int, default=10,
+        "--print-every", type=int, default=None,
         help="render every N poll ticks (default 10)",
     )
     p.add_argument(
@@ -222,6 +262,22 @@ def _build_parser() -> argparse.ArgumentParser:
         "first tick runs hot",
     )
     p.add_argument(
+        "--knn-topk", default=None, metavar="IMPL",
+        help="KNN serving top-k (models/__init__.py resolve_knn_topk): "
+        "sort (default) or pallas (the CUDA kernel), argmax, "
+        "hier[<group>], screened[<group>] (exact torch tiers), native "
+        "(the exact-f64 C++ host search) or ivf[<nprobe>] (the "
+        "APPROXIMATE cluster-probed tier, ops/knn_ivf.py, an explicit "
+        "opt-in). The flag wins over TCSDN_KNN_TOPK; an unknown value is "
+        "a usage error",
+    )
+    p.add_argument(
+        "--compilation-cache-dir", default=None, metavar="DIR",
+        help="accepted for the JAX CLI's sake and ignored: the port "
+        "compiles no XLA program, and its kernel libraries already "
+        "persist under csrc/build/ by source hash",
+    )
+    p.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
         help="device of the flow table and the model (default cuda; "
         "there is no fallback to the CPU)",
@@ -286,16 +342,29 @@ def _fanin_active(args) -> bool:
     return args.sources > 0 or bool(args.source_spec)
 
 
+def _resolved_monitor_cmd(args) -> str:
+    """The monitor command a subprocess source spawns: --monitor-cmd, the
+    port's own controller (--source controller), or the reference's Ryu
+    line."""
+    from .ingest.collector import DEFAULT_MONITOR_CMD
+
+    if args.source == "controller":
+        return args.monitor_cmd or (
+            f"{sys.executable} -m traffic_classifier_sdn_tpu_torch.controller "
+            f"--port {args.of_port}"
+        )
+    return args.monitor_cmd or DEFAULT_MONITOR_CMD
+
+
 def _fanin_tier(args, raw: bool):
     """The fan-in tier of the CLI's fan-in flags (exits on a bad spec)."""
     from .ingest import fanin
-    from .ingest.collector import DEFAULT_MONITOR_CMD
 
     try:
         specs = fanin.specs_from_cli(
             args.source, max(1, args.sources), args.source_spec,
             capture=args.capture,
-            monitor_cmd=args.monitor_cmd or DEFAULT_MONITOR_CMD,
+            monitor_cmd=_resolved_monitor_cmd(args),
             synthetic_flows=args.synthetic_flows,
             max_restarts=args.monitor_restarts or 0,
             interval=args.source_interval,
@@ -335,10 +404,20 @@ def _tick_source(args, raw: bool = False, tier=None):
         syn = SyntheticFlows(n_flows=args.synthetic_flows)
         while True:
             yield syn.tick()
-    else:
-        from .ingest.collector import DEFAULT_MONITOR_CMD, SubprocessCollector
+    elif args.source == "workload":
+        from .ingest.workload import ClassWorkload, class_delta_pools
 
-        cmd = args.monitor_cmd or DEFAULT_MONITOR_CMD
+        pools = class_delta_pools(args.data_dir)
+        wl = ClassWorkload(
+            pools,
+            flows_per_class=max(1, args.synthetic_flows // len(pools)),
+        )
+        while True:
+            yield wl.tick()
+    else:
+        from .ingest.collector import SubprocessCollector
+
+        cmd = _resolved_monitor_cmd(args)
         if args.monitor_restarts:
             from .ingest.supervisor import SupervisedCollector
 
@@ -413,7 +492,7 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
     # source, and every fan-in kind (the tier's pumps render capture and
     # synthetic ticks to the wire themselves)
     fanin = _fanin_active(args)
-    raw = engine.native and (args.source == "ryu" or fanin)
+    raw = engine.native and (args.source in ("ryu", "controller") or fanin)
     tier = _fanin_tier(args, raw) if fanin else None
     dropped_seen = 0
     errors_seen = 0
@@ -701,8 +780,56 @@ def run_classify(args) -> ServeSummary:
     return summary
 
 
+def _apply_config(args, parser) -> None:
+    """Fill the flags left unset from ``--config`` (config.py's schema),
+    then the built-in defaults. A flag given wins over the file."""
+    cfg = None
+    if args.config:
+        from . import config as config_mod
+
+        cfg = config_mod.load(args.config)
+        if cfg.ingest.shards:
+            parser.error("--config: ingest.shards is set, but sharding is "
+                         "not ported yet (set it to 0)")
+        if args.capacity is None:
+            args.capacity = cfg.ingest.capacity
+        if args.idle_timeout is None:
+            args.idle_timeout = cfg.ingest.idle_timeout_s
+        if args.print_every is None:
+            args.print_every = cfg.print_every
+        if args.monitor_cmd is None:
+            args.monitor_cmd = cfg.ingest.monitor_cmd
+        if args.native_checkpoint is None:
+            args.native_checkpoint = cfg.model.native_checkpoint
+    if args.capacity is None:
+        args.capacity = 65536
+    if args.idle_timeout is None:
+        args.idle_timeout = 60
+    if args.print_every is None:
+        args.print_every = 10
+    if args.native_checkpoint is None:
+        parser.error("--native-checkpoint is required (or "
+                     "model.native_checkpoint in --config)")
+
+
 def main(argv=None) -> ServeSummary:
-    args = _build_parser().parse_args(argv)
+    parser = _build_parser()
+    args = parser.parse_args(argv)
+    if args.knn_topk is not None:
+        # validated here (a usage error, exit 2) and published through
+        # the env var, so every serving-path build sees the same choice
+        from .models import resolve_knn_topk
+
+        try:
+            resolve_knn_topk(args.knn_topk)
+        except ValueError as e:
+            parser.error(f"--knn-topk: {e}")
+        os.environ["TCSDN_KNN_TOPK"] = args.knn_topk
+    _apply_config(args, parser)
+    if args.compilation_cache_dir:
+        print("NOTE: --compilation-cache-dir is ignored: the port compiles "
+              "no XLA program, and its kernel libraries persist under "
+              "csrc/build/ by source hash", file=sys.stderr)
     return run_classify(args)
 
 

@@ -72,6 +72,22 @@ def knn_params_from_numpy(d, device=None) -> KnnModel:
     )
 
 
+def ivf_params_from_numpy(knn_params, centers, list_idx, nprobe: int):
+    """The JAX IVF quantizer (``ops/knn_ivf.IvfParams``: ``centers``,
+    ``list_idx``, ``nprobe``) over the port's ``KnnModel`` ``knn_params``
+    as the port's ``ops.knn_ivf.IvfParams``, on the model's device: both
+    packages then probe the same partition."""
+    from .ops.knn_ivf import IvfParams
+
+    device = knn_params.fit_X.device
+    return IvfParams(
+        base=knn_params,
+        centers=torch.tensor(np.asarray(centers, np.float32), device=device),
+        list_idx=torch.tensor(np.asarray(list_idx, np.int32), device=device),
+        nprobe=int(nprobe),
+    )
+
+
 def svc_params_from_numpy(d, device=None) -> SvcModel:
     """The JAX SVC parameters as the port's ``SvcModel`` on ``device``
     (default CUDA). Given the JAX ``Params`` fields (``sv_hi``, ``sv_lo``,

@@ -6,15 +6,20 @@ resolution — the torch counterpart of
 Registry keys mirror the reference's CLI subcommands under normalized
 names. A family's params are an ``nn.Module`` whose buffers are the
 checkpoint arrays; ``LoadedModel.serving_path`` resolves the
-serving-optimized ``(predict_fn, params)`` pair.
+serving-optimized ``(predict_fn, params)`` pair, through the JAX
+package's serving menus (``--knn-topk``, ``TCSDN_SVC_KERNEL``,
+``TCSDN_FOREST_KERNEL``).
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 from collections.abc import Callable
 from dataclasses import dataclass
 from typing import Any
+
+import numpy as np
 
 from . import forest, gnb, kmeans, knn, logreg, svc
 from .base import ClassList
@@ -51,18 +56,198 @@ def module_predict(params, X):
     return params.predict(X)
 
 
+# the --knn-topk / TCSDN_KNN_TOPK menu (the usage text of the CLI flag's
+# error and of resolve_knn_topk's ValueError)
+KNN_TOPK_CHOICES = (
+    "sort, argmax, hier[<group>], screened[<group>], pallas, native, "
+    "ivf[<nprobe>]"
+)
+_KNN_TOPK_WARNED: set[str] = set()
+# TCSDN_FOREST_KERNEL values that are TPU layouts of the one function the
+# port's forest kernel computes (the JAX package's GEMM forms and Pallas
+# kernels); each serves through ops/forest_kernel.py
+FOREST_KERNEL_LAYOUTS = ("gemm", "pallas", "pallas_fast", "gemm_v2_dot",
+                         "gemm_v2_gather")
+
+
+def resolve_knn_topk(value: str | None = None) -> str:
+    """The serving KNN top-k tier: ``value`` (the ``--knn-topk`` flag) if
+    given, else ``TCSDN_KNN_TOPK``, else ``sort``. An unknown name raises
+    ``ValueError`` with the menu (the CLI turns it into a usage error);
+    a numeric suffix is checked for shape here and for the corpus bounds
+    (hier's group >= n_neighbors) when the serving path is built.
+
+    The one resolution point, so the serving-semantics notes go to stderr
+    here, once per process per tier: ``native`` ranks by exact float64
+    distances and can differ from the float32 ranking on near-ties;
+    ``ivf`` is the APPROXIMATE tier, an explicit opt-in."""
+    import os
+    import sys
+
+    impl = value if value is not None else os.environ.get(
+        "TCSDN_KNN_TOPK", "sort"
+    )
+    if impl not in ("sort", "argmax", "pallas", "native", "hier",
+                    "screened", "ivf"):
+        for prefix in ("screened", "hier", "ivf"):
+            suffix = impl[len(prefix):]
+            # a zero group or nprobe is valid for no corpus
+            if (impl.startswith(prefix) and suffix.isdecimal()
+                    and int(suffix) >= 1):
+                break
+        else:
+            raise ValueError(
+                f"unknown KNN top-k implementation {impl!r} "
+                f"(--knn-topk / TCSDN_KNN_TOPK; choose from: "
+                f"{KNN_TOPK_CHOICES})"
+            )
+    if impl == "native" and "native" not in _KNN_TOPK_WARNED:
+        _KNN_TOPK_WARNED.add("native")
+        print(
+            "NOTE: TCSDN_KNN_TOPK=native ranks by exact f64 "
+            "distances; labels can differ from the default f32 "
+            "device ranking on near-ties (no same-run parity gate "
+            "at serving time)",
+            file=sys.stderr,
+        )
+    if impl.startswith("ivf") and "ivf" not in _KNN_TOPK_WARNED:
+        _KNN_TOPK_WARNED.add("ivf")
+        print(
+            "NOTE: --knn-topk ivf serves the APPROXIMATE cluster-probed "
+            "tier: true neighbors outside the probed lists are missed "
+            "(recall_at_1 in ops/knn_ivf.py measures it); exact tiers: "
+            "sort/argmax/hier/screened/native",
+            file=sys.stderr,
+        )
+    return impl
+
+
+def _host_f32(X):
+    """Host float32 rows of a feature tensor (or array) for a native
+    evaluator: the copy to the host waits for the tensor's producer."""
+    import torch
+
+    if isinstance(X, torch.Tensor):
+        X = X.detach().cpu().numpy()
+    return np.ascontiguousarray(X, np.float32)
+
+
+def _native_knn(params):
+    from ..native import knn as native_knn
+
+    return native_knn.NativeKnn({
+        "fit_X": params.fit_X.cpu().numpy(),  # the f32 hi corpus
+        "y": params.fit_y.cpu().numpy(),
+        "n_neighbors": params.n_neighbors,
+        "classes": np.arange(params.n_classes),
+    })
+
+
+def _host_native(fn: Callable) -> Callable:
+    """Mark a ``(params, X) -> host labels`` predict ``host_native``: the
+    serve's host read paths take it, and the degrade ladder and the
+    device-mode label cache stay off it (cli.py, serving/)."""
+    fn.host_native = True
+    return fn
+
+
+def _knn_serving_path(params) -> tuple[Callable, Any]:
+    """The ``--knn-topk`` menu (``resolve_knn_topk``):
+
+    - ``sort`` (default), ``pallas``: the CUDA kernel (ops/knn_kernel.py;
+      the Pallas kernel is what it ports);
+    - ``argmax``, ``hier[<group>]`` (group in [k, 65536], default 128),
+      ``screened[<group>]`` (group in [1, 65536], default 32): the torch
+      tier of models/knn.py, row-chunked;
+    - ``native``: the C++ pruned exact search on the host
+      (``NativeKnn.predict``), ``host_native``;
+    - ``ivf[<nprobe>]`` (default ``knn_ivf.DEFAULT_NPROBE``): the
+      quantizer fits here, on the model's device; where g++ builds the
+      native evaluator, its IVF mirror on the same partition serves
+      (``host_native``), else the torch tier, ops/knn_ivf.py."""
+    impl = resolve_knn_topk()
+    if impl in ("sort", "pallas"):
+        return _kernel_serving_path("knn", params)
+    if impl == "native":
+        hk = _native_knn(params)
+        return _host_native(lambda _p, X: hk.predict(_host_f32(X))), None
+    if impl.startswith("ivf"):
+        from ..native import knn as native_knn
+        from ..ops import knn_ivf
+
+        ivf = knn_ivf.build(
+            params, nprobe=int(impl[3:] or knn_ivf.DEFAULT_NPROBE))
+        if not native_knn.available():
+            return knn_ivf.predict_chunked, ivf
+        hk = _native_knn(params)
+        hk.build_ivf(ivf.centers.cpu().numpy(), knn_ivf.assignments_of(ivf))
+        nprobe = ivf.nprobe
+        return _host_native(
+            lambda _p, X: hk.predict_ivf(_host_f32(X), nprobe)), None
+    if impl != "argmax":
+        prefix = "hier" if impl.startswith("hier") else "screened"
+        suffix = impl[len(prefix):]
+        group = int(suffix) if suffix else (128 if prefix == "hier" else 32)
+        lo = params.n_neighbors if prefix == "hier" else 1
+        if group < lo or group > (1 << 16):
+            raise ValueError(
+                f"TCSDN_KNN_TOPK={impl!r}: group must be in [{lo}, 65536]"
+            )
+    return functools.partial(knn.serve_predict, top_k_impl=impl), params
+
+
 def _build_serving_path(name: str, params) -> tuple[Callable, Any]:
-    """(predict_fn, params) for full-table serving. The kernel families
+    """(predict_fn, params) for full-table serving, through the JAX
+    package's menus:
+
+    - knn: ``--knn-topk`` / ``TCSDN_KNN_TOPK`` (``_knn_serving_path``);
+    - svc: ``TCSDN_SVC_KERNEL`` = ``chunked`` (default: the CUDA kernel)
+      or ``dot`` (the dot-expansion form, ``svc.serve_predict_dot``:
+      torch matmuls, see its numerics note); any other value raises;
+    - forest: ``TCSDN_FOREST_KERNEL`` = ``gemm`` (default), ``pallas``,
+      ``pallas_fast``, ``gemm_v2_dot`` or ``gemm_v2_gather`` — TPU
+      layouts of one exact function, which the port's one forest kernel
+      computes — or ``native`` (the C++ host walk, ``NativeForest``,
+      ``host_native``); any other value raises;
+    - logreg, gnb, kmeans: the module's own predict.
+
+    A ``host_native`` predict takes the feature tensor and returns host
+    labels; the serve runs it without the degrade ladder."""
+    import os
+
+    if name == "knn":
+        return _knn_serving_path(params)
+    if name == "svc":
+        kernel = os.environ.get("TCSDN_SVC_KERNEL", "chunked")
+        if kernel == "dot":
+            return svc.serve_predict_dot, params
+        if kernel != "chunked":
+            raise ValueError(f"TCSDN_SVC_KERNEL={kernel!r} unknown")
+    if name == "forest":
+        kernel = os.environ.get("TCSDN_FOREST_KERNEL", "gemm")
+        if kernel == "native":
+            from ..core.features import NUM_FEATURES
+            from ..native import forest as native_forest
+
+            nf = native_forest.NativeForest(
+                dict(params.node_arrays(), n_features=NUM_FEATURES))
+            return _host_native(lambda _p, X: nf.predict(_host_f32(X))), None
+        if kernel not in FOREST_KERNEL_LAYOUTS:
+            raise ValueError(f"TCSDN_FOREST_KERNEL={kernel!r} unknown")
+    return _kernel_serving_path(name, params)
+
+
+def _kernel_serving_path(name: str, params) -> tuple[Callable, Any]:
+    """(predict_fn, params) of the default serve. The kernel families
     serve through their kernel module — on CUDA tensors the hand-written
     kernel, on CPU tensors its plain version:
 
     - forest: ops/forest_kernel, the selector compiled at the framework's
       fixed 12-column feature width (a forest whose trees never split on
       the last feature still sees the full matrix);
-    - knn: ops/knn_kernel, the exact top-k (the JAX default ``sort``
-      tier's semantics; the ``--knn-topk`` menu is not ported);
-    - svc: ops/rbf_kernel, the two-float difference form (the JAX default
-      ``TCSDN_SVC_KERNEL=chunked``; ``dot`` is not ported);
+    - knn: ops/knn_kernel, the exact top-k (``--knn-topk sort``);
+    - svc: ops/rbf_kernel, the two-float difference form
+      (``TCSDN_SVC_KERNEL=chunked``);
     - logreg, gnb, kmeans: the module's own predict, plain torch ops on
       either device (the JAX package serves their XLA predict)."""
     if name in MODEL_CLASSES and name not in KERNEL_FAMILIES:
@@ -143,12 +328,7 @@ def resolve_fallback(name: str, params) -> ServingFallback | None:
         from ..native import knn as native_knn
 
         if native_knn.available():
-            hk = native_knn.NativeKnn({
-                "fit_X": params.fit_X.cpu().numpy(),
-                "y": params.fit_y.cpu().numpy(),
-                "n_neighbors": params.n_neighbors,
-                "classes": np.arange(params.n_classes),
-            })
+            hk = _native_knn(params)
             return ServingFallback(
                 lambda X: hk.predict(np.asarray(X, np.float32)),
                 "native-knn",
@@ -158,7 +338,7 @@ def resolve_fallback(name: str, params) -> ServingFallback | None:
         return None
     from ..ops import forest_kernel, knn_kernel, rbf_kernel
 
-    predict, operands = _build_serving_path(
+    predict, operands = _kernel_serving_path(
         name, copy.deepcopy(params).to("cpu")
     )
     scores = {"forest": forest_kernel.forest_proba, "knn": knn_kernel.scores,

@@ -15,9 +15,15 @@ descending sort of the similarities' total-order keys
 below +0 and NaNs at the ends by sign — the order of ``lax.top_k``.
 ``torch.topk`` promises no tie order and is not used.
 
-Only the exact ``sort`` tier of the JAX package is ported; its
-``argmax``/``hier``/``screened``/``native``/``ivf`` tiers and the
-big-corpus scan are not.
+The exact top-k tiers of the JAX package's ``--knn-topk`` menu are here
+too (``TOP_K_TIERS``), each with its JAX tier's order semantics:
+``argmax`` (k ``torch.argmax`` + −inf mask passes: IEEE compares, so +0
+equals −0 and the first NaN wins, as ``jnp.argmax`` does; the JAX tier
+assumes finite similarities), ``hier[<group>]`` and
+``screened[<group>]`` (``topk_stable`` wherever JAX calls
+``lax.top_k``, ``torch.amax`` where it calls ``jnp.max``, a stable
+ascending sort of the survivor groups). The approximate ``ivf`` tier is
+ops/knn_ivf.py; the big-corpus scan is not ported.
 """
 
 from __future__ import annotations
@@ -70,6 +76,90 @@ def topk_stable(sim: torch.Tensor, k: int):
                         stable=True)
     idx = idx[:, :k]
     return torch.gather(sim, 1, idx), idx.to(torch.int32)
+
+
+def topk_argmax_idx(sim: torch.Tensor, k: int) -> torch.Tensor:
+    """(N, k) int32 indices of the k largest columns, descending, ties to
+    the lowest index — k ``torch.argmax`` + −inf mask passes (JAX
+    ``models/knn._topk_argmax_idx``). Equal to ``topk_stable`` on finite
+    rows without signed zeros: the argmax compares as IEEE does, so +0
+    and −0 tie, and a NaN wins over every number."""
+    sim = sim.clone()
+    idxs = []
+    for _ in range(k):
+        best = torch.argmax(sim, dim=1)  # the first (lowest-index) maximum
+        idxs.append(best)
+        sim.scatter_(1, best[:, None], float("-inf"))
+    return torch.stack(idxs, dim=1).to(torch.int32)
+
+
+def _pad_groups(sim: torch.Tensor, group: int) -> tuple[torch.Tensor, int]:
+    """(sim padded with −inf columns to a multiple of ``group``, groups)."""
+    G = -(-sim.shape[1] // group)
+    pad = G * group - sim.shape[1]
+    if pad:
+        sim = nn.functional.pad(sim, (0, pad), value=float("-inf"))
+    return sim, G
+
+
+def topk_hier_idx(sim: torch.Tensor, k: int, group: int = 128) -> torch.Tensor:
+    """(N, k) int32 indices of the k largest columns — a ``topk_stable``
+    over each ``group``-column tile, then one over the G·k survivors (JAX
+    ``models/knn._topk_hier_idx``). Tiles are contiguous index ranges and
+    the merge sees candidates in (tile, rank) order, so the result is
+    ``topk_stable`` over the full row, tie order included; −inf padding
+    loses to every real column but a −NaN, as in ``lax.top_k``."""
+    n = sim.shape[0]
+    if k > group:
+        raise ValueError(f"k={k} must be <= group={group}")
+    sim, G = _pad_groups(sim, group)
+    vals_g, idx_g = topk_stable(sim.reshape(n * G, group), k)
+    base = (torch.arange(G, device=sim.device) * group)[None, :, None]
+    gidx = (idx_g.long().reshape(n, G, k) + base).reshape(n, G * k)
+    _, sel = topk_stable(vals_g.reshape(n, G * k), k)
+    return torch.gather(gidx, 1, sel.long()).to(torch.int32)
+
+
+def topk_screened_idx(sim: torch.Tensor, k: int,
+                      group: int = 32) -> torch.Tensor:
+    """(N, k) int32 indices of the k largest columns — bound-screened
+    group selection (JAX ``models/knn._topk_screened_idx``): the group
+    maxima (``torch.amax``, with ``jnp.max``'s +0 over −0) pick the k survivor groups by
+    ``topk_stable``, the survivors are sorted ascending so gathered
+    position order is global index order, and one ``topk_stable`` ranks
+    their k·group columns. Exact on finite rows, the JAX tier's
+    precondition; with fewer than k groups, the full ``topk_stable``."""
+    n = sim.shape[0]
+    if -(-sim.shape[1] // group) < k:
+        return topk_stable(sim, k)[1]
+    sim, G = _pad_groups(sim, group)
+    grp = sim.reshape(n, G, group)
+    gmax = torch.amax(grp, dim=2)  # (N, G) bounds; NaN propagates
+    # jnp.max orders +0 above −0 (IEEE maximum); amax may return either
+    plus_zero = (grp.view(torch.int32) == 0).any(dim=2)
+    gmax = torch.where((gmax == 0) & plus_zero, torch.zeros_like(gmax), gmax)
+    gsel = torch.sort(topk_stable(gmax, k)[1].long(), dim=1).values
+    cand = (gsel[:, :, None] * group
+            + torch.arange(group, device=sim.device)[None, None, :]
+            ).reshape(n, k * group)
+    _, sel = topk_stable(torch.gather(sim, 1, cand), k)
+    return torch.gather(cand, 1, sel.long()).to(torch.int32)
+
+
+def neighbor_idx(sim: torch.Tensor, k: int,
+                 top_k_impl: str = "sort") -> torch.Tensor:
+    """(N, k) int32 neighbor indices of ``sim`` by the named tier: ``sort``,
+    ``argmax``, ``hier`` / ``hier<group>`` (default 128) or ``screened`` /
+    ``screened<group>`` (default 32)."""
+    if top_k_impl == "sort":
+        return topk_stable(sim, k)[1]
+    if top_k_impl == "argmax":
+        return topk_argmax_idx(sim, k)
+    if top_k_impl.startswith("hier"):
+        return topk_hier_idx(sim, k, group=int(top_k_impl[4:] or 128))
+    if top_k_impl.startswith("screened"):
+        return topk_screened_idx(sim, k, group=int(top_k_impl[8:] or 32))
+    raise ValueError(f"unknown top_k_impl {top_k_impl!r}")
 
 
 def count_votes(fit_y: torch.Tensor, n_classes: int,
@@ -128,31 +218,43 @@ class KnnModel(nn.Module):
 
     def neighbor_votes(self, X: torch.Tensor, X_lo=None,
                        top_k_impl: str = "sort") -> torch.Tensor:
-        """(N, C) neighbor counts per class from the k nearest rows."""
-        if top_k_impl != "sort":
-            raise ValueError(
-                f"top_k_impl {top_k_impl!r} is not ported (only 'sort')"
-            )
-        _, idx = topk_stable(self._neighbor_sim(X, X_lo), self.n_neighbors)
+        """(N, C) neighbor counts per class from the k nearest rows, ranked
+        by the ``top_k_impl`` tier (``neighbor_idx``)."""
+        idx = neighbor_idx(self._neighbor_sim(X, X_lo), self.n_neighbors,
+                           top_k_impl)
         return count_votes(self.fit_y, self.n_classes, idx)
 
     def scores(self, X: torch.Tensor, X_lo=None) -> torch.Tensor:
         return self.neighbor_votes(X, X_lo)
 
-    def predict(self, X: torch.Tensor, X_lo=None) -> torch.Tensor:
-        return torch.argmax(self.neighbor_votes(X, X_lo), dim=-1).to(torch.int32)
+    def predict(self, X: torch.Tensor, X_lo=None,
+                top_k_impl: str = "sort") -> torch.Tensor:
+        return torch.argmax(self.neighbor_votes(X, X_lo, top_k_impl),
+                            dim=-1).to(torch.int32)
 
-    def predict_scores(self, X: torch.Tensor, X_lo=None):
+    def predict_scores(self, X: torch.Tensor, X_lo=None,
+                       top_k_impl: str = "sort"):
         """(labels, neighbor-vote scores) from one vote computation;
         ``argmax(scores) == predict`` by construction."""
-        votes = self.neighbor_votes(X, X_lo)
+        votes = self.neighbor_votes(X, X_lo, top_k_impl)
         return torch.argmax(votes, dim=-1).to(torch.int32), votes
 
     def predict_chunked(self, X: torch.Tensor, X_lo=None,
-                        row_chunk: int = ROW_CHUNK) -> torch.Tensor:
+                        row_chunk: int = ROW_CHUNK,
+                        top_k_impl: str = "sort") -> torch.Tensor:
         """``predict`` over ``row_chunk``-row slices: the (N, S) similarity
         of 2²⁰ rows against 4448 corpus rows would be 18.6 GB."""
-        return chunked_predict(self.predict, row_chunk, X, X_lo)
+        return chunked_predict(
+            lambda xc, xlo=None: self.predict(xc, xlo, top_k_impl),
+            row_chunk, X, X_lo,
+        )
 
     def forward(self, X: torch.Tensor, X_lo=None) -> torch.Tensor:
         return self.predict(X, X_lo)
+
+
+def serve_predict(params: KnnModel, X: torch.Tensor, X_lo=None,
+                  top_k_impl: str = "sort") -> torch.Tensor:
+    """The ``(params, X)`` serving predict of a ``top_k_impl`` tier:
+    ``predict_chunked`` (the ``--knn-topk argmax|hier|screened`` serve)."""
+    return params.predict_chunked(X, X_lo, top_k_impl=top_k_impl)

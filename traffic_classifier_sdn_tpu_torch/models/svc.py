@@ -21,8 +21,15 @@ JAX, whose sums are XLA reductions and a matmul in their own order, the
 decisions agree to f32 reassociation (tests/test_torch_svc.py states the
 tolerance).
 
-Serving goes through ops/rbf_kernel.py. The dot-expansion form
-(``TCSDN_SVC_KERNEL=dot`` in the JAX package) is not ported.
+Serving goes through ops/rbf_kernel.py. ``TCSDN_SVC_KERNEL=dot`` serves
+the dot-expansion form instead (``rbf_kernel_dot``, ``predict_dot_chunked``):
+``d² = ‖x‖² + ‖s‖² − 2x·s`` plus the hi/lo cross terms as
+``torch.matmul`` products (TF32 off, device.py), with the JAX gating:
+the SV lo correction only when ``has_lo``, the query lo correction only
+when ``X_lo`` is given. At this data's ~8e8 feature scale that form
+cancels in float32 (JAX ``models/svc.py`` ``rbf_kernel_dot``), so its
+labels can differ between two matmul implementations, the card's and
+the CPU's, on large-magnitude rows; it is an opt-in, never the default.
 """
 
 from __future__ import annotations
@@ -71,26 +78,36 @@ def dense_pair_coef(dual_coef, n_support) -> np.ndarray:
 def sq_dist(X, X_lo, sv_hi, sv_lo) -> torch.Tensor:
     """(N, S) ‖x − sv‖² in the two-float difference form, summed over
     features in ascending order. Without ``X_lo`` the difference is
-    ``(x − s_hi) − s_lo``, bitwise ``(x − s_hi) + (0 − s_lo)``."""
+    ``(x − s_hi) − s_lo``, bitwise ``(x − s_hi) + (0 − s_lo)``. Each
+    step runs in place on one (N, S) buffer: every product and sum is
+    still rounded on its own, in the same order."""
     d2 = None
     for f in range(X.shape[1]):
         diff = X[:, f, None] - sv_hi[None, :, f]
         if X_lo is None:
-            diff = diff - sv_lo[None, :, f]
+            diff.sub_(sv_lo[None, :, f])
         else:
-            diff = diff + (X_lo[:, f, None] - sv_lo[None, :, f])
-        sq = diff * diff
-        d2 = sq if d2 is None else d2 + sq
+            diff.add_(X_lo[:, f, None] - sv_lo[None, :, f])
+        diff.mul_(diff)
+        if d2 is None:
+            d2 = diff
+        else:
+            d2.add_(diff)
     return d2
 
 
 def decision_sum(K: torch.Tensor, coef_t: torch.Tensor) -> torch.Tensor:
     """(N, P) ``K @ coef_t`` with no intercept, summed over support
-    vectors in ascending order from zero: ``acc = acc + K[:, s]·coef_t[s]``."""
+    vectors in ascending order from zero: ``acc = acc + K[:, s]·coef_t[s]``
+    (K's columns read as contiguous rows of its transpose, each product
+    into one reused buffer)."""
     acc = torch.zeros((K.shape[0], coef_t.shape[1]), dtype=K.dtype,
                       device=K.device)
-    for s in range(K.shape[1]):
-        acc = acc + K[:, s, None] * coef_t[None, s]
+    prod = torch.empty_like(acc)
+    K_t = K.t().contiguous()
+    for s in range(K_t.shape[0]):
+        torch.mul(K_t[s, :, None], coef_t[None, s], out=prod)
+        acc.add_(prod)
     return acc
 
 
@@ -179,5 +196,54 @@ class SvcModel(nn.Module):
         matrix of 2²⁰ rows against 2281 SVs would be 9.5 GB."""
         return chunked_predict(self.predict, row_chunk, X, X_lo)
 
+    def rbf_kernel_dot(self, X: torch.Tensor, X_lo=None) -> torch.Tensor:
+        """(N, S) RBF kernel through the dot expansion (JAX
+        ``svc.rbf_kernel_dot``): ``‖Δh‖² + 2·Δh·Δl + ‖Δl‖²`` with
+        ``Δh = x_hi − s_hi`` and ``Δl = x_lo − s_lo``, each (N, S) term a
+        matmul or a broadcast of per-row / per-SV sums, d² clamped at 0."""
+        sv_sq = (self.sv_hi * self.sv_hi).sum(1)
+        x_sq = (X * X).sum(1)
+        d2 = (x_sq[:, None] + sv_sq[None, :]
+              - 2.0 * torch.matmul(X, self.sv_hi.t()))
+        corr = None
+        if self.has_lo:
+            sv_hilo = (self.sv_hi * self.sv_lo).sum(1)
+            sv_lo_sq = (self.sv_lo * self.sv_lo).sum(1)
+            corr = ((2.0 * sv_hilo + sv_lo_sq)[None, :]
+                    - 2.0 * torch.matmul(X, self.sv_lo.t()))
+        if X_lo is not None:
+            x_hilo = (X * X_lo).sum(1)
+            x_lo_sq = (X_lo * X_lo).sum(1)
+            x_corr = ((2.0 * x_hilo + x_lo_sq)[:, None]
+                      - 2.0 * torch.matmul(X_lo, self.sv_hi.t()))
+            if self.has_lo:
+                x_corr = x_corr - 2.0 * torch.matmul(X_lo, self.sv_lo.t())
+            corr = x_corr if corr is None else corr + x_corr
+        if corr is not None:
+            d2 = d2 + corr
+        return torch.exp(-self.gamma * torch.clamp(d2, min=0.0))
+
+    def decision_dot(self, X: torch.Tensor, X_lo=None) -> torch.Tensor:
+        """(N, P) ovo decisions of the dot form: one more matmul."""
+        return (torch.matmul(self.rbf_kernel_dot(X, X_lo), self.pair_coef.t())
+                + self.intercept[None, :])
+
+    def predict_dot(self, X: torch.Tensor, X_lo=None) -> torch.Tensor:
+        """``predict`` through ``rbf_kernel_dot``; the vote tail is the
+        difference form's."""
+        votes = self._votes_from_decision(self.decision_dot(X, X_lo))
+        return torch.argmax(votes, dim=-1).to(torch.int32)
+
+    def predict_dot_chunked(self, X: torch.Tensor, X_lo=None,
+                            row_chunk: int = ROW_CHUNK) -> torch.Tensor:
+        """``predict_dot`` over ``row_chunk``-row slices."""
+        return chunked_predict(self.predict_dot, row_chunk, X, X_lo)
+
     def forward(self, X: torch.Tensor, X_lo=None) -> torch.Tensor:
         return self.predict(X, X_lo)
+
+
+def serve_predict_dot(params: SvcModel, X: torch.Tensor,
+                      X_lo=None) -> torch.Tensor:
+    """The ``(params, X)`` serving predict of ``TCSDN_SVC_KERNEL=dot``."""
+    return params.predict_dot_chunked(X, X_lo)

@@ -1,12 +1,15 @@
 """ctypes bindings of the port's native (C++) KNN evaluator.
 
-The port's counterpart of the JAX package's ``native/knn.py``, cut to the
-exact pruned search (``predict``, ``votes``) of ``knn_eval.cpp`` (this
-package's copy of the JAX package's source): float64 squared distances,
+The port's counterpart of the JAX package's ``native/knn.py`` over
+``knn_eval.cpp`` (this package's copy of the JAX package's source): the
+exact pruned search (``predict``, ``votes``: float64 squared distances,
 ``lax.top_k``'s tie order, screened and early-abandoned candidates, vote
-for vote the full scan's answer. It is the degrade ladder's host rung for
-KNN (``models.resolve_fallback``), not a port of a TPU kernel. The unpruned
-and IVF entry points of the library are not bound.
+for vote the full scan's answer), the full scan it is held to
+(``predict_unpruned``, ``votes_unpruned``), the IVF mirror
+(``build_ivf``, ``predict_ivf``, ``votes_ivf``) and the screening
+counters (``screen_stats``). It is the degrade ladder's host rung for KNN
+(``models.resolve_fallback``) and the ``--knn-topk native`` / ``ivf``
+serves, not a port of a TPU kernel.
 
 Built with g++ ``-march=native`` on first use into ``csrc/build/``
 (``loader.LazyLib``): the distance loops want the host's widest SIMD. The
@@ -35,6 +38,12 @@ _SIGNATURES = {
     "tck_destroy": (None, [_VP]),
     "tck_predict": (None, [_VP, _VP, _U64, _U32, _VP]),
     "tck_votes": (None, [_VP, _VP, _U64, _U32, _VP]),
+    "tck_predict_unpruned": (None, [_VP, _VP, _U64, _U32, _VP]),
+    "tck_votes_unpruned": (None, [_VP, _VP, _U64, _U32, _VP]),
+    "tck_ivf_build": (ct.c_int32, [_VP, _U32, _VP, _VP]),
+    "tck_predict_ivf": (None, [_VP, _VP, _U64, _U32, _U32, _VP]),
+    "tck_votes_ivf": (None, [_VP, _VP, _U64, _U32, _U32, _VP]),
+    "tck_screen_stats": (None, [_VP, _VP]),
 }
 
 
@@ -82,6 +91,7 @@ class NativeKnn:
         self.n_features = F
         self.n_neighbors = k
         self.n_rows = S
+        self.n_lists = 0  # IVF lists, after build_ivf
         if S < k:
             raise ValueError(f"corpus has {S} rows < n_neighbors={k}")
         if k > 64:
@@ -101,22 +111,82 @@ class NativeKnn:
             raise ValueError(f"X shape {X.shape} != (N, {self.n_features})")
         return X
 
+    def _run(self, fn, X, per_row: int, *extra) -> np.ndarray:
+        """``fn(handle, X, N, F, *extra, out)`` into a fresh int32 (N,) or
+        (N, C) output."""
+        X = self._checked(X)
+        shape = (X.shape[0],) if per_row == 1 else (X.shape[0], per_row)
+        out = np.empty(shape, np.int32)
+        fn(self._h, X.ctypes.data_as(_VP), X.shape[0], X.shape[1], *extra,
+           out.ctypes.data_as(_VP))
+        return out
+
     def predict(self, X) -> np.ndarray:
         """(N, F) float32 features -> (N,) int32 class indices."""
-        X = self._checked(X)
-        out = np.empty(X.shape[0], np.int32)
-        self._lib.tck_predict(self._h, X.ctypes.data_as(_VP), X.shape[0],
-                              X.shape[1], out.ctypes.data_as(_VP))
-        return out
+        return self._run(self._lib.tck_predict, X, 1)
 
     def votes(self, X) -> np.ndarray:
         """(N, F) float32 features -> (N, C) int32 neighbor vote counts;
         ``argmax(votes) == predict`` (first maximum)."""
-        X = self._checked(X)
-        out = np.empty((X.shape[0], self.n_classes), np.int32)
-        self._lib.tck_votes(self._h, X.ctypes.data_as(_VP), X.shape[0],
-                            X.shape[1], out.ctypes.data_as(_VP))
-        return out
+        return self._run(self._lib.tck_votes, X, self.n_classes)
+
+    def predict_unpruned(self, X) -> np.ndarray:
+        """The blocked full scan without screening: the pruned engine's
+        parity oracle (vote for vote the same)."""
+        return self._run(self._lib.tck_predict_unpruned, X, 1)
+
+    def votes_unpruned(self, X) -> np.ndarray:
+        return self._run(self._lib.tck_votes_unpruned, X, self.n_classes)
+
+    def build_ivf(self, centers, assignments) -> None:
+        """Install the IVF coarse index: ``centers`` (K, F) and
+        ``assignments`` (S,) in [0, K), the quantizer of ops/knn_ivf.py.
+        Build once, then serve: a rebuild is not guarded against
+        concurrent predicts."""
+        if not self._h:
+            raise RuntimeError("NativeKnn handle is closed")
+        centers = np.ascontiguousarray(centers, np.float32)
+        assignments = np.ascontiguousarray(assignments, np.int32)
+        if centers.ndim != 2 or centers.shape[1] != self.n_features:
+            raise ValueError(
+                f"centers shape {centers.shape} != (K, {self.n_features})")
+        if assignments.shape != (self.n_rows,):
+            # the C++ side reads exactly S entries
+            raise ValueError(f"assignments shape {assignments.shape} != "
+                             f"({self.n_rows},)")
+        rc = self._lib.tck_ivf_build(self._h, centers.shape[0],
+                                     centers.ctypes.data_as(_VP),
+                                     assignments.ctypes.data_as(_VP))
+        if rc:
+            raise ValueError(f"tck_ivf_build rejected the index (rc={rc}: "
+                             "bad K or out-of-range assignment)")
+        self.n_lists = int(centers.shape[0])
+
+    def _nprobe(self, nprobe: int) -> int:
+        if not self.n_lists:
+            raise RuntimeError("no IVF index: call build_ivf first")
+        if nprobe < 1:
+            raise ValueError(f"nprobe={nprobe} must be >= 1")
+        return int(nprobe)
+
+    def predict_ivf(self, X, nprobe: int) -> np.ndarray:
+        """Approximate predict over the ``nprobe`` nearest lists (clamped
+        to K; ``nprobe >= n_lists`` equals ``predict`` bit for bit)."""
+        return self._run(self._lib.tck_predict_ivf, X, 1,
+                         self._nprobe(nprobe))
+
+    def votes_ivf(self, X, nprobe: int) -> np.ndarray:
+        return self._run(self._lib.tck_votes_ivf, X, self.n_classes,
+                         self._nprobe(nprobe))
+
+    def screen_stats(self) -> tuple[int, int, int]:
+        """Cumulative (screened, abandoned, queries): candidates skipped by
+        the norm bound, distance loops exited early, queries answered."""
+        if not self._h:
+            raise RuntimeError("NativeKnn handle is closed")
+        out = np.zeros(3, np.uint64)
+        self._lib.tck_screen_stats(self._h, out.ctypes.data_as(_VP))
+        return int(out[0]), int(out[1]), int(out[2])
 
     def close(self) -> None:
         if self._h:
