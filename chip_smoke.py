@@ -139,6 +139,30 @@ the script exits non-zero:
    on seeded training CSVs in the reference layout (20,480 flows, 6
    ticks): tick seconds and labels per class against the generator's
    ground truth;
+6j. obs — the no-flag forest serve of 65,536 synthetic flows with
+   ``--metrics-every 2 --obs-port 0 --obs-dir D`` and a snapshot due
+   every tick under the default budget (its saves and skips), its source
+   held after 6 ticks (``held_source``): ``/metrics`` scraped while it
+   ticks (at least two scrapes with the ``tcsdn_stage_*`` summaries of
+   poll, parse, scatter, predict, render and snapshot, and the counters
+   and gauges the serve writes), ``/healthz`` 200 with the ``degrade``,
+   ``label_cache`` and ``latency`` blocks, ``/events``, then SIGTERM:
+   exit 143 and a flight-recorder dump whose last event is
+   ``signal.sigterm``; its tables against the same serve with the obs
+   surfaces off (the subsequence rule), host tick p50 with latency
+   provenance on and off (one serve each) beside the plane's own host
+   work a tick (``provenance_cost_s``), and a ``degrade.dispatch_error``
+   drill that stays demoted: ``/healthz`` shows the rung, the dump holds
+   the transition;
+6k. checkpoint — a serial forest serve (``--pipeline off``) of a
+   65,536-flow capture, snapshotting every 2 ticks, stopped after tick 4
+   and restored: the rest prints the uninterrupted serve's stdout byte
+   for byte, its labels the plain version's; the newest member truncated:
+   the restore rolls back to the one before (recorded in the flight
+   recorder) and prints ticks 3-6 as the uninterrupted serve; a member
+   saved on the card restores on the CPU and back, every leaf and the
+   index bitwise; save and restore seconds and bytes at 65,536 and 2^20
+   flows;
 7. breakdown — host seconds per tick of 131,072 records into 65,536 flows
    through the Python spine, the native spine from records and the
    native spine from raw bytes (each with ``step()`` and a device sync),
@@ -1648,6 +1672,11 @@ def phase_fanin(model: dict, k, device) -> int:
 
 
 # family → (CLI subcommand, interop builder, seeded importer-dict builder)
+# ticks of the side serves (families, menus): 4, cut from 6 when the obs
+# and checkpoint phases came (each 65,536-flow synthetic tick costs ~1.5 s
+# of host time, most of it the source's record generation)
+SIDE_TICKS = 4
+
 FAMILY_SERVES = {
     "logreg": ("logistic", "logreg_params_from_numpy", random_logreg),
     "gnb": ("gaussiannb", "gnb_params_from_numpy", random_gnb),
@@ -1701,7 +1730,7 @@ def phase_families(models: dict, device) -> dict:
                                   classes=family_classes(family))
             argv = [subcommand, "--source", "synthetic", "--synthetic-flows",
                     str(CAPACITY), "--capacity", str(CAPACITY),
-                    "--max-ticks", "6", "--print-every", "2",
+                    "--max-ticks", str(SIDE_TICKS), "--print-every", "2",
                     "--native-checkpoint", ckpt]
             with watched_dispatch(family) as (features, log):
                 for c in counters.values():
@@ -2166,7 +2195,7 @@ def phase_menu_serves(models: dict, ops: dict, device) -> dict:
     from traffic_classifier_sdn_tpu_torch.ops import knn_ivf
 
     base = ["--source", "synthetic", "--synthetic-flows", str(CAPACITY),
-            "--capacity", str(CAPACITY), "--max-ticks", "6",
+            "--capacity", str(CAPACITY), "--max-ticks", str(SIDE_TICKS),
             "--print-every", "2"]
     found = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2824,6 +2853,589 @@ def render_breakdown(engine, family: str, g, device) -> None:
 
 INSTANCES: dict = {}  # ptxas_instances of this run's build
 
+OBS_TICKS = 6
+OBS_PRINT_EVERY = 2
+# seconds a held source waits for the signal that ends its serve
+SOURCE_HOLD_S = 120.0
+OBS_STAGES = ("poll", "parse", "scatter", "predict", "render")
+# what the no-flag serve writes into global_metrics (ROADMAP Queue 1
+# item 3a): counters, gauges and histograms a scrape must carry
+OBS_SERIES = {
+    "counter": ("ticks", "records"),
+    "gauge": ("flows_dropped", "native_parse_errors", "degrade_state",
+              "dirty_rows", "queue_depth", "obs_port"),
+    "summary": ("ingest_s", "predict_s", "stage_overlap_s", "stage_tick_s",
+                "stage_host_s", "stage_dispatch_s", "stage_device_s",
+                "stage_compact_s", "e2e_emit_to_render_s", "wf_render_s"),
+}
+
+
+@contextlib.contextmanager
+def held_source(ticks: int):
+    """While active, a serve's synthetic source delivers ``ticks`` ticks
+    and then has nothing more to say (a monitor between polls): its next
+    tick waits, for a signal to end the serve, at most ``SOURCE_HOLD_S``
+    seconds. Yields an event set when it starts to wait: the serve has
+    finished its last tick, the ``--metrics-every`` report included."""
+    import threading
+
+    from traffic_classifier_sdn_tpu_torch.ingest import replay
+
+    tick = replay.SyntheticFlows.tick
+    waiting = threading.Event()
+
+    def held(self):
+        n = getattr(self, "_held_ticks", 0)
+        if n >= ticks:
+            waiting.set()
+            end = time.monotonic() + SOURCE_HOLD_S
+            while time.monotonic() < end:
+                time.sleep(0.01)
+            raise AssertionError("no signal ended the held serve")
+        self._held_ticks = n + 1
+        return tick(self)
+
+    replay.SyntheticFlows.tick = held
+    try:
+        yield waiting
+    finally:
+        replay.SyntheticFlows.tick = tick
+
+
+def _get(port: int, path: str):
+    """(status, body) of one GET on the serve's obs port."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=10) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+class ObsWatch:
+    """A thread beside an in-process serve: it scrapes ``/metrics`` every
+    ``every`` seconds while the serve runs, and once ``settled(metrics)``
+    holds (read from the serve's ``global_metrics``) it scrapes
+    ``/metrics``, ``/healthz`` and ``/events`` a last time and sends the
+    process SIGTERM, which ends the serve."""
+
+    def __init__(self, settled, every: float = 0.05):
+        import threading
+
+        from traffic_classifier_sdn_tpu_torch.utils.metrics import (
+            global_metrics,
+        )
+
+        self.m = global_metrics
+        self.settled, self.every = settled, every
+        self.scrapes: list[tuple[float, str]] = []  # (ticks, text)
+        self.final: dict = {}
+        self.error: str | None = None
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def __enter__(self):
+        self.m.reset()  # no earlier serve's obs_port
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._thread.join(timeout=30)
+        return False
+
+    def _run(self):
+        import signal
+
+        end = time.monotonic() + SOURCE_HOLD_S
+        try:
+            while time.monotonic() < end:
+                port = int(self.m.gauges.get("obs_port", 0))
+                if port:
+                    ticks = self.m.counters.get("ticks", 0)
+                    status, body = _get(port, "/metrics")
+                    if status != 200:
+                        raise AssertionError(f"/metrics answered {status}")
+                    self.scrapes.append((ticks, body.decode()))
+                    if self.settled(self.m):
+                        # the serve is live, its source held
+                        for path in ("/metrics", "/healthz", "/events?n=64"):
+                            self.final[path] = _get(port, path)
+                        self.scrapes.append(
+                            (self.m.counters.get("ticks", 0),
+                             self.final["/metrics"][1].decode()))
+                        break
+                time.sleep(self.every)
+            else:
+                self.error = "the serve never settled"
+        except Exception as e:  # noqa: BLE001 — reported by the phase
+            self.error = f"{type(e).__name__}: {e}"
+        signal.raise_signal(signal.SIGTERM)
+
+
+def _serve_until_signal(argv: list) -> tuple[str, str, int, float]:
+    """(stdout, stderr, exit status, wall seconds) of an in-process serve
+    that a signal ends."""
+    from traffic_classifier_sdn_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    code = 0
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            cli.main(argv)
+        except SystemExit as e:
+            code = e.code
+    return out.getvalue(), err.getvalue(), code, time.perf_counter() - t0
+
+
+def frames(text: str) -> list[str]:
+    """The printed tables of a serve's stdout, each with its trailing
+    lines (``... showing``)."""
+    lines = text.splitlines(True)
+    starts = [i for i in range(len(lines) - 1)
+              if lines[i].startswith("+") and "Flow ID" in lines[i + 1]]
+    return ["".join(lines[a:b])
+            for a, b in zip(starts, starts[1:] + [len(lines)])]
+
+
+def subsequence(got: str, want: str) -> bool:
+    """The subsequence rule of the pipelined serve: ``got``'s tables are
+    ``want``'s in order, some missing (coalesced), and the last is the
+    same."""
+    g, w = frames(got), frames(want)
+    it = iter(w)
+    return bool(g) and g[-1] == w[-1] and all(any(f == x for x in it)
+                                              for f in g)
+
+
+def _renders_done(m, renders: int) -> bool:
+    h = m.histograms.get("stage_render_s")
+    done = (h.count if h is not None else 0) + m.counters.get(
+        "ticks_coalesced", 0)
+    return m.counters.get("ticks", 0) >= renders and done >= renders
+
+
+def _dump_events(obs_dir: str, reason: str) -> list[dict]:
+    names = [n for n in os.listdir(obs_dir)
+             if n.startswith("flightrec-") and n.endswith(f"-{reason}.jsonl")]
+    if len(names) != 1:
+        raise AssertionError(f"flight-recorder dumps in {obs_dir}: "
+                             f"{sorted(os.listdir(obs_dir))}")
+    with open(os.path.join(obs_dir, names[0])) as f:
+        return [json.loads(line) for line in f]
+
+
+def provenance_cost_s(ticks: int = 2000) -> float:
+    """Host seconds a tick of latency provenance costs the serve loop:
+    the stamp, ``begin_tick``, the parse and scatter marks, the seal, the
+    device mark and the fold of one batch, averaged over ``ticks``."""
+    from traffic_classifier_sdn_tpu_torch.ingest.batcher import batch_emit_ts
+    from traffic_classifier_sdn_tpu_torch.ingest.protocol import (
+        TelemetryRecord,
+        stamp_records,
+    )
+    from traffic_classifier_sdn_tpu_torch.obs import LatencyProvenance
+    from traffic_classifier_sdn_tpu_torch.utils.metrics import Metrics
+
+    lat = LatencyProvenance(metrics=Metrics())
+    batch = [TelemetryRecord(time=1, datapath="1", in_port="1", eth_src="a",
+                             eth_dst="b", out_port="2", packets=1, bytes=1)]
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        object.__setattr__(batch[0], "emit_ts", None)
+        stamp_records(batch[:1])
+        lat.begin_tick([(0, batch_emit_ts(batch), None, None, CAPACITY)])
+        lat.mark_parse()
+        lat.mark_scatter()
+        seal = lat.seal()
+        lat.mark_device(seal)
+        lat.render_visible(seal)
+    return (time.perf_counter() - t0) / ticks
+
+
+def phase_obs(model: dict, k, device) -> int:
+    """The metrics and observability plane on the no-flag forest serve of
+    65,536 flows: ``/metrics`` scraped while it ticks, ``/healthz``,
+    ``/events``, the ``--metrics-every`` report, the budget guard of a
+    snapshot due every tick, the SIGTERM post-mortem, stdout against the
+    same serve with the obs surfaces off, host tick p50 with latency
+    provenance on and off, and a dispatch-error drill whose rung /healthz
+    shows. Returns the forest kernel's launches."""
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+    from traffic_classifier_sdn_tpu_torch.utils import faults
+
+    tag = "[obs Randomforest]"
+    renders = OBS_TICKS // OBS_PRINT_EVERY
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, obs_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "obs")
+        checkpoint.save_model(ckpt, "forest",
+                              interop.forest_params_from_numpy(model, device),
+                              classes=CLASSES)
+        base = ["Randomforest", "--source", "synthetic", "--synthetic-flows",
+                str(CAPACITY), "--capacity", str(CAPACITY), "--print-every",
+                str(OBS_PRINT_EVERY), "--native-checkpoint", ckpt]
+        fk.forest_proba.launches = 0
+        with watched_dispatch("forest") as (features, log), \
+                held_source(OBS_TICKS) as held, \
+                ObsWatch(lambda m: held.is_set()
+                         and _renders_done(m, renders)) as watch:
+            out, err, code, wall = _serve_until_signal(base + [
+                "--metrics-every", "2", "--obs-port", "0",
+                "--obs-dir", obs_dir, "--serve-checkpoint-every", "1",
+                "--serve-checkpoint-dir", os.path.join(tmp, "rot")])
+        launches = fk.forest_proba.launches
+        counters = dict(watch.m.counters)
+        coalesced = int(counters.get("ticks_coalesced", 0))
+        save_s = list(watch.m.histograms["checkpoint_save_s"]._samples)
+        if watch.error or code != 143:
+            raise AssertionError(f"{tag} exit {code}, watcher: {watch.error}"
+                                 f"; stderr tail: {err[-2000:]}")
+        full = [t for _, t in watch.scrapes
+                if all(f"# TYPE tcsdn_stage_{s}_s summary" in t
+                       for s in OBS_STAGES)]
+        status, body = watch.final["/metrics"]
+        text = body.decode()
+        missing = [f"{kind} {n}" for kind, names in OBS_SERIES.items()
+                   for n in names if f"# TYPE tcsdn_{n} {kind}" not in text]
+        missing += [s for s in (*OBS_STAGES, "snapshot")
+                    if f"# TYPE tcsdn_stage_{s}_s summary" not in text]
+        if status != 200 or missing or len(full) < 2:
+            raise AssertionError(f"{tag} /metrics {status}, missing "
+                                 f"{missing}, {len(full)} full scrapes of "
+                                 f"{len(watch.scrapes)}")
+        status, body = watch.final["/healthz"]
+        health = json.loads(body)
+        if (status != 200 or not health["healthy"]
+                or health["degrade"]["state"] != "HEALTHY"
+                or health["label_cache"]["mode"] != "host"
+                or not health["latency"]["observed"]):
+            raise AssertionError(f"{tag} /healthz {status} {health}")
+        status, body = watch.final["/events?n=64"]
+        events = json.loads(body)
+        if status != 200 or not events:
+            raise AssertionError(f"{tag} /events {status}: {events}")
+        dump = _dump_events(obs_dir, "sigterm")
+        if dump[-1]["kind"] != "signal.sigterm":
+            raise AssertionError(f"{tag} the dump ends with {dump[-1]}")
+        reports = [ln for ln in err.splitlines() if ln.startswith("metrics ")]
+        _check_printed(tag, parse_tables(out), "forest", k, features, log)
+        if launches < 1 or len(reports) != OBS_TICKS // 2:
+            raise AssertionError(f"{tag} {launches} launches, "
+                                 f"{len(reports)} metrics lines")
+        scraped_ticks = sorted({t for t, _ in watch.scrapes})
+        series = sorted(re.findall(r"^# TYPE tcsdn_(\S+) (\S+)$", text,
+                                   re.M))
+        print(f"{tag} {OBS_TICKS} ticks, then SIGTERM (exit {code}) after "
+              f"{wall:.2f} s; {len(watch.scrapes)} /metrics scrapes during "
+              f"the serve at ticks {scraped_ticks}, {len(full)} with every "
+              f"stage summary; {len(series)} series: "
+              + ", ".join(f"{n} ({kind})" for n, kind in series))
+        print(f"{tag} a snapshot due every tick under the default budget "
+              f"(0.2 of the loop's time): "
+              f"{int(counters.get('checkpoint_saves', 0))} saves ("
+              + ", ".join(f"{x:.4f}" for x in save_s) + " s), "
+              f"{int(counters.get('checkpoint_skipped', 0))} skipped of "
+              f"{OBS_TICKS} ticks")
+        if not counters.get("checkpoint_saves"):
+            raise AssertionError(f"{tag} no snapshot under the budget")
+        print(f"{tag} /healthz 200: degrade {health['degrade']['state']}, "
+              f"label_cache {health['label_cache']}, latency "
+              f"{health['latency']}; /events {len(events)} events; the "
+              f"sigterm dump holds {len(dump) - 1} events, the last "
+              f"{dump[-1]['kind']}; {launches} forest launches")
+        e2e = re.findall(r'^tcsdn_(stage_\w+|e2e_emit_to_render_s)'
+                         r'\{quantile="0.5"\} (\S+)$', text, re.M)
+        print(f"{tag} p50 (s) on the card's serve: "
+              + ", ".join(f"{n} {v}" for n, v in e2e))
+        # the same serve with the obs surfaces off, twice each with
+        # latency provenance on (the default) and off
+        offs, ticks = [], {"on": [], "off": []}
+        for lat in ("on", "off"):
+            fk.forest_proba.launches = 0
+            o, summary, _ = _serve(base + ["--max-ticks", str(OBS_TICKS),
+                                           "--latency-provenance", lat])
+            launches += fk.forest_proba.launches
+            ticks[lat] += summary.tick_seconds
+            offs.append((o, summary.ticks_coalesced))
+        plain_out, plain_coalesced = offs[0]
+        short, long_ = sorted(((out, coalesced), (plain_out, plain_coalesced)),
+                              key=lambda x: len(frames(x[0])))
+        if (not subsequence(short[0], long_[0])
+                or len(frames(long_[0])) - len(frames(short[0]))
+                != abs(coalesced - plain_coalesced)):
+            raise AssertionError(f"{tag} stdout with the obs surfaces on "
+                                 "and off breaks the subsequence rule")
+        p50 = {lat: statistics.median(x) for lat, x in ticks.items()}
+        plane_s = provenance_cost_s()
+        print(f"{tag} stdout equal with the obs plane on and off "
+              f"(subsequence rule; {coalesced} and {plain_coalesced} "
+              f"coalesced); host tick p50 with latency provenance on "
+              f"{p50['on']:.4f} s, off {p50['off']:.4f} s "
+              f"({(p50['on'] / p50['off'] - 1) * 100:+.2f} %, "
+              f"{len(ticks['on'])} ticks each; the JAX bench bounds stamping "
+              f"at 3 %); the plane's own host work a tick {plane_s * 1e6:.1f} "
+              f"us ({plane_s / p50['off'] * 100:.4f} % of the tick p50)")
+        # a dispatch-error drill with the obs port: every device call from
+        # the second fails and no probe is due, so the serve stays demoted
+        drill_dir = os.path.join(tmp, "drill")
+        plan = faults.FaultPlan([faults.FaultRule(
+            "degrade.dispatch_error", after=1, times=None)])
+        fk.forest_proba.launches = 0
+        with held_source(4) as held, faults.installed(plan), \
+                ObsWatch(lambda m: held.is_set() and _renders_done(m, 4)
+                         and m.gauges.get("degrade_state", 0) != 0) as watch:
+            out, err, code, wall = _serve_until_signal(base + [
+                "--print-every", "1", "--probe-every", "600", "--obs-port",
+                "0", "--obs-dir", drill_dir])
+        launches += fk.forest_proba.launches
+        status, body = watch.final.get("/healthz", (None, b"{}"))
+        health = json.loads(body)
+        edges = [(e["frm"], e["to"], e["reason"])
+                 for e in _dump_events(drill_dir, "sigterm")
+                 if e["kind"] == "degrade.transition"]
+        if (watch.error or code != 143 or status != 200
+                or health["degrade"]["state"] != "DEGRADED"
+                or not health["degraded"]
+                or edges != [("HEALTHY", "DEGRADED", "error:FaultInjected")]):
+            raise AssertionError(f"{tag} drill: exit {code}, watcher "
+                                 f"{watch.error}, /healthz {status} "
+                                 f"{health}, transitions {edges}")
+        print(f"{tag} dispatch-error drill: /healthz 200 with rung "
+              f"{health['degrade']['rung']} (fallback "
+              f"{health['degrade']['fallback']}, {len(plan.fires)} fires); "
+              f"the sigterm dump holds the transition {edges[0]}")
+    return launches
+
+
+CKPT_TICKS = 6
+CKPT_STOP = 4  # the serve checkpointed every 2 ticks stops here
+CKPT_BIG_FLOWS = 1 << 20
+
+
+def _capture(path: str, n_flows: int, ticks: int) -> None:
+    """``ticks`` ticks of ``SyntheticFlows(n_flows)`` as a monitor capture."""
+    from traffic_classifier_sdn_tpu_torch.ingest.replay import SyntheticFlows
+
+    syn = SyntheticFlows(n_flows=n_flows)
+    with open(path, "wb") as f:
+        for _ in range(ticks):
+            f.write(syn.tick_bytes())
+
+
+def _split(path: str, first: int) -> tuple[str, str]:
+    """The capture's first ``first`` ticks and the rest, as two files."""
+    head, tail = f"{path}.head{first}", f"{path}.tail{first}"
+    with open(path, "rb") as f, open(head, "wb") as h, open(tail, "wb") as t:
+        seen = []
+        for line in f:
+            stamp = line.split(b"\t", 2)[1]
+            if stamp not in seen:
+                seen.append(stamp)
+            (h if len(seen) <= first else t).write(line)
+    return head, tail
+
+
+@contextlib.contextmanager
+def rendered_features():
+    """While active, each serial render of the CLI records the feature
+    matrix of the table it renders."""
+    from traffic_classifier_sdn_tpu_torch import cli
+
+    render, seen = cli._print_table, []
+
+    def recording(engine, *args, **kw):
+        seen.append(engine.features())
+        return render(engine, *args, **kw)
+
+    cli._print_table = recording
+    try:
+        yield seen
+    finally:
+        cli._print_table = render
+
+
+def _check_rendered(tag: str, out: str, features: list, k) -> None:
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+
+    tables = parse_tables(out)
+    if len(tables) != len(features):
+        raise AssertionError(f"{tag} {len(tables)} tables, {len(features)} "
+                             "renders")
+    for table, X in zip(tables, features):
+        plain = fk.forest_proba_plain(k, X).argmax(-1).cpu()
+        wrong = [s for s, lab in table if CLASSES[plain[s]] != lab]
+        if wrong:
+            raise AssertionError(f"{tag} labels differ from the plain "
+                                 f"version's at slots {wrong[:5]}")
+
+
+def _device_sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _same_state(a, b) -> bool:
+    """Every table leaf bitwise, and the index, of two engines (the
+    native index compared as its bulk export: fingerprints, occupancy,
+    frontier, free stack and the metadata cells)."""
+    from traffic_classifier_sdn_tpu_torch.io import serving_checkpoint as sc
+
+    for name in sc._TABLE_LEAVES:
+        x, y = sc._fetch_leaf(a.table, name), sc._fetch_leaf(b.table, name)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            return False
+    if a.native != b.native:
+        return False
+    if not a.native:
+        ia, ib = a.index, b.index
+        return (ia.slot_to_key, ia.slot_meta, ia.free, ia.next_slot) == (
+            ib.slot_to_key, ib.slot_meta, ib.free, ib.next_slot)
+    ea, eb = a.batcher.export_index(), b.batcher.export_index()
+    slots = np.nonzero(ea[1])[0]
+    return (all(np.array_equal(x, y) for x, y in zip(ea, eb))
+            and all(np.array_equal(x, y) for x, y in zip(
+                a.batcher.export_meta(slots), b.batcher.export_meta(slots))))
+
+
+def phase_checkpoint(model: dict, k, device) -> int:
+    """Crash-safe serving checkpoints on the card: continuation of a
+    stopped serve, rollback past a truncated newest member, the card/CPU
+    round trip, and the save and restore time and size at 65,536 and 2^20
+    flows. Returns the forest kernel's launches."""
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.ingest.batcher import (
+        FlowStateEngine,
+    )
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+    from traffic_classifier_sdn_tpu_torch.io import serving_checkpoint as sc
+    from traffic_classifier_sdn_tpu_torch.ingest.replay import SyntheticFlows
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+    from traffic_classifier_sdn_tpu_torch.utils.metrics import global_metrics
+
+    tag = "[checkpoint Randomforest]"
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, rot = os.path.join(tmp, "ckpt"), os.path.join(tmp, "rot")
+        capture = os.path.join(tmp, "capture")
+        checkpoint.save_model(ckpt, "forest",
+                              interop.forest_params_from_numpy(model, device),
+                              classes=CLASSES)
+        _capture(capture, CAPACITY, CKPT_TICKS)
+        head, tail = _split(capture, CKPT_STOP)
+        _, tail3 = _split(capture, 2)
+        base = ["Randomforest", "--source", "replay", "--capacity",
+                str(CAPACITY), "--print-every", "2", "--pipeline", "off",
+                "--native-checkpoint", ckpt]
+
+        def serve(*extra):
+            nonlocal launches
+            fk.forest_proba.launches = 0
+            err = io.StringIO()
+            with rendered_features() as seen, \
+                    contextlib.redirect_stderr(err):
+                out, summary, wall = _serve(base + list(extra))
+            launches += fk.forest_proba.launches
+            return out, summary, wall, seen, err.getvalue()
+
+        full, *_ = serve("--capture", capture)
+        head_out, stopped, _, _, _ = serve(
+            "--capture", head, "--serve-checkpoint-every", "2",
+            "--serve-checkpoint-dir", rot, "--serve-checkpoint-budget", "0")
+        saves = global_metrics.histograms["checkpoint_save_s"]
+        nbytes = global_metrics.counters["checkpoint_bytes"] / saves.count
+        members = [t for t, _ in sc.list_checkpoints(rot)]
+        out, resumed, _, seen, err = serve(
+            "--capture", tail, "--restore-serve-state", rot)
+        after = fk.forest_proba.launches
+        if (members != [4, 2] or head_out + out != full
+                or f"restored {CAPACITY} tracked flows" not in err
+                or after < 1):
+            raise AssertionError(
+                f"{tag} members {members}; restored stdout equal to the "
+                f"uninterrupted serve's: {head_out + out == full}; "
+                f"stderr {err[-500:]}")
+        _check_rendered(tag, out, seen, k)
+        print(f"{tag} serve stopped after tick {CKPT_STOP} (members "
+              f"{members}), restored: ticks 5-6 print the uninterrupted "
+              f"serve's stdout byte for byte ({len(frames(full))} tables "
+              f"in all), labels equal the plain version's on the restored "
+              f"table; the render after the restore launched the forest "
+              f"kernel {after} time(s)")
+        # rollback: the newest member truncated
+        newest = sc.checkpoint_path(rot, 4)
+        with open(newest, "rb") as f:
+            blob = f.read()
+        with open(newest, "wb") as f:
+            f.write(blob[: len(blob) // 2])
+        obs_dir = os.path.join(tmp, "obs")
+        out, rolled, _, seen, err = serve(
+            "--capture", tail3, "--restore-serve-state", rot,
+            "--obs-dir", obs_dir, "--obs-dump-on-exit")
+        events = _dump_events(obs_dir, "on-demand")
+        back = [e for e in events if e["kind"] == "checkpoint.rollback"]
+        restored = [e["path"] for e in events
+                    if e["kind"] == "checkpoint.restore"]
+        if (not back or back[0]["rejected"] != newest
+                or restored != [sc.checkpoint_path(rot, 2)]
+                or frames(head_out)[0] + out != full):
+            raise AssertionError(f"{tag} rollback: {back} {restored}")
+        _check_rendered(tag, out, seen, k)
+        print(f"{tag} newest member truncated to {len(blob) // 2} of "
+              f"{len(blob)} bytes: the restore rolled back to "
+              f"{os.path.basename(restored[0])} (rejected "
+              f"{os.path.basename(newest)}: {back[0]['error']}) and ticks "
+              "3-6 print the uninterrupted serve's stdout byte for byte")
+        # the card/CPU round trip, every leaf and the index bitwise
+        member = sc.checkpoint_path(rot, 2)
+        t0 = time.perf_counter()
+        card = sc.restore(member, device=device)
+        _device_sync(device)
+        restore_s = time.perf_counter() - t0
+        cpu = sc.restore(member, device="cpu")
+        back_path = os.path.join(tmp, "from-cpu.npz")
+        sc.save(cpu, back_path)
+        again = sc.restore(back_path, device=device)
+        if not (_same_state(card, cpu) and _same_state(again, card)
+                and card.table.in_use.device.type == device.type
+                and not cpu.table.in_use.is_cuda):
+            raise AssertionError(f"{tag} card/CPU round trip differs")
+        print(f"{tag} a member saved on the card restores on the CPU and the "
+              "CPU's save restores on the card, every leaf and the index "
+              f"bitwise; {CAPACITY} flows: save {saves.mean:.4f} s "
+              f"(median of {saves.count}: {saves.percentile(50):.4f} s), "
+              f"{nbytes:.0f} bytes, restore {restore_s:.4f} s")
+        # 2^20 flows: one save and one restore, timed
+        eng = FlowStateEngine(CKPT_BIG_FLOWS, device=device, native=True)
+        syn = SyntheticFlows(n_flows=CKPT_BIG_FLOWS)
+        for _ in range(2):
+            eng.mark_tick()
+            eng.ingest_bytes(syn.tick_bytes())
+            eng.step()
+        _device_sync(device)
+        big = os.path.join(tmp, "big.npz")
+        t0 = time.perf_counter()
+        big_bytes = sc.save(eng, big)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        big_restored = sc.restore(big, device=device)
+        _device_sync(device)
+        big_restore_s = time.perf_counter() - t0
+        if (big_restored.num_flows() != CKPT_BIG_FLOWS
+                or not _same_state(big_restored, eng)):
+            raise AssertionError(f"{tag} the 2^20-flow restore differs")
+        print(f"{tag} {CKPT_BIG_FLOWS} flows: save {save_s:.3f} s, "
+              f"{big_bytes} bytes ({big_bytes / CKPT_BIG_FLOWS:.1f} B a "
+              f"flow), restore {big_restore_s:.3f} s, every leaf and the "
+              "index bitwise")
+    return launches
+
+
 KERNEL_ROWS = {
     "forest": ("forest_proba", "forest_proba.cu",
                "traffic_classifier_sdn_tpu/ops/pallas_forest.py:241"),
@@ -2940,6 +3552,10 @@ def main() -> int:
     paths.update(phase_menu_serves(models, ops, device))
     for name, phase in (("controller", phase_controller),
                         ("workload", phase_workload)):
+        paths[f"{name} Randomforest"] = {
+            "forest": phase(models["forest"], ops["forest"], device),
+            "knn": 0, "svc": 0}
+    for name, phase in (("obs", phase_obs), ("checkpoint", phase_checkpoint)):
         paths[f"{name} Randomforest"] = {
             "forest": phase(models["forest"], ops["forest"], device),
             "knn": 0, "svc": 0}

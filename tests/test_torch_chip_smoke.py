@@ -11,6 +11,7 @@ import copy
 import dataclasses
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -315,6 +316,10 @@ def small_card_phases(monkeypatch):
     serve = chip_smoke._serve
     monkeypatch.setattr(chip_smoke, "_serve",
                         lambda argv: serve(list(argv) + ["--device", "cpu"]))
+    until_signal = chip_smoke._serve_until_signal
+    monkeypatch.setattr(chip_smoke, "_serve_until_signal",
+                        lambda argv: until_signal(list(argv)
+                                                  + ["--device", "cpu"]))
     monkeypatch.setattr(chip_smoke, "CAPACITY", 256)
     monkeypatch.setattr(chip_smoke, "DRILL_FLOWS",
                         {f: 128 for f in chip_smoke.DRILL_FLOWS})
@@ -622,3 +627,53 @@ def test_controller_and_workload_phases_run_on_cpu(small_card_phases,
     out = capsys.readouterr().out
     assert "4 conversations tracked from the port's controller" in out
     assert "labels per class" in out and "100 conversations" in out
+
+
+def test_obs_phase_runs_on_cpu(small_card_phases, monkeypatch, capsys):
+    """``phase_obs`` at 256 flows: the scrapes during the serve, /healthz
+    and /events, the budget guard's saves and skips, the SIGTERM dump,
+    stdout with the obs surfaces on against off, tick p50 with latency
+    provenance on and off, and the drill whose rung /healthz shows."""
+    models, ops = small_card_phases
+    snapshot = cli._snapshot_if_due
+
+    def slow_snapshot(*a, **kw):
+        # a snapshot as long as a save on the card: the last tick ends well
+        # after its render, and the watcher must wait for it
+        time.sleep(0.3)
+        return snapshot(*a, **kw)
+
+    monkeypatch.setattr(cli, "_snapshot_if_due", slow_snapshot)
+    assert chip_smoke.phase_obs(models["forest"], ops["forest"],
+                                torch.device("cpu")) > 0
+    out = capsys.readouterr().out
+    assert "then SIGTERM (exit 143)" in out
+    assert "under the default budget" in out
+    assert "stdout equal with the obs plane on and off" in out
+    assert "/healthz 200 with rung DEGRADED" in out
+
+
+def test_checkpoint_phase_runs_on_cpu(small_card_phases, monkeypatch,
+                                      capsys):
+    """``phase_checkpoint`` at 256 flows (and 512 for the large save):
+    continuation byte for byte, rollback past a truncated newest member,
+    the round trip (CPU to CPU here) and the large save and restore."""
+    models, ops = small_card_phases
+    monkeypatch.setattr(chip_smoke, "CKPT_BIG_FLOWS", 512)
+    assert chip_smoke.phase_checkpoint(models["forest"], ops["forest"],
+                                       torch.device("cpu")) > 0
+    out = capsys.readouterr().out
+    assert "print the uninterrupted serve's stdout byte for byte" in out
+    assert "the restore rolled back to ckpt-000000002.npz" in out
+    assert "512 flows: save" in out
+
+
+def test_frames_and_the_subsequence_rule():
+    table = ("+-----+\n| Flow ID |\n+-----+\n| 1 |\n+-----+\n"
+             "... showing 1 of 2 tracked flows\n")
+    other = table.replace("| 1 |", "| 2 |")
+    assert chip_smoke.frames(table + other) == [table, other]
+    assert chip_smoke.subsequence(other, table + other)
+    assert not chip_smoke.subsequence(table, table + other)
+    assert not chip_smoke.subsequence("", table)
+

@@ -774,3 +774,37 @@ def test_svc_dot_form_on_card(cuda):
     differ = (got != want).numpy()
     assert rule[differ].all()
     assert rule.sum() < X.shape[0] // 10
+
+
+@pytest.mark.parametrize("native", [False, True])
+def test_serving_checkpoint_round_trip_card_and_cpu(cuda, tmp_path, native):
+    """A serving checkpoint saved from a table on the card restores on the
+    CPU, and the CPU's save on the card, every leaf bitwise; both then
+    continue identically (``*_lo`` counters past 2^32 included)."""
+    from traffic_classifier_sdn_tpu_torch.ingest.batcher import (
+        FlowStateEngine,
+    )
+    from traffic_classifier_sdn_tpu_torch.io import serving_checkpoint as sc
+
+    syn = SyntheticFlows(n_flows=300)
+    ticks = [syn.tick_bytes() for _ in range(3)]
+    eng = FlowStateEngine(512, device=cuda, native=native)
+    for data in ticks[:2]:
+        eng.mark_tick()
+        eng.ingest_bytes(data)
+        eng.step()
+    card_path, cpu_path = str(tmp_path / "card.npz"), str(tmp_path / "cpu.npz")
+    sc.save(eng, card_path)
+    on_cpu = sc.restore(card_path, device="cpu")
+    sc.save(on_cpu, cpu_path)
+    back = sc.restore(cpu_path, device=cuda)
+    assert back.table.in_use.is_cuda and not on_cpu.table.in_use.is_cuda
+    for e in (eng, on_cpu, back):
+        e.mark_tick()
+        e.ingest_bytes(ticks[2])
+        e.step()
+    for name in sc._TABLE_LEAVES:
+        a = sc._fetch_leaf(eng.table, name)
+        assert np.array_equal(a, sc._fetch_leaf(on_cpu.table, name)), name
+        assert np.array_equal(a, sc._fetch_leaf(back.table, name)), name
+    assert back.slot_metadata(range(512)) == eng.slot_metadata(range(512))

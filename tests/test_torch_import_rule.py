@@ -71,12 +71,16 @@ def test_port_imports_with_jax_blocked():
     names = set(proc.stdout.split())
     assert len(names) >= 20  # every module of the port
     # the fan-in tier, the logistic, GNB and k-means families, the IVF
-    # tier and its trainer, the controller, the workload source and the
-    # config among them
+    # tier and its trainer, the controller, the workload source, the
+    # config, the metrics and observability plane and the serving
+    # checkpoints among them
     assert {f"traffic_classifier_sdn_tpu_torch.{m}" for m in (
         "ingest.fanin", "models.logreg", "models.gnb", "models.kmeans",
         "ops.knn_ivf", "train.kmeans", "controller.openflow",
         "controller.switch", "ingest.workload", "io.datasets", "config",
+        "utils.metrics", "utils.atomicio", "obs", "obs.trace",
+        "obs.flight_recorder", "obs.latency", "obs.exposition",
+        "io.serving_checkpoint",
     )} <= names
 
 

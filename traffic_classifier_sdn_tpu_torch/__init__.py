@@ -13,6 +13,9 @@ workload source, or many through the fan-in tier; the C++ ingest engine
 (``native/``) or the Python batcher; incremental labels predicted through
 a hand-written CUDA kernel (``csrc/forest_proba.cu``, ``csrc/knn_topk.cu``,
 ``csrc/rbf_decision.cu``) or the serving menus' other forms; the pipeline,
-the degrade ladder and the activity-ranked render. Entry points run on
+the degrade ladder and the activity-ranked render; the
+metrics and observability plane (``utils/metrics.py``, ``obs/``) and
+crash-safe serving checkpoints in the JAX package's format
+(``io/serving_checkpoint.py``). Entry points run on
 CUDA unless the caller asks for the CPU.
 """

@@ -43,6 +43,30 @@ stage dispatches each render and goes on ingesting; when the worker falls
 behind, renders coalesce (``ticks_coalesced``). ``--pipeline off
 --degrade off`` is the serial, bare-kernel serve.
 
+The metrics and observability plane (the JAX CLI's): every serve writes
+its counters, gauges and histograms into ``utils.metrics.global_metrics``
+(per-tick spans ``poll``, ``tick``, ``parse``, ``scatter``, the render's
+``compact``/``feature``/``predict``/``render`` or, pipelined,
+``dispatch`` and ``stage.device``, and ``snapshot``, each into its
+``stage_*_s`` histogram; record-level latency provenance, on by default,
+into ``e2e_emit_to_render_s`` and ``wf_*``); ``--metrics-every N`` prints
+the registry on stderr, ``--obs-port`` serves ``/metrics``, ``/healthz``
+and ``/events`` (obs/exposition.py), and ``--obs-dir`` receives the
+flight recorder's post-mortem on an unhandled exception, SIGTERM or, with
+``--obs-dump-on-exit``, a clean exit (SIGUSR1 dumps it and a metrics
+snapshot without exiting). A span ends where the port already waits for
+the card: ``scatter`` on the serve stream's sync after the table update,
+the device stage's ``predict`` on the rows' copy to the host, the serial
+``predict`` under the ladder on the ladder's copy of the labels; a bare
+kernel predict (``--degrade off``, serial) returns at its launch, and its
+kernel time falls into ``render``. Crash-safe serving checkpoints
+(io/serving_checkpoint.py, the JAX package's format):
+``--serve-checkpoint-every N --serve-checkpoint-dir DIR`` rotates
+snapshots between ticks under a wall-clock budget
+(``--serve-checkpoint-budget``), ``--save-serve-state FILE`` saves on
+exit, and ``--restore-serve-state FILE_OR_DIR`` resumes from one (a
+directory rolls back past a corrupt newest member).
+
 The model family comes from the checkpoint and must match the subcommand.
 The JAX package's serving menus pick the predict (models/__init__.py):
 ``--knn-topk`` (or ``TCSDN_KNN_TOPK``; the flag wins) = ``sort`` (default)
@@ -81,7 +105,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import os
+import signal
 import sys
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -278,6 +304,119 @@ def _build_parser() -> argparse.ArgumentParser:
         "persist under csrc/build/ by source hash",
     )
     p.add_argument(
+        "--save-serve-state", default=None, metavar="FILE",
+        help="on exit, checkpoint the live serving state (flow table + "
+        "index) for a warm restart (io/serving_checkpoint.py; the JAX "
+        "package's format, which restores there too)",
+    )
+    p.add_argument(
+        "--restore-serve-state", default=None, metavar="FILE_OR_DIR",
+        help="start from a serving-state checkpoint (written by the port "
+        "or by the JAX package): every tracked flow resumes with its "
+        "counters, rates, and slot intact. A directory resolves to its "
+        "newest checkpoint that passes validation (torn/corrupt newest "
+        "files roll back to the previous one)",
+    )
+    p.add_argument(
+        "--serve-checkpoint-every", type=int, default=0, metavar="N",
+        help="snapshot the live serving state between ticks every N poll "
+        "ticks (0 disables) into --serve-checkpoint-dir",
+    )
+    p.add_argument(
+        "--serve-checkpoint-dir", default=None, metavar="DIR",
+        help="rotation directory for periodic serving snapshots "
+        "(ckpt-<tick>.npz, atomic writes, keep-N); restart with "
+        "--restore-serve-state DIR to resume from the newest valid one",
+    )
+    p.add_argument(
+        "--serve-checkpoint-keep", type=int, default=3,
+        help="keep the newest N periodic snapshots (default 3)",
+    )
+    p.add_argument(
+        "--serve-checkpoint-budget", type=float, default=0.2,
+        metavar="FRAC",
+        help="wall-clock budget guard: skip a due snapshot when "
+        "checkpointing has already consumed more than FRAC of the serve "
+        "loop's elapsed time (default 0.2; 0 disables the guard; skips "
+        "are counted in the checkpoint_skipped metric)",
+    )
+    p.add_argument(
+        "--metrics-every", type=int, default=0,
+        help="print an ingest/predict metrics line to stderr every N "
+        "poll ticks (0 disables)",
+    )
+    p.add_argument(
+        "--obs-port", type=int, default=None, metavar="PORT",
+        help="serve the observability plane on this port (omit to "
+        "disable; 0 binds an ephemeral port, reported in the startup "
+        "line, the obs_port gauge and /healthz): /metrics (Prometheus "
+        "text with per-stage stage_* latency series), /healthz "
+        "(collector alive, last-tick age, checkpoint freshness, ladder, "
+        "label cache, latency budget), /events (flight-recorder tail)",
+    )
+    p.add_argument(
+        "--obs-dir", default=None, metavar="DIR",
+        help="flight-recorder post-mortem directory: on an unhandled "
+        "serve-loop exception, supervisor terminal failure, or SIGTERM "
+        "the recent-event ring is dumped there as JSONL "
+        "(obs/flight_recorder.py); SIGUSR1 dumps it and a metrics "
+        "snapshot without exiting",
+    )
+    p.add_argument(
+        "--obs-dump-on-exit", action="store_true",
+        help="also dump the flight-recorder ring into --obs-dir on a "
+        "clean exit",
+    )
+    p.add_argument(
+        "--obs-host", default="127.0.0.1", metavar="ADDR",
+        help="bind address for --obs-port (default 127.0.0.1; pass "
+        "0.0.0.0 for a scrape target beyond this host)",
+    )
+    p.add_argument(
+        "--obs-stale-after", type=float, default=30.0, metavar="SECS",
+        help="/healthz reports unhealthy (503) once the last poll tick "
+        "is older than this many seconds (default 30)",
+    )
+    p.add_argument(
+        "--obs-checkpoint-stale-after", type=float, default=0.0,
+        metavar="SECS",
+        help="/healthz also reports unhealthy once the last committed "
+        "serving snapshot (or, before the first one, the serve start) "
+        "is older than this many seconds (0 disables)",
+    )
+    p.add_argument(
+        "--latency-provenance", choices=("auto", "on", "off"),
+        default="auto",
+        help="record-level latency provenance (obs/latency.py): "
+        "emit-stamp every telemetry batch host-side and fold per-hop "
+        "boundaries (fan-in queue wait, parse, scatter, device "
+        "completion, render visibility) into the e2e_emit_to_render_s / "
+        "queue_wait_s / batch_wait_s / wf_* histograms and the /healthz "
+        "latency block. Stamps never touch the wire or the rendered "
+        "output. 'auto' (= on: the port has no sharded serve) or 'off'",
+    )
+    p.add_argument(
+        "--latency-slo", type=float, default=0.0, metavar="SECS",
+        help="end-to-end latency SLO: when the running "
+        "e2e_emit_to_render_s p99 crosses this, the breach is recorded "
+        "(latency.slo_breach) and the latency_slo_breached gauge flips "
+        "(0 disables — the default)",
+    )
+    p.add_argument(
+        "--device-obs", choices=("auto", "off"), default="auto",
+        help="accepted for the JAX CLI's sake: device-runtime telemetry "
+        "(memory gauges, the perf ring, /profile) is not ported yet, so "
+        "nothing is armed; with an obs surface on, a note says so",
+    )
+    p.add_argument(
+        "--perf-ring-ticks", type=int, default=64, metavar="N",
+        help="accepted and unused (the perf ring is not ported yet)",
+    )
+    p.add_argument(
+        "--perf-ring-keep", type=int, default=16, metavar="N",
+        help="accepted and unused (the perf ring is not ported yet)",
+    )
+    p.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
         help="device of the flow table and the model (default cuda; "
         "there is no fallback to the CPU)",
@@ -303,7 +442,8 @@ class ServeSummary:
     what ``--warmup`` returned. Under the fan-in tier ``roster`` is its
     final ``roster()`` (one row per source) and ``source_evictions`` one
     ``(tick, source id, flows evicted, seconds)`` per dead namespace
-    evicted."""
+    evicted. Every counter and timing of the metrics plane is in
+    ``utils.metrics.global_metrics`` after the run."""
 
     engine: object
     ticks: int = 0
@@ -356,9 +496,18 @@ def _resolved_monitor_cmd(args) -> str:
     return args.monitor_cmd or DEFAULT_MONITOR_CMD
 
 
-def _fanin_tier(args, raw: bool):
-    """The fan-in tier of the CLI's fan-in flags (exits on a bad spec)."""
+def _provenance_on(args) -> bool:
+    """--latency-provenance resolution: 'auto' arms the latency plane (the
+    JAX rule arms it on every single-device serve, and the port has no
+    other kind)."""
+    return args.latency_provenance != "off"
+
+
+def _fanin_tier(args, raw: bool, recorder=None, stamp: bool = False):
+    """The fan-in tier of the CLI's fan-in flags (exits on a bad spec),
+    writing into ``global_metrics`` and ``recorder``."""
     from .ingest import fanin
+    from .utils.metrics import global_metrics
 
     try:
         specs = fanin.specs_from_cli(
@@ -381,29 +530,60 @@ def _fanin_tier(args, raw: bool):
     return fanin.FanInIngest(
         specs, queue_records=max(1 << 16, 2 * args.capacity),
         quarantine_s=args.source_quarantine, raw=raw,
+        metrics=global_metrics, recorder=recorder, stamp=stamp,
     )
 
 
-def _tick_source(args, raw: bool = False, tier=None):
+def _stamped_ticks(gen):
+    """Emit-stamp each pull-paced direct-source batch as it is generated,
+    on its lead record (one generation moment per batch). An absorbed
+    ``obs.stamp`` fire leaves that batch unstamped; it still flows."""
+    from .ingest.protocol import stamp_records
+
+    for batch in gen:
+        stamp_records(batch[:1])
+        yield batch
+
+
+def _forever(make):
+    while True:
+        yield make()
+
+
+def _tick_source(args, raw: bool = False, tier=None, recorder=None,
+                 probe_out=None, stamp: bool = False):
     """Yield one batch of telemetry per poll tick: a list of
     TelemetryRecords, or raw pipe bytes when ``raw`` (the native engine's
     bulk path — no per-line Python between the pipe and C++). With the
     fan-in ``tier`` the batches are its ticks (a ``RawTick`` of ``(source
-    id, bytes)`` pairs when raw)."""
+    id, bytes)`` pairs when raw).
+
+    ``recorder`` threads the flight recorder into the collector and
+    supervisor; ``probe_out`` (a dict) receives the ``"probe"`` callable
+    behind /healthz ``collector_alive`` once a subprocess source starts
+    (the fan-in tier's ``alive``, with the tier under ``"fanin"``).
+    ``stamp`` arms latency-provenance emit stamps: pull-paced sources at
+    generation, collectors at pipe parse on the reader thread, fan-in
+    pumps at delivery; a direct raw byte source cannot stamp (no records
+    on the host) and the serve loop stamps it at arrival."""
     if tier is not None:
+        if probe_out is not None:
+            probe_out["probe"] = tier.alive
+            probe_out["fanin"] = tier
         yield from tier.ticks()
     elif args.source == "replay":
         if not args.capture:
             sys.exit("--source replay requires --capture FILE")
         from .ingest.replay import iter_capture
 
-        yield from iter_capture(args.capture)
+        gen = iter_capture(args.capture)
+        yield from (_stamped_ticks(gen) if stamp else gen)
     elif args.source == "synthetic":
         from .ingest.replay import SyntheticFlows
 
         syn = SyntheticFlows(n_flows=args.synthetic_flows)
-        while True:
-            yield syn.tick()
+        gen = _forever(syn.tick)
+        yield from (_stamped_ticks(gen) if stamp else gen)
     elif args.source == "workload":
         from .ingest.workload import ClassWorkload, class_delta_pools
 
@@ -412,20 +592,25 @@ def _tick_source(args, raw: bool = False, tier=None):
             pools,
             flows_per_class=max(1, args.synthetic_flows // len(pools)),
         )
-        while True:
-            yield wl.tick()
+        gen = _forever(wl.tick)
+        yield from (_stamped_ticks(gen) if stamp else gen)
     else:
         from .ingest.collector import SubprocessCollector
+        from .utils.metrics import global_metrics
 
         cmd = _resolved_monitor_cmd(args)
         if args.monitor_restarts:
             from .ingest.supervisor import SupervisedCollector
 
             coll = SupervisedCollector(
-                cmd, raw=raw, max_restarts=args.monitor_restarts
+                cmd, raw=raw, max_restarts=args.monitor_restarts,
+                metrics=global_metrics, recorder=recorder, stamp=stamp,
             )
         else:
-            coll = SubprocessCollector(cmd, raw=raw)
+            coll = SubprocessCollector(cmd, raw=raw, recorder=recorder,
+                                       stamp=stamp)
+        if probe_out is not None:
+            probe_out["probe"] = lambda: coll.running
         coll.start()
         try:
             while True:
@@ -451,7 +636,8 @@ def _sync(device: torch.device) -> None:
         torch.cuda.current_stream(device).synchronize()
 
 
-def _evict_dead_namespaces(tier, engine, pipe, summary) -> None:
+def _evict_dead_namespaces(tier, engine, pipe, summary, m=None,
+                           recorder=None, lat=None) -> None:
     """Evict namespaces whose source-death quarantine expired (fan-in
     tier, ingest/fanin.py). A pipelined render in flight is waited for
     first (bounded, as idle eviction does): a released slot's metadata
@@ -460,7 +646,9 @@ def _evict_dead_namespaces(tier, engine, pipe, summary) -> None:
     is shorter than a render; waiting only on ticks with an eviction due
     lands it in the same tick whatever the host load. A render still in
     flight after the wait defers the eviction to the next tick (the tier
-    keeps the sid pending until it is taken)."""
+    keeps the sid pending until it is taken). Each eviction counts in the
+    ``evicted`` and ``source_evictions`` counters of ``m``, lands in
+    ``recorder`` and drops the namespace's pending latency entries."""
     if pipe is not None and not pipe.idle():
         if not tier.evictions_due():
             return
@@ -475,6 +663,15 @@ def _evict_dead_namespaces(tier, engine, pipe, summary) -> None:
         _sync(engine.device)
         summary.source_evictions.append(
             (summary.ticks, sid, n, time.perf_counter() - t0))
+        if lat is not None:
+            # the namespace's rows are gone: its pending entries would fold
+            # against labels nobody serves
+            lat.drop_source(sid)
+        if m is not None:
+            m.inc("evicted", n)
+            m.inc("source_evictions")
+        if recorder is not None:
+            recorder.record("fanin.namespace_evicted", source=sid, flows=n)
         print(
             f"WARNING: telemetry source {sid} dead past quarantine — "
             f"evicted {n} flows from its namespace",
@@ -482,8 +679,120 @@ def _evict_dead_namespaces(tier, engine, pipe, summary) -> None:
         )
 
 
+def _begin_tick_provenance(lat, batch, tier) -> None:
+    """Register this tick's arrived batches with the latency plane: the
+    fan-in tier hands over its per-batch ``(sid, emit, enq, deq, n)``
+    entries; a direct source becomes one sid-0 entry stamped at its
+    pump or parse moment. Raw byte batches take an arrival-time emit (no
+    records on the host to carry a stamp); a record batch arriving
+    unstamped (an absorbed ``obs.stamp`` fire) is counted in
+    ``latency_unstamped_batches`` and never folded."""
+    from .ingest.batcher import batch_emit_ts
+
+    if tier is not None:
+        entries = tier.pop_provenance()
+        if entries:
+            lat.begin_tick(entries)
+        return
+    if isinstance(batch, (bytes, bytearray)):
+        emit, n = lat.clock(), 0
+    else:
+        emit, n = batch_emit_ts(batch), len(batch)
+    lat.begin_tick([(0, emit, None, None, n)])
+
+
+def _snapshot_if_due(args, engine, m, ticks: int, loop_t0: float,
+                     recorder=None, health=None) -> None:
+    """Periodic in-loop serving snapshot (between ticks).
+
+    The wall-clock budget guard keeps checkpointing from starving the
+    serve loop: when cumulative save time exceeds
+    ``--serve-checkpoint-budget`` of the loop's elapsed time, the due
+    snapshot is skipped (``checkpoint_skipped``) and retried at the next
+    due tick. A failed save (disk full, permission) is warned, counted in
+    ``checkpoint_errors`` and retried; an injected fault propagates (it
+    simulates process death). The engine's ``feature_reference`` (a
+    restored checkpoint's v3 block) is written again."""
+    from .io import serving_checkpoint as sc
+    from .utils.faults import FaultInjected
+
+    h = m.histograms.get("checkpoint_save_s")
+    elapsed = time.monotonic() - loop_t0
+    # budget <= 0 disables the guard: otherwise any recorded save makes
+    # total/elapsed > 0 true forever and the rotation freezes
+    if (args.serve_checkpoint_budget > 0 and h is not None
+            and elapsed > 0
+            and h.total / elapsed > args.serve_checkpoint_budget):
+        m.inc("checkpoint_skipped")
+        if recorder is not None:
+            recorder.record("checkpoint.skip", tick=ticks, reason="budget")
+        return
+    try:
+        with m.time("checkpoint_save_s"):
+            _, nbytes = sc.save_rotating(
+                engine, args.serve_checkpoint_dir, tick=ticks,
+                keep=args.serve_checkpoint_keep,
+                feature_reference=engine.feature_reference,
+            )
+    except FaultInjected:
+        raise
+    except OSError as e:
+        m.inc("checkpoint_errors")
+        if recorder is not None:
+            recorder.record("checkpoint.error", tick=ticks,
+                            error=type(e).__name__, detail=str(e))
+        print(
+            f"WARNING: serving snapshot failed (tick {ticks}): {e} — "
+            f"will retry at the next due tick",
+            file=sys.stderr,
+        )
+        return
+    m.inc("checkpoint_saves")
+    m.inc("checkpoint_bytes", nbytes)
+    if recorder is not None:
+        recorder.record("checkpoint.save", tick=ticks, bytes=nbytes)
+    if health is not None:
+        health.checkpoint()
+
+
+def _dump_flight(recorder, obs_dir, reason: str) -> None:
+    """Best-effort post-mortem dump: the forensics path must never turn a
+    serve-loop failure into a different failure."""
+    if recorder is None or not obs_dir:
+        return
+    try:
+        path = recorder.dump(obs_dir, reason)
+    except OSError as e:
+        print(f"WARNING: flight-recorder dump failed: {e}", file=sys.stderr)
+        return
+    print(f"flight recorder dumped to {path} ({reason})", file=sys.stderr)
+
+
+def _dump_metrics(m, obs_dir, reason: str) -> None:
+    """Best-effort metrics-snapshot dump (the SIGUSR1 pair of
+    ``_dump_flight``)."""
+    from .obs import dump_metrics_snapshot
+
+    try:
+        path = dump_metrics_snapshot(m, obs_dir, reason)
+    except OSError as e:
+        print(f"WARNING: metrics snapshot dump failed: {e}", file=sys.stderr)
+        return
+    print(f"metrics snapshot dumped to {path} ({reason})", file=sys.stderr)
+
+
 def _serve_loop(args, engine, model, predict, serve_params, inc=None,
-                degrade=None) -> ServeSummary:
+                degrade=None, *, m, tracer, recorder=None, health=None,
+                lat=None, usr1=None) -> ServeSummary:
+    """The poll loop. Spans per tick (obs/trace.py, into ``m``'s
+    ``stage_*_s`` histograms): ``poll`` (its own root: waiting on the
+    source), then ``tick`` around ``parse``, ``scatter`` (the table update
+    and the wait on the serve stream that already ends each ingest),
+    the render (serial: ``compact``/``feature``, ``predict``, ``render``;
+    pipelined: ``dispatch`` on the host stage, ``stage.device`` around
+    ``predict`` and ``render`` on the device stage) and ``snapshot``."""
+    import functools
+
     from .ingest.fanin import RawTick
     from .serving.pipeline import ServePipeline, coalesce_renders
 
@@ -493,44 +802,101 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
     # synthetic ticks to the wire themselves)
     fanin = _fanin_active(args)
     raw = engine.native and (args.source in ("ryu", "controller") or fanin)
-    tier = _fanin_tier(args, raw) if fanin else None
+    stamp = lat is not None
+    tier = (_fanin_tier(args, raw, recorder=recorder, stamp=stamp)
+            if fanin else None)
     dropped_seen = 0
-    errors_seen = 0
     # Pipelined serving: this thread (the host stage) polls, parses,
     # scatters and DISPATCHES each render; one worker (the device stage)
     # waits for it and prints. The handoff is bounded; 'off' keeps the
     # serial chain.
     pipe = None
-    host_busy = contextlib.nullcontext
+    host_busy = host_span = contextlib.nullcontext
     if args.pipeline != "off":
         pipe = ServePipeline(consume=lambda job: job(), depth=PIPELINE_DEPTH,
-                             merge=coalesce_renders).start()
+                             metrics=m, merge=coalesce_renders).start()
         host_busy = pipe.host_stage
-    source = _tick_source(args, raw=raw, tier=tier)
+        host_span = functools.partial(tracer.span, "stage.host")
+    # A restarted serve keeps numbering ABOVE the rotation's members:
+    # lower-numbered snapshots would be pruned first and lose to
+    # pre-crash checkpoints in resolve_latest.
+    tick_base = 0
+    if args.serve_checkpoint_every and args.serve_checkpoint_dir:
+        from .io import serving_checkpoint as sc
+
+        existing = sc.list_checkpoints(args.serve_checkpoint_dir)
+        if existing:
+            tick_base = existing[0][0]
+    loop_t0 = time.monotonic()
+    probe_out: dict = {}
+    probe_wired = False
+    end = object()
+    source = _tick_source(args, raw=raw, tier=tier, recorder=recorder,
+                          probe_out=probe_out, stamp=stamp)
     try:
-        for batch in source:
+        while True:
+            # poll is its own root span: it measures waiting on EXTERNAL
+            # telemetry
+            with tracer.span("poll"):
+                batch = next(source, end)
+            if batch is end:
+                break
+            if usr1 is not None and usr1["due"]:
+                # the deferred half of the SIGUSR1 hook, between ticks:
+                # record, dump the ring and the counters, keep serving
+                usr1["due"] = False
+                recorder.record("signal.sigusr1")
+                _dump_flight(recorder, args.obs_dir, "sigusr1")
+                _dump_metrics(m, args.obs_dir, "sigusr1")
             if pipe is not None:
                 # a dead device stage must end the serve, not let the
                 # host stage spin on
                 pipe.raise_if_failed()
+            if lat is not None:
+                _begin_tick_provenance(lat, batch, tier)
+            if health is not None:
+                health.tick()
+                if not probe_wired and "probe" in probe_out:
+                    # the collector exists once the source generator has
+                    # started: wire the /healthz probe at first arrival
+                    health.set_collector_probe(probe_out["probe"])
+                    if probe_out.get("fanin") is not None:
+                        health.set_source_roster(probe_out["fanin"].roster)
+                    probe_wired = True
             t0 = time.perf_counter()
-            with host_busy():
+            with tracer.span("tick"), host_busy(), host_span():
                 engine.mark_tick()  # freshness floor for the render
-                if isinstance(batch, bytes):
-                    engine.ingest_bytes(batch)
-                elif isinstance(batch, RawTick):
-                    # native fan-in: one feed per (source, poll batch),
-                    # under that source's namespace
-                    for sid, data in batch:
-                        engine.ingest_bytes(data, sid)
-                else:
-                    engine.ingest(batch)
-                engine.step()
-                _sync(engine.device)
+                with m.time("ingest_s"):
+                    with tracer.span("parse"):
+                        if isinstance(batch, bytes):
+                            n_rec = engine.ingest_bytes(batch)
+                        elif isinstance(batch, RawTick):
+                            # native fan-in: one feed per (source, poll
+                            # batch), under that source's namespace
+                            n_rec = sum(engine.ingest_bytes(data, sid)
+                                        for sid, data in batch)
+                        else:
+                            n_rec = engine.ingest(batch)
+                    m.inc("records", n_rec)
+                    # malformed wire lines, counted and skipped at the
+                    # parse seam, on either spine
+                    m.set("native_parse_errors", engine.parse_errors())
+                    if lat is not None:
+                        lat.mark_parse()
+                    with tracer.span("scatter"):
+                        engine.step()
+                        _sync(engine.device)
+                    if lat is not None:
+                        lat.mark_scatter()
                 summary.ingest_seconds.append(time.perf_counter() - t0)
                 summary.ticks += 1
+                m.inc("ticks")
                 if tier is not None:
-                    _evict_dead_namespaces(tier, engine, pipe, summary)
+                    _evict_dead_namespaces(tier, engine, pipe, summary, m,
+                                           recorder, lat)
+                # every tick: a scrape between renders must not read a
+                # stale drop count
+                m.set("flows_dropped", engine.dropped)
                 if summary.ticks % args.print_every == 0:
                     if engine.dropped > dropped_seen:
                         print(
@@ -542,31 +908,35 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
                             file=sys.stderr,
                         )
                         dropped_seen = engine.dropped
-                    if engine.parse_errors() > errors_seen:
-                        print(
-                            f"WARNING: {engine.parse_errors() - errors_seen}"
-                            f" malformed telemetry lines skipped since "
-                            f"last report",
-                            file=sys.stderr,
-                        )
-                        errors_seen = engine.parse_errors()
                     if pipe is not None:
                         plan = _dispatch_render(
                             args, engine, model, predict, serve_params,
-                            pipe, inc=inc, degrade=degrade,
+                            pipe, inc=inc, degrade=degrade, m=m,
+                            tracer=tracer, lat=lat,
                         )
                     else:
                         if args.idle_timeout and engine.last_time:
-                            engine.evict_idle(engine.last_time,
-                                              args.idle_timeout)
-                        plan = _print_table(engine, model, predict,
-                                            serve_params, args, inc,
-                                            degrade=degrade)
+                            m.inc("evicted", engine.evict_idle(
+                                engine.last_time, args.idle_timeout))
+                        with m.time("predict_s"):
+                            plan = _print_table(
+                                engine, model, predict, serve_params, args,
+                                inc, degrade=degrade, tracer=tracer,
+                                lat=lat,
+                            )
                     summary.render_ticks.append(summary.ticks)
                     if plan is not None:
                         summary.render_plans.append(plan)
+                if (args.serve_checkpoint_every
+                        and summary.ticks % args.serve_checkpoint_every == 0):
+                    with tracer.span("snapshot"):
+                        _snapshot_if_due(args, engine, m,
+                                         tick_base + summary.ticks, loop_t0,
+                                         recorder=recorder, health=health)
                 _sync(engine.device)
             summary.tick_seconds.append(time.perf_counter() - t0)
+            if args.metrics_every and summary.ticks % args.metrics_every == 0:
+                print(m.report(), file=sys.stderr, flush=True)
             if args.max_ticks and summary.ticks >= args.max_ticks:
                 break
         if pipe is not None:
@@ -589,15 +959,17 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
 
 
 def _dispatch_render(args, engine, model, predict, serve_params, pipe,
-                     inc=None, degrade=None):
+                     inc=None, degrade=None, *, m, tracer, lat=None):
     """Host-stage half of one pipelined render tick: evict, dispatch the
     read side against THIS tick's table, and stage the device-stage job.
     It prints what the serial render of the same tick prints: ``n_flows``
     is taken at dispatch, the dispatched tensors are fixed against tick
     N's state, and eviction waits for renders in flight (a released
-    slot's metadata must outlive its render). Returns the incremental
-    label plan, ``(kind, dirty rows)`` (None under ``--incremental
-    off``)."""
+    slot's metadata must outlive its render). The latency plane seals at
+    dispatch; the device stage marks the device boundary after
+    ``rows()``, whose copy to the host waits for the kernels. Returns the
+    incremental label plan, ``(kind, dirty rows)`` (None under
+    ``--incremental off``)."""
     from .serving.pipeline import RenderJob, dispatch_read
 
     idle = args.idle_timeout or None
@@ -609,21 +981,34 @@ def _dispatch_render(args, engine, model, predict, serve_params, pipe,
         stale = engine.stale_slots(engine.last_time, idle)
         if stale.size:
             if not pipe.idle():
+                m.inc("evict_deferred")
                 pipe.drain(timeout=10.0)
             if pipe.idle():
-                engine.evict_slots(stale)
-    read = dispatch_read(engine, predict, serve_params, args.table_rows,
-                         inc=inc)
+                m.inc("evicted", engine.evict_slots(stale))
+    with tracer.span("dispatch"):
+        read = dispatch_read(engine, predict, serve_params, args.table_rows,
+                             inc=inc)
+    # seal at dispatch, on the host stage: exactly the batches scattered
+    # so far become visible when this render prints
+    seal = lat.seal() if lat is not None else None
 
     def render(read):
-        rows = read.rows()
-        # the stale verdict postdates the predict attempt: a ladder trip
-        # during rows() marks this tick's render
-        stale = degrade is not None and degrade.render_stale
-        if args.table_rows > 0:
-            _print_ranked(engine, model, rows, read.n_flows, stale=stale)
-        else:
-            _print_full(model, rows, stale=stale)
+        with tracer.span("stage.device"):
+            with m.time("predict_s"), tracer.span("predict"):
+                rows = read.rows()  # ends on the copy to the host
+            if lat is not None:
+                lat.mark_device(seal)
+            # the stale verdict postdates the predict attempt: a ladder
+            # trip during rows() marks this tick's render
+            stale = degrade is not None and degrade.render_stale
+            with tracer.span("render"):
+                if args.table_rows > 0:
+                    _print_ranked(engine, model, rows, read.n_flows,
+                                  stale=stale)
+                else:
+                    _print_full(model, rows, stale=stale)
+            if lat is not None:
+                lat.render_visible(seal)
 
     pipe.submit(RenderJob(read, render))
     return None if inc is None else inc.last_plan
@@ -676,46 +1061,145 @@ def _print_full(model, rows, stale=False) -> None:
 
 
 def _print_table(engine, model, predict, serve_params, args, inc=None,
-                 degrade=None):
+                 degrade=None, *, tracer, lat=None):
     """The serial render: label the table and print the tick's table;
     returns the incremental label plan, ``(kind, dirty rows)`` (None under
-    ``--incremental off``)."""
+    ``--incremental off``).
+
+    The ``predict`` span ends where the port already waits: under the
+    degrade ladder its device call includes the labels' copy to the host,
+    so the span covers the kernel; a bare kernel predict (``--degrade
+    off``) returns at its launch, and the kernel's time falls into
+    ``render``, whose copy to the host waits for it. No sync is added to
+    close a span. The latency plane marks the device boundary after the
+    first such wait."""
+    # serial render: everything scattered so far becomes visible when this
+    # frame prints — seal, wait, fold
+    seal = lat.seal() if lat is not None else None
     plan = None
     if inc is not None:
         # only this tick's dirty rows are predicted; the rest come from
         # the label cache
-        labels = inc.labels()
+        with tracer.span("predict"):
+            labels = inc.labels()
         plan = inc.last_plan
     else:
-        labels = predict(serve_params, engine.features())
+        with tracer.span("feature"):
+            X = engine.features()
+        with tracer.span("predict"):
+            labels = predict(serve_params, X)
+    on_host = not isinstance(labels, torch.Tensor)
+    if lat is not None and on_host:
+        lat.mark_device(seal)  # host labels: the device work is done
     # the stale verdict postdates the predict attempt
     stale = degrade is not None and degrade.render_stale
     n_flows = engine.num_flows()
-    if args.table_rows > 0:
-        # activity-ranked sample: O(table_rows) crosses to the host
-        _print_ranked(engine, model,
-                      engine.render_sample(labels, args.table_rows),
-                      n_flows, stale=stale)
-        return plan
-    if isinstance(labels, torch.Tensor):
-        labels = labels.cpu().numpy()
-    fwd_active = engine.table.fwd.active[:-1].cpu().numpy()
-    rev_active = engine.table.rev.active[:-1].cpu().numpy()
-    rows = [
-        (slot, src, dst, int(labels[slot]), bool(fwd_active[slot]),
-         bool(rev_active[slot]))
-        for slot, (src, dst) in sorted(engine.slot_metadata().items())
-    ]
-    _print_full(model, rows, stale=stale)
+    with tracer.span("render"):
+        if args.table_rows > 0:
+            # activity-ranked sample: O(table_rows) crosses to the host
+            ranked = engine.render_sample(labels, args.table_rows)
+            if lat is not None and not on_host:
+                lat.mark_device(seal)
+            _print_ranked(engine, model, ranked, n_flows, stale=stale)
+        else:
+            if not on_host:
+                labels = labels.cpu().numpy()
+                if lat is not None:
+                    lat.mark_device(seal)
+            fwd_active = engine.table.fwd.active[:-1].cpu().numpy()
+            rev_active = engine.table.rev.active[:-1].cpu().numpy()
+            rows = [
+                (slot, src, dst, int(labels[slot]), bool(fwd_active[slot]),
+                 bool(rev_active[slot]))
+                for slot, (src, dst) in sorted(engine.slot_metadata().items())
+            ]
+            _print_full(model, rows, stale=stale)
+    if lat is not None:
+        lat.render_visible(seal)
     return plan
+
+
+def _check_flags(args) -> None:
+    """The serve-durability and obs flag rules, before any model or device
+    work, so misuse fails fast."""
+    if args.serve_checkpoint_every and not args.serve_checkpoint_dir:
+        sys.exit("--serve-checkpoint-every needs --serve-checkpoint-dir")
+    if args.obs_dump_on_exit and not args.obs_dir:
+        sys.exit("--obs-dump-on-exit needs --obs-dir (the dump target)")
+
+
+def _build_engine(args, device, recorder):
+    """The serving engine: restored from ``--restore-serve-state`` (its
+    capacity and index kind are the checkpoint's) or fresh."""
+    from .ingest.batcher import FlowStateEngine
+
+    if not args.restore_serve_state:
+        return FlowStateEngine(
+            args.capacity, device=device, native=_use_native(args),
+            track_dirty=args.incremental != "off",
+        )
+    from .io import serving_checkpoint as sc
+
+    engine = sc.restore(args.restore_serve_state, recorder=recorder,
+                        device=device)
+    if args.incremental != "off":
+        # restored rows predate the label cache: everything starts dirty,
+        # so the first render re-predicts the whole table
+        engine.enable_dirty_tracking()
+    if engine.table.capacity != args.capacity:
+        print(
+            f"WARNING: --capacity {args.capacity} ignored — the checkpoint "
+            f"fixes capacity at {engine.table.capacity}",
+            file=sys.stderr,
+        )
+        args.capacity = engine.table.capacity
+    print(
+        f"restored {engine.num_flows()} tracked flows from "
+        f"{args.restore_serve_state}",
+        file=sys.stderr,
+    )
+    return engine
+
+
+def _start_exposition(args, m, recorder, degrade, inc, lat):
+    """``HealthState`` and the ``ExpositionServer`` of ``--obs-port``, or
+    (None, None)."""
+    if args.obs_port is None:
+        return None, None
+    from .obs import ExpositionServer, HealthState
+
+    health = HealthState(
+        max_tick_age_s=args.obs_stale_after,
+        max_checkpoint_age_s=args.obs_checkpoint_stale_after or None,
+    )
+    health.model_loaded()  # the model_age_s staleness anchor
+    if degrade is not None:
+        # 200-but-degraded, with the ladder's rung
+        health.set_degrade(degrade.status)
+    if inc is not None:
+        health.set_label_cache(inc.status)
+    if lat is not None:
+        health.set_latency(lat.status)
+    server = ExpositionServer(m, recorder=recorder, health=health,
+                              port=args.obs_port, host=args.obs_host)
+    server.start()
+    # --obs-port 0 binds ephemerally: report the ACTUAL port on the
+    # startup line, the obs_port gauge and the /healthz self-reference
+    health.set_obs_port(server.port)
+    m.set("obs_port", server.port)
+    print(f"observability plane on port {server.port} "
+          "(/metrics /healthz /events)", file=sys.stderr)
+    return health, server
 
 
 def run_classify(args) -> ServeSummary:
     from .device import resolve_device
-    from .ingest.batcher import FlowStateEngine
     from .io.checkpoint import load_model
     from .models import SUBCOMMAND_ALIASES
+    from .obs import FlightRecorder, Tracer
+    from .utils.metrics import global_metrics as m
 
+    _check_flags(args)
     device = resolve_device(args.device)
     model = load_model(args.native_checkpoint, device=device)
     if model.name != SUBCOMMAND_ALIASES[args.subcommand]:
@@ -728,10 +1212,24 @@ def run_classify(args) -> ServeSummary:
     # the serving pair; on a card this builds and loads the kernel, so a
     # kernel that does not build raises here, before the serve starts
     predict, serve_params = model.serving_path()
-    engine = FlowStateEngine(
-        args.capacity, device=device, native=_use_native(args),
-        track_dirty=args.incremental != "off",
-    )
+    # The obs plane: the flight recorder exists whenever an obs surface is
+    # on (it feeds /events and the post-mortem dump); the tracer is always
+    # on (per-tick spans cost microseconds and give --metrics-every its
+    # stage_* series), and so is latency provenance unless turned off.
+    recorder = (FlightRecorder()
+                if (args.obs_port is not None or args.obs_dir) else None)
+    tracer = Tracer(metrics=m, recorder=recorder)
+    lat = None
+    if _provenance_on(args):
+        from .obs import LatencyProvenance
+
+        lat = LatencyProvenance(metrics=m, recorder=recorder,
+                                slo_s=args.latency_slo)
+    if args.device_obs != "off" and recorder is not None:
+        print("NOTE: --device-obs: device-runtime telemetry (memory gauges, "
+              "the perf ring, /profile) is not ported yet (ROADMAP Queue 1 "
+              "item 6); nothing is armed", file=sys.stderr)
+    engine = _build_engine(args, device, recorder)
     # The degradation ladder wraps the kernel predict, built BEFORE warmup
     # so warmup routes through it (its first device call, on its grace
     # deadline, happens there, and its host rung is primed).
@@ -745,8 +1243,18 @@ def run_classify(args) -> ServeSummary:
             deadline=args.device_deadline,
             probe_every=args.probe_every,
             probe_successes=args.probe_successes,
+            metrics=m, recorder=recorder,
         )
         predict = degrade
+    server = None
+    # SIGTERM must leave a post-mortem: the handler only flags and raises
+    # (touching the non-reentrant ring lock from a signal frame could
+    # deadlock); the dump runs in the except path below. SIGUSR1 dumps
+    # without exiting, deferred to the loop. Handlers install only from
+    # the main thread.
+    prev_sigterm = prev_sigusr1 = None
+    sigterm_seen = False
+    usr1 = {"due": False}
     try:
         wstats = None
         if args.warmup:
@@ -767,12 +1275,74 @@ def run_classify(args) -> ServeSummary:
             from .serving.incremental import IncrementalLabels
 
             inc = IncrementalLabels(engine, predict, serve_params,
-                                    degrade=degrade)
-        summary = _serve_loop(args, engine, model, predict, serve_params,
-                              inc, degrade=degrade)
+                                    degrade=degrade, metrics=m,
+                                    recorder=recorder, tracer=tracer)
+        health, server = _start_exposition(args, m, recorder, degrade, inc,
+                                           lat)
+        if (recorder is not None and args.obs_dir
+                and threading.current_thread() is threading.main_thread()):
+            def _on_sigterm(signum, frame):
+                nonlocal sigterm_seen
+                sigterm_seen = True
+                raise SystemExit(143)
+
+            def _on_sigusr1(signum, frame):
+                usr1["due"] = True  # flag only — the dump is deferred
+
+            prev_sigterm = signal.signal(signal.SIGTERM, _on_sigterm)
+            prev_sigusr1 = signal.signal(signal.SIGUSR1, _on_sigusr1)
+        obs_faults = (recorder.observing_faults() if recorder is not None
+                      else contextlib.nullcontext())
+        try:
+            with obs_faults:
+                summary = _serve_loop(
+                    args, engine, model, predict, serve_params, inc,
+                    degrade=degrade, m=m, tracer=tracer, recorder=recorder,
+                    health=health, lat=lat, usr1=usr1)
+        except BaseException as e:
+            # the crash-forensics moment, outside any signal frame: a
+            # SystemExit is a dump only when the SIGTERM hook raised it
+            if recorder is not None:
+                if sigterm_seen and isinstance(e, SystemExit):
+                    recorder.record("signal.sigterm")
+                    _dump_flight(recorder, args.obs_dir, "sigterm")
+                elif not isinstance(e, SystemExit):
+                    recorder.record("serve.exception",
+                                    error=type(e).__name__, detail=str(e))
+                    _dump_flight(recorder, args.obs_dir,
+                                 "keyboard-interrupt"
+                                 if isinstance(e, KeyboardInterrupt)
+                                 else "serve-exception")
+            raise
+        else:
+            if recorder is not None:
+                if recorder.count("supervisor.terminal"):
+                    # the monitor died for good and the source drained:
+                    # the loop ends "cleanly", but the trail matters
+                    _dump_flight(recorder, args.obs_dir,
+                                 "supervisor-terminal")
+                elif args.obs_dump_on_exit:
+                    _dump_flight(recorder, args.obs_dir, "on-demand")
     finally:
+        if server is not None:
+            server.stop()
         if degrade is not None:
             degrade.close()
+        if prev_sigterm is not None:
+            signal.signal(signal.SIGTERM, prev_sigterm)
+            signal.signal(signal.SIGUSR1, prev_sigusr1)
+        # the checkpoint survives every exit, Ctrl-C and SIGTERM included:
+        # the state is consistent between ticks (save() flushes first)
+        if args.save_serve_state:
+            from .io import serving_checkpoint as sc
+
+            sc.save(engine, args.save_serve_state,
+                    feature_reference=engine.feature_reference)
+            print(
+                f"saved serving state ({engine.num_flows()} tracked flows) "
+                f"to {args.save_serve_state}",
+                file=sys.stderr,
+            )
     summary.warmup = wstats
     if degrade is not None:
         summary.degrade = degrade.status()
@@ -813,6 +1383,9 @@ def _apply_config(args, parser) -> None:
 
 
 def main(argv=None) -> ServeSummary:
+    from .utils.metrics import global_metrics
+
+    global_metrics.reset()  # per-run metrics, even for embedded reuse
     parser = _build_parser()
     args = parser.parse_args(argv)
     if args.knn_topk is not None:

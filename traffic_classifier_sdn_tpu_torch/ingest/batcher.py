@@ -26,6 +26,17 @@ from .protocol import PREFIX, TelemetryRecord, parse_line, stable_flow_key
 _U32 = np.uint64(0xFFFFFFFF)
 
 
+def batch_emit_ts(batch) -> float | None:
+    """The emit stamp of a direct-source poll batch, for the latency plane
+    (obs/latency.py): a poll batch is stamped as one unit on its lead
+    record (``protocol.stamp_records``), so the first record's stamp
+    speaks for the batch. None for raw byte batches (no records on the
+    host) and for unstamped batches."""
+    if isinstance(batch, (bytes, bytearray)) or not batch:
+        return None
+    return getattr(batch[0], "emit_ts", None)
+
+
 def bucket_size(n: int, buckets: Sequence[int]) -> int:
     for b in buckets:
         if n <= b:
@@ -327,6 +338,9 @@ class FlowStateEngine(HostSpine):
         self.device = resolve_device(device)
         self.table = ft.make_table(capacity, self.device)
         self.dirty = None
+        # the reference statistics block of a restored serving checkpoint
+        # (io/serving_checkpoint.py), written again by the next save
+        self.feature_reference = None
         on_card = self.device.type == "cuda"
         # recorded after each staged wire copy: the staging guard waits on
         # it, not on the whole device

@@ -34,12 +34,15 @@ one emission per serve tick — which makes multi-source runs
 deterministic (tests) and turns N synthetic sources into a repeatable
 heavy-traffic load generator.
 
-The port has no metrics plane yet: the per-source counters the JAX tier
-publishes as gauges are read through ``roster()``, and the tier's own
-event counts (``source_deaths``, ``source_restarts``,
-``source_restarts_refused``, ``source_flap_escalations``) through
-``counters``. ``metrics`` (an object with ``inc(name)``) and ``recorder``
-(``record(event, **fields)``) are optional sinks, None by default.
+With ``metrics`` (a ``utils.metrics.Metrics``; the CLI passes
+``global_metrics``) the tier writes the JAX tier's series: the event
+counters ``source_deaths``, ``source_restarts``,
+``source_restarts_refused`` and ``source_flap_escalations``, and on every
+tick the gauges ``fanin_sources``, ``fanin_queued_records``,
+``fanin_sources_dead``, ``fanin_records_dropped`` and per source
+``source_<sid>_state``/``_drops``/``_flaps``/``_lag_s``. The same numbers
+stay readable on the object: ``roster()`` rows and ``counters``.
+``recorder`` (obs/flight_recorder.py) receives the tier's events.
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ from .protocol import TelemetryRecord, stamp_records
 SOURCE_HEALTHY = "HEALTHY"
 SOURCE_RESTARTING = "RESTARTING"
 SOURCE_DEAD = "DEAD"
+_STATE_CODE = {SOURCE_HEALTHY: 0, SOURCE_RESTARTING: 1, SOURCE_DEAD: 2}
 
 
 @dataclass(frozen=True)
@@ -1052,10 +1056,12 @@ class FanInIngest:
         # on the record streams, not thread arrival timing
         got.sort(key=lambda b: b[0])
         if self.raw:
+            self._publish_metrics()
             return RawTick(got)
         merged: list[TelemetryRecord] = []
         for _sid, recs in got:
             merged.extend(recs)
+        self._publish_metrics()
         return merged
 
     # -- obs surface -------------------------------------------------------
@@ -1093,6 +1099,29 @@ class FanInIngest:
                 snap["quarantine_expires_s"] = round(max(0.0, q - now), 3)
             out.append(snap)
         return out
+
+    def _publish_metrics(self) -> None:
+        """The per-tick gauges of the tier and of each source."""
+        m = self._metrics
+        if m is None:
+            return
+        roster = self.roster()
+        m.set("fanin_sources", len(roster))
+        m.set("fanin_queued_records", self.queue.pending)
+        m.set(
+            "fanin_sources_dead",
+            sum(1 for r in roster if r["state"] == SOURCE_DEAD),
+        )
+        total_drops = 0
+        for r in roster:
+            sid = r["id"]
+            m.set(f"source_{sid}_state", _STATE_CODE[r["state"]])
+            m.set(f"source_{sid}_drops", r["drops"])
+            m.set(f"source_{sid}_flaps", r["flaps"])
+            total_drops += r["drops"]
+            if r["lag_s"] is not None:
+                m.set(f"source_{sid}_lag_s", r["lag_s"])
+        m.set("fanin_records_dropped", total_drops)
 
     def _count(self, name: str) -> None:
         """One tier event: counted on ``counters`` (and on ``metrics``,

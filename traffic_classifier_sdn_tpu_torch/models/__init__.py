@@ -151,6 +151,29 @@ def _host_native(fn: Callable) -> Callable:
     return fn
 
 
+def _screen_counted(hk, predict: Callable) -> Callable:
+    """``(params, X) -> labels`` over a native KNN evaluator's ``predict``
+    that diffs its cumulative screening totals (``screen_stats``) into the
+    ``knn_candidates_screened`` and ``knn_candidates_abandoned`` counters
+    of ``global_metrics`` after each call — one caller per serve (the
+    device-stage worker), so the stateful diff is safe."""
+    from ..utils.metrics import global_metrics
+
+    last = {"screened": 0, "abandoned": 0}
+
+    def counted(_params, X):
+        out = predict(X)
+        screened, abandoned, _queries = hk.screen_stats()
+        global_metrics.inc("knn_candidates_screened",
+                           screened - last["screened"])
+        global_metrics.inc("knn_candidates_abandoned",
+                           abandoned - last["abandoned"])
+        last["screened"], last["abandoned"] = screened, abandoned
+        return out
+
+    return counted
+
+
 def _knn_serving_path(params) -> tuple[Callable, Any]:
     """The ``--knn-topk`` menu (``resolve_knn_topk``):
 
@@ -170,7 +193,8 @@ def _knn_serving_path(params) -> tuple[Callable, Any]:
         return _kernel_serving_path("knn", params)
     if impl == "native":
         hk = _native_knn(params)
-        return _host_native(lambda _p, X: hk.predict(_host_f32(X))), None
+        return _host_native(_screen_counted(
+            hk, lambda X: hk.predict(_host_f32(X)))), None
     if impl.startswith("ivf"):
         from ..native import knn as native_knn
         from ..ops import knn_ivf
@@ -182,8 +206,8 @@ def _knn_serving_path(params) -> tuple[Callable, Any]:
         hk = _native_knn(params)
         hk.build_ivf(ivf.centers.cpu().numpy(), knn_ivf.assignments_of(ivf))
         nprobe = ivf.nprobe
-        return _host_native(
-            lambda _p, X: hk.predict_ivf(_host_f32(X), nprobe)), None
+        return _host_native(_screen_counted(
+            hk, lambda X: hk.predict_ivf(_host_f32(X), nprobe))), None
     if impl != "argmax":
         prefix = "hier" if impl.startswith("hier") else "screened"
         suffix = impl[len(prefix):]

@@ -9,6 +9,10 @@ same wire and table state); this path exists because line splitting and
 dict routing are the host's hot loop once the counter math lives on the
 device.
 
+For serving checkpoints (io/serving_checkpoint.py) the index exports and
+imports in bulk: ``export_index``/``export_meta`` and ``import_index``, one
+ctypes crossing each, in the JAX package's layout.
+
 The library is built from this package's ``flow_engine.cpp`` with g++ on
 first use, into ``csrc/build/`` (``loader.LazyLib``). ``available()``
 reports whether a build is possible, so callers can fall back to the
@@ -54,6 +58,13 @@ _SIGNATURES = {
     "tc_engine_slot_meta": (ct.c_int, [_VP, _U32, ct.c_char_p, ct.c_char_p,
                                        _U32]),
     "tc_engine_release_slots": (None, [_VP, _VP, _U32]),
+    "tc_engine_last_flush_conflict": (ct.c_int, [_VP]),
+    # serving-checkpoint export and import (io/serving_checkpoint.py)
+    "tc_engine_export_index": (_U32, [_VP, _VP, _VP]),
+    "tc_engine_export_free": (_U32, [_VP, _VP]),
+    "tc_engine_export_meta": (None, [_VP, _VP, _U32, _VP, _VP]),
+    "tc_engine_import_slots": (None, [_VP, _VP, _VP, _VP, _VP, _U32]),
+    "tc_engine_import_finish": (None, [_VP, _U32, ct.c_int32, _VP, _U32]),
 }
 
 
@@ -184,6 +195,13 @@ class NativeBatcher:
         return int(self._lib.tc_engine_pending(self._h))
 
     # -- flush -------------------------------------------------------------
+    def last_flush_was_conflict(self) -> bool:
+        """True iff the batch returned by the most recent ``flush()`` was a
+        generation started by a same-(slot, direction, kind) conflict: it
+        must not be merged into one scatter with the batch flushed before
+        it. Size-rollover generations return False."""
+        return bool(self._lib.tc_engine_last_flush_conflict(self._h))
+
     def flush(self) -> ft.UpdateBatch | None:
         """Pop the oldest pending generation as a padded UpdateBatch (None
         when idle) — the contract of batcher.Batcher.flush."""
@@ -292,3 +310,55 @@ class NativeBatcher:
         """Bulk release: one ctypes crossing for the whole batch."""
         a = np.ascontiguousarray(slots, np.uint32)
         self._lib.tc_engine_release_slots(self._h, _ptr(a), a.size)
+
+    # -- serving checkpoints -------------------------------------------------
+    def export_index(self):
+        """The index for a serving checkpoint, in bulk crossings:
+        ``(fp, used, next_slot, free)`` — per-slot fingerprints (uint64),
+        occupancy (uint8), the sequential-assignment frontier, and the
+        free-slot stack verbatim (uint32; LIFO order decides future
+        assignments)."""
+        fp = np.zeros(self.capacity, np.uint64)
+        used = np.zeros(self.capacity, np.uint8)
+        next_slot = self._lib.tc_engine_export_index(
+            self._h, _ptr(fp), _ptr(used)
+        )
+        free = np.zeros(self.capacity, np.uint32)
+        n_free = self._lib.tc_engine_export_free(self._h, _ptr(free))
+        return fp, used, int(next_slot), free[:n_free].copy()
+
+    def export_meta(self, slots):
+        """``(src, dst)`` fixed-width ``S64`` byte arrays for ``slots``, one
+        ctypes crossing for the whole table."""
+        slots = np.ascontiguousarray(slots, np.uint32)
+        src = np.zeros(slots.size, "S64")
+        dst = np.zeros(slots.size, "S64")
+        self._lib.tc_engine_export_meta(
+            self._h, _ptr(slots), slots.size, _ptr(src), _ptr(dst)
+        )
+        return src, dst
+
+    def import_index(self, slots, fps, src, dst, next_slot: int,
+                     last_time: int, free) -> None:
+        """Rebuild a FRESH engine's index (same capacity) from an export:
+        ``slots`` uint32, ``fps`` uint64 fingerprints, ``src``/``dst``
+        byte strings (cast to 64-byte cells), the frontier, the eviction
+        clock and the free stack (uint32, bottom to top). One crossing for
+        the slots, one for the finish."""
+        slots = np.ascontiguousarray(slots, np.uint32)
+        fps = np.ascontiguousarray(fps, np.uint64)
+        src = np.ascontiguousarray(src, "S64")
+        dst = np.ascontiguousarray(dst, "S64")
+        if not slots.size == fps.size == src.size == dst.size:
+            raise ValueError(
+                f"import_index: {slots.size} slots, {fps.size} keys, "
+                f"{src.size} src, {dst.size} dst — lengths differ"
+            )
+        self._lib.tc_engine_import_slots(
+            self._h, _ptr(slots), _ptr(fps), _ptr(src), _ptr(dst),
+            slots.size,
+        )
+        free = np.ascontiguousarray(free, np.uint32)
+        self._lib.tc_engine_import_finish(
+            self._h, next_slot, last_time, _ptr(free), free.size
+        )

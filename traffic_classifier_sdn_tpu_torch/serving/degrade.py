@@ -39,11 +39,14 @@ host-label read paths (serving/incremental.py host mode,
 serving/pipeline.py) and its waiting lands on the pipeline's device-stage
 worker. On the no-fault path it returns exactly the kernel's labels.
 
-The port has no metrics plane or flight recorder yet: the ladder keeps its
-counters and its transitions on the object (``status()``,
-``transitions``), and prints each transition to stderr as the JAX ladder
-does. Fault sites ``degrade.dispatch_stall``, ``degrade.dispatch_error``
-and ``degrade.probe`` (utils/faults.py) drive the stall, error and failed
+Every transition and probe goes where the JAX ladder sends it: the
+``degrade_transitions`` and ``probe_failures`` counters and the
+``degrade_state`` gauge of ``metrics``, the ``degrade.transition`` and
+``degrade.probe`` events of ``recorder`` (obs/flight_recorder.py), and a
+stderr line per transition. The object keeps its own counters and edge
+list too (``status()``, ``transitions``). Fault sites
+``degrade.dispatch_stall``, ``degrade.dispatch_error`` and
+``degrade.probe`` (utils/faults.py) drive the stall, error and failed
 probe edges; the first two are absorbed by the ladder.
 
 **A fault of the card is not absorbed.** On a CUDA tensor only a missed
@@ -208,6 +211,7 @@ class DegradeLadder:
                  probe_every: float = 5.0,
                  probe_successes: int = 3,
                  backoff_cap: float = 300.0,
+                 metrics=None, recorder=None,
                  clock=time.monotonic,
                  rng: random.Random | None = None,
                  raise_device_errors: bool | None = None):
@@ -225,6 +229,8 @@ class DegradeLadder:
         self.probe_every = float(probe_every)
         self.probe_successes = int(probe_successes)
         self.backoff_cap = float(backoff_cap)
+        self._metrics = metrics
+        self._recorder = recorder
         self._clock = clock
         self._rng = rng if rng is not None else random.Random()
         self._watchdog = DeviceWatchdog()
@@ -239,11 +245,13 @@ class DegradeLadder:
         self._next_probe_at = 0.0
         self._last_labels: np.ndarray | None = None
         self._last_stale = False
-        # counters the JAX ladder keeps in its metrics plane
+        # the object's own counts, beside the metrics plane's
         self._probe_failures = 0
         self._device_calls = 0
         self._fallback_calls = 0
         self.transitions: list[tuple[str, str, str]] = []  # (from, to, why)
+        if metrics is not None:
+            metrics.set("degrade_state", STATE_GAUGE[HEALTHY])
 
     # -- public surface ----------------------------------------------------
     @property
@@ -270,7 +278,7 @@ class DegradeLadder:
 
     def status(self) -> dict:
         """The ladder's self-report: the JAX ``status()`` keys, plus the
-        counters the JAX package keeps in its metrics plane."""
+        ladder's own counts of what it also writes into ``metrics``."""
         with self._lock:
             state = PROBING if self._probing else self._rung
             return {
@@ -483,20 +491,30 @@ class DegradeLadder:
                     self._probe_ok = 0
                     self._set_locked(rung=HEALTHY, probing=False,
                                      reason="promoted")
+                    delay = None
                 else:
                     # clean but the chain is incomplete: the base cadence,
                     # no jitter (nothing failed)
-                    self._next_probe_at = now + self.probe_every
+                    delay = self.probe_every
+                    self._next_probe_at = now + delay
             else:
-                self._probe_failed_locked(detail)
+                delay = self._probe_failed_locked(detail)
                 self._set_locked(probing=False,
                                  reason=f"probe-failed:{detail}")
+            successes = self._probe_ok
+        if self._recorder is not None:
+            self._recorder.record(
+                "degrade.probe", ok=ok, detail=detail,
+                successes=successes, next_delay_s=delay,
+            )
 
     def _probe_failed_locked(self, detail: str) -> float:
         """Failed-probe bookkeeping (callers hold ``self._lock``): reset the
         chain, count the failure, and return the full-jitter exponential
         delay applied to ``_next_probe_at``."""
         self._probe_failures += 1
+        if self._metrics is not None:
+            self._metrics.inc("probe_failures")
         self._probe_ok = 0
         self._backoff_level += 1
         window = min(self.backoff_cap,
@@ -553,5 +571,15 @@ class DegradeLadder:
                 return
             old, new = old_rung, self._rung
         self.transitions.append((old, new, reason))
+        if self._metrics is not None:
+            self._metrics.inc("degrade_transitions")
+            self._metrics.set(
+                "degrade_state",
+                STATE_GAUGE[PROBING if self._probing else self._rung],
+            )
+        if self._recorder is not None:
+            self._recorder.record(
+                "degrade.transition", frm=old, to=new, reason=reason
+            )
         print(f"DEGRADE: {old} -> {new} ({reason})", file=sys.stderr,
               flush=True)

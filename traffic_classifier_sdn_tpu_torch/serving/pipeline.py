@@ -191,11 +191,14 @@ class ServePipeline:
     """A ``Handoff`` plus one device-stage worker running ``consume(item)``
     per staged item, with the worker's exception re-raised on the host
     stage (at the next ``submit``/``drain``/``raise_if_failed``) and
-    host/device busy and overlap accounting (``stats``)."""
+    host/device busy and overlap accounting (``stats``). ``metrics`` (a
+    ``utils.metrics.Metrics``) receives the JAX pipeline's series: the
+    ``queue_depth`` gauge, ``ticks_coalesced`` and ``stage_overlap_s``."""
 
     def __init__(self, consume: Callable, *, depth: int = 2,
-                 merge: Callable | None = None):
+                 metrics=None, merge: Callable | None = None):
         self._consume = consume
+        self._metrics = metrics
         self._clock = time.perf_counter
         self._handoff = Handoff(depth=depth, merge=merge)
         self._lock = threading.Lock()
@@ -224,11 +227,16 @@ class ServePipeline:
         coalesced. Raises the device stage's exception if it died."""
         self.raise_if_failed()
         try:
-            return self._handoff.put(item)
+            queued = self._handoff.put(item)
         except RuntimeError:
             # closed under us: the device stage died between checks
             self.raise_if_failed()
             raise
+        if self._metrics is not None:
+            self._metrics.set("queue_depth", self._handoff.queued)
+            if not queued:
+                self._metrics.inc("ticks_coalesced")
+        return queued
 
     def raise_if_failed(self) -> None:
         with self._lock:
@@ -309,6 +317,9 @@ class ServePipeline:
                 if t1 > lo:
                     overlap += t1 - lo
             self._overlap_s += overlap
+        if self._metrics is not None:
+            self._metrics.observe("stage_overlap_s", overlap)
+            self._metrics.set("queue_depth", self._handoff.queued)
 
 
 # ---------------------------------------------------------------------------

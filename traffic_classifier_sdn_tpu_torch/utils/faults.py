@@ -1,13 +1,16 @@
-"""Deterministic fault injection at the ingest and label-cache seams.
+"""Deterministic fault injection at the durability, ingest and
+label-cache seams.
 
 The port's copy of ``traffic_classifier_sdn_tpu/utils/faults.py``, with
 the registry cut to the sites this package threads. A named *fault site*
-sits at each seam (collector reads, supervisor restart, the fan-in
-queue and source pumps, native engine load and parse, the latency
-stamp, the pipeline handoff, the degrade ladder's dispatch and probe,
-the incremental label path); a test
-installs a seeded ``FaultPlan`` that fires scripted failures at exact
-hit counts (or seeded probabilities).
+sits at each seam (serving-checkpoint write, rename and restore,
+collector reads, supervisor restart, the fan-in queue and source pumps,
+native engine load and parse, the latency stamp, the pipeline handoff,
+the degrade ladder's dispatch and probe, the incremental label path); a
+test installs a seeded ``FaultPlan`` that fires scripted failures at
+exact hit counts (or seeded probabilities). Observers
+(``add_observer``/``observing``) see every fire before it manifests: the
+flight recorder (obs/flight_recorder.py) logs them that way.
 
 1. **Inert by default.** With no plan installed every site is one module
    attribute load and an ``is None`` branch. The serve loop's sites are
@@ -29,6 +32,16 @@ from dataclasses import dataclass, field
 # fault_point()/fault_bytes(); values say where the seam lives and what a
 # fire simulates.
 SITES: dict[str, str] = {
+    "serving_ckpt.write": (
+        "io/serving_checkpoint.save — temp file half-written (a fire == "
+        "crash mid-checkpoint: the temp is torn away, the previous "
+        "checkpoint survives)"
+    ),
+    "serving_ckpt.rename": (
+        "io/serving_checkpoint.save — complete fsynced temp, crash at "
+        "the atomic rename itself (durability without visibility)"
+    ),
+    "serving_ckpt.restore": "io/serving_checkpoint.restore entry",
     "collector.read": (
         "ingest/collector raw reader, per pipe chunk; 'truncate' drops "
         "the chunk tail mid-record (framing must poison the seam), "
@@ -177,6 +190,47 @@ class FaultPlan:
 # before doing any other work.
 _plan: FaultPlan | None = None
 
+# Fire observers: called as fn(site, hit, kind) AFTER a rule fires but
+# BEFORE the failure manifests (raise/truncate), so crash forensics (the
+# flight recorder) capture the firing even when the fire kills the path
+# that would have reported it. Consulted only on a fire.
+_observers: list = []
+
+
+def add_observer(fn) -> None:
+    """Register ``fn(site, hit, kind)`` to be called on every fire."""
+    if fn not in _observers:
+        _observers.append(fn)
+
+
+def remove_observer(fn) -> None:
+    if fn in _observers:
+        _observers.remove(fn)
+
+
+@contextlib.contextmanager
+def observing(fn):
+    """Scoped observer registration — always detaches (the registry is
+    process-global; a leaked observer would haunt later runs)."""
+    add_observer(fn)
+    try:
+        yield fn
+    finally:
+        remove_observer(fn)
+
+
+def _notify(site: str, hit: int, kind: str) -> None:
+    # observation must never alter injection semantics: a broken observer
+    # is reported on stderr, not allowed to mask the fire
+    for fn in list(_observers):
+        try:
+            fn(site, hit, kind)
+        except Exception as e:  # noqa: BLE001 — forensics must not inject
+            import sys
+
+            print(f"WARNING: fault observer {fn!r} failed: {e}",
+                  file=sys.stderr)
+
 
 def install(plan: FaultPlan | None) -> None:
     global _plan
@@ -185,6 +239,10 @@ def install(plan: FaultPlan | None) -> None:
 
 def clear() -> None:
     install(None)
+
+
+def active() -> FaultPlan | None:
+    return _plan
 
 
 @contextlib.contextmanager
@@ -203,6 +261,7 @@ def fault_point(site: str) -> None:
         return
     r = _plan.check(site)
     if r is not None:
+        _notify(site, _plan.hits[site], r.kind)
         raise FaultInjected(site, _plan.hits[site])
 
 
@@ -215,6 +274,7 @@ def fault_bytes(site: str, data: bytes) -> bytes:
     r = _plan.check(site)
     if r is None:
         return data
+    _notify(site, _plan.hits[site], r.kind)
     if r.kind == "truncate":
         return data[: len(data) // 2]
     raise FaultInjected(site, _plan.hits[site])
