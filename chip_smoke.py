@@ -1029,8 +1029,9 @@ class _WatchedRead:
     render, ``commit()`` for a coalesced one) go to ``log`` under its
     dispatch index."""
 
-    def __init__(self, read, k: int, counter, log: list):
+    def __init__(self, read, k: int, counter, log: list, before=None):
         self._read, self._k, self._counter, self._log = read, k, counter, log
+        self._before = before
         self.n_flows = read.n_flows
 
     def _launches(self) -> int:
@@ -1047,17 +1048,20 @@ class _WatchedRead:
         return self._watch("commit", self._read.commit)
 
     def rows(self):
+        if self._before is not None:
+            self._before(self._k)
         return self._watch("rows", self._read.rows)
 
 
 @contextlib.contextmanager
-def watched_dispatch(family: str):
+def watched_dispatch(family: str, before=None):
     """While active, every render the pipelined serve dispatches records
     the feature matrix of the table it was dispatched against
     (``features``, by dispatch index: ``engine.features()`` is a fresh
     tensor, so later ticks do not change it) and its device-stage work
     (``log``, see ``_WatchedRead``; a family without a kernel logs no
-    launches)."""
+    launches). ``before(k)``, if given, runs on the device stage just
+    before render ``k``'s rows are taken."""
     from traffic_classifier_sdn_tpu_torch.serving import pipeline
 
     counter = _kernels().get(family, (None,))[0]
@@ -1067,7 +1071,7 @@ def watched_dispatch(family: str):
     def watched(engine, *args, **kw):
         features.append(engine.features())
         read = dispatch(engine, *args, **kw)
-        return _WatchedRead(read, len(features) - 1, counter, log)
+        return _WatchedRead(read, len(features) - 1, counter, log, before)
 
     pipeline.dispatch_read = watched
     try:
@@ -2521,6 +2525,63 @@ def churn_capture(path: str, n_flows: int,
     return reporting
 
 
+DRIFT_FACTOR = 10.0  # packet-rate factor of the drifted population
+NOVEL_FACTOR = 200.0  # packet-rate factor of the novel conversations
+
+
+class DriftStream:
+    """A drifting telemetry stream: ``SyntheticFlows(n_flows)``, every
+    conversation reporting every tick, whose packet rates (both
+    directions) ``shift()`` multiplies by ``DRIFT_FACTOR``; and
+    ``novel_flows`` more conversations (seed 1, MACs above the population)
+    at ``NOVEL_FACTOR`` times their own seeded rates — traffic of no class
+    the serve has seen — reporting in the ticks asked for."""
+
+    def __init__(self, n_flows: int, novel_flows: int = 0):
+        from traffic_classifier_sdn_tpu_torch.ingest.replay import (
+            SyntheticFlows,
+        )
+
+        self.syn = SyntheticFlows(n_flows=n_flows)
+        self.novel = None
+        if novel_flows:
+            self.novel = SyntheticFlows(n_flows=novel_flows, seed=1,
+                                        mac_base=n_flows)
+            self.novel.pps_fwd *= NOVEL_FACTOR
+            self.novel.pps_rev *= NOVEL_FACTOR
+
+    def shift(self, factor: float = DRIFT_FACTOR) -> None:
+        self.syn.pps_fwd *= factor
+        self.syn.pps_rev *= factor
+
+    def tick_bytes(self, novel: bool = False) -> bytes:
+        blob = self.syn.tick_bytes()
+        if novel and self.novel is not None:
+            self.novel.t = self.syn.t - 1  # the same poll time
+            blob += self.novel.tick_bytes()
+        return blob
+
+
+def drift_ticks(n_flows: int, ticks: int, shift_at: int,
+                novel_at: int | None = None, novel_flows: int = 0):
+    """Yields the wire bytes of each tick of a ``DriftStream``: shifted
+    from the 0-based tick ``shift_at`` on, its novel conversations
+    reporting from tick ``novel_at`` on."""
+    stream = DriftStream(n_flows, novel_flows)
+    for k in range(ticks):
+        if k == shift_at:
+            stream.shift()
+        yield stream.tick_bytes(novel=novel_at is not None and k >= novel_at)
+
+
+def drift_capture(path: str, n_flows: int, ticks: int, shift_at: int,
+                  **kw) -> None:
+    """Writes ``drift_ticks`` as a replay capture."""
+    with open(path, "wb") as f:
+        for blob in drift_ticks(n_flows, ticks, shift_at, **kw):
+            f.write(blob)
+
+
 def _check_tables(tag: str, tables: list, plain: list) -> None:
     """Every rendered table's labels equal the plain version's labels on
     the table it rendered."""
@@ -3436,6 +3497,398 @@ def phase_checkpoint(model: dict, k, device) -> int:
     return launches
 
 
+DRIFT_NOVEL = 4096  # novel conversations, reporting after the promotion
+DRIFT_BASE = CAPACITY - DRIFT_NOVEL  # conversations of the drifting stream
+DRIFT_SHIFT_AT = 6  # the 0-based tick from which the rates are shifted
+DRIFT_PAUSE = 0.5  # s between the emitter's ticks
+DRIFT_MAX_TICKS = 90  # the emitter's cap if nothing promotes
+DRIFT_AFTER_TICKS = 4  # ticks emitted once the promotion (or rollback) landed
+# the stated probe-agreement floor: a refit of the random 100-tree teacher
+# on one window reproduces about four in five of its labels on the next
+# (PERF.md), never all of them
+DRIFT_PARITY = 0.6
+DRIFT_FLAGS = ("--drift", "auto", "--drift-window", "2", "--drift-trips",
+               "2", "--drift-probe-successes", "2", "--drift-parity",
+               str(DRIFT_PARITY), "--openset", "auto")
+# the open-set gate's calibration rows, in drifting populations: the
+# first three ticks fill them (the first holds fewer active rows). A flow's
+# first poll yields degenerate features (one sample, no deltas yet), so a
+# gate armed on the first tick alone rejects every later, ordinary row
+OPENSET_CAL_TICKS = 2
+OPENSET_TIE_RTOL = 1e-5  # float32 scores against the float64 threshold
+PLAIN_SLICE = 4096  # rows per call of a depth-10 forest's plain version
+DRIFT_EMITTER = """\
+import os, sys, time
+sys.path.insert(0, sys.argv[1])
+from chip_smoke import DriftStream
+base, novel, flag = int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+shift_at, pause, cap, after = (int(sys.argv[5]), float(sys.argv[6]),
+                               int(sys.argv[7]), int(sys.argv[8]))
+stream = DriftStream(base, novel)
+out = sys.stdout.buffer
+out.write(b"loading app simple_monitor_13.py\\n")
+left = None
+for k in range(cap):
+    if k == shift_at:
+        stream.shift()
+    if left is None and os.path.exists(flag):
+        left = after
+    out.write(stream.tick_bytes(novel=left is not None))
+    out.flush()
+    if left is not None:
+        left -= 1
+        if left == 0:
+            break
+    time.sleep(pause)
+"""
+
+
+def plain_forest_proba(k, X):
+    """The forest's plain-version probabilities in ``PLAIN_SLICE``-row
+    calls (its GEMM form holds (rows, trees · internal nodes) matrices,
+    which a depth-10 forest makes large); every step of it is exact per
+    row, so the slices change no bit."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+
+    return torch.cat([fk.forest_proba_plain(k, X[i:i + PLAIN_SLICE])
+                      for i in range(0, X.shape[0], PLAIN_SLICE)])
+
+
+def openset_relabel(labels: np.ndarray, X: np.ndarray, ref: dict | None,
+                    unknown: int) -> np.ndarray:
+    """``labels`` with the open-set gate's float64 host rule applied for
+    the armed reference ``ref`` (None: calibrating, nothing rejected)."""
+    from traffic_classifier_sdn_tpu_torch.serving.openset import (
+        openset_scores,
+    )
+
+    if ref is None:
+        return labels
+    X = np.asarray(X, np.float64)
+    scores = openset_scores(X, ref["openset_mean"], ref["openset_inv_std"])
+    rej = X.any(axis=1) & (scores > float(ref["openset_threshold"]))
+    return np.where(rej, unknown, labels)
+
+
+@contextlib.contextmanager
+def watched_drift():
+    """While active, the drift loop's objects a serve builds are kept
+    (``seen["gate"]``, ``["controller"]``, ``["openset"]``), and every
+    refit is timed: ``seen["fits"]`` holds ``(seconds, params, end)`` per
+    ``retrain.fit_family`` call, ``end`` on the monotonic clock."""
+    from traffic_classifier_sdn_tpu_torch.serving import drift, openset
+    from traffic_classifier_sdn_tpu_torch.serving import retrain
+
+    seen: dict = {"fits": []}
+    patched = []
+
+    def keep(cls, name):
+        init = cls.__init__
+
+        def wrapped(self, *a, **kw):
+            init(self, *a, **kw)
+            seen[name] = self
+
+        patched.append((cls, init))
+        cls.__init__ = wrapped
+
+    keep(drift.DriftGate, "gate")
+    keep(drift.DriftController, "controller")
+    keep(openset.OpenSetGate, "openset")
+    fit = retrain.fit_family
+
+    def timed(*a, **kw):
+        import torch
+
+        t0 = time.perf_counter()
+        params = fit(*a, **kw)
+        if next(params.buffers()).is_cuda:
+            torch.cuda.synchronize()
+        seen["fits"].append((time.perf_counter() - t0, params,
+                             time.monotonic()))
+        return params
+
+    retrain.fit_family = timed
+    try:
+        yield seen
+    finally:
+        retrain.fit_family = fit
+        for cls, init in patched:
+            cls.__init__ = init
+
+
+def _drift_serve(tag: str, ckpt: str, tmp: str, novel: int, counter: str,
+                 plan=None):
+    """One no-flag forest serve of the drifting stream (``--source ryu``
+    over ``DRIFT_EMITTER``) with ``DRIFT_FLAGS`` and ``--obs-port 0``. A
+    watcher touches the emitter's flag once the ``counter`` metric
+    (``promotions`` or ``rollbacks``) counts one, and scrapes ``/healthz``
+    meanwhile. Returns (stdout, summary, wall s, features, log, per-render
+    state, seen, watcher record)."""
+    import threading
+
+    from traffic_classifier_sdn_tpu_torch.utils import faults
+    from traffic_classifier_sdn_tpu_torch.utils.metrics import global_metrics
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    emitter = os.path.join(tmp, "drift_emit.py")
+    flag = os.path.join(tmp, f"{counter}.flag")
+    with open(emitter, "w") as f:
+        f.write(DRIFT_EMITTER)
+    states: dict = {}
+    watch: dict = {"healthz": None, "flagged_at": None}
+    done = threading.Event()
+
+    with watched_drift() as seen:
+        def before(k):
+            # what render k serves with: the swapped model or the boot one,
+            # and the open-set gate's armed reference
+            states[k] = (seen["gate"].swapped,
+                         seen["openset"].reference_arrays())
+
+        def watcher():
+            while not done.is_set():
+                if (watch["flagged_at"] is None
+                        and global_metrics.counters.get(counter, 0)):
+                    watch["flagged_at"] = len(log)
+                    watch["flagged_t"] = time.monotonic()
+                    open(flag, "w").close()
+                port = int(global_metrics.gauges.get("obs_port", 0))
+                if port:
+                    try:
+                        status, body = _get(port, "/healthz")
+                    except OSError:  # the serve's plane stopping under it
+                        status, body = 0, b"{}"
+                    body = json.loads(body)
+                    if status == 200 and "drift" in body:
+                        watch["healthz"] = body
+                done.wait(0.1)
+
+        with watched_dispatch("forest", before) as (features, log):
+            thread = threading.Thread(target=watcher, daemon=True)
+            ctx = (faults.installed(plan) if plan is not None
+                   else contextlib.nullcontext())
+            try:
+                with ctx:
+                    thread.start()
+                    out, summary, wall = _serve([
+                        "Randomforest", "--source", "ryu", "--monitor-cmd",
+                        f"{sys.executable} {emitter} {root} {DRIFT_BASE} "
+                        f"{novel} {flag} {DRIFT_SHIFT_AT} {DRIFT_PAUSE} "
+                        f"{DRIFT_MAX_TICKS} {DRIFT_AFTER_TICKS}",
+                        "--capacity", str(CAPACITY), "--print-every", "1",
+                        "--native-checkpoint", ckpt,
+                        "--drift-dir", os.path.join(tmp, f"rotation-{counter}"),
+                        "--obs-port", "0", *DRIFT_FLAGS,
+                        "--openset-calibration-rows",
+                        str(OPENSET_CAL_TICKS * DRIFT_BASE),
+                    ])
+            finally:
+                done.set()
+                thread.join(timeout=10)
+    if watch["flagged_at"] is None:
+        events = [e for e in seen["controller"]._recorder.tail()
+                  if e["kind"].startswith(("drift.", "openset.calibrated"))]
+        print(f"{tag} events: {events[-40:]}; open-set {summary.openset}")
+        raise AssertionError(f"{tag} no {counter[:-1]} in "
+                             f"{DRIFT_MAX_TICKS} ticks: {summary.drift}")
+    print(f"{tag} {summary.ticks} polls in {wall:.2f} s (ticks paced "
+          f"{DRIFT_PAUSE} s apart, rates x{DRIFT_FACTOR} from tick "
+          f"{DRIFT_SHIFT_AT + 1}); host stage per tick (s): "
+          + ", ".join(f"{x:.3f}" for x in summary.tick_seconds))
+    return out, summary, wall, features, log, states, seen, watch
+
+
+def _check_drift_tables(tag: str, tables: list, features: list, log: list,
+                        states: dict, ops: dict) -> tuple[int, int]:
+    """Every printed table's labels: the plain forest's (the boot stacks
+    before the swap, the promoted ones after) on the table its render was
+    dispatched against, with the open-set relabel of the reference armed
+    at that render. Returns (tables after the swap, unknown rows shown)."""
+    printed = [k for what, k, *_ in log if what == "rows"]
+    if len(printed) != len(tables):
+        raise AssertionError(f"{tag} {len(tables)} tables printed, "
+                             f"{len(printed)} renders ran")
+    names = CLASSES + ("unknown",)
+    after = unknown = 0
+    for table, k in zip(tables, printed):
+        swapped, ref = states[k]
+        X = features[k]
+        want = plain_forest_proba(ops[swapped], X).argmax(-1).cpu().numpy()
+        want = openset_relabel(want, X.cpu().numpy(), ref, len(CLASSES))
+        wrong = [(s, lab) for s, lab in table if names[want[s]] != lab]
+        # the first polls' rows are not active yet (one sample, no deltas):
+        # their tables may hold fewer rows
+        if wrong or (swapped and len(table) != 64):
+            raise AssertionError(f"{tag} render {k + 1} ({len(table)} rows, "
+                                 f"swapped {swapped}): labels differing from "
+                                 f"the plain forest's: {wrong[:5]}")
+        after += int(swapped)
+        unknown += sum(1 for _, lab in table if lab == "unknown")
+    return after, unknown
+
+
+def phase_drift(model: dict, k, device) -> int:
+    """The drift loop and open-set rejection on the flagship serve: the
+    seeded 100-tree forest, no flag turned off, ``DRIFT_FLAGS``, 65,536
+    flows (``DRIFT_BASE`` drifting conversations, then ``DRIFT_NOVEL``
+    novel ones) as raw pipe bytes. Checks: PROMOTED, the refit on the card
+    under ``--retrain-deadline``, every table against the plain forest of
+    its model with the open-set relabel, the promoted forest's kernel
+    bitwise at 65,536 rows, the gate's card labels against the float64
+    scores, the novel window's rejections, and a ``promote.swap`` drill
+    that rolls back with the boot model on every table. Returns the forest
+    kernel's launches in the promotion serve and the promoted forest's
+    kernel numbers."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+    from traffic_classifier_sdn_tpu_torch.serving import openset as tos
+    from traffic_classifier_sdn_tpu_torch.serving import retrain
+    from traffic_classifier_sdn_tpu_torch.utils import faults
+
+    tag = "[drift Randomforest]"
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        checkpoint.save_model(ckpt, "forest",
+                              interop.forest_params_from_numpy(model, device),
+                              classes=CLASSES)
+        fk.forest_proba.launches = 0
+        out, summary, wall, features, log, states, seen, watch = \
+            _drift_serve(tag, ckpt, tmp, DRIFT_NOVEL, "promotions")
+        launches = fk.forest_proba.launches
+        st, ost = summary.drift, summary.openset
+        fits = [f for f in seen["fits"] if f[2] <= watch["flagged_t"]]
+        fit_s, params, _ = fits[-1]
+        deadline = 300.0  # --retrain-deadline's default
+        print(f"{tag} drift {st['state']}: {st['retrain_runs']} refit(s), "
+              f"{st['promotions']} promotion(s), {st['rollbacks']} "
+              f"rollbacks; the promoted refit took {fit_s:.3f} s on the card "
+              f"(deadline {deadline} s); PROMOTED at render "
+              f"{watch['flagged_at']}")
+        if st["promotions"] != 1 or not st["swapped"]:
+            raise AssertionError(f"{tag} not promoted: {st}")
+        if not 0 < fit_s < deadline or not all(
+                b.device.type == device.type for b in params.buffers()):
+            raise AssertionError(f"{tag} the refit took {fit_s} s or left "
+                                 "the card")
+        probes = [e for e in seen["controller"]._recorder.tail()
+                  if e["kind"] == "drift.probe"]
+        print(f"{tag} drift.probe events (parity floor {DRIFT_PARITY}): "
+              + ", ".join(f"{e['detail']} ok={e['ok']}" for e in probes))
+        if not probes or not probes[-1]["ok"]:
+            raise AssertionError(f"{tag} probes {probes}")
+        pk = fk.compile_forest(params.node_arrays(), n_features=N_FEATURES,
+                               device=device)
+        print(f"{tag} promoted forest: {params.left.shape[0]} trees, "
+              f"{pk.n_internal} internal + {pk.n_leaves} leaf slots, "
+              f"{pk.blob_words * 4} bytes a tree, trees per stage "
+              f"{pk.per_chunk}")
+        after, unknown = _check_drift_tables(
+            tag, parse_tables(out), features, log, states,
+            {False: k, True: pk})
+        if after == 0:
+            raise AssertionError(f"{tag} no table printed after the swap")
+        # the promoted forest's kernel against its plain version
+        X = features[-1]
+        got = fk.forest_proba(pk, X)
+        want = plain_forest_proba(pk, X)
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"{tag} promoted kernel differs, {err}")
+        ms = cuda_median_ms(lambda: fk.forest_proba(pk, X), 10)
+        boot_ms = cuda_median_ms(lambda: fk.forest_proba(k, X), 10)
+        plain_ms = cuda_median_ms(lambda: plain_forest_proba(pk, X), 2, 1)
+        promoted = {"rows": int(X.shape[0]), "ms": round(ms, 4),
+                    "plain_ms": round(plain_ms, 4),
+                    "boot_ms": round(boot_ms, 4), "max_abs_err": err,
+                    "trees": int(params.left.shape[0]),
+                    "internal": pk.n_internal, "leaves": pk.n_leaves,
+                    "fit_s": round(fit_s, 3)}
+        print(f"{tag} promoted forest kernel bitwise equal to its plain "
+              f"version at {X.shape[0]} rows: {ms:.4f} ms (plain "
+              f"{plain_ms:.2f} ms; the boot forest {boot_ms:.4f} ms on the "
+              "same rows)")
+        # the gate's card path (float32 torch) against float64 scores
+        ref = states[max(states)][1]
+        gate = tos.OpenSetGate(lambda _p, Xc: fk.predict(pk, Xc),
+                               n_classes=N_CLASSES, reference=ref)
+        card = gate(None, X).cpu().numpy()
+        Xh = X.cpu().numpy().astype(np.float64)
+        scores = tos.openset_scores(Xh, ref["openset_mean"],
+                                    ref["openset_inv_std"])
+        thr = float(ref["openset_threshold"])
+        ties = np.abs(scores - thr) <= OPENSET_TIE_RTOL * thr
+        mean32, inv32, _ = gate.device_stats(X.device)
+        s32 = tos.openset_scores_f32(X, mean32, inv32).cpu().numpy()
+        active = Xh.any(axis=1)
+        rel = float(np.max(np.abs(s32[active] - scores[active])
+                           / np.maximum(scores[active], 1e-30)))
+        host = openset_relabel(want.argmax(-1).cpu().numpy(), Xh, ref,
+                               N_CLASSES)
+        bad = np.nonzero((card != host) & ~ties)[0]
+        if bad.size:
+            raise AssertionError(f"{tag} card open-set labels differ on "
+                                 f"rows {bad[:5].tolist()}")
+        # the novel window: the novel conversations' rows in the last table
+        novel_rows = [s for s, (src, _) in
+                      summary.engine.slot_metadata().items()
+                      if int(src.replace(":", ""), 16) // 2 >= DRIFT_BASE]
+        rejected = int((host[novel_rows] == N_CLASSES).sum())
+        print(f"{tag} open-set {ost['state']} at threshold "
+              f"{ost['threshold']}: card labels equal the float64 rule on "
+              f"{X.shape[0] - int(ties.sum())} rows ({int(ties.sum())} "
+              f"within {OPENSET_TIE_RTOL} of the threshold; the card's "
+              f"float32 scores are within {rel:.3g} relative of the float64 "
+              f"ones on active rows); novel window: "
+              f"{rejected} of {len(novel_rows)} novel conversations' rows "
+              f"unknown, {ost['last_rejected']} rows rejected in the last "
+              f"tick, {unknown} unknown rows in the printed tables, "
+              f"{ost['rejections']} rejections in all")
+        if len(novel_rows) != DRIFT_NOVEL or rejected < DRIFT_NOVEL // 2:
+            raise AssertionError(f"{tag} novel rows {len(novel_rows)}, "
+                                 f"{rejected} rejected")
+        health = watch["healthz"]
+        if health is None or "openset" not in health:
+            raise AssertionError(f"{tag} /healthz without drift/openset")
+        print(f"{tag} /healthz drift: {json.dumps(health['drift'])}")
+        print(f"{tag} /healthz openset: {json.dumps(health['openset'])}")
+        print(f"{tag} {launches} forest launches: {len(probes)} parity "
+              f"probes of the candidate and the renders' ({len(features)} "
+              f"dispatched, {len(parse_tables(out))} printed, "
+              f"{summary.ticks_coalesced} coalesced, label plans "
+              f"{summary.render_plans})")
+
+        # the drill: every promotion's swap fails, the boot model serves
+        dtag = "[drift drill promote.swap]"
+        plan = faults.FaultPlan([faults.FaultRule("promote.swap",
+                                                  times=None)])
+        dout, dsum, _, dfeat, dlog, dstates, _, _ = _drift_serve(
+            dtag, ckpt, tmp, 0, "rollbacks", plan)
+        dst = dsum.drift
+        if (dst["rollbacks"] != 1 or dst["promotions"] or dst["swapped"]
+                or not plan.fires):
+            raise AssertionError(f"{dtag} {dst}")
+        if any(swapped for swapped, _ in dstates.values()):
+            raise AssertionError(f"{dtag} a render served a swapped model")
+        rotation = os.path.join(tmp, "rotation-rollbacks")
+        latest = retrain.resolve_latest(rotation, device="cpu")
+        dtables = parse_tables(dout)
+        _check_drift_tables(dtag, dtables, dfeat, dlog, dstates,
+                            {False: k})
+        print(f"{dtag} ROLLED_BACK after {dst['retrain_runs']} refit(s); "
+              f"the rotation resolves to {os.path.basename(latest)}; all "
+              f"{len(dtables)} tables equal the boot forest's labels (with "
+              "the open-set relabel)")
+        if os.path.basename(latest) != "model-000000000":
+            raise AssertionError(f"{dtag} rotation resolves to {latest}")
+    return launches, promoted
+
+
 KERNEL_ROWS = {
     "forest": ("forest_proba", "forest_proba.cu",
                "traffic_classifier_sdn_tpu/ops/pallas_forest.py:241"),
@@ -3447,15 +3900,16 @@ KERNEL_ROWS = {
 
 
 def kernel_entries(results: dict, launches: dict, paths: dict | None = None,
-                   buckets: list | None = None,
-                   menus: dict | None = None) -> list[dict]:
+                   buckets: list | None = None, menus: dict | None = None,
+                   promoted: dict | None = None) -> list[dict]:
     """The ``{"kernels": [...]}`` entries: each kernel's numbers at the
     main path's 65,536 rows, its launches in the serve, every size under
     ``by_rows``, its launches on each path driven (``paths``: {path:
     {family: launches}}), for the forest each dirty bucket (``buckets``)
     and, under ``menus`` ({family: {...}}), the serving-menu forms timed
     beside the kernel (``phase_knn_tiers``, ``phase_ivf``,
-    ``phase_svc_dot``)."""
+    ``phase_svc_dot``); for the forest, ``promoted``: the drift loop's
+    retrained forest through the same kernel (``phase_drift``)."""
     kernels = []
     for family, (name, source, replaces) in KERNEL_ROWS.items():
         by_rows = results[family]
@@ -3467,6 +3921,8 @@ def kernel_entries(results: dict, launches: dict, paths: dict | None = None,
             extra["by_dirty_bucket"] = buckets
         if menus and family in menus:
             extra["menus"] = menus[family]
+        if family == "forest" and promoted:
+            extra["promoted"] = promoted
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -3559,8 +4015,11 @@ def main() -> int:
         paths[f"{name} Randomforest"] = {
             "forest": phase(models["forest"], ops["forest"], device),
             "knn": 0, "svc": 0}
+    n, promoted = phase_drift(models["forest"], ops["forest"], device)
+    paths["drift Randomforest"] = {"forest": n, "knn": 0, "svc": 0}
     phase_ingest_breakdown(ops["forest"], device)
-    kernels = kernel_entries(results, launches, paths, buckets, menus)
+    kernels = kernel_entries(results, launches, paths, buckets, menus,
+                             promoted)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

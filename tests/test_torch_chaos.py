@@ -256,3 +256,188 @@ def test_cli_restore_fault_propagates(tmp_path, capsys):
     summary = _serve(tmp_path, capsys, ["--restore-serve-state", state,
                                         "--max-ticks", "1"])
     assert summary.engine.num_flows() == N_FLOWS
+
+
+# ---------------------------------------------------------------------------
+# the drift loop and the open-set gate: seven more sites, all absorbed
+# ---------------------------------------------------------------------------
+
+
+def _drift_until(gate, ctl, states, limit=200):
+    """Drive the drift harness (a shift after tick 12) until the
+    controller reaches one of ``states``; returns every tick's labels."""
+    from test_torch_drift import _drive, _wait
+    from traffic_classifier_sdn_tpu_torch.serving import drift
+
+    served = []
+    i = 0
+    while ctl.state not in states and i < limit:
+        i += 1
+        served.append(_drive("port", gate, ctl, i, shifted=i > 12))
+        if ctl.state == drift.RETRAINING:
+            _wait("port", ctl)
+    return served
+
+
+def _teacher_served(served) -> None:
+    """Every tick's labels are the boot model's (the teacher's)."""
+    from test_torch_drift import _batch, _teacher
+
+    for i, labels in enumerate(served, start=1):
+        lo, hi = (100.0, 10000.0) if i > 12 else (10.0, 1000.0)
+        np.testing.assert_array_equal(labels, _teacher(None, _batch(
+            lo, hi, seed=i)))
+
+
+def test_drift_window_fault_drops_the_sample_not_the_serve(tmp_path):
+    from test_torch_drift import _controller, _teacher
+    from traffic_classifier_sdn_tpu_torch.serving import drift
+
+    gate = drift.DriftGate(_teacher)
+    ctl = _controller("port", tmp_path, gate, None)
+    plan = faults.FaultPlan([faults.FaultRule("drift.window", times=None)],
+                            SEED)
+    try:
+        with faults.installed(plan):
+            served = _drift_until(gate, ctl, (), limit=30)
+        _teacher_served(served)
+        st = ctl.status()
+        assert st["window_errors"] == 30 and st["windows"] == 0
+        assert ctl.state == drift.STEADY and not st["calibrated"]
+    finally:
+        ctl.close()
+
+
+@pytest.mark.parametrize("site", ["retrain.fit", "train_ckpt.write"])
+def test_killed_fit_or_candidate_save_keeps_the_old_model(tmp_path, site):
+    """A refit killed mid-fit (``retrain.fit``) or at its candidate's
+    manifest commit (``train_ckpt.write``): the retrain fails, nothing
+    half-written enters the rotation, the boot model serves every tick,
+    and the still-drifting stream trips again."""
+    from test_torch_drift import _controller, _teacher
+    from traffic_classifier_sdn_tpu_torch.serving import drift, retrain
+
+    gate = drift.DriftGate(_teacher)
+    ctl = _controller("port", tmp_path, gate, None)
+    plan = faults.FaultPlan([faults.FaultRule(site, times=None)], SEED)
+    try:
+        with faults.installed(plan):
+            served = _drift_until(gate, ctl, (), limit=60)
+        assert plan.fires
+        _teacher_served(served)
+        st = ctl.status()
+        assert st["retrain_runs"] >= 2
+        # every run failed (the last one may still await its poll)
+        assert st["retrain_runs"] - st["retrain_failures"] in (0, 1)
+        assert st["promotions"] == 0 and not gate.swapped
+        d = str(tmp_path / "port" / "drift")
+        # a save killed at its commit leaves its member directory empty
+        # (the staged arrays removed, no manifest), as the JAX save does:
+        # it never loads, so the boot seed stays the restore target
+        for seq, path in retrain.list_candidates(d):
+            assert seq == 0 or os.listdir(path) == [], path
+        assert retrain.resolve_latest(d, device="cpu") == \
+            retrain.candidate_path(d, 0)
+    finally:
+        ctl.close()
+
+
+def test_promote_swap_fault_rolls_back_with_the_boot_model_serving(tmp_path):
+    from test_torch_drift import _controller, _teacher
+    from traffic_classifier_sdn_tpu_torch.serving import drift, retrain
+
+    gate = drift.DriftGate(_teacher)
+    ctl = _controller("port", tmp_path, gate, None)
+    plan = faults.FaultPlan([faults.FaultRule("promote.swap", times=None)],
+                            SEED)
+    try:
+        with faults.installed(plan):
+            served = _drift_until(gate, ctl, (drift.ROLLED_BACK,))
+        assert ctl.state == drift.ROLLED_BACK and plan.fires
+        _teacher_served(served)
+        d = str(tmp_path / "port" / "drift")
+        assert [s for s, _ in retrain.list_candidates(d)] == [0]
+        assert ctl.status()["rollbacks"] == 1 and not gate.swapped
+    finally:
+        ctl.close()
+
+
+def test_promote_rollback_fault_keeps_the_live_pair(tmp_path):
+    """The swap fails AND its rollback reload fails: the gate keeps the
+    pair it holds — the boot model still serves every tick."""
+    from test_torch_drift import _controller, _teacher
+    from traffic_classifier_sdn_tpu_torch.obs import FlightRecorder
+    from traffic_classifier_sdn_tpu_torch.serving import drift
+
+    gate = drift.DriftGate(_teacher)
+    rec = FlightRecorder()
+    ctl = _controller("port", tmp_path, gate, None, recorder=rec)
+    plan = faults.FaultPlan([
+        faults.FaultRule("promote.swap", times=None),
+        faults.FaultRule("promote.rollback", times=None),
+    ], SEED)
+    try:
+        with faults.installed(plan):
+            served = _drift_until(gate, ctl, (drift.ROLLED_BACK,))
+        assert ctl.state == drift.ROLLED_BACK
+        _teacher_served(served)
+        assert not gate.swapped
+        reasons = [e["reason"] for e in rec.tail()
+                   if e["kind"] == "drift.transition"
+                   and e["to"] == drift.ROLLED_BACK]
+        assert reasons and "rollback-failed:FaultInjected" in reasons[-1]
+        assert rec.count("drift.rollback_error") == 1
+    finally:
+        ctl.close()
+
+
+def _openset_serve(tmp_path, extra, plan=None):
+    """A gnb serve of 40 known and (from tick 6) 8 novel conversations;
+    stdout under ``plan``."""
+    import contextlib
+    import io
+
+    import chip_smoke
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.core import flow_table as ft
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint as tck
+
+    capture = str(tmp_path / "novel.capture")
+    if not os.path.exists(capture):
+        chip_smoke.drift_capture(capture, 40, 10, shift_at=99, novel_at=5,
+                                 novel_flows=8)
+        X = ft.features12(chip_smoke.synthetic_table(300, 3, "cpu")).numpy()
+        tck.save_model(str(tmp_path / "gnb"), "gnb",
+                       interop.gnb_params_from_numpy(
+                           chip_smoke.random_gnb(0, X), "cpu"),
+                       classes=chip_smoke.CLASSES)
+    out = io.StringIO()
+    ctx = faults.installed(plan) if plan else contextlib.nullcontext()
+    with ctx, contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        summary = cli.main([
+            "gaussiannb", "--native-checkpoint", str(tmp_path / "gnb"),
+            "--source", "replay", "--capture", capture, "--capacity", "64",
+            "--print-every", "1", "--idle-timeout", "0", "--table-rows",
+            "0", "--pipeline", "off", "--device", "cpu", *extra])
+    return out.getvalue(), summary
+
+
+@pytest.mark.parametrize("site", ["openset.score", "openset.calibrate"])
+def test_openset_faults_serve_the_inner_labels_fresh(tmp_path, site):
+    """Armed on every tick: ``openset.score`` serves the closed-world
+    labels fresh once armed, ``openset.calibrate`` keeps the gate
+    calibrating — either way stdout is the ``--openset off`` serve's,
+    never a fabricated ``unknown``, and the serve never sees a failure."""
+    off, _ = _openset_serve(tmp_path, [])
+    flags = ["--openset", "auto", "--openset-calibration-rows", "64"]
+    on, _ = _openset_serve(tmp_path, flags)
+    assert "unknown" in on and "unknown" not in off
+    plan = faults.FaultPlan([faults.FaultRule(site, times=None)], SEED)
+    got, summary = _openset_serve(tmp_path, flags, plan)
+    assert plan.fires and got == off
+    st = summary.openset
+    if site == "openset.score":
+        assert st["state"] == "ARMED" and st["score_faults"] > 0
+    else:
+        assert st["state"] == "CALIBRATING" and st["calibrate_faults"] > 0

@@ -52,8 +52,10 @@ def test_jax_checkpoint_roundtrips_bitwise(tmp_path, n_trees):
         assert got.dtype == want.dtype, k
         np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
     manifest = json.loads((tmp_path / "port" / "manifest.json").read_text())
-    assert set(manifest) == {
-        "format_version", "model", "static", "classes", "dtypes"
+    # the JAX manifest's fields, ``arrays_dir`` (the staged arrays) included
+    jax_manifest = json.loads((tmp_path / "jax" / "manifest.json").read_text())
+    assert set(manifest) == set(jax_manifest) == {
+        "format_version", "model", "static", "classes", "dtypes", "arrays_dir"
     }
     assert manifest["static"] == {"max_depth": 1}
 
@@ -137,3 +139,100 @@ def test_jax_family_checkpoint_roundtrips_bitwise(tmp_path, family):
     assert torch.equal(back.predict(X), port.predict(X))
     fn, serve_params = back.serving_path()
     assert torch.equal(fn(serve_params, X), port.predict(X))
+
+
+# ---------------------------------------------------------------------------
+# crash safety: a save over an existing checkpoint is all or nothing
+# ---------------------------------------------------------------------------
+
+
+def _gnb(value: float):
+    from traffic_classifier_sdn_tpu_torch.models.gnb import GnbModel
+
+    return GnbModel(theta=torch.full((2, 3), value),
+                    inv_var=torch.full((2, 3), value / 14.0),
+                    log_const=torch.full((2,), -value))
+
+
+def _buffers(model) -> dict:
+    return {k: v.numpy().copy() for k, v in model.named_buffers()}
+
+
+def test_interrupted_save_keeps_the_old_checkpoint_whole(tmp_path,
+                                                         monkeypatch):
+    """Save gnb A, then gnb B over it with the second array write raising:
+    the directory still loads A, every array of it, and holds no stray
+    stage or temp file. (Before the arrays were staged, the load returned
+    B's ``theta`` beside A's ``inv_var`` and left a ``.npy.tmp-<pid>``.)"""
+    path = str(tmp_path / "ckpt")
+    a = _gnb(7.0 / 2)
+    tck.save_model(path, "gnb", a, classes=("ping", "voice"))
+    real_save = np.save
+    calls = {"n": 0}
+
+    def dying_save(*args, **kw):
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise OSError("disk gone mid-save")
+        return real_save(*args, **kw)
+
+    monkeypatch.setattr(tck.np, "save", dying_save)
+    with pytest.raises(OSError, match="mid-save"):
+        tck.save_model(path, "gnb", _gnb(7.0), classes=("ping", "voice"))
+    monkeypatch.setattr(tck.np, "save", real_save)
+    back = tck.load_model(path, device="cpu")
+    for k, v in _buffers(a).items():
+        np.testing.assert_array_equal(getattr(back.params, k).numpy(), v)
+    manifest = json.loads((tmp_path / "ckpt" / "manifest.json").read_text())
+    assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == sorted(
+        ["manifest.json", manifest["arrays_dir"]])
+
+
+def test_train_ckpt_write_fault_keeps_the_previous_checkpoint(tmp_path):
+    """The ``train_ckpt.write`` site fires before the manifest's rename:
+    the previous checkpoint still loads whole, and the next save succeeds
+    and removes the earlier generation's arrays."""
+    from traffic_classifier_sdn_tpu_torch.utils import faults
+
+    path = str(tmp_path / "ckpt")
+    a, b = _gnb(2.0), _gnb(5.0)
+    tck.save_model(path, "gnb", a)
+    plan = faults.FaultPlan([faults.FaultRule("train_ckpt.write")])
+    with faults.installed(plan), pytest.raises(faults.FaultInjected):
+        tck.save_model(path, "gnb", b)
+    assert plan.fires
+    back = tck.load_model(path, device="cpu")
+    for k, v in _buffers(a).items():
+        np.testing.assert_array_equal(getattr(back.params, k).numpy(), v)
+    assert len([p for p in (tmp_path / "ckpt").iterdir()]) == 2
+    tck.save_model(path, "gnb", b)
+    back = tck.load_model(path, device="cpu")
+    for k, v in _buffers(b).items():
+        np.testing.assert_array_equal(getattr(back.params, k).numpy(), v)
+    assert len([p for p in (tmp_path / "ckpt").iterdir()]) == 2
+
+
+def test_first_layout_checkpoint_loads_and_is_replaced(tmp_path):
+    """A directory of the first layout (arrays beside the manifest, no
+    ``arrays_dir``) loads; a save over it stages the new arrays and
+    removes the old ones beside the manifest."""
+    path = tmp_path / "old"
+    path.mkdir()
+    a = _gnb(3.0)
+    arrays = _buffers(a)
+    for k, v in arrays.items():
+        np.save(path / f"{k}.npy", v, allow_pickle=False)
+    (path / "manifest.json").write_text(json.dumps({
+        "format_version": 1, "model": "gnb", "static": {},
+        "classes": ["ping", "voice"],
+        "dtypes": {k: str(v.dtype) for k, v in arrays.items()},
+    }))
+    back = tck.load_model(str(path), device="cpu")
+    assert back.classes.names == ("ping", "voice")
+    for k, v in arrays.items():
+        np.testing.assert_array_equal(getattr(back.params, k).numpy(), v)
+    tck.save_model(str(path), "gnb", _gnb(4.0))
+    assert not list(path.glob("*.npy"))
+    np.testing.assert_array_equal(
+        tck.load_model(str(path), device="cpu").params.theta.numpy(),
+        _buffers(_gnb(4.0))["theta"])

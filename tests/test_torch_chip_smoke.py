@@ -677,3 +677,56 @@ def test_frames_and_the_subsequence_rule():
     assert not chip_smoke.subsequence(table, table + other)
     assert not chip_smoke.subsequence("", table)
 
+
+
+def test_drift_stream_shifts_and_adds_novel_conversations():
+    """``drift_ticks``: every conversation reports every tick; the packet
+    deltas jump by ``DRIFT_FACTOR`` at the shift; the novel conversations
+    (MACs above the population) report from their tick on, at the same
+    poll time."""
+    ticks = list(chip_smoke.drift_ticks(8, 5, shift_at=3, novel_at=4,
+                                        novel_flows=2))
+    lines = [t.splitlines() for t in ticks]
+    assert [len(x) for x in lines] == [16, 16, 16, 16, 20]
+    assert {ln.split(b"\t")[1] for ln in lines[4]} == {b"5"}
+
+    def fwd_pkts(k):
+        return [int(ln.split(b"\t")[7]) for ln in lines[k][:16:2]]
+
+    d1 = np.subtract(fwd_pkts(2), fwd_pkts(1))
+    d3 = np.subtract(fwd_pkts(3), fwd_pkts(2))
+    assert d3.sum() > 3 * d1.sum()
+    novel_src = {ln.split(b"\t")[4] for ln in lines[4][16::2]}
+    assert novel_src == {b"00:00:00:00:00:10", b"00:00:00:00:00:12"}
+
+
+def test_drift_phase_runs_on_cpu(small_card_phases, cpu_timers, monkeypatch,
+                                 capsys, request):
+    """``phase_drift`` at 256 flows (240 drifting, 16 novel; ticks 0.1 s
+    apart; 10-tree refits): PROMOTED with the refit, every table against its model's plain
+    labels with the open-set relabel, the promoted kernel against its
+    plain version, the gate's torch labels against the float64 rule, the
+    novel window, /healthz, and the ``promote.swap`` drill's rollback."""
+    from traffic_classifier_sdn_tpu_torch.serving import retrain
+
+    models, ops = small_card_phases
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the refits' small ops, beside other workers
+    request.addfinalizer(lambda: torch.set_num_threads(threads))
+    fit = retrain.fit_family
+    # 10 trees, not the default 100: the refits run on the CPU here
+    monkeypatch.setattr(retrain, "fit_family",
+                        lambda *a, **kw: fit(*a, n_trees=10, **kw))
+    monkeypatch.setattr(chip_smoke, "DRIFT_NOVEL", 16)
+    monkeypatch.setattr(chip_smoke, "DRIFT_BASE", 240)
+    monkeypatch.setattr(chip_smoke, "DRIFT_PAUSE", 0.1)
+    monkeypatch.setattr(chip_smoke, "DRIFT_MAX_TICKS", 400)
+    launches, promoted = chip_smoke.phase_drift(
+        models["forest"], ops["forest"], torch.device("cpu"))
+    assert launches > 0 and promoted["max_abs_err"] == 0.0
+    assert promoted["trees"] == 10 and promoted["fit_s"] > 0
+    out = capsys.readouterr().out
+    assert "drift.probe events" in out and "ok=True" in out
+    assert "promoted forest kernel bitwise equal to its plain version" in out
+    assert "/healthz drift:" in out and "/healthz openset:" in out
+    assert "ROLLED_BACK after" in out

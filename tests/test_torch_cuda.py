@@ -808,3 +808,116 @@ def test_serving_checkpoint_round_trip_card_and_cpu(cuda, tmp_path, native):
         assert np.array_equal(a, sc._fetch_leaf(on_cpu.table, name)), name
         assert np.array_equal(a, sc._fetch_leaf(back.table, name)), name
     assert back.slot_metadata(range(512)) == eng.slot_metadata(range(512))
+
+
+def _train_window(n: int = 600, n_classes: int = 6, seed: int = 0):
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, n_classes, n)
+    centers = rng.gamma(2.0, 300.0, (n_classes, 12))
+    X = np.abs(centers[y] * (1 + 0.35 * rng.randn(n, 12)))
+    flip = rng.rand(n) < 0.25  # noise: the trees grow deep
+    y = np.where(flip, rng.randint(0, n_classes, n), y)
+    return X.astype(np.float32), y.astype(np.int32)
+
+
+def test_forest_fit_on_card_equals_cpu(cuda, monkeypatch):
+    """The forest trainer on the card writes the CPU's node stacks bit for
+    bit given the same draws: the scatter-add histograms (atomics) of
+    integer-valued counts are exact in any order, and the split takes the
+    first maximum on the card too."""
+    from traffic_classifier_sdn_tpu_torch.train import forest as tforest
+
+    X, y = _train_window()
+    gen = torch.Generator().manual_seed(3)
+    draws = [tforest.tree_draws(gen, t, X.shape[0], 12, 10, bootstrap=True,
+                                max_features=3, device="cpu")
+             for t in range(6)]
+
+    def recorded(gen, tree, n_rows, n_features, max_depth, *, bootstrap,
+                 max_features, device):
+        w, scores = draws[tree]
+        return w.to(device), [s.to(device) for s in scores]
+
+    monkeypatch.setattr(tforest, "tree_draws", recorded)
+    cpu = tforest.fit(X, y, 6, n_trees=6, device="cpu")
+    card = tforest.fit(X, y, 6, n_trees=6, device=cuda)
+    for name in ("left", "right", "feature", "threshold", "values"):
+        a, b = getattr(cpu, name), getattr(card, name).cpu()
+        assert torch.equal(a, b), name
+    a = torch.tensor([[1.0, 3.0, 3.0], [-np.inf] * 3, [2.0, 2.0, 2.0]],
+                     device=cuda)
+    assert tforest._first_argmax(a).tolist() == [1, 0, 0]
+
+
+def test_trained_depth10_forest_kernel_bitwise_equals_plain(cuda):
+    """A retrained forest's perfect-layout stacks (depth 10) through the
+    kernel at every launch shape, bitwise, and its labels equal the
+    gather traversal's."""
+    from traffic_classifier_sdn_tpu_torch.train import forest as tforest
+
+    X, y = _train_window(2048)
+    model = tforest.fit(X, y, 6, n_trees=20, device=cuda)
+    k = fk.compile_forest(model.node_arrays(), n_features=12, device=cuda)
+    Xs = ft.features12(chip_smoke.synthetic_table(3000, 3, cuda))
+    for rows in (777, 3000):
+        for r in fk.ROWS_PER_TILE:
+            got = fk._launch(k, Xs[:rows], r, k.per_chunk[r])
+            want = chip_smoke.plain_forest_proba(k, Xs[:rows])
+            assert torch.equal(got, want), (rows, r)
+    Xt = torch.from_numpy(X).to(cuda)
+    assert torch.equal(fk.predict(k, Xt), model.predict(Xt))
+
+
+@pytest.mark.parametrize("family", ["forest", "gnb", "knn", "svc", "logreg",
+                                    "kmeans"])
+def test_refit_on_card_serves_on_card(cuda, family):
+    """``retrain.fit_family`` on the card: the module's buffers stay on the
+    card and its serving pair (the family's kernel where it has one)
+    labels the window there; gnb's moments equal the CPU fit's within
+    1e-6 relative."""
+    from traffic_classifier_sdn_tpu_torch.models import make_loaded_model
+    from traffic_classifier_sdn_tpu_torch.models.base import ClassList
+    from traffic_classifier_sdn_tpu_torch.serving import retrain
+
+    X, y = _train_window(300)
+    kw = {"n_trees": 8} if family == "forest" else {}
+    params = retrain.fit_family(family, X, y, 6, device=cuda, **kw)
+    assert all(b.is_cuda for b in params.buffers())
+    fn, p = make_loaded_model(family, params,
+                              ClassList(chip_smoke.CLASSES)).serving_path()
+    labels = fn(p, torch.from_numpy(X).to(cuda))
+    assert labels.is_cuda and labels.shape == (300,)
+    if family == "gnb":
+        cpu = retrain.fit_family(family, X, y, 6, device="cpu")
+        for name in ("theta", "inv_var", "log_const"):
+            np.testing.assert_allclose(getattr(params, name).cpu().numpy(),
+                                       getattr(cpu, name).numpy(),
+                                       rtol=1e-6)
+
+
+def test_openset_card_labels_equal_float64_rule(cuda):
+    """The gate's float32 torch relabel on the card against the float64
+    rule (``openset_scores``), on every row further than 1e-5 relative
+    from the threshold; the stats are uploaded once per epoch."""
+    from traffic_classifier_sdn_tpu_torch.serving import openset as tos
+
+    X, y = _train_window(2000)
+    Xc = torch.from_numpy(X).to(cuda)
+    gate = tos.OpenSetGate(lambda _p, Z: torch.from_numpy(y).to(cuda)
+                           [: Z.shape[0]], n_classes=6,
+                           calibration_rows=1000)
+    gate(None, Xc[:1000])
+    gate(None, Xc[:1000])
+    assert gate.state == tos.ARMED
+    Q = Xc.clone()
+    Q[::7] *= 40.0  # far from every class
+    out = gate(None, Q).cpu().numpy()
+    ref = gate.reference_arrays()
+    Qh = Q.cpu().numpy().astype(np.float64)
+    s = tos.openset_scores(Qh, ref["openset_mean"], ref["openset_inv_std"])
+    thr = float(ref["openset_threshold"])
+    ties = np.abs(s - thr) <= 1e-5 * thr
+    want = np.where(Qh.any(1) & (s > thr), 6, y)
+    assert (out[~ties] == want[~ties]).all()
+    assert (out == 6).sum() >= X.shape[0] // 7 - ties.sum()
+    assert gate.device_stats(Q.device)[0].is_cuda

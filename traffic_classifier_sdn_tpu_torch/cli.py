@@ -67,6 +67,17 @@ snapshots between ticks under a wall-clock budget
 exit, and ``--restore-serve-state FILE_OR_DIR`` resumes from one (a
 directory rolls back past a corrupt newest member).
 
+``--drift auto --drift-dir DIR`` runs the drift loop (serving/drift.py):
+the predict, under the ladder, goes through a ``DriftGate``; after each
+render (on the device-stage worker when pipelined) the controller
+observes the rendered features and labels, and on sustained drift refits
+the family in the background (train/, on the serve's device), probes the
+candidate against the live labels and hot-swaps it, with a ladder of its
+own; ``--openset auto`` wraps the whole composition in an ``OpenSetGate``
+(serving/openset.py) that labels rows far from every known class
+``unknown``. Both write their reference into each serving checkpoint's
+``feature_reference/`` block and boot from a restored one.
+
 The model family comes from the checkpoint and must match the subcommand.
 The JAX package's serving menus pick the predict (models/__init__.py):
 ``--knn-topk`` (or ``TCSDN_KNN_TOPK``; the flag wins) = ``sort`` (default)
@@ -136,8 +147,9 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--native-checkpoint", default=None,
         help="model checkpoint directory in the port's format "
-        "(io/checkpoint.py: manifest.json + one .npy per array); required, "
-        "here or as model.native_checkpoint in --config",
+        "(io/checkpoint.py: manifest.json + one .npy per array in the "
+        "arrays directory it names); required, here or as "
+        "model.native_checkpoint in --config",
     )
     p.add_argument(
         "--data-dir",
@@ -278,6 +290,99 @@ def _build_parser() -> argparse.ArgumentParser:
         "--probe-successes", type=int, default=3, metavar="N",
         help="consecutive clean probes required to re-promote the device "
         "kernel (default 3); any failed probe resets the chain",
+    )
+    p.add_argument(
+        "--openset", choices=("auto", "off"), default="off",
+        help="open-set rejection tier (serving/openset.py): wrap the "
+        "serving predict in an OpenSetGate that calibrates per-class "
+        "feature statistics from the live stream's first windows, then "
+        "serves an explicit 'unknown' label for rows whose features sit "
+        "further than the calibrated threshold from EVERY known class. "
+        "Byte-transparent until calibration completes and on "
+        "closed-world traffic (output identical to 'off'); composes with "
+        "--drift (promotions re-base the gate on the retrain window; "
+        "rejected rows never become training signal)",
+    )
+    p.add_argument(
+        "--openset-margin", type=float, default=3.0, metavar="M",
+        help="open-set threshold margin: the rejection threshold is M "
+        "times the worst (max) calibration-window score, so traffic "
+        "from the calibration distribution is not rejected by "
+        "construction (default 3.0; larger = more conservative)",
+    )
+    p.add_argument(
+        "--openset-calibration-rows", type=int, default=4096, metavar="N",
+        help="active labeled rows the open-set gate accumulates before "
+        "freezing its per-class statistics and arming (default 4096); "
+        "the gate is byte-transparent until then",
+    )
+    p.add_argument(
+        "--drift", choices=("auto", "off"), default="off",
+        help="online drift loop (serving/drift.py): monitor the live "
+        "feature stream against a training-time reference, retrain in "
+        "the background on sustained divergence (train/, on the serve's "
+        "device), and hot-promote the fresh checkpoint through a "
+        "parity-gated probe — wrong-but-fresh never promotes, a bad "
+        "promotion rolls back. With no drift the output is "
+        "byte-identical to 'off'. Requires --drift-dir",
+    )
+    p.add_argument(
+        "--drift-follow", action="store_true",
+        help="fleet mode: adopt newer rotation members that PEER serves "
+        "sharing this --drift-dir stage, as this serve's own candidates "
+        "— each adoption still earns its own parity probes against this "
+        "serve's live labels before installing, and a rejected adoption "
+        "never discards the peer's member. Requires --drift auto",
+    )
+    p.add_argument(
+        "--drift-dir", default=None, metavar="DIR",
+        help="candidate checkpoint rotation for the drift loop: the boot "
+        "model is seeded here (staged-commit save), retrained candidates "
+        "land as model-<seq> members, and rollback resolves the newest "
+        "member that still loads",
+    )
+    p.add_argument(
+        "--drift-window", type=int, default=8, metavar="N",
+        help="observations (render ticks) per drift window (default 8)",
+    )
+    p.add_argument(
+        "--drift-threshold", type=float, default=4.0, metavar="Z",
+        help="drift score a window must exceed to count as divergent: "
+        "max over features of the EWMA z-shift vs the reference "
+        "(default 4.0)",
+    )
+    p.add_argument(
+        "--drift-trips", type=int, default=3, metavar="K",
+        help="consecutive over-threshold windows before the retrain "
+        "trips (default 3; one noisy window never retrains)",
+    )
+    p.add_argument(
+        "--drift-class-tolerance", type=float, default=0.2, metavar="FRAC",
+        help="class-mix sensitivity: a window's max per-class frequency "
+        "delta vs the reference is divided by this before comparing to "
+        "--drift-threshold (default 0.2, so a full label-mix inversion "
+        "scores 5.0 — above the default threshold; values >= "
+        "1/threshold make class-mix drift undetectable)",
+    )
+    p.add_argument(
+        "--drift-probe-successes", type=int, default=3, metavar="N",
+        help="consecutive clean parity probes a candidate checkpoint "
+        "needs before hot promotion (default 3)",
+    )
+    p.add_argument(
+        "--drift-parity", type=float, default=1.0, metavar="FRAC",
+        help="minimum probe agreement between the candidate's labels and "
+        "the live model's on the shadow batch for a probe to count as "
+        "clean (default 1.0 — exact parity; loosen for families whose "
+        "refit legitimately disagrees near decision boundaries). kmeans "
+        "compares mode-matched (cluster ids are a permutation), so the "
+        "default applies there too",
+    )
+    p.add_argument(
+        "--retrain-deadline", type=float, default=300.0, metavar="SECS",
+        help="abandon a background retrain that outlives this many "
+        "seconds (default 300; the serve keeps the old model and the "
+        "loop resumes watching)",
     )
     p.add_argument(
         "--warmup", action="store_true",
@@ -442,8 +547,10 @@ class ServeSummary:
     what ``--warmup`` returned. Under the fan-in tier ``roster`` is its
     final ``roster()`` (one row per source) and ``source_evictions`` one
     ``(tick, source id, flows evicted, seconds)`` per dead namespace
-    evicted. Every counter and timing of the metrics plane is in
-    ``utils.metrics.global_metrics`` after the run."""
+    evicted. ``drift`` and ``openset`` are the drift controller's and the
+    open-set gate's final ``status()`` (None when off). Every counter and
+    timing of the metrics plane is in ``utils.metrics.global_metrics``
+    after the run."""
 
     engine: object
     ticks: int = 0
@@ -458,6 +565,8 @@ class ServeSummary:
     warmup: dict | None = None
     roster: list | None = None
     source_evictions: list = field(default_factory=list)
+    drift: dict | None = None
+    openset: dict | None = None
 
     @property
     def evicted_flows(self) -> int:
@@ -701,8 +810,22 @@ def _begin_tick_provenance(lat, batch, tier) -> None:
     lat.begin_tick([(0, emit, None, None, n)])
 
 
+def _serving_reference(drift, openset) -> dict | None:
+    """The serving checkpoint's ``feature_reference`` block: the drift
+    monitor's reference and the open-set gate's armed stats and threshold
+    ride together (either may be absent; each restores only its own
+    keys)."""
+    ref: dict = {}
+    if drift is not None:
+        ref.update(drift.reference_arrays() or {})
+    if openset is not None:
+        ref.update(openset.reference_arrays() or {})
+    return ref or None
+
+
 def _snapshot_if_due(args, engine, m, ticks: int, loop_t0: float,
-                     recorder=None, health=None) -> None:
+                     recorder=None, health=None, drift=None,
+                     openset=None) -> None:
     """Periodic in-loop serving snapshot (between ticks).
 
     The wall-clock budget guard keeps checkpointing from starving the
@@ -711,8 +834,9 @@ def _snapshot_if_due(args, engine, m, ticks: int, loop_t0: float,
     snapshot is skipped (``checkpoint_skipped``) and retried at the next
     due tick. A failed save (disk full, permission) is warned, counted in
     ``checkpoint_errors`` and retried; an injected fault propagates (it
-    simulates process death). The engine's ``feature_reference`` (a
-    restored checkpoint's v3 block) is written again."""
+    simulates process death). The drift monitor's reference and the
+    open-set gate's armed stats ride in the snapshot (format v3,
+    ``_serving_reference``)."""
     from .io import serving_checkpoint as sc
     from .utils.faults import FaultInjected
 
@@ -732,7 +856,7 @@ def _snapshot_if_due(args, engine, m, ticks: int, loop_t0: float,
             _, nbytes = sc.save_rotating(
                 engine, args.serve_checkpoint_dir, tick=ticks,
                 keep=args.serve_checkpoint_keep,
-                feature_reference=engine.feature_reference,
+                feature_reference=_serving_reference(drift, openset),
             )
     except FaultInjected:
         raise
@@ -783,14 +907,17 @@ def _dump_metrics(m, obs_dir, reason: str) -> None:
 
 def _serve_loop(args, engine, model, predict, serve_params, inc=None,
                 degrade=None, *, m, tracer, recorder=None, health=None,
-                lat=None, usr1=None) -> ServeSummary:
+                lat=None, usr1=None, drift=None,
+                openset=None) -> ServeSummary:
     """The poll loop. Spans per tick (obs/trace.py, into ``m``'s
     ``stage_*_s`` histograms): ``poll`` (its own root: waiting on the
     source), then ``tick`` around ``parse``, ``scatter`` (the table update
     and the wait on the serve stream that already ends each ingest),
     the render (serial: ``compact``/``feature``, ``predict``, ``render``;
     pipelined: ``dispatch`` on the host stage, ``stage.device`` around
-    ``predict`` and ``render`` on the device stage) and ``snapshot``."""
+    ``predict`` and ``render`` on the device stage) and ``snapshot``.
+    ``drift.poll()`` runs after each render, its frame printed: on the
+    device-stage worker when pipelined, else on this thread."""
     import functools
 
     from .ingest.fanin import RawTick
@@ -912,7 +1039,7 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
                         plan = _dispatch_render(
                             args, engine, model, predict, serve_params,
                             pipe, inc=inc, degrade=degrade, m=m,
-                            tracer=tracer, lat=lat,
+                            tracer=tracer, lat=lat, drift=drift,
                         )
                     else:
                         if args.idle_timeout and engine.last_time:
@@ -924,6 +1051,10 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
                                 inc, degrade=degrade, tracer=tracer,
                                 lat=lat,
                             )
+                        if drift is not None:
+                            # off the hot path: the tick's labels are
+                            # already rendered
+                            drift.poll()
                     summary.render_ticks.append(summary.ticks)
                     if plan is not None:
                         summary.render_plans.append(plan)
@@ -932,7 +1063,8 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
                     with tracer.span("snapshot"):
                         _snapshot_if_due(args, engine, m,
                                          tick_base + summary.ticks, loop_t0,
-                                         recorder=recorder, health=health)
+                                         recorder=recorder, health=health,
+                                         drift=drift, openset=openset)
                 _sync(engine.device)
             summary.tick_seconds.append(time.perf_counter() - t0)
             if args.metrics_every and summary.ticks % args.metrics_every == 0:
@@ -959,7 +1091,8 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
 
 
 def _dispatch_render(args, engine, model, predict, serve_params, pipe,
-                     inc=None, degrade=None, *, m, tracer, lat=None):
+                     inc=None, degrade=None, *, m, tracer, lat=None,
+                     drift=None):
     """Host-stage half of one pipelined render tick: evict, dispatch the
     read side against THIS tick's table, and stage the device-stage job.
     It prints what the serial render of the same tick prints: ``n_flows``
@@ -967,7 +1100,9 @@ def _dispatch_render(args, engine, model, predict, serve_params, pipe,
     N's state, and eviction waits for renders in flight (a released
     slot's metadata must outlive its render). The latency plane seals at
     dispatch; the device stage marks the device boundary after
-    ``rows()``, whose copy to the host waits for the kernels. Returns the
+    ``rows()``, whose copy to the host waits for the kernels. After the
+    frame prints, the worker polls the drift loop (``drift.poll()``): a
+    promotion swaps the served model there, between renders. Returns the
     incremental label plan, ``(kind, dirty rows)`` (None under
     ``--incremental off``)."""
     from .serving.pipeline import RenderJob, dispatch_read
@@ -1009,6 +1144,10 @@ def _dispatch_render(args, engine, model, predict, serve_params, pipe,
                     _print_full(model, rows, stale=stale)
             if lat is not None:
                 lat.render_visible(seal)
+        if drift is not None:
+            # the device-stage worker's idle time: the frame is printed,
+            # the next render is not yet taken
+            drift.poll()
 
     pipe.submit(RenderJob(read, render))
     return None if inc is None else inc.last_plan
@@ -1126,6 +1265,16 @@ def _check_flags(args) -> None:
         sys.exit("--serve-checkpoint-every needs --serve-checkpoint-dir")
     if args.obs_dump_on_exit and not args.obs_dir:
         sys.exit("--obs-dump-on-exit needs --obs-dir (the dump target)")
+    if args.drift != "off" and not args.drift_dir:
+        sys.exit(
+            "--drift auto needs --drift-dir (the candidate checkpoint "
+            "rotation and rollback target)"
+        )
+    if args.drift_follow and args.drift == "off":
+        sys.exit(
+            "--drift-follow needs --drift auto (the follower IS the "
+            "drift loop, adopting peers' rotation members)"
+        )
 
 
 def _build_engine(args, device, recorder):
@@ -1161,7 +1310,8 @@ def _build_engine(args, device, recorder):
     return engine
 
 
-def _start_exposition(args, m, recorder, degrade, inc, lat):
+def _start_exposition(args, m, recorder, degrade, inc, lat, drift=None,
+                      openset=None):
     """``HealthState`` and the ``ExpositionServer`` of ``--obs-port``, or
     (None, None)."""
     if args.obs_port is None:
@@ -1174,10 +1324,19 @@ def _start_exposition(args, m, recorder, degrade, inc, lat):
     )
     health.model_loaded()  # the model_age_s staleness anchor
     if degrade is not None:
-        # 200-but-degraded, with the ladder's rung
+        # 200-but-degraded, with the ladder's rung (following promotions
+        # when the drift loop is on)
         health.set_degrade(degrade.status)
+    if drift is not None:
+        # the drift loop's self-report and promotion timestamps:
+        # model_age_s tells "healthy but ancient" from "freshly promoted"
+        health.set_drift(drift.status)
+        drift.set_health(health)
     if inc is not None:
         health.set_label_cache(inc.status)
+    if openset is not None:
+        # the rejection tier: state, calibrated threshold, counters
+        health.set_openset(openset.status)
     if lat is not None:
         health.set_latency(lat.status)
     server = ExpositionServer(m, recorder=recorder, health=health,
@@ -1255,6 +1414,8 @@ def run_classify(args) -> ServeSummary:
     prev_sigterm = prev_sigusr1 = None
     sigterm_seen = False
     usr1 = {"due": False}
+    drift = openset = None
+    degrade_surface = degrade
     try:
         wstats = None
         if args.warmup:
@@ -1270,15 +1431,23 @@ def run_classify(args) -> ServeSummary:
                 f"{wstats['seconds']:.2f}s ({', '.join(wstats['warmed'])})",
                 file=sys.stderr,
             )
+        # the drift loop and the open-set gate wrap the predict AFTER
+        # warmup primed the boot model, and before the label cache, which
+        # watches their label_epoch
+        predict, drift, degrade_surface = _drift_loop(
+            args, model, predict, degrade, engine, device, m, recorder)
+        predict, model, openset = _openset_gate(
+            args, model, predict, drift, engine, m, recorder)
         inc = None
         if args.incremental != "off":
             from .serving.incremental import IncrementalLabels
 
             inc = IncrementalLabels(engine, predict, serve_params,
-                                    degrade=degrade, metrics=m,
+                                    degrade=degrade_surface, metrics=m,
                                     recorder=recorder, tracer=tracer)
-        health, server = _start_exposition(args, m, recorder, degrade, inc,
-                                           lat)
+        health, server = _start_exposition(args, m, recorder,
+                                           degrade_surface, inc, lat,
+                                           drift=drift, openset=openset)
         if (recorder is not None and args.obs_dir
                 and threading.current_thread() is threading.main_thread()):
             def _on_sigterm(signum, frame):
@@ -1297,8 +1466,9 @@ def run_classify(args) -> ServeSummary:
             with obs_faults:
                 summary = _serve_loop(
                     args, engine, model, predict, serve_params, inc,
-                    degrade=degrade, m=m, tracer=tracer, recorder=recorder,
-                    health=health, lat=lat, usr1=usr1)
+                    degrade=degrade_surface, m=m, tracer=tracer,
+                    recorder=recorder, health=health, lat=lat, usr1=usr1,
+                    drift=drift, openset=openset)
         except BaseException as e:
             # the crash-forensics moment, outside any signal frame: a
             # SystemExit is a dump only when the SIGTERM hook raised it
@@ -1326,8 +1496,12 @@ def run_classify(args) -> ServeSummary:
     finally:
         if server is not None:
             server.stop()
-        if degrade is not None:
-            degrade.close()
+        if degrade_surface is not None:
+            # the view closes the live (possibly promoted) ladder and the
+            # boot one; without drift it IS the boot ladder
+            degrade_surface.close()
+        if drift is not None:
+            drift.close()
         if prev_sigterm is not None:
             signal.signal(signal.SIGTERM, prev_sigterm)
             signal.signal(signal.SIGUSR1, prev_sigusr1)
@@ -1337,7 +1511,7 @@ def run_classify(args) -> ServeSummary:
             from .io import serving_checkpoint as sc
 
             sc.save(engine, args.save_serve_state,
-                    feature_reference=engine.feature_reference)
+                    feature_reference=_serving_reference(drift, openset))
             print(
                 f"saved serving state ({engine.num_flows()} tracked flows) "
                 f"to {args.save_serve_state}",
@@ -1345,9 +1519,113 @@ def run_classify(args) -> ServeSummary:
             )
     summary.warmup = wstats
     if degrade is not None:
-        summary.degrade = degrade.status()
+        summary.degrade = degrade_surface.status()
         summary.degrade_transitions = list(degrade.transitions)
+    if drift is not None:
+        summary.drift = drift.status()
+    if openset is not None:
+        summary.openset = openset.status()
     return summary
+
+
+def _drift_loop(args, model, predict, degrade, engine, device, m, recorder):
+    """``(predict, drift, degrade_surface)`` under ``--drift auto``: the
+    predict wrapped in a ``DriftGate`` (a passthrough until the first
+    promotion, the hot-swap point after it), its ``DriftController``, and
+    the ladder surface the render and /healthz read (a ``GateLadderView``
+    that follows promotions). A promotion under ``--degrade auto``
+    rebuilds a ``DegradeLadder`` around the candidate's kernel, with its
+    own host rung. Under ``--drift off`` the three come back as given."""
+    if args.drift == "off":
+        return predict, None, degrade
+    from .serving.drift import (
+        DriftController,
+        DriftGate,
+        GateLadderView,
+        default_build_serving,
+    )
+
+    build_bare = default_build_serving(model.name, tuple(model.classes.names))
+
+    def build_promoted(params):
+        """Candidate params → the serving pair a promotion installs: the
+        boot resolution plus, when --degrade engaged, the ladder — a
+        promoted checkpoint keeps the watchdog and fallback guarantees."""
+        pred, p = build_bare(params)
+        if degrade is None or getattr(pred, "host_native", False):
+            return pred, p
+        from .models import resolve_fallback
+        from .serving.degrade import DegradeLadder
+
+        return DegradeLadder(
+            pred, resolve_fallback(model.name, params),
+            deadline=args.device_deadline, probe_every=args.probe_every,
+            probe_successes=args.probe_successes, metrics=m,
+            recorder=recorder,
+        ), p
+
+    gate = DriftGate(predict)
+    drift = DriftController(
+        gate,
+        family=model.name,
+        classes=tuple(model.classes.names),
+        directory=args.drift_dir,
+        window=args.drift_window,
+        threshold=args.drift_threshold,
+        trips=args.drift_trips,
+        class_tolerance=args.drift_class_tolerance,
+        probe_successes=args.drift_probe_successes,
+        parity_min=args.drift_parity,
+        # a refit clustering orders its centroids arbitrarily: parity
+        # mode-matches kmeans cluster ids before comparing
+        parity_mode="mode-matched" if model.name == "kmeans" else "exact",
+        retrain_deadline=args.retrain_deadline,
+        reference=engine.feature_reference,
+        build_serving=build_promoted,
+        boot_params=model.params,
+        metrics=m,
+        recorder=recorder,
+        follow_rotation=args.drift_follow,
+        device=device,
+    )
+    surface = GateLadderView(gate, degrade) if degrade is not None else None
+    return gate, drift, surface
+
+
+def _openset_gate(args, model, predict, drift, engine, m, recorder):
+    """``(predict, model, openset)`` under ``--openset auto``: the
+    OUTERMOST predict wrapper (drift promotions hot-swap inside it), the
+    model's class list extended by ``unknown`` so every render decodes the
+    rejection index, and the gate; a restored serving checkpoint's armed
+    reference boots it ARMED. Under ``--openset off`` the first two come
+    back as given."""
+    if args.openset == "off":
+        return predict, model, None
+    import dataclasses
+
+    from .models.base import ClassList
+    from .serving.openset import OpenSetGate
+
+    restored = engine.feature_reference or {}
+    keys = ("openset_mean", "openset_inv_std", "openset_threshold")
+    openset = OpenSetGate(
+        predict, n_classes=len(model.classes.names),
+        margin=args.openset_margin,
+        calibration_rows=args.openset_calibration_rows,
+        metrics=m, recorder=recorder,
+        reference=(
+            {k: restored[k] for k in (*keys, "openset_calibrated_rows")
+             if k in restored}
+            if all(k in restored for k in keys) else None
+        ),
+    )
+    model = dataclasses.replace(
+        model, classes=ClassList(tuple(model.classes.names) + ("unknown",)))
+    if drift is not None:
+        # promotions re-base the gate on the retrain window, and the
+        # monitor observes the gate's labels (unknown included)
+        drift.set_openset(openset)
+    return openset, model, openset
 
 
 def _apply_config(args, parser) -> None:

@@ -3,11 +3,13 @@ label-cache seams.
 
 The port's copy of ``traffic_classifier_sdn_tpu/utils/faults.py``, with
 the registry cut to the sites this package threads. A named *fault site*
-sits at each seam (serving-checkpoint write, rename and restore,
-collector reads, supervisor restart, the fan-in queue and source pumps,
-native engine load and parse, the latency stamp, the pipeline handoff,
-the degrade ladder's dispatch and probe, the incremental label path); a
-test installs a seeded ``FaultPlan`` that fires scripted failures at
+sits at each seam (serving-checkpoint write, rename and restore, the model
+checkpoint's manifest commit, collector reads, supervisor restart, the
+fan-in queue and source pumps, native engine load and parse, the latency
+stamp, the pipeline handoff, the degrade ladder's dispatch and probe, the
+incremental label path, the drift loop's observation, refit, swap and
+rollback, the open-set gate's scoring and calibration); a test installs a
+seeded ``FaultPlan`` that fires scripted failures at
 exact hit counts (or seeded probabilities). Observers
 (``add_observer``/``observing``) see every fire before it manifests: the
 flight recorder (obs/flight_recorder.py) logs them that way.
@@ -42,6 +44,9 @@ SITES: dict[str, str] = {
         "the atomic rename itself (durability without visibility)"
     ),
     "serving_ckpt.restore": "io/serving_checkpoint.restore entry",
+    "train_ckpt.write": (
+        "io/checkpoint manifest commit (model and train-state saves)"
+    ),
     "collector.read": (
         "ingest/collector raw reader, per pipe chunk; 'truncate' drops "
         "the chunk tail mid-record (framing must poison the seam), "
@@ -125,6 +130,44 @@ SITES: dict[str, str] = {
         "row labels; ABSORBED: the tick degrades to a direct full-table "
         "re-predict served fresh, the cache and dirty mask are left "
         "untouched, and the dirty rows re-predict at the next render"
+    ),
+    "drift.window": (
+        "serving/drift.DriftController window observation — the "
+        "off-hot-path materialization/stats update for one observed "
+        "batch fails; ABSORBED: the observation is dropped (counted in "
+        "drift_window_errors) and the serve tick's output is unaffected"
+    ),
+    "retrain.fit": (
+        "serving/retrain.fit_family entry — the background refit "
+        "itself dies mid-fit; ABSORBED by the drift controller: the "
+        "retrain run is marked failed, the serve keeps the old model, "
+        "and a still-drifting stream re-trips later"
+    ),
+    "promote.swap": (
+        "serving/drift.DriftController promotion — the hot swap of the "
+        "candidate into the live predict path fails; ABSORBED: the "
+        "controller rolls back via serving/retrain.resolve_latest and "
+        "the old model keeps serving every tick"
+    ),
+    "promote.rollback": (
+        "serving/drift.DriftController rollback — the rollback reload "
+        "itself fails; ABSORBED: the gate keeps the pair it already "
+        "holds (the old model), so serving continues regardless"
+    ),
+    "openset.score": (
+        "serving/openset.OpenSetGate scoring — the per-tick open-set "
+        "rejection scoring fails; ABSORBED: that tick serves the inner "
+        "closed-world labels FRESH (the predict already ran) — never a "
+        "fabricated 'unknown', never a stale label, and the serve "
+        "never sees the failure"
+    ),
+    "openset.calibrate": (
+        "serving/openset.OpenSetGate calibration/rebase — a "
+        "calibration sample fold or a promotion-time rebase fails; "
+        "ABSORBED: the sample is dropped (calibration just takes "
+        "longer; a failed rebase keeps the previous stats) and labels "
+        "are never touched — the gate stays byte-transparent until a "
+        "calibration actually lands"
     ),
 }
 
