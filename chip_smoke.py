@@ -126,8 +126,8 @@ the script exits non-zero:
    rows where the float32 dot expansion's error bound reaches a
    decision's sign);
 6h. menu serves — the no-flag serves at 65,536 flows of ``knearest
-   --knn-topk hier``, ``knearest --knn-topk ivf`` (the native mirror, no
-   ladder), ``svm`` with ``TCSDN_SVC_KERNEL=dot`` and ``Randomforest``
+   --knn-topk hier``, ``knearest --knn-topk ivf`` (since PR 11 the torch
+   tier on the card under the ladder), ``svm`` with ``TCSDN_SVC_KERNEL=dot`` and ``Randomforest``
    with ``TCSDN_FOREST_KERNEL=native``, every printed table's labels equal
    to the tier's own function on the table its render was dispatched
    against;
@@ -153,7 +153,14 @@ the script exits non-zero:
    provenance on and off (one serve each) beside the plane's own host
    work a tick (``provenance_cost_s``), and a ``degrade.dispatch_error``
    drill that stays demoted: ``/healthz`` shows the rung, the dump holds
-   the transition;
+   the transition. The serve arms the device plane (PR 11): the /healthz
+   ``device`` block's ``device_memory_bytes`` against the flow table's
+   bytes at 65,536 rows (``flow_table_bytes``), the perf ring read back
+   by ``replay()`` with its last segment's stage p50s equal to the latency
+   plane's; then, each on a serve in a process of its own
+   (``profiled_serves``), ``/profile?seconds=1`` answering 200 with a
+   trace that names the forest kernel (and 409 to a concurrent request)
+   and a 2-tick serve under ``--profile-dir`` writing such a trace;
 6k. checkpoint — a serial forest serve (``--pipeline off``) of a
    65,536-flow capture, snapshotting every 2 ticks, stopped after tick 4
    and restored: the rest prints the uninterrupted serve's stdout byte
@@ -163,6 +170,30 @@ the script exits non-zero:
    saved on the card restores on the CPU and back, every leaf and the
    index bitwise; save and restore seconds and bytes at 65,536 and 2^20
    flows;
+6l. drift (PR 10) — the drift loop's serve; since PR 11 it also prints
+   the candidate's staging broken down (``staging_breakdown``:
+   ``DriftController._build`` and, inside it, ``default_build_serving``
+   and ``resolve_fallback``, beside the host ticks they overlapped);
+6m. actuation — the no-flag forest serve of 65,536 conversations at
+   steady rates (``steady_capture``) through ``--source ryu``, a render
+   every tick, with ``--actuation push`` (k_install 2, k_retract 2, five
+   classes with an action and voice observe-only) against an in-process
+   ``AccountingSwitch``: tables against the plain forest, one launch a
+   render, the switch's live rules equal to the ledger's installed -
+   retracted and to the plane's INSTALLED rules, each on a rendered pair
+   whose label maps to an action, its FLOW_MOD bytes ``compile_install``'s;
+   stdout against ``--actuation off`` (subsequence rule, no actuation
+   line); the /healthz ``actuation`` block and the ledger; a
+   ``script_refuse(3)`` drill (degrade, each refusal accounted, re-probe
+   to push) and a ``script_stall_barrier(1)`` drill (the flush refused),
+   each with every host tick under 1 s;
+6n. scenarios — the 8 library scenarios at the ``cpu`` profile through
+   the port's ``run_scenario`` on the card: every gate passes, one
+   scorecard line each;
+6o. fleet — ``tools/torch_fleet_serve.py`` with two forest members on the
+   card (4 sources, 32,768 flows a member, ``--drift auto`` on one
+   rotation, 4 ticks): one aggregator scrape lists both members' sources,
+   each with its member; both exit 0;
 7. breakdown — host seconds per tick of 131,072 records into 65,536 flows
    through the Python spine, the native spine from records and the
    native spine from raw bytes (each with ``step()`` and a device sync),
@@ -535,6 +566,13 @@ def cuda_back_to_back_ms(fn, launches: int = 20, warmup: int = 3) -> float:
 
 def parse_tables(text: str) -> list[list[tuple[int, str]]]:
     """The rendered tables of a serve's stdout as [(slot, label), ...]."""
+    return [[(slot, label) for slot, _src, _dst, label in table]
+            for table in parse_rows(text)]
+
+
+def parse_rows(text: str) -> list[list[tuple[int, str, str, str]]]:
+    """The rendered tables of a serve's stdout as [(slot, src, dst,
+    label), ...]."""
     tables, rows, seps = [], None, 0
     for line in text.splitlines():
         if line.startswith("+"):
@@ -546,7 +584,7 @@ def parse_tables(text: str) -> list[list[tuple[int, str]]]:
             continue
         if line.startswith("|") and seps % 3 == 2:
             cells = [c.strip() for c in line.strip("|").split("|")]
-            rows.append((int(cells[0]), cells[3]))
+            rows.append((int(cells[0]), cells[1], cells[2], cells[3]))
     return tables
 
 
@@ -2183,7 +2221,9 @@ def phase_menu_serves(models: dict, ops: dict, device) -> dict:
     its render was dispatched against: ``knearest --knn-topk hier`` (the
     torch tier, under the ladder; equal to the kernel's plain version,
     which it matches bitwise on finite rows), ``knearest --knn-topk ivf``
-    (the native mirror of the quantizer the serve built, no ladder),
+    (on a card the torch tier on the card under the ladder, since PR 11;
+    on the CPU the native mirror of the quantizer the serve built, no
+    ladder),
     ``svm`` with ``TCSDN_SVC_KERNEL=dot`` (``predict_dot`` on the card,
     but on ``dot_rule_rows``) and ``Randomforest`` with
     ``TCSDN_FOREST_KERNEL=native`` (the C++ walk, no ladder; and the
@@ -2231,19 +2271,35 @@ def phase_menu_serves(models: dict, ops: dict, device) -> dict:
             tag, "knn", ["knearest", *base, "--knn-topk", "ivf",
                          "--native-checkpoint", ckpts["knn"]], {},
             watch_ivf=True)
-        if (summary.degrade is not None or len(built) != 1
-                or not native_knn.available() or any(launches.values())):
-            raise AssertionError(f"{tag} not the native mirror without the "
-                                 f"ladder: {summary.degrade}, {len(built)} "
-                                 f"builds, launches {launches}")
+        on_card = device.type == "cuda"
+        st = summary.degrade
+        served = (st is not None and st["state"] == "HEALTHY"
+                  and not st["fallback_calls"]) if on_card else (
+            st is None and native_knn.available())
+        if not served or len(built) != 1 or any(launches.values()):
+            raise AssertionError(
+                f"{tag} not the {'torch tier under' if on_card else 'native mirror without'} "
+                f"the ladder: {st}, {len(built)} builds, launches {launches}")
         ivf = built[0]
-        hk = native_knn.NativeKnn({"fit_X": kp.fit_X.cpu().numpy(),
-                                   "y": kp.fit_y.cpu().numpy(),
-                                   "n_neighbors": kp.n_neighbors,
-                                   "classes": np.arange(kp.n_classes)})
-        hk.build_ivf(ivf.centers.cpu().numpy(), knn_ivf.assignments_of(ivf))
-        _check_dispatched(tag, tables, feats, log, lambda X: hk.predict_ivf(
-            X.cpu().numpy(), ivf.nprobe))
+        if on_card:
+            # the torch tier, its quantizer on the card (ROADMAP Queue 3
+            # item 14)
+            if ivf.centers.device.type != "cuda":
+                raise AssertionError(f"{tag} quantizer on {ivf.centers.device}")
+            _check_dispatched(tag, tables, feats, log, lambda X:
+                              knn_ivf.predict_chunked(ivf, X).cpu())
+            print(f"{tag} served by the torch tier on the card under the "
+                  "ladder: labels equal knn_ivf.predict_chunked's on the "
+                  "dispatched tables")
+        else:
+            hk = native_knn.NativeKnn({"fit_X": kp.fit_X.cpu().numpy(),
+                                       "y": kp.fit_y.cpu().numpy(),
+                                       "n_neighbors": kp.n_neighbors,
+                                       "classes": np.arange(kp.n_classes)})
+            hk.build_ivf(ivf.centers.cpu().numpy(),
+                         knn_ivf.assignments_of(ivf))
+            _check_dispatched(tag, tables, feats, log, lambda X: hk.predict_ivf(
+                X.cpu().numpy(), ivf.nprobe))
         found["menus knearest ivf"] = launches
 
         tag = "[menus svm TCSDN_SVC_KERNEL=dot]"
@@ -2963,14 +3019,14 @@ def held_source(ticks: int):
         replay.SyntheticFlows.tick = tick
 
 
-def _get(port: int, path: str):
+def _get(port: int, path: str, timeout: float = 10):
     """(status, body) of one GET on the serve's obs port."""
     import urllib.error
     import urllib.request
 
     try:
         with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
-                                    timeout=10) as r:
+                                    timeout=timeout) as r:
             return r.status, r.read()
     except urllib.error.HTTPError as e:
         return e.code, e.read()
@@ -3116,6 +3172,188 @@ def provenance_cost_s(ticks: int = 2000) -> float:
     return (time.perf_counter() - t0) / ticks
 
 
+def flow_table_bytes(capacity: int) -> int:
+    """Bytes the flow table's tensors hold at ``capacity``: every field of
+    core/flow_table.py's ``FlowTable`` and its two ``DirState``s, each
+    capacity + 1 rows (the scratch row)."""
+    import dataclasses
+
+    from traffic_classifier_sdn_tpu_torch.core import flow_table as ft
+
+    def size(x) -> int:
+        if dataclasses.is_dataclass(x):
+            return sum(size(getattr(x, f.name)) for f in dataclasses.fields(x))
+        return x.numel() * x.element_size()
+
+    return size(ft.make_table(capacity, "cpu"))
+
+
+def nearest_rank_p50(xs: list) -> float:
+    """The 50th percentile as ``utils.metrics.Histogram`` ranks it."""
+    s = sorted(xs)
+    return s[min(len(s) - 1, max(0, int(round(0.5 * (len(s) - 1)))))]
+
+
+PROFILE_TICK_S = 0.25  # the profiled serve's source interval
+
+
+def _trace_kernels(trace: str) -> tuple[list, list]:
+    """(event kinds, kernel names) of a Chrome trace's text."""
+    events = json.loads(trace).get("traceEvents", []) if trace else []
+    return (sorted({str(e.get("cat")) for e in events}),
+            sorted({e.get("name", "")[:80] for e in events
+                    if e.get("cat") == "kernel"}))
+
+
+def _serve_process(argv: list, stderr_path: str):
+    """A CLI serve in a process of its own, stdout discarded, stderr to a
+    file; returns (process, the obs port it printed or None)."""
+    import subprocess
+
+    err = open(stderr_path, "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "traffic_classifier_sdn_tpu_torch.cli", *argv],
+        stdout=subprocess.DEVNULL, stderr=err, cwd=HERE)
+    err.close()
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline and proc.poll() is None:
+        with open(stderr_path, "rb") as f:
+            m = re.search(rb"observability plane on port (\d+)", f.read())
+        if m:
+            return proc, int(m.group(1))
+        time.sleep(0.05)
+    return proc, None
+
+
+def profiled_serves(ckpt: str, tmp: str, device) -> dict:
+    """The profiler's two surfaces, each on a serve in a process of its
+    own: ``/profile?seconds=1`` on a forest serve rendering every tick
+    (``--source-spec synthetic:65536``, a tick every ``PROFILE_TICK_S``),
+    with a second request while the first runs; then a 2-tick serve under
+    ``--profile-dir``. In the script's own process, after its earlier
+    phases, a capture recorded no GPU activity at all (PR 11; ROADMAP
+    Queue 3 item 21): a fresh process is where an operator's serve runs."""
+    import threading
+
+    out: dict = {}
+    obs_dir = os.path.join(tmp, "profiled-obs")
+    proc, port = _serve_process(
+        ["Randomforest", "--native-checkpoint", ckpt, "--source-spec",
+         f"synthetic:{CAPACITY}", "--source-interval", str(PROFILE_TICK_S),
+         "--capacity", str(CAPACITY), "--print-every", "1", "--max-ticks",
+         "400", "--obs-port", "0", "--obs-dir", obs_dir, "--device",
+         device.type], os.path.join(tmp, "profiled.err"))
+    try:
+        if port is None:
+            raise AssertionError("the profiled serve bound no obs port: "
+                                 + open(os.path.join(tmp, "profiled.err"))
+                                 .read()[-2000:])
+        time.sleep(2.0)  # a few renders in before the capture
+
+        def first():
+            try:
+                out["first"] = _get(port, "/profile?seconds=1", timeout=120)
+            except OSError as e:
+                out["first"] = (None, json.dumps({"error": repr(e)}).encode())
+
+        t = threading.Thread(target=first)
+        t.start()
+        time.sleep(0.5)
+        out["second"] = _get(port, "/profile?seconds=1")
+        t.join(timeout=150)
+        out["healthz"] = json.loads(_get(port, "/healthz")[1])
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    out["rc"] = proc.returncode
+    pdir = os.path.join(tmp, "profile-dir")
+    t0 = time.perf_counter()
+    proc, _ = _serve_process(
+        ["Randomforest", "--native-checkpoint", ckpt, "--source",
+         "synthetic", "--synthetic-flows", str(CAPACITY), "--capacity",
+         str(CAPACITY), "--max-ticks", "2", "--print-every", "1",
+         "--profile-dir", pdir, "--device", device.type],
+        os.path.join(tmp, "profile-dir.err"))
+    out["profile_dir_rc"] = proc.wait(timeout=300)
+    out["profile_dir_s"] = time.perf_counter() - t0
+    out["profile_dir"] = [os.path.join(pdir, n) for n in os.listdir(pdir)] \
+        if os.path.isdir(pdir) else []
+    return out
+
+
+def _check_device_plane(tag: str, health: dict, obs_dir: str, m,
+                        device) -> None:
+    """The device plane of the obs phase's serve: the /healthz ``device``
+    block against the flow table's bytes, and the perf ring read back with
+    its last segment's stage p50s equal to the latency plane's."""
+    from traffic_classifier_sdn_tpu_torch.obs import perf_recorder
+
+    dev = health.get("device")
+    table = flow_table_bytes(CAPACITY)
+    if dev is None or not dev["armed"]:
+        raise AssertionError(f"{tag} /healthz without a device block: {dev}")
+    mem = dev["device_memory_bytes"]
+    if device.type == "cuda" and (mem is None or mem < table):
+        raise AssertionError(f"{tag} device_memory_bytes {mem} below the "
+                             f"flow table's {table} bytes")
+    print(f"{tag} /healthz device: {dev['backend']} ({dev['platform']}), "
+          f"device_memory_bytes {mem} (watermark "
+          f"{dev['hbm_watermark_bytes']}) >= the flow table's {table} bytes "
+          f"at capacity {CAPACITY}; compile telemetry "
+          f"{dev['compile_telemetry']}")
+    ring = os.path.join(obs_dir, "perf")
+    samples = perf_recorder.replay(ring)
+    segments = perf_recorder.segment_files(ring)
+    with open(segments[-1][1]) as f:
+        last = [json.loads(ln) for ln in f if ln.strip()][1:]
+    stages = ("stage_tick_s", "stage_parse_s", "stage_scatter_s")
+    ring_p50 = {n: nearest_rank_p50([x[n] for x in last if n in x])
+                for n in stages}
+    plane_p50 = {n: round(m.histograms[n].percentile(50), 6) for n in stages}
+    if (len(samples) != OBS_TICKS or len(last) != OBS_TICKS
+            or ring_p50 != plane_p50):
+        raise AssertionError(f"{tag} perf ring {len(samples)} samples, "
+                             f"{len(last)} in its last segment; p50 ring "
+                             f"{ring_p50}, plane {plane_p50}")
+    print(f"{tag} perf ring: {len(segments)} segment(s), {len(samples)} "
+          f"samples read back by replay(); the last segment's stage p50s "
+          f"equal the latency plane's: {ring_p50}; newest sample "
+          f"{json.dumps(samples[-1], sort_keys=True)}")
+
+
+def _check_profiled(tag: str, got: dict, device) -> None:
+    """``/profile?seconds=1`` answered 200 with a trace naming the forest
+    kernel's launch (on a card; on the CPU the capture's thread only
+    sleeps and its trace holds no op), a concurrent request 409, and the
+    ``--profile-dir`` serve wrote one trace naming it too."""
+    status, body = got.get("first", (None, b"{}"))
+    out = json.loads(body)
+    trace = open(out["trace"]).read() if status == 200 else ""
+    want = "forest_proba" if device.type == "cuda" else "traceEvents"
+    kinds, kernels = _trace_kernels(trace)
+    if status != 200 or got["second"][0] != 409 or want not in trace:
+        raise AssertionError(f"{tag} /profile {status} {out}, concurrent "
+                             f"{got['second'][0]}, {want!r} in the trace: "
+                             f"{want in trace} ({len(trace)} bytes, event "
+                             f"kinds {kinds}, kernels {kernels[:12]})")
+    names = [n for n in kernels if "forest_proba" in n]
+    print(f"{tag} /profile?seconds=1 on a serve process of its own: 200, a "
+          f"{len(trace)}-byte trace (wall {out['wall_s']} s, the process's "
+          f"first CUDA profiler start included) naming {names or want!r}; "
+          f"a concurrent request: {got['second'][0]}; /healthz profiler-"
+          f"armed serve {got['healthz'].get('device', {}).get('backend')}; "
+          f"exit {got['rc']} on SIGTERM")
+    paths = got["profile_dir"]
+    text = open(paths[0]).read() if len(paths) == 1 else ""
+    if got["profile_dir_rc"] != 0 or want not in text:
+        raise AssertionError(f"{tag} --profile-dir serve exit "
+                             f"{got['profile_dir_rc']}, traces {paths}, "
+                             f"{want!r} in it: {want in text}")
+    print(f"{tag} --profile-dir: a 2-tick serve process in "
+          f"{got['profile_dir_s']:.2f} s wrote one {len(text)}-byte trace "
+          f"naming {want!r}")
+
+
 def phase_obs(model: dict, k, device) -> int:
     """The metrics and observability plane on the no-flag forest serve of
     65,536 flows: ``/metrics`` scraped while it ticks, ``/healthz``,
@@ -3123,7 +3361,10 @@ def phase_obs(model: dict, k, device) -> int:
     snapshot due every tick, the SIGTERM post-mortem, stdout against the
     same serve with the obs surfaces off, host tick p50 with latency
     provenance on and off, and a dispatch-error drill whose rung /healthz
-    shows. Returns the forest kernel's launches."""
+    shows. The serve arms the device plane: the /healthz ``device`` block,
+    the perf ring and ``/profile`` (``_check_device_plane``); then one
+    short serve under ``--profile-dir``. Returns the forest kernel's
+    launches."""
     from traffic_classifier_sdn_tpu_torch import interop
     from traffic_classifier_sdn_tpu_torch.io import checkpoint
     from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
@@ -3182,6 +3423,7 @@ def phase_obs(model: dict, k, device) -> int:
         dump = _dump_events(obs_dir, "sigterm")
         if dump[-1]["kind"] != "signal.sigterm":
             raise AssertionError(f"{tag} the dump ends with {dump[-1]}")
+        _check_device_plane(tag, health, obs_dir, watch.m, device)
         reports = [ln for ln in err.splitlines() if ln.startswith("metrics ")]
         _check_printed(tag, parse_tables(out), "forest", k, features, log)
         if launches < 1 or len(reports) != OBS_TICKS // 2:
@@ -3269,6 +3511,9 @@ def phase_obs(model: dict, k, device) -> int:
               f"{health['degrade']['rung']} (fallback "
               f"{health['degrade']['fallback']}, {len(plan.fires)} fires); "
               f"the sigterm dump holds the transition {edges[0]}")
+        # the profiler's surfaces, on serves of their own processes (their
+        # launches are not counted here)
+        _check_profiled(tag, profiled_serves(ckpt, tmp, device), device)
     return launches
 
 
@@ -3572,16 +3817,33 @@ def openset_relabel(labels: np.ndarray, X: np.ndarray, ref: dict | None,
     return np.where(rej, unknown, labels)
 
 
+def _timed(calls: list, name: str, fn):
+    """``fn`` that appends ``(name, wall start, seconds)`` to ``calls``."""
+    def timed(*a, **kw):
+        t0, w0 = time.perf_counter(), time.time()
+        try:
+            return fn(*a, **kw)
+        finally:
+            calls.append((name, w0, time.perf_counter() - t0))
+
+    return timed
+
+
 @contextlib.contextmanager
 def watched_drift():
     """While active, the drift loop's objects a serve builds are kept
     (``seen["gate"]``, ``["controller"]``, ``["openset"]``), and every
     refit is timed: ``seen["fits"]`` holds ``(seconds, params, end)`` per
-    ``retrain.fit_family`` call, ``end`` on the monotonic clock."""
+    ``retrain.fit_family`` call, ``end`` on the monotonic clock. The
+    candidate's staging is timed too: ``seen["builds"]`` holds ``(name,
+    wall start, seconds)`` of each ``DriftController._build`` call and,
+    within it, of the CLI's ``default_build_serving`` build and
+    ``models.resolve_fallback``."""
+    from traffic_classifier_sdn_tpu_torch import models
     from traffic_classifier_sdn_tpu_torch.serving import drift, openset
     from traffic_classifier_sdn_tpu_torch.serving import retrain
 
-    seen: dict = {"fits": []}
+    seen: dict = {"fits": [], "builds": []}
     patched = []
 
     def keep(cls, name):
@@ -3590,6 +3852,8 @@ def watched_drift():
         def wrapped(self, *a, **kw):
             init(self, *a, **kw)
             seen[name] = self
+            if name == "controller":
+                self._build = _timed(seen["builds"], "_build", self._build)
 
         patched.append((cls, init))
         cls.__init__ = wrapped
@@ -3597,6 +3861,12 @@ def watched_drift():
     keep(drift.DriftGate, "gate")
     keep(drift.DriftController, "controller")
     keep(openset.OpenSetGate, "openset")
+    default_build = drift.default_build_serving
+    resolve = models.resolve_fallback
+    drift.default_build_serving = lambda *a, **kw: _timed(
+        seen["builds"], "default_build_serving", default_build(*a, **kw))
+    models.resolve_fallback = _timed(seen["builds"], "resolve_fallback",
+                                     resolve)
     fit = retrain.fit_family
 
     def timed(*a, **kw):
@@ -3615,8 +3885,36 @@ def watched_drift():
         yield seen
     finally:
         retrain.fit_family = fit
+        drift.default_build_serving = default_build
+        models.resolve_fallback = resolve
         for cls, init in patched:
             cls.__init__ = init
+
+
+def staging_breakdown(tag: str, seen: dict) -> None:
+    """Print each candidate staging (``DriftController._build``) with the
+    CLI's ``default_build_serving`` and ``resolve_fallback`` calls inside
+    it, and the host-stage ticks (``tick`` spans of the flight recorder)
+    that overlapped it, beside the longest host tick of the serve."""
+    ticks = [(e["ts"] - e["duration_s"], e["ts"], e["duration_s"])
+             for e in seen["controller"]._recorder.tail()
+             if e["kind"] == "span" and e["name"] == "tick"]
+    builds = seen["builds"]
+    for name, w0, secs in builds:
+        if name != "_build":
+            continue
+        inner = [(n, x) for n, s0, x in builds
+                 if n != "_build" and w0 <= s0 <= w0 + secs]
+        during = [round(d, 3) for a, b, d in ticks if a < w0 + secs and b > w0]
+        print(f"{tag} staging breakdown: DriftController._build "
+              f"{secs:.3f} s, within it "
+              + (", ".join(f"{n} {x:.3f} s" for n, x in inner) or "nothing")
+              + f"; host ticks overlapping it (s): {during}")
+    if ticks:
+        a, b, d = max(ticks, key=lambda t: t[2])
+        hit = [n for n, w0, x in builds if a < w0 + x and b > w0]
+        print(f"{tag} the longest host tick: {d:.3f} s, overlapping "
+              f"{hit or 'no staging call'}")
 
 
 def _drift_serve(tag: str, ckpt: str, tmp: str, novel: int, counter: str,
@@ -3765,6 +4063,7 @@ def phase_drift(model: dict, k, device) -> int:
         fits = [f for f in seen["fits"] if f[2] <= watch["flagged_t"]]
         fit_s, params, _ = fits[-1]
         deadline = 300.0  # --retrain-deadline's default
+        staging_breakdown(tag, seen)
         print(f"{tag} drift {st['state']}: {st['retrain_runs']} refit(s), "
               f"{st['promotions']} promotion(s), {st['rollbacks']} "
               f"rollbacks; the promoted refit took {fit_s:.3f} s on the card "
@@ -3887,6 +4186,402 @@ def phase_drift(model: dict, k, device) -> int:
         if os.path.basename(latest) != "model-000000000":
             raise AssertionError(f"{dtag} rotation resolves to {latest}")
     return launches, promoted
+
+
+# ---------------------------------------------------------------------------
+# slice 11: the actuation plane, the scenario campaign and the fleet
+# ---------------------------------------------------------------------------
+
+ACT_TICKS = 10
+ACT_PAUSE = 0.5  # s between the emitter's ticks
+# one action per forest class but voice, which stays observe-only
+ACT_POLICY = ("dns=queue:1,game=meter:2,ping=drop,quake=mirror:3,"
+              "telnet=queue:4")
+ACT_FLAGS = ("--actuation", "push", "--actuation-k-install", "2",
+             "--actuation-k-retract", "2", "--policy", ACT_POLICY)
+ACT_REFUSE = 3  # flow-mods the refusal drill's switch bounces
+
+
+def steady_capture(path: str, n_flows: int, ticks: int,
+                   seed: int = SEED) -> None:
+    """A monitor capture of ``n_flows`` conversations whose packet and
+    byte rates hold steady: ``SyntheticFlows``' per-conversation rates
+    without its Poisson draws, so every flow's features (and labels) settle
+    after its second poll and the activity ranking stays put."""
+    from traffic_classifier_sdn_tpu_torch.ingest.replay import SyntheticFlows
+
+    syn = SyntheticFlows(n_flows=n_flows, seed=seed)
+    pf = np.maximum(1, np.int64(syn.pps_fwd))
+    pr = np.maximum(1, np.int64(syn.pps_rev))
+    bf, br = np.int64(pf * syn.bpp_fwd), np.int64(pr * syn.bpp_rev)
+    macs = [(syn._mac(i, 0), syn._mac(i, 1)) for i in range(n_flows)]
+    with open(path, "wb") as f:
+        for t in range(1, ticks + 1):
+            rows = zip(macs, (pf * t).tolist(), (bf * t).tolist(),
+                       (pr * t).tolist(), (br * t).tolist())
+            f.write("".join(
+                f"data\t{t}\t1\t1\t{s}\t{d}\t2\t{a}\t{b}\n"
+                f"data\t{t}\t1\t2\t{d}\t{s}\t1\t{c}\t{e}\n"
+                for (s, d), a, b, c, e in rows).encode())
+
+
+def recording_switch():
+    """The port's ``AccountingSwitch`` (tools/torch_fake_switch.py) that
+    also keeps each live install's FLOW_MOD message as it came off the
+    wire (``raw_installs``, by cookie), started."""
+    from traffic_classifier_sdn_tpu_torch.controller import openflow as of
+    from traffic_classifier_sdn_tpu_torch.scenarios.runner import (
+        _accounting_switch_cls,
+    )
+
+    class Recording(_accounting_switch_cls()):
+        def __init__(self):
+            super().__init__()
+            self.raw_installs: dict = {}
+
+        def _handle_flow_mod(self, xid, body):
+            fm = of.parse_flow_mod(body)
+            if fm["command"] == of.OFPFC_ADD:
+                with self._lock:
+                    self.raw_installs[fm["cookie"]] = of.message(
+                        of.OFPT_FLOW_MOD, xid, body)
+            return super()._handle_flow_mod(xid, body)
+
+    return Recording().start()
+
+
+@contextlib.contextmanager
+def kept_planes():
+    """While active, every actuation plane a serve builds is kept
+    (``planes``, in order)."""
+    from traffic_classifier_sdn_tpu_torch.serving import actuation
+
+    planes = []
+    init = actuation.ActuationPlane.__init__
+
+    def wrapped(self, *a, **kw):
+        init(self, *a, **kw)
+        planes.append(self)
+
+    actuation.ActuationPlane.__init__ = wrapped
+    try:
+        yield planes
+    finally:
+        actuation.ActuationPlane.__init__ = init
+
+
+@contextlib.contextmanager
+def healthz_watch(block: str):
+    """While active, a thread scrapes the serve's ``/healthz`` every 0.1 s
+    and keeps the last report that holds ``block`` (``seen["report"]``)."""
+    import threading
+
+    from traffic_classifier_sdn_tpu_torch.utils.metrics import global_metrics
+
+    seen: dict = {"report": None}
+    done = threading.Event()
+    global_metrics.gauges.pop("obs_port", None)
+
+    def run():
+        while not done.is_set():
+            port = int(global_metrics.gauges.get("obs_port", 0))
+            if port:
+                try:
+                    status, body = _get(port, "/healthz")
+                except OSError:  # the plane stopping under it
+                    status, body = 0, b"{}"
+                report = json.loads(body or b"{}")
+                if status == 200 and block in report:
+                    seen["report"] = report
+            done.wait(0.1)
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    try:
+        yield seen
+    finally:
+        done.set()
+        thread.join(timeout=10)
+
+
+def _check_switch(tag: str, sw, plane, status: dict, tables: list) -> int:
+    """The switch's live rules are the plane's INSTALLED rules, as many as
+    the ledger's installed − retracted; each one's match is a rendered
+    (src, dst) that a printed table showed with the rule's label, a label
+    that maps to a non-observe action (a later table may show another
+    label: a deviation shorter than k_retract keeps the rule), and its
+    FLOW_MOD bytes are ``compile_install``'s for that action. Returns the
+    live rules."""
+    from traffic_classifier_sdn_tpu_torch.controller.policy import (
+        compile_install,
+    )
+
+    deadline = time.monotonic() + 5.0
+    installed = {r.cookie: r for r in plane._rules.values()
+                 if r.state == "INSTALLED"}
+    while set(sw.live_cookies()) != set(installed):
+        if time.monotonic() > deadline:
+            raise AssertionError(
+                f"{tag} switch rules {sorted(sw.live_cookies())[:8]} "
+                f"against the plane's {sorted(installed)[:8]}")
+        time.sleep(0.01)
+    ledger = status["ledger"]
+    if (not ledger["exact"] or len(installed)
+            != ledger["installed"] - ledger["retracted"]):
+        raise AssertionError(f"{tag} {len(installed)} live rules, ledger "
+                             f"{ledger}")
+    rendered: dict = {}
+    for table in tables:
+        for _slot, src, dst, label in table:
+            rendered.setdefault((src, dst), set()).add(label)
+    for cookie, rule in installed.items():
+        pair = (rule.src, rule.dst)
+        action = plane.policy.get(rule.installed_label)
+        raw = sw.raw_installs.get(cookie)
+        if action is None or rule.installed_label not in rendered.get(pair, ()):
+            raise AssertionError(f"{tag} rule {cookie} {pair}: installed "
+                                 f"{rule.installed_label}, rendered "
+                                 f"{rendered.get(pair)}")
+        xid = int.from_bytes(raw[4:8], "big")
+        if raw != compile_install(xid, rule.src, rule.dst, action, cookie):
+            raise AssertionError(f"{tag} rule {cookie}: FLOW_MOD bytes are "
+                                 "not compile_install's")
+    return len(installed)
+
+
+def phase_actuation(model: dict, k, device) -> int:
+    """The actuation plane on the flagship serve: the seeded 100-tree
+    forest at capacity 65,536 with no flag turned off, ``--source ryu``
+    over a steady-rate capture of 65,536 conversations (``steady_capture``,
+    ticks ``ACT_PAUSE`` s apart, a render every tick), ``ACT_FLAGS`` against
+    an in-process ``AccountingSwitch``. Checks: every table against the
+    plain forest on its dispatched table, one kernel launch a render, the
+    switch's live rules against the ledger and the rendered labels (bytes
+    included), stdout against the ``--actuation off`` serve (the
+    subsequence rule) with no actuation line; then a refusal drill (the
+    plane degrades, accounts each refusal and re-probes back to push, every
+    host tick under 1 s) and a withheld-barrier drill (the flush refused,
+    no host tick waiting on it). Returns the forest kernel's launches."""
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+
+    tag = "[actuation Randomforest]"
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, capture = os.path.join(tmp, "ckpt"), os.path.join(tmp, "capture")
+        emitter = os.path.join(tmp, "emitter.py")
+        checkpoint.save_model(ckpt, "forest",
+                              interop.forest_params_from_numpy(model, device),
+                              classes=CLASSES)
+        t0 = time.perf_counter()
+        steady_capture(capture, CAPACITY, ACT_TICKS)
+        print(f"{tag} steady capture of {CAPACITY} conversations x "
+              f"{ACT_TICKS} ticks written in {time.perf_counter() - t0:.2f} s")
+        with open(emitter, "w") as f:
+            f.write(EMITTER)
+        base = ["Randomforest", "--source", "ryu", "--monitor-cmd",
+                f"{sys.executable} {emitter} {capture} {ACT_PAUSE}",
+                "--capacity", str(CAPACITY), "--print-every", "1",
+                "--native-checkpoint", ckpt]
+        fk.forest_proba.launches = 0
+        off_out, off_sum, _ = _serve(base)
+        launches = fk.forest_proba.launches
+
+        sw = recording_switch()
+        try:
+            with kept_planes() as planes, healthz_watch("actuation") as hz, \
+                    watched_dispatch("forest") as (features, log):
+                fk.forest_proba.launches = 0
+                out, summary, wall = _serve(base + [
+                    *ACT_FLAGS, "--actuation-switch", f"{sw.host}:{sw.port}",
+                    "--obs-port", "0"])
+                main_launches = fk.forest_proba.launches
+            st = summary.actuation
+            tables = parse_tables(out)
+            _check_printed(tag, tables, "forest", k, features, log, rows=None)
+            short = [len(t) for t in tables[1:] if len(t) != 64]
+            per_render = _per_render_launches(tag, summary, log)
+            if short or main_launches != sum(per_render) or not main_launches:
+                raise AssertionError(f"{tag} tables of {short} rows, "
+                                     f"{main_launches} launches, per render "
+                                     f"{per_render}")
+            live = _check_switch(tag, sw, planes[-1], st, parse_rows(out))
+        finally:
+            sw.stop()
+        if (st["state"] != "push" or st["ledger"]["refused"] or not live
+                or st["degrades"]):
+            raise AssertionError(f"{tag} plane {st}")
+        if "actuation" in out or "actuation" in off_out:
+            raise AssertionError(f"{tag} an actuation line on stdout")
+        pair = sorted(((out, summary.ticks_coalesced),
+                       (off_out, off_sum.ticks_coalesced)),
+                      key=lambda x: len(frames(x[0])))
+        if (not subsequence(pair[0][0], pair[1][0])
+                or len(frames(pair[1][0])) - len(frames(pair[0][0]))
+                != abs(summary.ticks_coalesced - off_sum.ticks_coalesced)):
+            raise AssertionError(f"{tag} stdout against --actuation off "
+                                 "breaks the subsequence rule")
+        block = (hz["report"] or {}).get("actuation")
+        if block is None:
+            raise AssertionError(f"{tag} no /healthz actuation block")
+        print(f"{tag} {summary.ticks} polls in {wall:.2f} s; host stage per "
+              "tick (s): " + ", ".join(f"{x:.3f}" for x in summary.tick_seconds)
+              + f"; {len(tables)} tables, each one's labels the plain "
+              f"forest's; {main_launches} forest launches, one per render "
+              f"{per_render}; stdout against --actuation off: subsequence "
+              f"rule ({summary.ticks_coalesced} and "
+              f"{off_sum.ticks_coalesced} coalesced), no actuation line")
+        print(f"{tag} switch: {live} live rules = the plane's INSTALLED "
+              f"rules = ledger installed - retracted, each on a rendered "
+              "pair whose label maps to a non-observe action, FLOW_MOD bytes "
+              "equal compile_install's")
+        print(f"{tag} /healthz actuation: {json.dumps(block)}")
+        print(f"{tag} ledger at exit: {json.dumps(st['ledger'])}")
+        launches += main_launches
+
+        for drill, script in (("refuse", lambda s: s.script_refuse(ACT_REFUSE)),
+                              ("stall", lambda s: s.script_stall_barrier(1))):
+            dtag = f"[actuation drill {drill}]"
+            sw = recording_switch()
+            script(sw)
+            try:
+                with kept_planes() as planes:
+                    fk.forest_proba.launches = 0
+                    out, summary, wall = _serve(base + [
+                        *ACT_FLAGS, "--actuation-switch",
+                        f"{sw.host}:{sw.port}"])
+                    launches += fk.forest_proba.launches
+                st = summary.actuation
+                live = _check_switch(dtag, sw, planes[-1], st,
+                                     parse_rows(out))
+                refusals = len(sw.refusals())
+            finally:
+                sw.stop()
+            worst = max(summary.tick_seconds)
+            refused = st["ledger"]["refused"]
+            want = ACT_REFUSE if drill == "refuse" else refused
+            if (st["degrades"] < 1 or st["probes"] < 1
+                    or st["state"] != "push" or refused != want
+                    or refused < 1 or worst >= 1.0
+                    or refusals != (ACT_REFUSE if drill == "refuse" else 0)):
+                raise AssertionError(
+                    f"{dtag} plane {st}, {refusals} refusals on the switch, "
+                    f"worst host tick {worst:.3f} s")
+            print(f"{dtag} {summary.ticks} polls in {wall:.2f} s: degraded "
+                  f"{st['degrades']} time(s), {refused} op(s) accounted "
+                  f"refused ({refusals} refusals on the switch), "
+                  f"{st['probes']} probe(s) back to push; {live} live rules "
+                  f"= the ledger's; host stage per tick (s): "
+                  + ", ".join(f"{x:.3f}" for x in summary.tick_seconds)
+                  + f" (worst {worst:.3f} s < 1 s)")
+    return launches
+
+
+def phase_scenarios(device) -> None:
+    """All 8 library scenarios at the ``cpu`` profile through the port's
+    ``run_scenario`` on the card: every gate passes; one scorecard line
+    each (ticks, wall s, gates)."""
+    from traffic_classifier_sdn_tpu_torch.scenarios import (
+        SCENARIOS,
+        build,
+        run_scenario,
+    )
+
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in SCENARIOS:
+            t0 = time.perf_counter()
+            card = run_scenario(build(name, SCENARIO_PROFILE),
+                                device=device, obs_dir=tmp)
+            wall = time.perf_counter() - t0
+            gates = ", ".join(
+                f"{g['id']} {'ok' if g['passed'] else 'FAILED'} "
+                f"({g['value']})" for g in card["gates"])
+            print(f"[scenarios {name}] {card['ticks_run']} ticks in "
+                  f"{wall:.2f} s on {card['device']['backend']}; {gates}")
+            if not card["passed"] or card["device"]["platform"] != (
+                    "gpu" if device.type == "cuda" else "cpu"):
+                failed.append(name)
+    if failed:
+        raise AssertionError(f"[scenarios] gates failed: {failed}")
+
+
+SCENARIO_PROFILE = "cpu"  # the JAX campaign's committed-artifact shape
+FLEET_FLOWS = 32768  # per member: 2 sources of 16,384 conversations
+FLEET_TICKS = 4
+
+
+def phase_fleet(model: dict, device) -> None:
+    """``tools/torch_fleet_serve.py`` with two forest members on the one
+    card: ``--total-sources 4`` (2 a member), ``FLEET_FLOWS`` synthetic
+    flows a member, ``--drift auto`` on a shared rotation directory,
+    ``FLEET_TICKS`` ticks. One scrape of the aggregator lists both
+    members' sources, each annotated with its member; both members exit
+    0."""
+    import subprocess
+
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+
+    tag = "[fleet Randomforest]"
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        checkpoint.save_model(ckpt, "forest",
+                              interop.forest_params_from_numpy(model, device),
+                              classes=CLASSES)
+        cmd = [sys.executable, os.path.join(HERE, "tools",
+                                            "torch_fleet_serve.py"),
+               "Randomforest", "--native-checkpoint", ckpt, "--members", "2",
+               "--total-sources", "4",
+               "--synthetic-flows", str(FLEET_FLOWS // 2),
+               "--capacity", str(FLEET_FLOWS),
+               "--drift-dir", os.path.join(tmp, "rotation"),
+               "--max-ticks", str(FLEET_TICKS), "--print-every", "2",
+               "--poll-s", "0.5", "--device", device.type,
+               "--log-dir", os.path.join(tmp, "logs")]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True,
+                                cwd=HERE)
+        scrape = None
+        try:
+            roster = json.loads(proc.stdout.readline())
+            url = roster["fleet_healthz"]
+            port = int(url.rsplit(":", 1)[1].split("/")[0])
+            deadline = time.monotonic() + 120
+            while scrape is None and time.monotonic() < deadline:
+                try:
+                    status, body = _get(port, "/healthz")
+                except OSError:
+                    break  # the launcher is gone: its members ended
+                report = json.loads(body)
+                pairs = {(s.get("member"), s.get("id"))
+                         for s in report.get("sources", [])}
+                if pairs == {(0, 0), (0, 1), (1, 0), (1, 1)}:
+                    scrape = report
+                time.sleep(0.05)
+            lines = proc.stdout.read().splitlines()
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        wall = time.perf_counter() - t0
+        logs = {i: open(os.path.join(tmp, "logs", f"member-{i}.log"),
+                        "rb").read() for i in (0, 1)}
+    if rc != 0 or scrape is None:
+        raise AssertionError(f"{tag} launcher exit {rc}, scrape {scrape}; "
+                             f"member log tails: "
+                             f"{[v[-800:] for v in logs.values()]}")
+    tables = {i: logs[i].count(b"Flow ID") for i in logs}
+    print(f"{tag} 2 members x {FLEET_FLOWS} flows ({FLEET_TICKS} ticks, "
+          f"--drift auto on one rotation) in {wall:.2f} s, both exit 0; "
+          f"members {[m['sources'] for m in roster['members']]}; one "
+          f"aggregator scrape: healthy {scrape['healthy']}, "
+          f"{scrape['members_reachable']} members reachable, sources "
+          + ", ".join(f"member {s['member']} sid {s['id']} {s.get('state')}"
+                      for s in scrape["sources"])
+          + f", drift states {scrape['drift_states']}; tables printed "
+          f"{tables}; {len(lines)} fleet summary lines")
 
 
 KERNEL_ROWS = {
@@ -4017,6 +4712,13 @@ def main() -> int:
             "knn": 0, "svc": 0}
     n, promoted = phase_drift(models["forest"], ops["forest"], device)
     paths["drift Randomforest"] = {"forest": n, "knn": 0, "svc": 0}
+    paths["actuation Randomforest"] = {
+        "forest": phase_actuation(models["forest"], ops["forest"], device),
+        "knn": 0, "svc": 0}
+    # the scenarios serve a GNB (plain torch ops) and the fleet's members
+    # launch in their own processes: neither adds to the counts here
+    phase_scenarios(device)
+    phase_fleet(models["forest"], device)
     phase_ingest_breakdown(ops["forest"], device)
     kernels = kernel_entries(results, launches, paths, buckets, menus,
                              promoted)

@@ -205,8 +205,13 @@ def test_cli_snapshot_fault_propagates_and_the_dump_names_the_span(
                                   str(tmp_path / "rot"),
                                   "--obs-dir", str(obs_dir)])
     capsys.readouterr()
-    (dump,) = os.listdir(obs_dir)
+    # beside the flight-recorder post-mortem: the device plane's bundle
+    # and its perf ring
+    (dump,) = [n for n in os.listdir(obs_dir) if n.startswith("flightrec-")]
     assert "serve-exception" in dump
+    (device,) = [n for n in os.listdir(obs_dir) if n.startswith("device-")]
+    assert device.endswith("-serve-exception.json")
+    assert os.path.isdir(obs_dir / "perf")
     lines = [json.loads(ln) for ln in open(obs_dir / dump)]
     assert lines[0]["kind"] == "meta"
     assert lines[0]["reason"] == "serve-exception"
@@ -441,3 +446,272 @@ def test_openset_faults_serve_the_inner_labels_fresh(tmp_path, site):
         assert st["state"] == "ARMED" and st["score_faults"] > 0
     else:
         assert st["state"] == "CALIBRATING" and st["calibrate_faults"] > 0
+
+
+# ----------------------------------------- obs.perf_ring / obs.profiler
+
+
+def test_perf_ring_fault_drops_segment_counts_and_continues(tmp_path):
+    """obs.perf_ring fires at the segment commit: that segment's samples
+    drop and count (perf_ring_dropped_segments), the next segment starts
+    clean, the survivors replay strictly — in both packages alike."""
+    from traffic_classifier_sdn_tpu.obs import perf_recorder as jperf
+    from traffic_classifier_sdn_tpu_torch.obs import perf_recorder
+    from traffic_classifier_sdn_tpu_torch.utils.metrics import Metrics
+
+    m = Metrics()
+    rec = perf_recorder.PerfRecorder(str(tmp_path / "port"),
+                                     ticks_per_segment=2, keep_segments=16,
+                                     metrics=m, clock=lambda: 5.0)
+    plan = faults.FaultPlan(
+        [faults.FaultRule("obs.perf_ring", after=1, times=2)], SEED)
+    with faults.installed(plan):
+        for tick in range(8):
+            rec.record({"tick": tick})
+    assert plan.fires == [("obs.perf_ring", 2), ("obs.perf_ring", 3)]
+    st = rec.status()
+    assert st["segments_committed"] == 2 and st["segments_dropped"] == 2
+    assert int(m.counters["perf_ring_dropped_segments"]) == 2
+    assert [s["tick"] for s in perf_recorder.replay(str(tmp_path / "port"))
+            ] == [0, 1, 6, 7]
+    jrec = jperf.PerfRecorder(str(tmp_path / "jax"), ticks_per_segment=2,
+                              keep_segments=16, clock=lambda: 5.0)
+    with jfaults.installed(jfaults.FaultPlan(
+            [jfaults.FaultRule("obs.perf_ring", after=1, times=2)], SEED)):
+        for tick in range(8):
+            jrec.record({"tick": tick})
+    assert perf_recorder.replay(str(tmp_path / "jax")) == \
+        perf_recorder.replay(str(tmp_path / "port")) == \
+        jperf.replay(str(tmp_path / "port"))
+
+
+@pytest.mark.parametrize("seed", [SEED, SEED + 1, SEED + 2])
+def test_perf_ring_probabilistic_accounting_any_seed(tmp_path, seed):
+    from traffic_classifier_sdn_tpu_torch.obs import perf_recorder
+    from traffic_classifier_sdn_tpu_torch.utils.metrics import Metrics
+
+    m = Metrics()
+    rec = perf_recorder.PerfRecorder(str(tmp_path), ticks_per_segment=2,
+                                     keep_segments=32, metrics=m)
+    with faults.installed(faults.FaultPlan(
+            [faults.FaultRule("obs.perf_ring", times=None, p=0.4)],
+            seed)) as plan:
+        for tick in range(20):
+            rec.record({"tick": tick})
+    st = rec.status()
+    assert st["segments_dropped"] == len(plan.fires)
+    assert st["segments_committed"] + st["segments_dropped"] == 10
+    replayed = perf_recorder.replay(str(tmp_path))
+    assert len(replayed) == 2 * st["segments_committed"]
+    ticks = [s["tick"] for s in replayed]
+    assert ticks == sorted(ticks)
+
+
+def test_profiler_fault_500s_counts_and_next_capture_succeeds(tmp_path):
+    import urllib.error
+    import urllib.request
+
+    from traffic_classifier_sdn_tpu_torch.obs import (
+        ExpositionServer,
+        ProfilerCapture,
+    )
+    from traffic_classifier_sdn_tpu_torch.utils.metrics import Metrics
+
+    m = Metrics()
+    prof = ProfilerCapture(str(tmp_path / "profile"), metrics=m,
+                           device="cpu")
+    srv = ExpositionServer(m, port=0, host="127.0.0.1", profiler=prof)
+    srv.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    plan = faults.FaultPlan([faults.FaultRule("obs.profiler", times=1)],
+                            SEED)
+    try:
+        with faults.installed(plan):
+            with pytest.raises(urllib.error.HTTPError) as e500:
+                urllib.request.urlopen(base + "/profile?seconds=0.05",
+                                       timeout=60)
+            assert e500.value.code == 500
+            assert plan.fires == [("obs.profiler", 1)]
+            assert int(m.counters["profiler_capture_failures"]) == 1
+            out = json.loads(urllib.request.urlopen(
+                base + "/profile?seconds=0.05", timeout=60).read())
+            assert out["seconds"] == 0.05
+            assert int(m.counters["profiler_captures"]) == 1
+    finally:
+        srv.stop()
+    st = prof.status()
+    assert st["failures"] == 1 and st["captures"] == 1
+    assert st["active"] is False
+
+
+# ---------------------------------------------------------------------------
+# actuation.send / actuation.barrier / actuation.retract: the three wire
+# seams of the actuation plane, ABSORBED. A fire degrades the plane to
+# dry-run with backoff re-probe, the ops of the flush resolve refused, and
+# the re-probe's reconcile converges the switch on the plane's census;
+# each case ends with the JAX plane's status on the JAX switch.
+# ---------------------------------------------------------------------------
+
+_ACT_ROWS = [
+    (0, "aa:00:00:00:00:01", "aa:00:00:00:00:02", "video"),
+    (1, "aa:00:00:00:00:03", "aa:00:00:00:00:04", "video"),
+    (2, "aa:00:00:00:00:05", "aa:00:00:00:00:06", "attack"),
+]
+
+
+def _act_pkgs():
+    import importlib
+    import sys
+
+    from traffic_classifier_sdn_tpu.controller import policy as jpolicy
+    from traffic_classifier_sdn_tpu.serving import actuation as jact
+    from traffic_classifier_sdn_tpu_torch.controller import policy
+    from traffic_classifier_sdn_tpu_torch.scenarios.runner import (
+        _accounting_switch_cls,
+    )
+    from traffic_classifier_sdn_tpu_torch.serving import actuation
+
+    tools = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    jswitch = importlib.import_module("fake_switch").AccountingSwitch
+    return {"port": (actuation, policy, faults, _accounting_switch_cls()),
+            "jax": (jact, jpolicy, jfaults, jswitch)}
+
+
+def _act_plane(act, pol, switch, vclock):
+    import io as _io
+
+    return act.ActuationPlane(
+        pol.parse_policy("video=queue:1,attack=drop",
+                         ("video", "attack", "bulk")),
+        mode="push", k_install=2, k_retract=2, clock=lambda: vclock["t"],
+        link_factory=lambda: act.SwitchLink(switch.host, switch.port),
+        backoff_base_s=1.0, out=_io.StringIO(),
+    )
+
+
+def _settles(sw, n, accessor="installs"):
+    import time
+
+    deadline = time.monotonic() + 5.0
+    while len(getattr(sw, accessor)()) < n and time.monotonic() < deadline:
+        time.sleep(0.01)
+
+
+def _actuation_drill(pkg, site, drive):
+    act, pol, fmod, sw_cls = _act_pkgs()[pkg]
+    vclock = {"t": 0.0}
+    with sw_cls() as sw:
+        plane = _act_plane(act, pol, sw, vclock)
+        try:
+            return drive(plane, sw, vclock, fmod)
+        finally:
+            plane.close()
+
+
+def _send_drill(plane, sw, vclock, fmod):
+    with fmod.installed(fmod.FaultPlan(
+            [fmod.FaultRule("actuation.send", times=1)], SEED)) as plan:
+        plane.observe(_ACT_ROWS)
+        plane.observe(_ACT_ROWS)
+        fires = list(plan.fires)
+    degraded = plane.status()
+    installs_while_down = len(sw.installs())
+    plane.observe(_ACT_ROWS)
+    plane.observe(_ACT_ROWS)
+    vclock["t"] += 5.0
+    plane.observe(_ACT_ROWS)
+    _settles(sw, 3)
+    return fires, degraded, installs_while_down, plane.status(), \
+        len(sw.live_cookies())
+
+
+def test_actuation_send_fault_degrades_to_dry_run_exact_ledger():
+    got = _actuation_drill("port", "actuation.send", _send_drill)
+    assert got == _actuation_drill("jax", "actuation.send", _send_drill)
+    fires, degraded, installs_while_down, final, live = got
+    assert fires == [("actuation.send", 1)]
+    assert degraded["state"] == "degraded"
+    assert degraded["ledger"] == {"intended": 3, "installed": 0,
+                                  "refused": 3, "retracted": 0, "exact": True}
+    assert installs_while_down == 0
+    assert final["state"] == "push" and final["ledger"]["exact"]
+    assert live == 3
+
+
+def _barrier_drill(plane, sw, vclock, fmod):
+    with fmod.installed(fmod.FaultPlan(
+            [fmod.FaultRule("actuation.barrier", times=1)], SEED)) as plan:
+        plane.observe(_ACT_ROWS)
+        plane.observe(_ACT_ROWS)
+        fires = list(plan.fires)
+    degraded = plane.status()
+    _settles(sw, 3)
+    landed = len(sw.installs())
+    plane.observe(_ACT_ROWS)
+    plane.observe(_ACT_ROWS)
+    vclock["t"] += 5.0
+    plane.observe(_ACT_ROWS)
+    import time
+
+    deadline = time.monotonic() + 5.0
+    while (sw.live_cookies() & {1, 2, 3}) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return fires, degraded, landed, plane.status(), sorted(sw.live_cookies())
+
+
+def test_actuation_barrier_fault_orphan_mods_wiped_on_reconcile():
+    got = _actuation_drill("port", "actuation.barrier", _barrier_drill)
+    assert got == _actuation_drill("jax", "actuation.barrier", _barrier_drill)
+    fires, degraded, landed, final, live = got
+    assert fires == [("actuation.barrier", 1)]
+    assert degraded["state"] == "degraded"
+    assert degraded["ledger"]["refused"] == 3
+    assert degraded["orphan_pairs"] == 3
+    assert landed == 3  # the mods landed, unconfirmed
+    assert final["state"] == "push" and final["installed_rules"] == 3
+    assert final["orphan_pairs"] == 0 and final["ledger"]["exact"]
+    assert len(live) == 3 and set(live).isdisjoint({1, 2, 3})
+
+
+def _retract_drill(plane, sw, vclock, fmod):
+    plane.observe(_ACT_ROWS)
+    plane.observe(_ACT_ROWS)
+    _settles(sw, 3)
+    flipped = [(0, _ACT_ROWS[0][1], _ACT_ROWS[0][2], "attack")] + _ACT_ROWS[1:]
+    with fmod.installed(fmod.FaultPlan(
+            [fmod.FaultRule("actuation.retract", times=1)], SEED)) as plan:
+        plane.observe(flipped)
+        plane.observe(flipped)
+        fires = list(plan.fires)
+    degraded = plane.status()
+    still_live = len(sw.live_cookies())
+    plane.observe(flipped)
+    plane.observe(flipped)
+    vclock["t"] += 5.0
+    plane.observe(flipped)
+    import time
+
+    deadline = time.monotonic() + 5.0
+    while len(sw.live_cookies()) != 3 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    pair = (_ACT_ROWS[0][1], _ACT_ROWS[0][2])
+    rules = [r for r in sw.rules.values()
+             if (r["match"]["eth_src"], r["match"]["eth_dst"]) == pair]
+    return fires, degraded, still_live, plane.status(), len(
+        sw.live_cookies()), [r["instructions"] for r in rules]
+
+
+def test_actuation_retract_fault_absorbed_and_pair_reconverges():
+    got = _actuation_drill("port", "actuation.retract", _retract_drill)
+    assert got == _actuation_drill("jax", "actuation.retract", _retract_drill)
+    fires, degraded, still_live, final, live, pair_rules = got
+    assert fires == [("actuation.retract", 1)]
+    assert degraded["state"] == "degraded"
+    assert degraded["ledger"]["refused"] == 1 and degraded["ledger"]["exact"]
+    assert still_live == 3
+    assert final["state"] == "push" and final["ledger"]["exact"]
+    assert live == 3
+    assert pair_rules == [[]]  # one rule for the pair: its new verdict, drop

@@ -730,3 +730,75 @@ def test_drift_phase_runs_on_cpu(small_card_phases, cpu_timers, monkeypatch,
     assert "promoted forest kernel bitwise equal to its plain version" in out
     assert "/healthz drift:" in out and "/healthz openset:" in out
     assert "ROLLED_BACK after" in out
+
+
+def test_steady_capture_holds_rates(tmp_path):
+    """``steady_capture``: every conversation reports every tick, its
+    counters growing by the same deltas each tick."""
+    path = tmp_path / "steady"
+    chip_smoke.steady_capture(str(path), 8, 4)
+    lines = [ln.split(b"\t") for ln in path.read_bytes().splitlines()]
+    assert len(lines) == 8 * 2 * 4
+    by_tick = {}
+    for ln in lines:
+        by_tick.setdefault(int(ln[1]), []).append((int(ln[7]), int(ln[8])))
+    assert sorted(by_tick) == [1, 2, 3, 4]
+    first = np.asarray(by_tick[1])
+    for t in (2, 3, 4):
+        np.testing.assert_array_equal(np.asarray(by_tick[t]), t * first)
+    assert (first > 0).all()
+
+
+def test_parse_rows_reads_the_pairs(tmp_path, capsys, forest):
+    ckpt = str(tmp_path / "ckpt")
+    checkpoint.save_model(ckpt, "forest",
+                          interop.forest_params_from_numpy(forest, "cpu"),
+                          classes=chip_smoke.CLASSES)
+    cli.main(["Randomforest", "--native-checkpoint", ckpt, "--source",
+              "synthetic", "--synthetic-flows", "8", "--capacity", "16",
+              "--max-ticks", "2", "--print-every", "2", "--device", "cpu",
+              "--pipeline", "off"])
+    out = capsys.readouterr().out
+    rows = chip_smoke.parse_rows(out)
+    assert [[(s, lab) for s, _, _, lab in t] for t in rows] == \
+        chip_smoke.parse_tables(out)
+    assert all(src.count(":") == 5 and dst.count(":") == 5
+               for t in rows for _, src, dst, _ in t)
+
+
+def test_flow_table_bytes_counts_every_field():
+    # 2 int32/bool table fields (5 bytes) and 2 directions of 11 four-byte
+    # fields and one bool (45 bytes each), for capacity + 1 rows
+    assert chip_smoke.flow_table_bytes(65536) == 95 * 65537
+    assert chip_smoke.nearest_rank_p50([3.0, 1.0, 2.0, 4.0]) == 3.0
+
+
+def test_actuation_phase_runs_on_cpu(small_card_phases, capsys):
+    """``phase_actuation`` at 256 flows: tables against the plain forest,
+    one launch a render, the switch against the ledger and the rendered
+    labels (bytes included), stdout against ``--actuation off``, the
+    /healthz block, and the refusal and withheld-barrier drills."""
+    models, ops = small_card_phases
+    assert chip_smoke.phase_actuation(models["forest"], ops["forest"],
+                                      torch.device("cpu")) > 0
+    out = capsys.readouterr().out
+    assert "FLOW_MOD bytes equal compile_install's" in out
+    assert "/healthz actuation:" in out
+    assert "[actuation drill refuse]" in out
+    assert "[actuation drill stall]" in out
+
+
+def test_scenarios_phase_runs_on_cpu(monkeypatch, capsys):
+    monkeypatch.setattr(chip_smoke, "SCENARIO_PROFILE", "t1")
+    chip_smoke.phase_scenarios(torch.device("cpu"))
+    out = capsys.readouterr().out
+    assert out.count("[scenarios ") == 8 and "FAILED" not in out
+
+
+def test_fleet_phase_runs_on_cpu(small_card_phases, monkeypatch, capsys):
+    models, _ = small_card_phases
+    monkeypatch.setattr(chip_smoke, "FLEET_FLOWS", 64)
+    chip_smoke.phase_fleet(models["forest"], torch.device("cpu"))
+    out = capsys.readouterr().out
+    assert "both exit 0" in out
+    assert "member 1 sid 1" in out

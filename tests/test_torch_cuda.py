@@ -759,6 +759,32 @@ def test_ivf_torch_tier_on_card(cuda):
             knn_ivf.neighbor_votes_ivf(cpu_ivf, torch.from_numpy(X), nprobe))
 
 
+def test_ivf_serve_on_card_is_the_torch_tier(cuda, monkeypatch):
+    """``--knn-topk ivf`` on a card serve: the serving path is the torch
+    tier with its quantizer on the card, not the host mirror
+    (``host_native``), and its labels equal the tier's on the CPU on the
+    same quantizer."""
+    from traffic_classifier_sdn_tpu_torch import models as tmodels
+    from traffic_classifier_sdn_tpu_torch.ops import knn_ivf
+
+    monkeypatch.setenv("TCSDN_KNN_TOPK", "ivf")
+    X = _served()
+    d = chip_smoke.random_knn(0, X, n_rows=1000)
+    kp = knn.KnnModel.from_numpy(d, device=cuda)
+    predict, ivf = tmodels._knn_serving_path(kp)
+    assert predict is knn_ivf.predict_chunked
+    assert not getattr(predict, "host_native", False)
+    assert ivf.centers.device.type == "cuda"
+    assert ivf.list_idx.device.type == "cuda"
+    labels = predict(ivf, torch.from_numpy(X).to(cuda))
+    assert labels.device.type == "cuda"
+    cpu_ivf = interop.ivf_params_from_numpy(
+        knn.KnnModel.from_numpy(d, device="cpu"), ivf.centers.cpu(),
+        ivf.list_idx.cpu(), ivf.nprobe)
+    assert torch.equal(labels.cpu(),
+                       knn_ivf.predict_chunked(cpu_ivf, torch.from_numpy(X)))
+
+
 def test_svc_dot_form_on_card(cuda):
     """``TCSDN_SVC_KERNEL=dot`` on the card against the CPU's dot form:
     labels equal on every row outside ``chip_smoke.dot_rule_rows``, and

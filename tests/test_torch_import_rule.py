@@ -7,8 +7,9 @@ Checks: every module imports in a fresh interpreter with a meta-path
 blocker installed for those names (this test process already has JAX
 loaded; the two ``__main__`` modules, which run an entry point when
 imported, run instead under the blocker as ``python -m`` does); a
-source scan of the port, ``chip_smoke.py`` and
-``tools/torch_fake_switch.py`` finds no such import statement, and no
+source scan of the port, ``chip_smoke.py``,
+``tools/torch_fake_switch.py`` and ``tools/torch_fleet_serve.py`` finds no
+such import statement, and no
 string outside a docstring that names the JAX package (the way a path
 into its tree would be spelled); in a fresh interpreter that records
 every ``ctypes.CDLL`` load and every process started, a build of the
@@ -56,10 +57,12 @@ print(" ".join(names))
 
 
 FAKE_SWITCH = ROOT / "tools" / "torch_fake_switch.py"
+FLEET_SERVE = ROOT / "tools" / "torch_fleet_serve.py"
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", FAKE_SWITCH]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", FAKE_SWITCH,
+                                         FLEET_SERVE]
 
 
 def test_port_imports_with_jax_blocked():
@@ -80,7 +83,10 @@ def test_port_imports_with_jax_blocked():
         "controller.switch", "ingest.workload", "io.datasets", "config",
         "utils.metrics", "utils.atomicio", "obs", "obs.trace",
         "obs.flight_recorder", "obs.latency", "obs.exposition",
-        "io.serving_checkpoint",
+        "io.serving_checkpoint", "controller.policy", "serving.actuation",
+        "serving.fleet", "obs.device", "obs.perf_recorder",
+        "utils.profiling", "scenarios", "scenarios.timeline",
+        "scenarios.library", "scenarios.runner",
     )} <= names
 
 
@@ -129,7 +135,7 @@ def _code_strings(path: pathlib.Path) -> list[str]:
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [FAKE_SWITCH],
+    "path", sorted(PORT.rglob("*.py")) + [FAKE_SWITCH, FLEET_SERVE],
     ids=lambda p: str(p.relative_to(ROOT))
 )
 def test_source_names_no_path_into_the_jax_package(path):
@@ -259,3 +265,21 @@ def test_spawned_port_controller_serves_with_jax_blocked():
         reader.join(timeout=10)
     assert got.is_set(), "".join(lines)[-2000:]
     assert not any("ImportError" in line for line in lines)
+
+
+def test_push_scenario_replays_with_jax_and_fake_switch_blocked(tmp_path):
+    """The push-mode scenario (``label_flap_storm``: an in-process
+    AccountingSwitch) through the port CLI's ``--scenario`` hook, with the
+    JAX names and ``fake_switch`` (the JAX package's switch, which imports
+    that package) blocked: it passes on the port's ``torch_fake_switch``."""
+    proc = subprocess.run(
+        [sys.executable, "-c", MAIN.format(
+            blocked=BLOCKED + ("fake_switch",),
+            module="traffic_classifier_sdn_tpu_torch.cli",
+            argv=["gaussiannb", "--scenario", "label_flap_storm",
+                  "--scenario-profile", "t1", "--device", "cpu",
+                  "--scenario-obs-dir", str(tmp_path / "pm")])],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    card = __import__("json").loads(proc.stdout)
+    assert card["passed"] and card["switch"]["live_rules"] > 0

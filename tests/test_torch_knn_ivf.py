@@ -273,3 +273,28 @@ def test_serving_requires_explicit_opt_in(monkeypatch):
     assert called
     X = torch.from_numpy(np.abs(d["fit_X"][:16]).astype(np.float32))
     assert np.asarray(fn(p, X)).shape == (16,)
+
+
+@pytest.mark.parametrize("nprobe", [1, None, "K"])
+@pytest.mark.parametrize("which", ["carried", "own"])
+def test_tier_votes_equal_native_mirror_on_a_shared_quantizer(
+        setup, which, nprobe):
+    """The torch tier (what a card serve runs) against the native IVF
+    mirror (what a CPU serve runs where g++ builds it) on one quantizer,
+    handed to the mirror as the serving path does (``build_ivf(centers,
+    assignments_of(ivf))``): votes and labels equal, exactly, at nprobe 1,
+    the default and K."""
+    if not native_knn.available():
+        pytest.skip("g++ cannot build the native KNN evaluator")
+    _, _, _, tp, tv, own, X = setup
+    ivf = tv if which == "carried" else own
+    n = ivf.n_lists if nprobe == "K" else nprobe
+    hk = tmodels._native_knn(tp)
+    hk.build_ivf(ivf.centers.numpy(), tivf.assignments_of(ivf))
+    Xt = torch.from_numpy(X)
+    np.testing.assert_array_equal(
+        hk.votes_ivf(X, tivf._nprobe(ivf, n)),
+        tivf.neighbor_votes_ivf(ivf, Xt, n).numpy())
+    np.testing.assert_array_equal(
+        hk.predict_ivf(X, tivf._nprobe(ivf, n)),
+        tivf.predict(ivf, Xt, n).numpy())

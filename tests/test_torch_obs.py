@@ -546,8 +546,8 @@ def test_exposition_endpoints_and_clean_shutdown():
 
 
 def test_profile_endpoint_answers_as_jax_without_a_profiler():
-    """No profiler is armed in the port (the device plane waits): the
-    ``/profile`` answer is the JAX server's with none, byte for byte."""
+    """A server built without a profiler (a serve with no ``--obs-dir``):
+    the ``/profile`` answer is the JAX server's with none, byte for byte."""
     bodies = {}
     for name, impl in IMPLS.items():
         srv = impl.obs.ExpositionServer(impl.metrics.Metrics(), port=0)

@@ -3,7 +3,9 @@
 - Over one capture with ``--pipeline off``, the ``--metrics-every``
   report of the port names what the JAX report names — counters, gauges
   and histograms — but for the JAX device-runtime telemetry
-  (``DEVICE_TELEMETRY``, not ported yet), and the deterministic counters
+  (``DEVICE_TELEMETRY``: XLA's compile counters have no eager torch
+  counterpart, and a CPU serve reads no device memory), and the
+  deterministic counters
   (``ticks``, ``records``, ``flows_dropped``, ``evicted``,
   ``predict_rows_saved``, ``degrade_transitions``, ``checkpoint_saves``,
   ``source_*``, ``knn_candidates_*``) are equal value for value; the
@@ -12,8 +14,9 @@
   surface on and with all of them off, serial and pipelined.
 - The live surfaces of a serve: ``/metrics`` with the per-stage series,
   ``/healthz`` with the ladder, label-cache and latency blocks (and the
-  rung during a drill), ``/events``; the flight-recorder dumps on SIGTERM,
-  SIGUSR1 and a clean exit; the flag rules; the device-telemetry note.
+  rung during a drill) and the ``device`` block, ``/events``; the
+  flight-recorder and device-plane dumps on SIGTERM, SIGUSR1 and a clean
+  exit; the flag rules and when the device plane arms.
 """
 
 import json
@@ -36,8 +39,10 @@ from traffic_classifier_sdn_tpu_torch.native import knn as native_knn
 from traffic_classifier_sdn_tpu_torch.utils import faults as tfaults
 from traffic_classifier_sdn_tpu_torch.utils import metrics as tmetrics
 
-# The JAX device-runtime plane's series (obs/device.py, obs/perf_recorder.py;
-# ROADMAP Queue 1 item 6). The JAX CLI arms it with any obs surface on.
+# The JAX device-runtime plane's series (obs/device.py, obs/perf_recorder.py).
+# Both CLIs arm it with any obs surface on; the port's CPU serve reports
+# none of them within the run (no compile bus, no device memory, the ring
+# commits its one partial segment at exit).
 DEVICE_TELEMETRY = {
     "jit_compiles", "jit_compile_s", "retraces_after_warmup",
     "compilation_cache_hits", "compilation_cache_misses",
@@ -158,6 +163,7 @@ def test_metric_names_and_counters_equal_jax(served, capsys, monkeypatch,
     assert len(trep) == len(jrep) == 6
     jnames, tnames = _names(jrep[-1]), _names(trep[-1])
     assert tnames == {n for n in jnames if not _device(n)}
+    assert not {n for n in tnames if _device(n)}
     if scenario == "obs":
         assert {n for n in jnames if _device(n)}  # the listed ones appear
     for key in DETERMINISTIC:
@@ -278,7 +284,8 @@ def test_cli_serve_exposes_obs_plane_during_replay(served, capsys):
         t.join(timeout=30)
     err = capsys.readouterr().err
     assert "observability plane on port" in err
-    assert "device-runtime telemetry" in err  # the one note
+    assert "(/metrics /healthz /events /profile)" in err
+    assert "device telemetry dumped to" in err
     text = got["metrics"]
     for stage in ("poll", "parse", "scatter", "tick", "host", "dispatch",
                   "device", "predict", "render", "compact"):
@@ -295,8 +302,14 @@ def test_cli_serve_exposes_obs_plane_during_replay(served, capsys):
     assert health["label_cache"]["mode"] == "host"
     assert health["latency"]["observed"] is True
     assert {e["kind"] for e in got["events"]} >= {"span"}
-    dumps = os.listdir(tmp / "obs")
-    assert len(dumps) == 1 and "on-demand" in dumps[0]
+    assert health["device"]["platform"] == "cpu"
+    assert health["device"]["armed"] is True
+    dumps = sorted(os.listdir(tmp / "obs"))
+    flight = [n for n in dumps if n.startswith("flightrec-")]
+    device = [n for n in dumps if n.startswith("device-")]
+    assert len(flight) == len(device) == 1
+    assert "on-demand" in flight[0] and "on-demand" in device[0]
+    assert set(dumps) == {*flight, *device, "perf"}
 
 
 def test_sigterm_and_sigusr1_dump_the_flight_recorder(served, capsys):
@@ -387,7 +400,7 @@ def test_healthz_shows_the_rung_and_the_dump_holds_the_transitions(
     assert health["degrade"]["rung"] == "DEGRADED"
     assert health["degrade"]["fallback"] == summary.degrade["fallback"]
     assert "tcsdn_degrade_transitions 1" in got["metrics"]
-    (dump,) = os.listdir(tmp / "obs")
+    (dump,) = [n for n in os.listdir(tmp / "obs") if n.startswith("flightrec-")]
     lines = [json.loads(ln) for ln in open(tmp / "obs" / dump)]
     edges = [(e["frm"], e["to"]) for e in lines
              if e["kind"] == "degrade.transition"]
@@ -405,10 +418,15 @@ def test_flag_rules_and_the_device_obs_note(served, capsys):
         tcli.main(common + ["--serve-checkpoint-every", "2"])
     with pytest.raises(SystemExit, match="needs --obs-dir"):
         tcli.main(common + ["--obs-dump-on-exit"])
+    # no obs surface: the device plane stays off, the ring unwritten
     tcli.main(common + ["--perf-ring-ticks", "8"])
     assert "device-runtime" not in capsys.readouterr().err
+    assert not (tmp / "obs").exists()
+    # --obs-dir arms it (no note any more): the ring commits its two ticks
     tcli.main(common + ["--obs-dir", str(tmp / "obs")])
-    assert capsys.readouterr().err.count("device-runtime telemetry") == 1
-    tcli.main(common + ["--obs-dir", str(tmp / "obs"), "--device-obs",
+    assert "device-runtime" not in capsys.readouterr().err
+    assert len(os.listdir(tmp / "obs" / "perf")) == 1
+    tcli.main(common + ["--obs-dir", str(tmp / "off"), "--device-obs",
                         "off"])
     assert "device-runtime" not in capsys.readouterr().err
+    assert not (tmp / "off").exists()

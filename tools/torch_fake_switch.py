@@ -9,8 +9,10 @@ nothing of the JAX package. It is the test/demo stand-in for Mininet +
 Open vSwitch + D-ITG (reference README.md:26-35): hosts exchange packets
 (→ PACKET_INs until flows are installed), installed priority-1 flows
 accumulate synthetic packet/byte rates, and MULTIPART flow-stats requests
-are answered from the simulated flow table. The flow-mod accounting
-switch of the actuation plane is not copied: actuation is not ported yet.
+are answered from the simulated flow table. ``AccountingSwitch`` is the
+other side: a listening datapath that accounts every FLOW_MOD the
+actuation plane (serving/actuation.py) pushes, with scriptable refusals
+and withheld barrier replies.
 
 Usable as a library (tests/test_torch_controller.py, in-process asyncio)
 or as a script:  python tools/torch_fake_switch.py --port 6653 --hosts 4
@@ -22,8 +24,10 @@ import argparse
 import asyncio
 import os
 import random
+import socket
 import struct
 import sys
+import threading
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -156,6 +160,209 @@ class FakeSwitch:
         self.send_packet(a, b)
         self.send_packet(b, a)
         self.send_packet(a, b)
+
+
+class AccountingSwitch:
+    """A listening OF1.3 datapath with a flow-mod accounting surface —
+    the replay-test stand-in for OVS on the actuation side (the image
+    has no OVS, so the end-to-end loop closes against this).
+
+    Unlike :class:`FakeSwitch` (which dials out to a controller and
+    simulates traffic for the telemetry plane), this one *listens* and
+    accounts: every FLOW_MOD is decoded (match + structured
+    instructions) into ``flow_log``, ADDs/DELETEs maintain the live
+    ``rules`` view keyed by cookie, BARRIER_REQUESTs are answered in
+    order, and two scriptable knobs break things on purpose:
+
+    * ``script_refuse(n)`` — the next ``n`` flow-mods bounce with an
+      OFPT_ERROR embedding the offending message (so the sender can
+      recover the refused xid, as the spec intends)
+    * ``script_stall_barrier(n)`` — the next ``n`` barrier replies are
+      withheld (the lost-barrier failure an actuation plane must
+      absorb without stalling its serve cadence)
+
+    Thread-per-connection so a degraded client can reconnect while an
+    old socket lingers; start()/stop() or use as a context manager.
+    """
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 dpid: int = 1):
+        self.host = host
+        self.dpid = dpid
+        self.flow_log: list[dict] = []
+        self.rules: dict[int, dict] = {}  # cookie → live rule
+        self.barriers = 0
+        self.connections = 0
+        self._refuse = 0
+        self._stall = 0
+        self._lock = threading.Lock()
+        self._srv = socket.socket()
+        self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._srv.bind((host, port))
+        self.port = self._srv.getsockname()[1]
+        self._stop = threading.Event()
+        self._accept_thread: threading.Thread | None = None
+        self._conn_threads: list[threading.Thread] = []
+
+    # -- scripting ----------------------------------------------------------
+
+    def script_refuse(self, n: int = 1) -> None:
+        with self._lock:
+            self._refuse += n
+
+    def script_stall_barrier(self, n: int = 1) -> None:
+        with self._lock:
+            self._stall += n
+
+    # -- accounting views ---------------------------------------------------
+
+    def installs(self) -> list[dict]:
+        with self._lock:
+            return [e for e in self.flow_log if e["op"] == "install"]
+
+    def deletes(self) -> list[dict]:
+        with self._lock:
+            return [e for e in self.flow_log if e["op"] == "delete"]
+
+    def refusals(self) -> list[dict]:
+        with self._lock:
+            return [e for e in self.flow_log if e["refused"]]
+
+    def live_cookies(self) -> set[int]:
+        with self._lock:
+            return set(self.rules)
+
+    # -- server loop --------------------------------------------------------
+
+    def start(self) -> "AccountingSwitch":
+        self._srv.listen(8)
+        self._srv.settimeout(0.1)
+        t = threading.Thread(
+            target=self._accept_loop, name="accounting-switch", daemon=True,
+        )
+        t.start()
+        self._accept_thread = t
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        try:
+            self._srv.close()
+        except OSError:
+            pass
+        if self._accept_thread is not None:
+            self._accept_thread.join(timeout=2.0)
+        for t in self._conn_threads:
+            t.join(timeout=2.0)
+
+    def __enter__(self) -> "AccountingSwitch":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    def _accept_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _addr = self._srv.accept()
+            except (socket.timeout, OSError):
+                continue
+            with self._lock:
+                self.connections += 1
+            t = threading.Thread(
+                target=self._serve_conn, args=(conn,), daemon=True,
+            )
+            t.start()
+            self._conn_threads.append(t)
+
+    def _serve_conn(self, conn: socket.socket) -> None:
+        mr = of.MessageReader()
+        conn.settimeout(0.1)
+        xid_out = 1 << 20  # our xids, clear of the client's range
+        try:
+            while not self._stop.is_set():
+                try:
+                    data = conn.recv(1 << 16)
+                except socket.timeout:
+                    continue
+                except OSError:
+                    break
+                if not data:
+                    break
+                for mtype, xid, body in mr.feed(data):
+                    xid_out += 1
+                    reply = self._handle(mtype, xid, body, xid_out)
+                    if reply:
+                        conn.sendall(reply)
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def _handle(self, mtype: int, xid: int, body: bytes,
+                xid_out: int) -> bytes:
+        if mtype == of.OFPT_HELLO:
+            return of.hello(xid_out)
+        if mtype == of.OFPT_ECHO_REQUEST:
+            return of.echo_reply(xid, body)
+        if mtype == of.OFPT_FEATURES_REQUEST:
+            return of.features_reply(xid, self.dpid)
+        if mtype == of.OFPT_BARRIER_REQUEST:
+            with self._lock:
+                self.barriers += 1
+                if self._stall > 0:
+                    self._stall -= 1
+                    return b""  # withheld: the client's barrier is lost
+            return of.barrier_reply(xid)
+        if mtype == of.OFPT_FLOW_MOD:
+            return self._handle_flow_mod(xid, body)
+        return b""
+
+    def _handle_flow_mod(self, xid: int, body: bytes) -> bytes:
+        fm = of.parse_flow_mod(body)
+        entry = {
+            "op": "install" if fm["command"] == of.OFPFC_ADD else (
+                "delete" if fm["command"] == of.OFPFC_DELETE else "modify"
+            ),
+            "xid": xid,
+            "cookie": fm["cookie"],
+            "priority": fm["priority"],
+            "match": fm["match"],
+            "instructions": of.decode_instructions(fm["instructions"]),
+            "refused": False,
+        }
+        with self._lock:
+            if self._refuse > 0:
+                self._refuse -= 1
+                entry["refused"] = True
+                self.flow_log.append(entry)
+                return of.error_msg(
+                    xid, of.OFPET_FLOW_MOD_FAILED, 0,
+                    of.message(of.OFPT_FLOW_MOD, xid, body),
+                )
+            self.flow_log.append(entry)
+            if fm["command"] == of.OFPFC_ADD:
+                # OF1.3 ADD semantics: identical match+priority replaces
+                # the existing entry (whatever its cookie)
+                for ck in [
+                    ck for ck, r in self.rules.items()
+                    if r["match"] == fm["match"]
+                    and r["priority"] == fm["priority"]
+                ]:
+                    self.rules.pop(ck, None)
+                self.rules[fm["cookie"]] = entry
+            elif fm["command"] == of.OFPFC_DELETE:
+                if fm["cookie_mask"]:
+                    self.rules.pop(fm["cookie"], None)
+                else:
+                    # unmasked delete: match-wide removal
+                    for ck in [
+                        ck for ck, r in self.rules.items()
+                        if r["match"] == fm["match"]
+                    ]:
+                        self.rules.pop(ck, None)
+        return b""
 
 
 async def run_standalone(port: int, n_hosts: int, host: str = "127.0.0.1",

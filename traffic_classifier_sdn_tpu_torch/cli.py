@@ -67,6 +67,23 @@ snapshots between ticks under a wall-clock budget
 exit, and ``--restore-serve-state FILE_OR_DIR`` resumes from one (a
 directory rolls back past a corrupt newest member).
 
+The device-runtime plane arms with any obs surface (``--device-obs
+auto``): the /healthz ``device`` block and the ``device_memory_bytes``
+gauges from ``torch.cuda.memory_stats`` (obs/device.py), and under
+``--obs-dir`` the black-box perf ring (one sample per poll tick, atomic
+segments in ``<obs-dir>/perf``, obs/perf_recorder.py) and ``/profile``
+(a ``torch.profiler`` capture into ``<obs-dir>/profile``).
+``--profile-dir DIR`` traces the whole serve with ``torch.profiler``.
+
+``--actuation dry-run|push --policy SPEC`` runs the actuation plane
+(serving/actuation.py, controller/policy.py): each rendered tick's rows
+feed a hysteresis FSM, and labels that hold ``--actuation-k-install``
+renders become OF1.3 flow-mods, printed on stderr (dry-run) or pushed to
+``--actuation-switch`` with a barrier (push); stdout is the ``--actuation
+off`` serve's. ``--scenario ID`` replays one adversarial scenario of the
+campaign library (scenarios/) through the serve composition and prints
+its scorecard instead of serving.
+
 ``--drift auto --drift-dir DIR`` runs the drift loop (serving/drift.py):
 the predict, under the ladder, goes through a ``DriftGate``; after each
 render (on the device-stage worker when pipelined) the controller
@@ -214,6 +231,26 @@ def _build_parser() -> argparse.ArgumentParser:
         help="pace pull-paced fan-in sources by consumer credit (one "
         "emission per serve tick) instead of wall clock — "
         "deterministic multi-source runs (tests, identity checks)",
+    )
+    p.add_argument(
+        "--scenario", default=None, metavar="ID",
+        help="replay one adversarial scenario from the campaign "
+        "library (scenarios/library.py) through the real serve "
+        "composition and print its SLO scorecard instead of serving "
+        "live traffic — the post-incident replay hook (e.g. "
+        "--scenario source_flap_storm; 'list' prints the matrix)",
+    )
+    p.add_argument(
+        "--scenario-profile", choices=("t1", "cpu"), default="cpu",
+        help="scenario scale for --scenario replay (default cpu, "
+        "the JAX campaign's committed-artifact shape; t1 is the test "
+        "size)",
+    )
+    p.add_argument(
+        "--scenario-obs-dir", default="scenario-postmortem",
+        metavar="DIR",
+        help="--scenario gate failures dump their post-mortem bundle "
+        "(flight JSONL + metrics snapshot + timeline manifest) here",
     )
     p.add_argument(
         "--synthetic-flows", type=int, default=1024,
@@ -385,6 +422,51 @@ def _build_parser() -> argparse.ArgumentParser:
         "loop resumes watching)",
     )
     p.add_argument(
+        "--actuation", choices=("off", "dry-run", "push"), default="off",
+        help="actuation tier (serving/actuation.py): compile per-class "
+        "--policy actions into OF1.3 flow-mods, hysteresis-gated so a "
+        "label must hold for --actuation-k-install consecutive render "
+        "ticks before its rule installs (an open-set 'unknown' blip or "
+        "single-tick flip never touches the switch), and retracted "
+        "only after --actuation-k-retract deviating ticks. 'dry-run' "
+        "renders intended mods to stderr + ring events without a "
+        "socket; 'push' programs the switch at --actuation-switch and "
+        "degrades itself to dry-run with backoff re-probe on ANY "
+        "actuation failure. 'off' (default) is byte-transparent: "
+        "stdout is identical with the tier absent",
+    )
+    p.add_argument(
+        "--policy", default=None, metavar="SPEC",
+        help="declarative per-class actions for --actuation: comma-"
+        "separated CLASS=ACTION clauses where ACTION is queue:N (QoS "
+        "queue), meter:N (rate limit), drop, or mirror:P (copy to "
+        "port P, forward normally). Classes without a clause are "
+        "observe-only; 'unknown' may never carry one",
+    )
+    p.add_argument(
+        "--actuation-switch", default=None, metavar="HOST:PORT",
+        help="switch address for --actuation push (the OF1.3 peer the "
+        "actuation plane dials; tools/torch_fake_switch.py "
+        "AccountingSwitch speaks the server side for replay tests)",
+    )
+    p.add_argument(
+        "--actuation-k-install", type=int, default=3, metavar="K",
+        help="consecutive stable-label render ticks before a rule "
+        "installs (default 3)",
+    )
+    p.add_argument(
+        "--actuation-k-retract", type=int, default=3, metavar="K",
+        help="consecutive deviating render ticks before an installed "
+        "rule retracts (default 3); a deviation episode that ends "
+        "sooner is a suppressed flap",
+    )
+    p.add_argument(
+        "--actuation-span", default=None, metavar="SIDS",
+        help="comma-separated source ids this serve may actuate "
+        "(fleet blast radius: members only program rules for slots "
+        "their own span owns; default: every source)",
+    )
+    p.add_argument(
         "--warmup", action="store_true",
         help="pay the serve's first-use costs at startup "
         "(serving/warmup.py: kernel build, pinned wire stages, the "
@@ -509,17 +591,31 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--device-obs", choices=("auto", "off"), default="auto",
-        help="accepted for the JAX CLI's sake: device-runtime telemetry "
-        "(memory gauges, the perf ring, /profile) is not ported yet, so "
-        "nothing is armed; with an obs surface on, a note says so",
+        help="device-runtime telemetry (obs/device.py): poll the card's "
+        "memory (torch.cuda.memory_stats) into the device_memory_bytes "
+        "/ device_memory_peak_bytes gauges per tick and report the "
+        "/healthz device block (XLA's compile counters have no eager "
+        "torch counterpart and read 0). 'auto' arms it whenever any obs "
+        "surface is on (--obs-port or --obs-dir); with --obs-dir it "
+        "also runs the black-box perf ring (obs/perf_recorder.py, "
+        "<obs-dir>/perf/) and the /profile endpoint (torch.profiler). "
+        "Byte-transparent: renders are identical on vs off",
     )
     p.add_argument(
         "--perf-ring-ticks", type=int, default=64, metavar="N",
-        help="accepted and unused (the perf ring is not ported yet)",
+        help="black-box perf ring: per-tick samples per committed "
+        "segment (default 64; needs --obs-dir and --device-obs auto)",
     )
     p.add_argument(
         "--perf-ring-keep", type=int, default=16, metavar="N",
-        help="accepted and unused (the perf ring is not ported yet)",
+        help="black-box perf ring: committed segments retained on disk "
+        "— older ones are pruned, bounding the ring at "
+        "keep×ticks-per-segment ticks of evidence (default 16)",
+    )
+    p.add_argument(
+        "--profile-dir", default=None,
+        help="capture a torch.profiler trace of the run into this "
+        "directory (a Chrome trace, written when the serve ends)",
     )
     p.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
@@ -547,8 +643,9 @@ class ServeSummary:
     what ``--warmup`` returned. Under the fan-in tier ``roster`` is its
     final ``roster()`` (one row per source) and ``source_evictions`` one
     ``(tick, source id, flows evicted, seconds)`` per dead namespace
-    evicted. ``drift`` and ``openset`` are the drift controller's and the
-    open-set gate's final ``status()`` (None when off). Every counter and
+    evicted. ``drift``, ``openset`` and ``actuation`` are the drift
+    controller's, the open-set gate's and the actuation plane's final
+    ``status()`` (None when off). Every counter and
     timing of the metrics plane is in ``utils.metrics.global_metrics``
     after the run."""
 
@@ -567,6 +664,7 @@ class ServeSummary:
     source_evictions: list = field(default_factory=list)
     drift: dict | None = None
     openset: dict | None = None
+    actuation: dict | None = None
 
     @property
     def evicted_flows(self) -> int:
@@ -746,7 +844,7 @@ def _sync(device: torch.device) -> None:
 
 
 def _evict_dead_namespaces(tier, engine, pipe, summary, m=None,
-                           recorder=None, lat=None) -> None:
+                           recorder=None, lat=None, actuation=None) -> None:
     """Evict namespaces whose source-death quarantine expired (fan-in
     tier, ingest/fanin.py). A pipelined render in flight is waited for
     first (bounded, as idle eviction does): a released slot's metadata
@@ -757,7 +855,8 @@ def _evict_dead_namespaces(tier, engine, pipe, summary, m=None,
     flight after the wait defers the eviction to the next tick (the tier
     keeps the sid pending until it is taken). Each eviction counts in the
     ``evicted`` and ``source_evictions`` counters of ``m``, lands in
-    ``recorder`` and drops the namespace's pending latency entries."""
+    ``recorder``, drops the namespace's pending latency entries and
+    retracts the namespace's actuation rules."""
     if pipe is not None and not pipe.idle():
         if not tier.evictions_due():
             return
@@ -766,6 +865,12 @@ def _evict_dead_namespaces(tier, engine, pipe, summary, m=None,
             return
     for sid in tier.take_evictions():
         t0 = time.perf_counter()
+        if actuation is not None:
+            # blast radius: the dead namespace's flow rules retract with
+            # its slots, taken BEFORE evict_source releases them (a
+            # released slot can be reused next tick, and the retraction
+            # would name the wrong flow)
+            actuation.retract_source(sid, engine.slots_for_source(sid))
         # a namespace clear on either spine: the Python index walks its
         # slot_source map, the C++ engine its per-slot namespace tags
         n = engine.evict_source(sid)
@@ -905,10 +1010,84 @@ def _dump_metrics(m, obs_dir, reason: str) -> None:
     print(f"metrics snapshot dumped to {path} ({reason})", file=sys.stderr)
 
 
+def _dump_device(dev, perf, obs_dir, reason: str) -> None:
+    """Best-effort device-plane dump: the /healthz device block plus the
+    black-box perf-ring tail, frozen as one JSON bundle beside the
+    flight-recorder post-mortem."""
+    if (dev is None and perf is None) or not obs_dir:
+        return
+    import json
+
+    from .utils.atomicio import atomic_write_bytes
+
+    payload: dict = {"kind": "device", "reason": reason}
+    if dev is not None:
+        payload["device"] = dev.status()
+    if perf is not None:
+        # commit the partial segment first so the on-disk ring and the
+        # reported tail agree about the final ticks
+        perf.flush()
+        payload["perf"] = perf.status()
+        payload["perf_tail"] = perf.tail(64)
+    try:
+        os.makedirs(obs_dir, exist_ok=True)
+        path = os.path.join(
+            obs_dir,
+            f"device-{os.getpid()}-{time.monotonic_ns()}-{reason}.json",
+        )
+        atomic_write_bytes(
+            path,
+            json.dumps(payload, sort_keys=True, default=repr).encode(),
+        )
+    except OSError as e:
+        print(f"WARNING: device dump failed: {e}", file=sys.stderr)
+        return
+    print(f"device telemetry dumped to {path} ({reason})", file=sys.stderr)
+
+
+def _record_perf_tick(m, dev, perf, ticks, degrade=None, drift=None) -> None:
+    """One black-box sample per poll tick: refresh the memory gauges
+    (``dev.sample``) and persist the tick's stage timings, queue/dirty
+    state, and degrade/drift positions into the on-disk perf ring.
+    Host-side dict reads only."""
+    devs = dev.sample() if dev is not None else None
+    if perf is None:
+        return
+    sample: dict = {"tick": ticks}
+    # newest sample per latency surface — the same underlying readings
+    # the latency plane folds into its quantiles, so a ring segment's
+    # per-stage p50s reconcile against /healthz by construction
+    for name in ("stage_tick_s", "stage_parse_s", "stage_scatter_s",
+                 "stage_predict_s", "stage_render_s", "ingest_s",
+                 "predict_s"):
+        h = m.histograms.get(name)
+        if h is not None and h.last is not None:
+            sample[name] = round(h.last, 6)
+    for gauge in ("queue_depth", "dirty_rows", "flows_dropped"):
+        if gauge in m.gauges:
+            sample[gauge] = m.gauges[gauge]
+    if degrade is not None:
+        try:
+            sample["degrade_state"] = degrade.status().get("state")
+        except Exception:  # noqa: BLE001 — the black box must not inject
+            pass
+    if drift is not None:
+        try:
+            sample["drift_state"] = drift.status().get("state")
+        except Exception:  # noqa: BLE001 — the black box must not inject
+            pass
+    if devs is not None:
+        sample["jit_compiles"] = devs["jit_compiles"]
+        sample["retraces_after_warmup"] = devs["retraces_after_warmup"]
+        if devs["hbm_bytes"] is not None:
+            sample["hbm_bytes"] = devs["hbm_bytes"]
+    perf.record(sample)
+
+
 def _serve_loop(args, engine, model, predict, serve_params, inc=None,
                 degrade=None, *, m, tracer, recorder=None, health=None,
-                lat=None, usr1=None, drift=None,
-                openset=None) -> ServeSummary:
+                lat=None, usr1=None, drift=None, openset=None,
+                dev=None, perf=None, actuation=None) -> ServeSummary:
     """The poll loop. Spans per tick (obs/trace.py, into ``m``'s
     ``stage_*_s`` histograms): ``poll`` (its own root: waiting on the
     source), then ``tick`` around ``parse``, ``scatter`` (the table update
@@ -917,7 +1096,10 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
     pipelined: ``dispatch`` on the host stage, ``stage.device`` around
     ``predict`` and ``render`` on the device stage) and ``snapshot``.
     ``drift.poll()`` runs after each render, its frame printed: on the
-    device-stage worker when pipelined, else on this thread."""
+    device-stage worker when pipelined, else on this thread, and so does
+    the actuation plane's ``observe`` of the rendered rows. With the
+    device plane on, each poll tick leaves one perf-ring sample
+    (``_record_perf_tick``)."""
     import functools
 
     from .ingest.fanin import RawTick
@@ -975,6 +1157,7 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
                 recorder.record("signal.sigusr1")
                 _dump_flight(recorder, args.obs_dir, "sigusr1")
                 _dump_metrics(m, args.obs_dir, "sigusr1")
+                _dump_device(dev, perf, args.obs_dir, "sigusr1")
             if pipe is not None:
                 # a dead device stage must end the serve, not let the
                 # host stage spin on
@@ -1020,7 +1203,7 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
                 m.inc("ticks")
                 if tier is not None:
                     _evict_dead_namespaces(tier, engine, pipe, summary, m,
-                                           recorder, lat)
+                                           recorder, lat, actuation)
                 # every tick: a scrape between renders must not read a
                 # stale drop count
                 m.set("flows_dropped", engine.dropped)
@@ -1035,11 +1218,16 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
                             file=sys.stderr,
                         )
                         dropped_seen = engine.dropped
+                    if dev is not None:
+                        # render dispatch == device work this tick: feeds
+                        # the /healthz last-dispatch age
+                        dev.mark_dispatch()
                     if pipe is not None:
                         plan = _dispatch_render(
                             args, engine, model, predict, serve_params,
                             pipe, inc=inc, degrade=degrade, m=m,
                             tracer=tracer, lat=lat, drift=drift,
+                            actuation=actuation,
                         )
                     else:
                         if args.idle_timeout and engine.last_time:
@@ -1049,7 +1237,7 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
                             plan = _print_table(
                                 engine, model, predict, serve_params, args,
                                 inc, degrade=degrade, tracer=tracer,
-                                lat=lat,
+                                lat=lat, drift=drift, actuation=actuation,
                             )
                         if drift is not None:
                             # off the hot path: the tick's labels are
@@ -1067,6 +1255,11 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
                                          drift=drift, openset=openset)
                 _sync(engine.device)
             summary.tick_seconds.append(time.perf_counter() - t0)
+            if dev is not None or perf is not None:
+                # after the tick span closes, so every stage histogram's
+                # newest sample is THIS tick's
+                _record_perf_tick(m, dev, perf, summary.ticks,
+                                  degrade=degrade, drift=drift)
             if args.metrics_every and summary.ticks % args.metrics_every == 0:
                 print(m.report(), file=sys.stderr, flush=True)
             if args.max_ticks and summary.ticks >= args.max_ticks:
@@ -1092,7 +1285,7 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
 
 def _dispatch_render(args, engine, model, predict, serve_params, pipe,
                      inc=None, degrade=None, *, m, tracer, lat=None,
-                     drift=None):
+                     drift=None, actuation=None):
     """Host-stage half of one pipelined render tick: evict, dispatch the
     read side against THIS tick's table, and stage the device-stage job.
     It prints what the serial render of the same tick prints: ``n_flows``
@@ -1102,7 +1295,8 @@ def _dispatch_render(args, engine, model, predict, serve_params, pipe,
     dispatch; the device stage marks the device boundary after
     ``rows()``, whose copy to the host waits for the kernels. After the
     frame prints, the worker polls the drift loop (``drift.poll()``): a
-    promotion swaps the served model there, between renders. Returns the
+    promotion swaps the served model there, between renders. The
+    actuation plane observes the printed rows on the worker too. Returns the
     incremental label plan, ``(kind, dirty rows)`` (None under
     ``--incremental off``)."""
     from .serving.pipeline import RenderJob, dispatch_read
@@ -1139,9 +1333,11 @@ def _dispatch_render(args, engine, model, predict, serve_params, pipe,
             with tracer.span("render"):
                 if args.table_rows > 0:
                     _print_ranked(engine, model, rows, read.n_flows,
-                                  stale=stale)
+                                  stale=stale, actuation=actuation,
+                                  drift=drift)
                 else:
-                    _print_full(model, rows, stale=stale)
+                    _print_full(model, rows, stale=stale,
+                                actuation=actuation, drift=drift)
             if lat is not None:
                 lat.render_visible(seal)
         if drift is not None:
@@ -1168,8 +1364,25 @@ def _label_name(model, c: int) -> str:
     return names[c] if c < len(names) else "?"
 
 
-def _print_ranked(engine, model, ranked, n_flows, stale=False) -> None:
-    """Render activity-ranked ``(slot, label, fwd, rev)`` rows."""
+def _observe_actuation(actuation, rows, stale, drift) -> None:
+    """Feed one rendered tick's ``(slot, src, dst, label)`` rows to the
+    actuation plane, with the freshness verdict (STALE render) and the
+    drift loop's current state riding along — the three signals the
+    hysteresis tier gates on. A no-op without the tier; never raises
+    and never touches stdout, so every render stays byte-identical to
+    ``--actuation off``."""
+    if actuation is None:
+        return
+    actuation.observe(
+        rows, stale=stale,
+        drift_state=drift.state if drift is not None else None,
+    )
+
+
+def _print_ranked(engine, model, ranked, n_flows, stale=False,
+                  actuation=None, drift=None) -> None:
+    """Render activity-ranked ``(slot, label, fwd, rev)`` rows, then feed
+    them to the actuation plane."""
     from .utils.table import CLASSIFIER_FIELDS, render_table, status_str
 
     sample = engine.slot_metadata(slots=[s for s, *_ in ranked])
@@ -1184,11 +1397,18 @@ def _print_ranked(engine, model, ranked, n_flows, stale=False) -> None:
     if n_flows > len(rows):
         print(f"... showing {len(rows)} of {n_flows} tracked flows",
               flush=True)
+    _observe_actuation(
+        actuation,
+        [(slot, src, dst, label) for slot, src, dst, label, *_ in rows],
+        stale, drift,
+    )
 
 
-def _print_full(model, rows, stale=False) -> None:
+def _print_full(model, rows, stale=False, actuation=None,
+                drift=None) -> None:
     """Render the unbounded (``--table-rows 0``) table from
-    ``(slot, src, dst, label, fwd, rev)`` rows."""
+    ``(slot, src, dst, label, fwd, rev)`` rows, then feed them to the
+    actuation plane."""
     from .utils.table import CLASSIFIER_FIELDS, render_table, status_str
 
     out = [
@@ -1197,10 +1417,16 @@ def _print_full(model, rows, stale=False) -> None:
     ]
     fields, out = _stale_fields(CLASSIFIER_FIELDS, out, stale)
     print(render_table(fields, out), flush=True)
+    _observe_actuation(
+        actuation,
+        [(slot, src, dst, label) for slot, src, dst, label, *_ in out],
+        stale, drift,
+    )
 
 
 def _print_table(engine, model, predict, serve_params, args, inc=None,
-                 degrade=None, *, tracer, lat=None):
+                 degrade=None, *, tracer, lat=None, drift=None,
+                 actuation=None):
     """The serial render: label the table and print the tick's table;
     returns the incremental label plan, ``(kind, dirty rows)`` (None under
     ``--incremental off``).
@@ -1239,7 +1465,8 @@ def _print_table(engine, model, predict, serve_params, args, inc=None,
             ranked = engine.render_sample(labels, args.table_rows)
             if lat is not None and not on_host:
                 lat.mark_device(seal)
-            _print_ranked(engine, model, ranked, n_flows, stale=stale)
+            _print_ranked(engine, model, ranked, n_flows, stale=stale,
+                          actuation=actuation, drift=drift)
         else:
             if not on_host:
                 labels = labels.cpu().numpy()
@@ -1252,7 +1479,8 @@ def _print_table(engine, model, predict, serve_params, args, inc=None,
                  bool(rev_active[slot]))
                 for slot, (src, dst) in sorted(engine.slot_metadata().items())
             ]
-            _print_full(model, rows, stale=stale)
+            _print_full(model, rows, stale=stale, actuation=actuation,
+                        drift=drift)
     if lat is not None:
         lat.render_visible(seal)
     return plan
@@ -1275,6 +1503,90 @@ def _check_flags(args) -> None:
             "--drift-follow needs --drift auto (the follower IS the "
             "drift loop, adopting peers' rotation members)"
         )
+    # the JAX CLI also refuses --actuation on a sharded serve; the port
+    # has none (--config's ingest.shards != 0 is already a usage error)
+    if args.actuation != "off" and not args.policy:
+        sys.exit("--actuation needs --policy (the per-class action spec)")
+    if args.policy and args.actuation == "off":
+        sys.exit(
+            "--policy without --actuation does nothing — pass "
+            "--actuation dry-run|push (off is the byte-transparent "
+            "default)"
+        )
+    if args.actuation == "push" and not args.actuation_switch:
+        sys.exit("--actuation push needs --actuation-switch HOST:PORT")
+
+
+def _actuation_plane(args, model, engine, m, recorder):
+    """The actuation plane of ``--actuation dry-run|push`` (None when
+    off), built AFTER the open-set gate extended the class list, so
+    ``--policy`` validates against the names every render decodes (and
+    ``unknown`` is refused by name). The plane only observes rendered
+    rows: stdout stays byte-identical to ``--actuation off``."""
+    if args.actuation == "off":
+        return None
+    from .controller.policy import parse_policy
+    from .serving.actuation import ActuationPlane, SwitchLink
+
+    try:
+        policy = parse_policy(args.policy, tuple(model.classes.names))
+    except ValueError as e:
+        sys.exit(str(e))
+    link_factory = None
+    if args.actuation == "push":
+        sw_host, _, sw_port = args.actuation_switch.rpartition(":")
+        if not sw_host or not sw_port.isdigit():
+            sys.exit("--actuation-switch wants HOST:PORT")
+
+        def link_factory(host=sw_host, port=int(sw_port)):
+            return SwitchLink(host, port)
+
+    span = None
+    if args.actuation_span:
+        try:
+            span = frozenset(
+                int(s) for s in args.actuation_span.split(",") if s.strip()
+            )
+        except ValueError:
+            sys.exit(
+                "--actuation-span wants comma-separated integer source ids"
+            )
+    return ActuationPlane(
+        policy, mode=args.actuation,
+        k_install=args.actuation_k_install,
+        k_retract=args.actuation_k_retract,
+        link_factory=link_factory,
+        span=span,
+        slots_for_source=engine.slots_for_source if span is not None else None,
+        metrics=m, recorder=recorder,
+    )
+
+
+def _device_plane(args, m, recorder, device):
+    """``(dev, perf, profiler)``: the device-runtime telemetry, armed with
+    the rest of the obs plane (``--device-obs auto`` and an obs surface
+    on), and under ``--obs-dir`` the black-box perf ring
+    (``<obs-dir>/perf``) and the ``/profile`` capture
+    (``<obs-dir>/profile``); Nones when off."""
+    if args.device_obs == "off" or recorder is None:
+        return None, None, None
+    from .obs import DeviceTelemetry, PerfRecorder, ProfilerCapture
+
+    dev = DeviceTelemetry(metrics=m, recorder=recorder, device=device)
+    dev.attach()
+    if not args.obs_dir:
+        return dev, None, None
+    perf = PerfRecorder(
+        os.path.join(args.obs_dir, "perf"),
+        ticks_per_segment=args.perf_ring_ticks,
+        keep_segments=args.perf_ring_keep,
+        metrics=m,
+    )
+    profiler = ProfilerCapture(
+        os.path.join(args.obs_dir, "profile"),
+        metrics=m, recorder=recorder, device=device,
+    )
+    return dev, perf, profiler
 
 
 def _build_engine(args, device, recorder):
@@ -1311,7 +1623,8 @@ def _build_engine(args, device, recorder):
 
 
 def _start_exposition(args, m, recorder, degrade, inc, lat, drift=None,
-                      openset=None):
+                      openset=None, actuation=None, dev=None,
+                      profiler=None):
     """``HealthState`` and the ``ExpositionServer`` of ``--obs-port``, or
     (None, None)."""
     if args.obs_port is None:
@@ -1337,17 +1650,27 @@ def _start_exposition(args, m, recorder, degrade, inc, lat, drift=None,
     if openset is not None:
         # the rejection tier: state, calibrated threshold, counters
         health.set_openset(openset.status)
+    if actuation is not None:
+        # live state (push/dry-run/degraded/demoted), the rule census,
+        # the exact ledger, flap counts
+        health.set_actuation(actuation.status)
     if lat is not None:
         health.set_latency(lat.status)
+    if dev is not None:
+        # device memory and its watermark, the last-dispatch age
+        health.set_device(dev.status)
     server = ExpositionServer(m, recorder=recorder, health=health,
-                              port=args.obs_port, host=args.obs_host)
+                              port=args.obs_port, host=args.obs_host,
+                              profiler=profiler)
     server.start()
     # --obs-port 0 binds ephemerally: report the ACTUAL port on the
     # startup line, the obs_port gauge and the /healthz self-reference
     health.set_obs_port(server.port)
     m.set("obs_port", server.port)
     print(f"observability plane on port {server.port} "
-          "(/metrics /healthz /events)", file=sys.stderr)
+          f"(/metrics /healthz /events"
+          f"{' /profile' if profiler is not None else ''})",
+          file=sys.stderr)
     return health, server
 
 
@@ -1384,10 +1707,9 @@ def run_classify(args) -> ServeSummary:
 
         lat = LatencyProvenance(metrics=m, recorder=recorder,
                                 slo_s=args.latency_slo)
-    if args.device_obs != "off" and recorder is not None:
-        print("NOTE: --device-obs: device-runtime telemetry (memory gauges, "
-              "the perf ring, /profile) is not ported yet (ROADMAP Queue 1 "
-              "item 6); nothing is armed", file=sys.stderr)
+    # the device plane is armed BEFORE the engine is built, so the flow
+    # table's allocation shows in its memory readings
+    dev, perf, profiler = _device_plane(args, m, recorder, device)
     engine = _build_engine(args, device, recorder)
     # The degradation ladder wraps the kernel predict, built BEFORE warmup
     # so warmup routes through it (its first device call, on its grace
@@ -1414,7 +1736,7 @@ def run_classify(args) -> ServeSummary:
     prev_sigterm = prev_sigusr1 = None
     sigterm_seen = False
     usr1 = {"due": False}
-    drift = openset = None
+    drift = openset = actuation = None
     degrade_surface = degrade
     try:
         wstats = None
@@ -1431,6 +1753,8 @@ def run_classify(args) -> ServeSummary:
                 f"{wstats['seconds']:.2f}s ({', '.join(wstats['warmed'])})",
                 file=sys.stderr,
             )
+            if dev is not None:
+                dev.mark_warmup_complete()
         # the drift loop and the open-set gate wrap the predict AFTER
         # warmup primed the boot model, and before the label cache, which
         # watches their label_epoch
@@ -1445,9 +1769,11 @@ def run_classify(args) -> ServeSummary:
             inc = IncrementalLabels(engine, predict, serve_params,
                                     degrade=degrade_surface, metrics=m,
                                     recorder=recorder, tracer=tracer)
-        health, server = _start_exposition(args, m, recorder,
-                                           degrade_surface, inc, lat,
-                                           drift=drift, openset=openset)
+        actuation = _actuation_plane(args, model, engine, m, recorder)
+        health, server = _start_exposition(
+            args, m, recorder, degrade_surface, inc, lat, drift=drift,
+            openset=openset, actuation=actuation, dev=dev,
+            profiler=profiler)
         if (recorder is not None and args.obs_dir
                 and threading.current_thread() is threading.main_thread()):
             def _on_sigterm(signum, frame):
@@ -1462,13 +1788,16 @@ def run_classify(args) -> ServeSummary:
             prev_sigusr1 = signal.signal(signal.SIGUSR1, _on_sigusr1)
         obs_faults = (recorder.observing_faults() if recorder is not None
                       else contextlib.nullcontext())
+        from .utils.profiling import trace
+
         try:
-            with obs_faults:
+            with obs_faults, trace(args.profile_dir, device):
                 summary = _serve_loop(
                     args, engine, model, predict, serve_params, inc,
                     degrade=degrade_surface, m=m, tracer=tracer,
                     recorder=recorder, health=health, lat=lat, usr1=usr1,
-                    drift=drift, openset=openset)
+                    drift=drift, openset=openset, dev=dev, perf=perf,
+                    actuation=actuation)
         except BaseException as e:
             # the crash-forensics moment, outside any signal frame: a
             # SystemExit is a dump only when the SIGTERM hook raised it
@@ -1476,13 +1805,15 @@ def run_classify(args) -> ServeSummary:
                 if sigterm_seen and isinstance(e, SystemExit):
                     recorder.record("signal.sigterm")
                     _dump_flight(recorder, args.obs_dir, "sigterm")
+                    _dump_device(dev, perf, args.obs_dir, "sigterm")
                 elif not isinstance(e, SystemExit):
                     recorder.record("serve.exception",
                                     error=type(e).__name__, detail=str(e))
-                    _dump_flight(recorder, args.obs_dir,
-                                 "keyboard-interrupt"
-                                 if isinstance(e, KeyboardInterrupt)
-                                 else "serve-exception")
+                    reason = ("keyboard-interrupt"
+                              if isinstance(e, KeyboardInterrupt)
+                              else "serve-exception")
+                    _dump_flight(recorder, args.obs_dir, reason)
+                    _dump_device(dev, perf, args.obs_dir, reason)
             raise
         else:
             if recorder is not None:
@@ -1491,11 +1822,26 @@ def run_classify(args) -> ServeSummary:
                     # the loop ends "cleanly", but the trail matters
                     _dump_flight(recorder, args.obs_dir,
                                  "supervisor-terminal")
+                    _dump_device(dev, perf, args.obs_dir,
+                                 "supervisor-terminal")
                 elif args.obs_dump_on_exit:
                     _dump_flight(recorder, args.obs_dir, "on-demand")
+                    _dump_device(dev, perf, args.obs_dir, "on-demand")
     finally:
         if server is not None:
             server.stop()
+        if perf is not None:
+            # commit the partial segment: every recorded tick is on disk
+            # before the process goes away (the commit absorbs its own
+            # failures)
+            perf.flush()
+        if dev is not None:
+            dev.detach()
+        if actuation is not None:
+            # the plane only closes its switch link — installed rules
+            # stay (a serve restart must not blackhole live traffic by
+            # retracting QoS rules it will re-earn in seconds)
+            actuation.close()
         if degrade_surface is not None:
             # the view closes the live (possibly promoted) ladder and the
             # boot one; without drift it IS the boot ladder
@@ -1525,6 +1871,8 @@ def run_classify(args) -> ServeSummary:
         summary.drift = drift.status()
     if openset is not None:
         summary.openset = openset.status()
+    if actuation is not None:
+        summary.actuation = actuation.status()
     return summary
 
 
@@ -1666,6 +2014,8 @@ def main(argv=None) -> ServeSummary:
     global_metrics.reset()  # per-run metrics, even for embedded reuse
     parser = _build_parser()
     args = parser.parse_args(argv)
+    if args.scenario is not None:
+        return _run_scenario_replay(args, parser)
     if args.knn_topk is not None:
         # validated here (a usage error, exit 2) and published through
         # the env var, so every serving-path build sees the same choice
@@ -1682,6 +2032,40 @@ def main(argv=None) -> ServeSummary:
               "no XLA program, and its kernel libraries persist under "
               "csrc/build/ by source hash", file=sys.stderr)
     return run_classify(args)
+
+
+def _run_scenario_replay(args, parser):
+    """The --scenario replay hook: run one campaign scenario through the
+    real serve composition (scenarios/runner.py) on ``--device`` and
+    print its scorecard; exits nonzero on a gate failure, with the
+    post-mortem bundle under ``--scenario-obs-dir``. Returns the
+    scorecard (None for ``list``)."""
+    import json
+
+    from .scenarios import SCENARIOS, build, run_scenario
+
+    if args.scenario == "list":
+        for name, builder in SCENARIOS.items():
+            print(f"{name}: {builder('t1').title}")
+        return None
+    if args.scenario not in SCENARIOS:
+        parser.error(
+            f"--scenario: unknown scenario {args.scenario!r} "
+            f"(known: {', '.join(sorted(SCENARIOS))}; "
+            f"'list' prints them)"
+        )
+    card = run_scenario(
+        build(args.scenario, args.scenario_profile),
+        obs_dir=args.scenario_obs_dir, device=args.device,
+    )
+    print(json.dumps(card, indent=1, default=repr))
+    if not card["passed"]:
+        failed = ", ".join(
+            g["id"] for g in card["gates"] if not g["passed"]
+        )
+        sys.exit(f"scenario {args.scenario} FAILED gates: {failed} "
+                 f"(post-mortem under {args.scenario_obs_dir}/)")
+    return card
 
 
 if __name__ == "__main__":

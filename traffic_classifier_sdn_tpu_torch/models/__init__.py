@@ -185,9 +185,12 @@ def _knn_serving_path(params) -> tuple[Callable, Any]:
     - ``native``: the C++ pruned exact search on the host
       (``NativeKnn.predict``), ``host_native``;
     - ``ivf[<nprobe>]`` (default ``knn_ivf.DEFAULT_NPROBE``): the
-      quantizer fits here, on the model's device; where g++ builds the
-      native evaluator, its IVF mirror on the same partition serves
-      (``host_native``), else the torch tier, ops/knn_ivf.py."""
+      quantizer fits here, on the model's device. On a card the torch
+      tier (ops/knn_ivf.py) serves there, with the quantizer on the card.
+      On the CPU, where g++ builds the native evaluator, its IVF mirror
+      on the same partition serves (``host_native``: the JAX package's
+      rule for CPU hosts, whose per-row candidate gathers cost more than
+      the C++ walk), else the torch tier."""
     impl = resolve_knn_topk()
     if impl in ("sort", "pallas"):
         return _kernel_serving_path("knn", params)
@@ -201,7 +204,7 @@ def _knn_serving_path(params) -> tuple[Callable, Any]:
 
         ivf = knn_ivf.build(
             params, nprobe=int(impl[3:] or knn_ivf.DEFAULT_NPROBE))
-        if not native_knn.available():
+        if params.fit_X.device.type == "cuda" or not native_knn.available():
             return knn_ivf.predict_chunked, ivf
         hk = _native_knn(params)
         hk.build_ivf(ivf.centers.cpu().numpy(), knn_ivf.assignments_of(ivf))

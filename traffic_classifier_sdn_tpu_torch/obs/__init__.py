@@ -1,6 +1,6 @@
 """Observability plane of the port: structured tracing, crash forensics,
-latency provenance and exposition — the port of
-``traffic_classifier_sdn_tpu/obs`` without its device-runtime half.
+latency provenance, exposition and the device-runtime plane — the port
+of ``traffic_classifier_sdn_tpu/obs``.
 
 - ``obs.trace``: the span tracer; completions land in per-stage
   ``stage_<name>_s`` histograms of ``utils.metrics`` and in the flight
@@ -13,29 +13,31 @@ latency provenance and exposition — the port of
 - ``obs.exposition``: ``/metrics`` (Prometheus text), ``/healthz``,
   ``/events`` and ``/profile`` on a stdlib HTTP thread (CLI
   ``--obs-port``).
-
-Not ported yet (ROADMAP Queue 1 item 6): the device-runtime telemetry
-(the JAX ``obs/device.py``, here to come as ``torch.cuda`` memory stats),
-its ``ProfilerCapture`` behind ``/profile`` (``torch.profiler``), and the
-black-box perf ring (``obs/perf_recorder.py``).
+- ``obs.device``: the device-runtime half — ``DeviceTelemetry`` (device
+  memory from ``torch.cuda.memory_stats``, the last-dispatch age, the
+  /healthz ``device`` block; XLA's compile counters have no torch
+  counterpart and stay at 0) and ``ProfilerCapture`` (``torch.profiler``
+  behind ``/profile``).
+- ``obs.perf_recorder``: the black-box perf ring, per-tick samples
+  committed to disk as atomic segments in the JAX package's format.
 """
 
-from .exposition import (
-    ExpositionServer,
-    HealthState,
-    ProfilerBusy,
-    prometheus_text,
-)
+from .device import DeviceTelemetry, ProfilerBusy, ProfilerCapture
+from .exposition import ExpositionServer, HealthState, prometheus_text
 from .flight_recorder import FlightRecorder, dump_metrics_snapshot
 from .latency import LatencyProvenance
+from .perf_recorder import PerfRecorder
 from .trace import Span, Tracer
 
 __all__ = [
+    "DeviceTelemetry",
     "ExpositionServer",
     "FlightRecorder",
     "HealthState",
     "LatencyProvenance",
+    "PerfRecorder",
     "ProfilerBusy",
+    "ProfilerCapture",
     "Span",
     "Tracer",
     "dump_metrics_snapshot",

@@ -13,10 +13,11 @@ A stdlib ``http.server`` thread:
   ``label_cache``, ``sources`` and ``latency`` blocks. 200 while healthy,
   503 once stale or dead.
 - ``/events``: the flight-recorder tail as a JSON array (``?n=``).
-- ``/profile``: 404 "profiler not armed" — the device profiler capture is
-  not ported yet (ROADMAP), exactly the JAX server's answer when it runs
-  without one. The busy guard's exception, ``ProfilerBusy``, is this
-  module's own.
+- ``/profile?seconds=N``: on-demand ``torch.profiler`` trace capture into
+  the obs dir (obs/device.ProfilerCapture), armed only when the CLI runs
+  with ``--obs-dir``; 404 "profiler not armed" otherwise. Mutually
+  exclusive (409 while one runs), a failed capture is a 500 — never a
+  serve-loop crash.
 
 Handlers read under the metrics/ring locks only long enough to snapshot;
 ``/metrics`` copies each family dict before iterating, so a scrape while
@@ -33,12 +34,10 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
+from .device import ProfilerBusy
+
 
 _NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
-
-
-class ProfilerBusy(RuntimeError):
-    """A capture is already running (``/profile`` answers 409)."""
 
 
 _PREFIX = "tcsdn_"
@@ -198,9 +197,9 @@ class HealthState:
             self._latency = status_fn
 
     def set_device(self, status_fn) -> None:
-        """``status_fn() -> dict``: the device-runtime plane's self-report
-        (not ported yet, so the port's CLI never sets it) — backend/platform,
-        compile and retrace counters, HBM watermark, last-dispatch age,
+        """``status_fn() -> dict`` (obs/device.DeviceTelemetry.status): the
+        device-runtime plane's self-report — backend/platform, device
+        memory and its watermark, last-dispatch age,
         donation effectiveness — folded into /healthz as a ``device``
         object. Informational, never a health verdict: a retrace or a
         high watermark is an alerting signal, not a restart reason."""

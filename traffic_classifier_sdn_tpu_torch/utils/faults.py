@@ -2,13 +2,15 @@
 label-cache seams.
 
 The port's copy of ``traffic_classifier_sdn_tpu/utils/faults.py``, with
-the registry cut to the sites this package threads. A named *fault site*
+the JAX package's 29 sites. A named *fault site*
 sits at each seam (serving-checkpoint write, rename and restore, the model
 checkpoint's manifest commit, collector reads, supervisor restart, the
 fan-in queue and source pumps, native engine load and parse, the latency
-stamp, the pipeline handoff, the degrade ladder's dispatch and probe, the
-incremental label path, the drift loop's observation, refit, swap and
-rollback, the open-set gate's scoring and calibration); a test installs a
+stamp, the perf ring's segment commit, the profiler capture, the pipeline
+handoff, the degrade ladder's dispatch and probe, the incremental label
+path, the drift loop's observation, refit, swap and rollback, the
+open-set gate's scoring and calibration, the actuation plane's send,
+barrier and retract); a test installs a
 seeded ``FaultPlan`` that fires scripted failures at
 exact hit counts (or seeded probabilities). Observers
 (``add_observer``/``observing``) see every fire before it manifests: the
@@ -78,6 +80,21 @@ SITES: dict[str, str] = {
         "line: counted against ITS source (parse_errors) and skipped, "
         "the rest of the batch parses normally — never a crash, never "
         "a torn row, and every other source's telemetry is untouched"
+    ),
+    "obs.perf_ring": (
+        "obs/perf_recorder.PerfRecorder segment commit — the black-box "
+        "ring's atomic segment write fails (ENOSPC, dead disk, torn "
+        "rename); ABSORBED inside the recorder: that segment's samples "
+        "are dropped and counted (perf_ring_dropped_segments), the next "
+        "segment starts clean, and the serve tick never sees the "
+        "failure — the black box must not stall the plane it records"
+    ),
+    "obs.profiler": (
+        "obs/device.ProfilerCapture.capture — the on-demand "
+        "torch.profiler trace capture fails mid-start; ABSORBED at the "
+        "/profile endpoint: the request 500s with the error, the "
+        "failure is counted (profiler_capture_failures) and recorded, "
+        "the busy guard releases, and the serve loop never sees it"
     ),
     "obs.stamp": (
         "ingest/protocol.stamp_records — the latency-provenance emit "
@@ -168,6 +185,30 @@ SITES: dict[str, str] = {
         "longer; a failed rebase keeps the previous stats) and labels "
         "are never touched — the gate stays byte-transparent until a "
         "calibration actually lands"
+    ),
+    "actuation.send": (
+        "serving/actuation.ActuationPlane flow-mod send — the switch "
+        "socket wedges or refuses a mod mid-write; ABSORBED: the plane "
+        "degrades itself to dry-run (in-flight ops resolve as refused, "
+        "accounting stays exact) and re-probes the switch on an "
+        "exponential backoff while classify serves every tick "
+        "byte-identically to --actuation off"
+    ),
+    "actuation.barrier": (
+        "serving/actuation.ActuationPlane barrier collection — the "
+        "barrier reply confirming a pushed batch is lost or the read "
+        "fails; ABSORBED: the batch's unresolved ops are counted "
+        "refused (never silently 'installed'), the plane degrades to "
+        "dry-run and re-probes on backoff; the serve cadence never "
+        "blocks on the dead barrier"
+    ),
+    "actuation.retract": (
+        "serving/actuation.ActuationPlane retraction push — the DELETE "
+        "undoing an installed rule cannot be sent (quarantine, "
+        "rollback-demotion, or label-change retract); ABSORBED: the op "
+        "resolves refused, the rule is dropped from the installed view "
+        "(the switch may hold it until re-probe reconciles), and the "
+        "plane degrades to dry-run with backoff re-probe"
     ),
 }
 

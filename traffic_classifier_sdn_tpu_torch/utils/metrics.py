@@ -58,6 +58,18 @@ class Histogram:
     def mean(self) -> float:
         return self.total / self.count if self.count else 0.0
 
+    @property
+    def last(self) -> float | None:
+        """The newest observed sample (None before the first): the
+        per-tick read the black-box perf recorder persists."""
+        if not self._samples:
+            return None
+        if len(self._samples) < self.window:
+            return self._samples[-1]
+        # ring full: _pos is the next overwrite slot, so the newest
+        # sample sits just behind it (negative index wraps at 0)
+        return self._samples[self._pos - 1]
+
 
 class Metrics:
     """Flat namespace of counters / gauges / histograms."""
