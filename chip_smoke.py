@@ -34,7 +34,7 @@ the script exits non-zero:
    (``with_nonfinite(X, every=3)``) at 777 and 65,536 rows and every
    launch shape, every KNN index in [0, S);
 4. serve — the port CLI in-process, serial (``<subcommand> --source
-   synthetic --synthetic-flows 65536 --capacity 65536 --max-ticks 6
+   synthetic --synthetic-flows 65536 --capacity 65536 --max-ticks 4
    --print-every 2 --pipeline off --degrade off``; native ingest and
    incremental labels at their defaults) for ``Randomforest``,
    ``knearest`` and ``svm`` on those models: 65,536 flows tracked, one
@@ -53,7 +53,7 @@ the script exits non-zero:
    seconds are printed. These are the main path: their launches are the
    ``launches`` of the kernels line;
 4c. ladder drills — for each family, the no-flag serve (forest and KNN
-   at 65,536 flows, SVC at 4,096, ``DRILL_FLOWS``; 10 ticks) with
+   at 16,384 flows, SVC at 4,096, ``DRILL_FLOWS``; 10 ticks) with
    ``degrade.dispatch_error`` armed on the second device call (``--probe-every
    0 --probe-successes 2``): the ladder demotes, the demoted tables'
    labels (the host rung's) equal the plain version's, and it re-promotes
@@ -85,9 +85,10 @@ the script exits non-zero:
    with a dirty row, and the last table's labels equal the plain
    version's;
 6b. 2^20 flows — the no-flag forest serve of ``--capacity 1048576`` fed as
-   raw pipe bytes through ``--source ryu`` by an emitter that generates
-   four ticks of ``SyntheticFlows(1048576)`` (~2.1 M lines, ~120 MB each)
-   in memory: every flow tracked, every line parsed, the last table's
+   raw pipe bytes through ``--source ryu`` by an emitter that replays
+   ``shard_capture``'s ticks of ``SyntheticFlows(1048576)``: one tick of
+   every conversation (~2.1 M lines, ~120 MB), then three of 4,096 of
+   them: every flow tracked, every line parsed, the last table's
    labels equal the plain version's; each poll's host time, each
    render's label time on the device stage and ``ticks_coalesced``;
 6c. fan-in — the no-flag forest serve through the fan-in tier
@@ -194,6 +195,26 @@ the script exits non-zero:
    card (4 sources, 32,768 flows a member, ``--drift auto`` on one
    rotation, 4 ticks): one aggregator scrape lists both members' sources,
    each with its member; both exit 0;
+6p. shards — the sharded spine (``--shards``, parallel/table_sharded.py):
+   the no-flag ``Randomforest --shards 1`` serve and a ``--shards 4``
+   serve on the one card (the mesh ``make_mesh`` builds on ``[cuda:0]``
+   four times) through ``--source ryu`` on ``shard_capture`` at 65,536
+   and 2^20 flows, each held to the un-sharded serve of the same capture
+   (6b's at 2^20): the tables after the small ticks byte for byte, the
+   final flow-table state bitwise, the last table's labels the plain
+   version's, the forest kernel launched once per shard per render; the
+   forest kernel bitwise to its plain version on a shard's rows (16,384
+   and 262,144); the host seconds of a tick's dispatch, gather and merge;
+   then ``knn_sharded.fused_predict`` (all three merges) and
+   ``svc_sharded.fused_predict`` over 4 state shards on the one card on
+   the 65,536 served rows, with the reference-shaped KNN (S = 4,448:
+   shard 3 holds only padding) and SVC (2,281 support vectors: shard 3
+   holds only zero coefficients): each shard's kernel output held to its
+   plain version (bitwise for KNN, to 1e-5 of the largest coefficient sum
+   for SVC; the padding shard's exactly), labels to the un-sharded
+   kernel's (SVC: off near-ties), each shard's kernel timed beside its
+   plain version and bound; a kernel fault in a sharded serve ends it,
+   and ``--shards 2`` on one card is refused;
 7. breakdown — host seconds per tick of 131,072 records into 65,536 flows
    through the Python spine, the native spine from records and the
    native spine from raw bytes (each with ``step()`` and a device sync),
@@ -209,11 +230,13 @@ visible, and imports nothing of JAX.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -944,6 +967,9 @@ def _check_nonfinite(g_knn, g_svc, X, N: int) -> None:
 
 # the serial bare-kernel serve (the JAX defaults turn both on)
 SERIAL = ("--pipeline", "off", "--degrade", "off")
+# ticks of the serial serves: 4, a render every 2 (short enough to keep
+# the whole script within its time)
+SERIAL_TICKS = 4
 
 # family → (CLI subcommand, interop builder of the port's model)
 SERVES = {
@@ -1006,7 +1032,7 @@ def phase_serve(family: str, model: dict, g, device) -> int:
         argv = [
             subcommand, "--source", "synthetic",
             "--synthetic-flows", str(CAPACITY), "--capacity", str(CAPACITY),
-            "--max-ticks", "6", "--print-every", "2",
+            "--max-ticks", str(SERIAL_TICKS), "--print-every", "2",
             "--native-checkpoint", ckpt, *SERIAL,
         ]
         for c in counters.values():  # count the main path's launches only
@@ -1234,12 +1260,13 @@ def phase_default_serve(family: str, model: dict, g, device) -> int:
     return launches[family]
 
 
-# Flows of each family's drill serve: the serve's own size where the host
-# rung keeps a demoted render under the stall drill's 2 s bound (the native
-# forest and KNN), 4,096 for SVC, whose host rung (the plain version on the
-# CPU) takes about 1 s a render at 4,096 rows. One demoted SVC render at
+# Flows of each family's drill serve: 16,384 for the forest and KNN (a
+# quarter of the serve's size, to keep the script within its time: the
+# per-record synthetic source takes most of a drill's seconds),
+# 4,096 for SVC, whose host rung (the plain version on the CPU) takes
+# about 1 s a render at 4,096 rows. One demoted render of each family at
 # 65,536 rows is timed on its own (``demoted_render_at_size``).
-DRILL_FLOWS = {"forest": CAPACITY, "knn": CAPACITY, "svc": 4096}
+DRILL_FLOWS = {"forest": CAPACITY // 4, "knn": CAPACITY // 4, "svc": 4096}
 
 
 def phase_drills(family: str, model: dict, g, device) -> dict:
@@ -1516,54 +1543,118 @@ def phase_warmup(model: dict, k, device) -> int:
 
 
 BIG_FLOWS = 1 << 20
-BIG_EMITTER = """\
+# the un-sharded serves of shard_capture, kept for the shards phase:
+# {n_flows: (stdout, final feature matrix, numbers)}
+RYU_BASELINES: dict = {}
+SHARD_TICKS = 4  # one tick of every conversation, then small ones
+SHARD_SUB = 4096  # conversations reporting in each later tick
+SHARD_PAUSE = 0.5  # s between the small ticks
+# s after the first tick (at 65,536 flows, and at 2^20): the serve takes it
+# whole before the next tick arrives
+SHARD_FIRST_PAUSE = (1.0, 3.0)
+SHARD_EMITTER = """\
 import sys, time
-sys.path.insert(0, sys.argv[1])
-from traffic_classifier_sdn_tpu_torch.ingest.replay import SyntheticFlows
-syn = SyntheticFlows(n_flows=int(sys.argv[2]))
 out = sys.stdout.buffer
 out.write(b"loading app simple_monitor_13.py\\n")
 out.flush()
-for _ in range(int(sys.argv[3])):
-    blob = syn.tick_bytes()
-    out.write(blob)
+for i, path in enumerate(sys.argv[3:]):
+    with open(path, "rb") as f:
+        out.write(f.read())
     out.flush()
-    time.sleep(float(sys.argv[4]))
+    time.sleep(float(sys.argv[1] if i == 0 else sys.argv[2]))
 """
+_CAPTURES: dict = {}
+
+
+def shard_capture(n_flows: int) -> list[str]:
+    """Per-tick capture files of ``SyntheticFlows(n_flows)``: one tick of
+    every conversation, then ``SHARD_TICKS - 1`` ticks of ``SHARD_SUB`` of
+    them (the seeded churn draw). Written once per process into a
+    temporary directory removed at exit (the 2^20 tick takes seconds to
+    format). A small tick arrives in one poll of ``--source ryu`` (its
+    first chunk and 50 ms of the rest), so the tables after the small
+    ticks are the same in every serve of the capture, however the large
+    first tick is split."""
+    if n_flows not in _CAPTURES:
+        from traffic_classifier_sdn_tpu_torch.ingest.replay import (
+            SyntheticFlows,
+        )
+
+        root = tempfile.mkdtemp(prefix="chip_smoke_capture-")
+        atexit.register(shutil.rmtree, root, True)
+        syn = SyntheticFlows(n_flows=n_flows)
+        paths = []
+        for t in range(SHARD_TICKS):
+            if t == 1:
+                syn.churn = min(SHARD_SUB, n_flows) / n_flows
+            paths.append(os.path.join(root, f"tick-{t}"))
+            with open(paths[-1], "wb") as f:
+                f.write(syn.tick_bytes())
+        _CAPTURES[n_flows] = paths
+    return _CAPTURES[n_flows]
+
+
+def shard_lines(n_flows: int) -> int:
+    """Telemetry lines of ``shard_capture(n_flows)``."""
+    return 2 * n_flows + (SHARD_TICKS - 1) * 2 * min(SHARD_SUB, n_flows)
+
+
+def ryu_capture_argv(n_flows: int, ckpt: str, tmp: str) -> list:
+    """The no-flag forest serve of ``shard_capture(n_flows)`` through
+    ``--source ryu``: an emitter written to ``tmp`` replays the ticks,
+    ``SHARD_FIRST_PAUSE`` s after the first and ``SHARD_PAUSE`` s after
+    each other; a render every poll."""
+    emitter = os.path.join(tmp, "replay_emitter.py")
+    with open(emitter, "w") as f:
+        f.write(SHARD_EMITTER)
+    return [
+        "Randomforest", "--source", "ryu", "--monitor-cmd",
+        f"{sys.executable} {emitter} "
+        f"{SHARD_FIRST_PAUSE[int(n_flows >= BIG_FLOWS)]} "
+        f"{SHARD_PAUSE} " + " ".join(shard_capture(n_flows)),
+        "--capacity", str(n_flows), "--print-every", "1",
+        "--native-checkpoint", ckpt,
+    ]
+
+
+def _serve_numbers(summary, wall: float) -> dict:
+    """A ryu serve's times: the host stage's seconds per poll after the
+    small ticks, the device stage's busy seconds per render, the wall."""
+    renders = max(1, len(summary.render_ticks))
+    return {
+        "renders": len(summary.render_ticks),
+        "host_tick_s": summary.tick_seconds[-(SHARD_TICKS - 1):],
+        "device_stage_s_per_render": (
+            summary.pipeline["device_busy_s"] / renders
+            if summary.pipeline else None),
+        "wall_s": wall,
+    }
 
 
 def phase_big_serve(model: dict, k, device) -> int:
     """The no-flag forest serve of 2^20 flows, fed as raw pipe bytes through
-    ``--source ryu`` by an emitter that generates four ticks in memory.
-    Returns the forest kernel's launches."""
+    ``--source ryu`` (``ryu_capture_argv``). Keeps its stdout and final
+    features for the shards phase. Returns the forest kernel's
+    launches."""
     from traffic_classifier_sdn_tpu_torch import interop
     from traffic_classifier_sdn_tpu_torch.io import checkpoint
     from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
 
     tag = "[2^20 Randomforest]"
-    ticks, pause = 4, 1.0
-    root = os.path.dirname(os.path.abspath(__file__))
+    shard_capture(BIG_FLOWS)
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt, emitter = os.path.join(tmp, "ckpt"), os.path.join(tmp, "emit.py")
+        ckpt = os.path.join(tmp, "ckpt")
         checkpoint.save_model(ckpt, "forest",
                               interop.forest_params_from_numpy(model, device),
                               classes=CLASSES)
-        with open(emitter, "w") as f:
-            f.write(BIG_EMITTER)
         fk.forest_proba.launches = 0
         with watched_dispatch("forest") as (features, log):
-            out, summary, wall = _serve([
-                "Randomforest", "--source", "ryu", "--monitor-cmd",
-                f"{sys.executable} {emitter} {root} {BIG_FLOWS} {ticks} "
-                f"{pause}",
-                "--capacity", str(BIG_FLOWS), "--print-every", "1",
-                "--native-checkpoint", ckpt,
-            ])
+            out, summary, wall = _serve(ryu_capture_argv(BIG_FLOWS, ckpt, tmp))
         launches = fk.forest_proba.launches
     engine, st, pipe = summary.engine, summary.degrade, summary.pipeline
-    print(f"{tag} {summary.ticks} polls in {wall:.2f} s (emitter: {ticks} "
-          f"ticks of {2 * BIG_FLOWS} lines, {pause} s apart); per poll on "
-          "the host stage (s): "
+    print(f"{tag} {summary.ticks} polls in {wall:.2f} s (emitter: one tick "
+          f"of {2 * BIG_FLOWS} lines, then {SHARD_TICKS - 1} of "
+          f"{2 * SHARD_SUB}); per poll on the host stage (s): "
           + ", ".join(f"{x:.3f}" for x in summary.tick_seconds)
           + "; of which ingest (raw bytes, native engine, wire scatter): "
           + ", ".join(f"{x:.3f}" for x in summary.ingest_seconds))
@@ -1575,7 +1666,7 @@ def phase_big_serve(model: dict, k, device) -> int:
           f"{pipe['device_busy_s']:.3f} s; ladder {st['state']}, "
           f"{st['fallback_calls']} fallback calls")
     if engine.num_flows() != BIG_FLOWS or engine.batcher.parsed != (
-            ticks * 2 * BIG_FLOWS):
+            shard_lines(BIG_FLOWS)):
         raise AssertionError(f"{tag} {engine.num_flows()} flows, "
                              f"{engine.batcher.parsed} lines parsed")
     if st["state"] != "HEALTHY" or st["fallback_calls"]:
@@ -1583,6 +1674,8 @@ def phase_big_serve(model: dict, k, device) -> int:
     tables = parse_tables(out)
     printed = _check_printed(tag, tables[-1:], "forest", k, features,
                              [e for e in log if e[0] == "rows"][-1:])
+    RYU_BASELINES[BIG_FLOWS] = (out, engine.features(),
+                                _serve_numbers(summary, wall))
     print(f"{tag} {engine.num_flows()} flows tracked from "
           f"{engine.batcher.parsed} lines, {launches} forest launches, "
           f"{len(tables)} tables; the last (render {printed[0] + 1}) equals "
@@ -1717,7 +1810,7 @@ def phase_fanin(model: dict, k, device) -> int:
 # ticks of the side serves (families, menus): 4, cut from 6 when the obs
 # and checkpoint phases came (each 65,536-flow synthetic tick costs ~1.5 s
 # of host time, most of it the source's record generation)
-SIDE_TICKS = 4
+SIDE_TICKS = 2  # the side serves' ticks: one render
 
 FAMILY_SERVES = {
     "logreg": ("logistic", "logreg_params_from_numpy", random_logreg),
@@ -4046,7 +4139,6 @@ def phase_drift(model: dict, k, device) -> int:
     from traffic_classifier_sdn_tpu_torch.io import checkpoint
     from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
     from traffic_classifier_sdn_tpu_torch.serving import openset as tos
-    from traffic_classifier_sdn_tpu_torch.serving import retrain
     from traffic_classifier_sdn_tpu_torch.utils import faults
 
     tag = "[drift Randomforest]"
@@ -4166,7 +4258,7 @@ def phase_drift(model: dict, k, device) -> int:
         dtag = "[drift drill promote.swap]"
         plan = faults.FaultPlan([faults.FaultRule("promote.swap",
                                                   times=None)])
-        dout, dsum, _, dfeat, dlog, dstates, _, _ = _drift_serve(
+        dout, dsum, _, dfeat, dlog, dstates, dseen, _ = _drift_serve(
             dtag, ckpt, tmp, 0, "rollbacks", plan)
         dst = dsum.drift
         if (dst["rollbacks"] != 1 or dst["promotions"] or dst["swapped"]
@@ -4174,17 +4266,20 @@ def phase_drift(model: dict, k, device) -> int:
             raise AssertionError(f"{dtag} {dst}")
         if any(swapped for swapped, _ in dstates.values()):
             raise AssertionError(f"{dtag} a render served a swapped model")
-        rotation = os.path.join(tmp, "rotation-rollbacks")
-        latest = retrain.resolve_latest(rotation, device="cpu")
+        # what the rollback resolved, when it ran: a refit after it may
+        # stage a newer candidate before the serve ends, which the rotation
+        # then holds unpromoted
+        rolled = [e["reason"] for e in dseen["controller"]._recorder.tail()
+                  if e["kind"] == "drift.transition"
+                  and e.get("to") == "ROLLED_BACK"]
         dtables = parse_tables(dout)
         _check_drift_tables(dtag, dtables, dfeat, dlog, dstates,
                             {False: k})
-        print(f"{dtag} ROLLED_BACK after {dst['retrain_runs']} refit(s); "
-              f"the rotation resolves to {os.path.basename(latest)}; all "
-              f"{len(dtables)} tables equal the boot forest's labels (with "
-              "the open-set relabel)")
-        if os.path.basename(latest) != "model-000000000":
-            raise AssertionError(f"{dtag} rotation resolves to {latest}")
+        print(f"{dtag} ROLLED_BACK after {dst['retrain_runs']} refit(s): "
+              f"{rolled}; all {len(dtables)} tables equal the boot forest's "
+              "labels (with the open-set relabel)")
+        if len(rolled) != 1 or "latest:model-000000000" not in rolled[0]:
+            raise AssertionError(f"{dtag} the rollback resolved {rolled}")
     return launches, promoted
 
 
@@ -4584,6 +4679,343 @@ def phase_fleet(model: dict, device) -> None:
           f"{tables}; {len(lines)} fleet summary lines")
 
 
+SHARD_MESH = 4  # shards placed on the one card
+SHARD_GATHER_RUNS = 5  # dispatch/gather/merge timings per engine
+
+
+def _global_features(engine):
+    """A sharded engine's feature matrix in GLOBAL slot order (global slot
+    g lives on shard g % n at local row g // n)."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch.core import flow_table as ft
+
+    X = torch.stack([ft.features12(t) for t in engine.tables])
+    return X.transpose(0, 1).reshape(-1, X.shape[-1])
+
+
+def gather_times(engine) -> dict:
+    """Host seconds of one sharded read side on a served engine, medians
+    of ``SHARD_GATHER_RUNS``: ``dispatch`` (the dirty counts' fetch and the
+    per-shard launches), ``gather`` (the wait for the per-device byte
+    buffers and their copy to the host), ``merge`` (the candidates' sort)."""
+    spans = {"dispatch": [], "gather": [], "merge": []}
+    for _ in range(SHARD_GATHER_RUNS):
+        _device_sync(engine.device)
+        t0 = time.perf_counter()
+        outs = engine.tick_read_dispatch(now=engine.last_time)
+        t1 = time.perf_counter()
+        host = outs.host()
+        t2 = time.perf_counter()
+        engine._merge_candidates(*host[:6])
+        t3 = time.perf_counter()
+        for name, x in (("dispatch", t1 - t0), ("gather", t2 - t1),
+                        ("merge", t3 - t2)):
+            spans[name].append(x)
+    return {name: statistics.median(xs) for name, xs in spans.items()}
+
+
+def _forest_shard_entry(k, X, tag: str) -> dict:
+    """The forest kernel on one shard's rows: bitwise to its plain version,
+    timed beside it and its bound."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+
+    got, want = fk.forest_proba(k, X), fk.forest_proba_plain(k, X)
+    _device_sync(X.device)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"{tag} forest kernel != plain version on a "
+                             f"shard's {X.shape[0]} rows")
+    bound_ms, bound_by = forest_bound(k, X, node_visits(k, X))
+    return {
+        "rows": X.shape[0], "max_abs_err": 0.0,
+        "ms": cuda_median_ms(lambda: fk.forest_proba(k, X), TIMED_RUNS),
+        "plain_ms": cuda_median_ms(lambda: fk.forest_proba_plain(k, X), 5),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def _shard_serves(n_flows: int, k, ckpt: str, tmp: str,
+                  device) -> tuple[dict, dict]:
+    """The un-sharded (6b's at 2^20), ``--shards 1`` and ``--shards
+    SHARD_MESH`` serves of ``shard_capture(n_flows)``, each sharded one
+    held to the un-sharded one. Returns ({path: launches}, {serve:
+    numbers})."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+    from traffic_classifier_sdn_tpu_torch.parallel import mesh as meshlib
+    from traffic_classifier_sdn_tpu_torch.parallel import table_sharded as tsh
+
+    argv = ryu_capture_argv(n_flows, ckpt, tmp)
+    counters = {f: wrapper for f, (wrapper, _) in _kernels().items()}
+    if n_flows not in RYU_BASELINES:
+        out, summary, wall = _serve(argv)
+        RYU_BASELINES[n_flows] = (out, summary.engine.features(),
+                                  _serve_numbers(summary, wall))
+        del summary
+    base_out, base_X, base = RYU_BASELINES[n_flows]
+    base_frames = frames(base_out)[-(SHARD_TICKS - 1):]
+    plain = fk.forest_proba_plain(k, base_X).argmax(-1).cpu()
+    paths, numbers = {}, {"unsharded": base}
+    print(f"[shards unsharded Randomforest {n_flows}] {base['renders']} "
+          "renders; host s per poll after the small ticks "
+          + ", ".join(f"{x:.4f}" for x in base["host_tick_s"])
+          + f"; device stage {base['device_stage_s_per_render']:.4f} s a "
+          "render")
+    visible = meshlib.visible_devices
+    for shards in (1, SHARD_MESH):
+        tag = f"[shards {shards} Randomforest {n_flows}]"
+        devs = [device] * shards
+        for c in counters.values():
+            c.launches = 0
+        meshlib.visible_devices = lambda device=None, d=devs: list(d)
+        try:
+            out, summary, wall = _serve(argv + ["--shards", str(shards)])
+        finally:
+            meshlib.visible_devices = visible
+        launches = {f: c.launches for f, c in counters.items()}
+        eng = summary.engine
+        renders = len(summary.render_ticks)
+        if not isinstance(eng, tsh.ShardedFlowEngine) or eng.n_shards != shards:
+            raise AssertionError(f"{tag} served by {type(eng).__name__}")
+        if (eng.num_flows() != n_flows
+                or eng.batcher.parsed != shard_lines(n_flows)):
+            raise AssertionError(f"{tag} {eng.num_flows()} flows, "
+                                 f"{eng.batcher.parsed} lines parsed")
+        if launches != {"forest": renders * shards, "knn": 0, "svc": 0}:
+            raise AssertionError(f"{tag} launches {launches}, want "
+                                 f"{renders} renders x {shards} shards")
+        got_frames = frames(out)[-(SHARD_TICKS - 1):]
+        if got_frames != base_frames:
+            raise AssertionError(f"{tag} the tables after the small ticks "
+                                 "differ from the un-sharded serve's")
+        if not torch.equal(_global_features(eng), base_X):
+            raise AssertionError(f"{tag} final flow-table state differs from "
+                                 "the un-sharded serve's")
+        _check_tables(tag, parse_tables(out)[-1:], [plain])
+        times = gather_times(eng)
+        numbers[f"shards {shards}"] = {
+            **_serve_numbers(summary, wall), "launches": launches["forest"],
+            "read_side_host_s": times,
+        }
+        paths[f"shards {shards} Randomforest {n_flows}"] = launches
+        print(f"{tag} {summary.ticks} polls in {wall:.2f} s, {renders} "
+              f"renders, {launches['forest']} forest launches ({shards} a "
+              f"render); the last {SHARD_TICKS - 1} tables byte-identical to "
+              "the un-sharded serve's, final state bitwise, last table's "
+              "labels the plain version's; host s per poll after the small "
+              "ticks " + ", ".join(f"{x:.4f}" for x in
+                                    summary.tick_seconds[-(SHARD_TICKS - 1):])
+              + f"; device stage "
+              f"{numbers[f'shards {shards}']['device_stage_s_per_render']:.4f}"
+              " s a render; a read side's host s: dispatch "
+              f"{times['dispatch']:.5f}, gather {times['gather']:.5f}, merge "
+              f"{times['merge']:.5f}")
+        if shards == SHARD_MESH:
+            X0 = _global_features(eng)[0::shards].contiguous()
+            numbers["per_shard_kernel"] = _forest_shard_entry(k, X0, tag)
+        del summary, eng
+    return paths, numbers
+
+
+def _knn_shards(model: dict, g, X) -> tuple[int, dict]:
+    """``knn_sharded.fused_predict`` over ``SHARD_MESH`` corpus shards on
+    the one card, each merge; every shard's kernel held bitwise to its
+    plain version (the padding shard's candidates −inf at the lowest
+    indices). Returns (launches, numbers)."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk
+    from traffic_classifier_sdn_tpu_torch.parallel import knn_sharded as ksh
+    from traffic_classifier_sdn_tpu_torch.parallel import mesh as meshlib
+
+    tag = "[shards knn_sharded.fused_predict]"
+    mesh = meshlib.make_mesh(n_data=1, n_state=SHARD_MESH,
+                             devices=[X.device] * SHARD_MESH)
+    params = interop.knn_params_from_numpy(model, X.device)
+    want = kk.predict(g, X)
+    fns = {m: ksh.fused_predict(mesh, params, merge=m)
+           for m in ("all_gather", "ring", "tournament")}
+    kk.topk_sim_idx.launches = 0
+    labels = {m: fn(X) for m, fn in fns.items()}
+    launches = kk.topk_sim_idx.launches
+    if launches != 3 * SHARD_MESH:
+        raise AssertionError(f"{tag} {launches} launches, want "
+                             f"{3 * SHARD_MESH}")
+    for m, lab in labels.items():
+        if not torch.equal(lab, want):
+            raise AssertionError(f"{tag} {m}: labels differ from the "
+                                 "un-sharded kernel's")
+    fn = fns["all_gather"]
+    shards = []
+    for s, gs in enumerate(fn.operands):
+        v, i = kk.topk_sim_idx(gs, X)
+        pv, pi = kk.topk_sim_idx_plain(gs, X)
+        _device_sync(X.device)
+        if not (torch.equal(i, pi)
+                and torch.equal(v.view(torch.int32), pv.view(torch.int32))):
+            raise AssertionError(f"{tag} shard {s}: kernel != plain version")
+        real = max(0, min(fn.per, g.n_rows - s * fn.per))
+        if real == 0 and not (
+                bool(torch.isneginf(v).all()) and torch.equal(
+                    i, torch.arange(g.n_neighbors, dtype=torch.int32,
+                                    device=X.device).expand_as(i))):
+            raise AssertionError(f"{tag} shard {s} (padding only): not −inf "
+                                 "at the lowest indices")
+        bound_ms, bound_by = knn_bound(gs, X)
+        shards.append({
+            "shard": s, "corpus_rows": fn.per, "real_rows": real,
+            "max_abs_err": 0.0,
+            "ms": cuda_median_ms(lambda gs=gs: kk.topk_sim_idx(gs, X),
+                                 TIMED_RUNS),
+            "plain_ms": cuda_median_ms(
+                lambda gs=gs: kk.topk_sim_idx_plain(gs, X), 3, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+    numbers = {
+        "rows": X.shape[0], "shards": SHARD_MESH, "per": fn.per,
+        "per_shard": shards,
+        "predict_ms": {m: cuda_median_ms(lambda f=f: f(X), 10)
+                       for m, f in fns.items()},
+        "unsharded_predict_ms": cuda_median_ms(lambda: kk.predict(g, X), 10),
+    }
+    print(f"{tag} {SHARD_MESH} shards of {fn.per} corpus rows (real: "
+          + ", ".join(str(x["real_rows"]) for x in shards)
+          + f") at {X.shape[0]} rows: {launches} launches over the three "
+          "merges, labels bitwise the un-sharded kernel's, each shard "
+          "bitwise its plain version; per-shard kernel ms "
+          + ", ".join(f"{x['ms']:.4f}" for x in shards)
+          + " (plain " + ", ".join(f"{x['plain_ms']:.2f}" for x in shards)
+          + f"); predict ms {numbers['predict_ms']} against "
+          f"{numbers['unsharded_predict_ms']:.4f} un-sharded")
+    return launches, numbers
+
+
+def _svc_shards(model: dict, g, X) -> tuple[int, dict]:
+    """``svc_sharded.fused_predict`` over ``SHARD_MESH`` SV shards on the one
+    card: decisions to 1e-5 of the largest coefficient sum of the
+    un-sharded kernel's, labels equal off near-ties, every shard's kernel
+    to that atol of its plain version (the zero-coefficient shard's output
+    exactly zero). Returns (launches, numbers)."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
+    from traffic_classifier_sdn_tpu_torch.parallel import mesh as meshlib
+    from traffic_classifier_sdn_tpu_torch.parallel import svc_sharded as ssh
+
+    tag = "[shards svc_sharded.fused_predict]"
+    mesh = meshlib.make_mesh(n_data=1, n_state=SHARD_MESH,
+                             devices=[X.device] * SHARD_MESH)
+    params = interop.svc_params_from_numpy(model, X.device)
+    atol = 1e-5 * float(params.pair_coef.abs().sum(1).max())
+    fn = ssh.fused_decision(mesh, params)
+    rk.partial_decision.launches = 0
+    lab, dec = fn(X)
+    launches = rk.partial_decision.launches
+    if launches != SHARD_MESH:
+        raise AssertionError(f"{tag} {launches} launches, want {SHARD_MESH}")
+    want_dec = rk.decision_ovo(g, X)
+    want_lab = rk.predict(g, X)
+    err = float((dec - want_dec).abs().max())
+    clear = want_dec.abs().min(1).values > atol
+    if err > atol or not torch.equal(lab[clear], want_lab[clear]):
+        raise AssertionError(f"{tag} decisions off by {err} (atol {atol}) "
+                             "or labels differ off near-ties")
+    shards = []
+    for s, gs in enumerate(fn.operands):
+        got = rk.partial_decision(gs, X)
+        plain = rk.partial_decision_plain(gs, X)
+        _device_sync(X.device)
+        e = float((got - plain).abs().max())
+        real = max(0, min(fn.per, g.n_sv - s * fn.per))
+        if e > atol or (real == 0 and bool(got.any())):
+            raise AssertionError(f"{tag} shard {s}: kernel off its plain "
+                                 f"version by {e} (real SVs {real})")
+        bound_ms, bound_by = svc_bound(gs, X)
+        shards.append({
+            "shard": s, "support_vectors": fn.per, "real_svs": real,
+            "max_abs_err": e,
+            "bitwise": torch.equal(got.view(torch.int32),
+                                   plain.view(torch.int32)),
+            "ms": cuda_median_ms(lambda gs=gs: rk.partial_decision(gs, X),
+                                 TIMED_RUNS),
+            "plain_ms": cuda_median_ms(
+                lambda gs=gs: rk.partial_decision_plain(gs, X), 3, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+    numbers = {
+        "rows": X.shape[0], "shards": SHARD_MESH, "per": fn.per,
+        "atol": atol, "max_abs_err": err,
+        "near_tie_rows": int((~clear).sum()),
+        "labels_differing_on_near_ties": int(
+            (lab[~clear] != want_lab[~clear]).sum()),
+        "per_shard": shards,
+        "predict_ms": cuda_median_ms(lambda: fn(X), 10),
+        "unsharded_predict_ms": cuda_median_ms(lambda: rk.predict(g, X), 10),
+    }
+    print(f"{tag} {SHARD_MESH} shards of {fn.per} SVs (real: "
+          + ", ".join(str(x["real_svs"]) for x in shards)
+          + f") at {X.shape[0]} rows: {launches} launches, decisions within "
+          f"{err:.3e} of the un-sharded kernel's (atol {atol:.3e}), labels "
+          f"equal off {numbers['near_tie_rows']} near-tie rows; each shard "
+          "within atol of its plain version (bitwise: "
+          + ", ".join(str(x["bitwise"]) for x in shards)
+          + "); per-shard kernel ms "
+          + ", ".join(f"{x['ms']:.4f}" for x in shards)
+          + f"; predict {numbers['predict_ms']:.4f} ms against "
+          f"{numbers['unsharded_predict_ms']:.4f} un-sharded")
+    return launches, numbers
+
+
+def phase_shards(models: dict, ops: dict, device) -> tuple[dict, dict]:
+    """The sharded spine and the state-sharded predicts on the one card
+    (module docstring, 6p). Returns ({path: {family: launches}}, {family:
+    the per-shard numbers of the kernels line})."""
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.core import flow_table as ft
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+
+    k = ops["forest"]
+    paths = {}
+    forest = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        checkpoint.save_model(ckpt, "forest",
+                              interop.forest_params_from_numpy(
+                                  models["forest"], device),
+                              classes=CLASSES)
+        for n in (CAPACITY, BIG_FLOWS):
+            p, forest[n] = _shard_serves(n, k, ckpt, tmp, device)
+            paths.update(p)
+        launches = _drill_kernel_fault(
+            "forest", ryu_capture_argv(CAPACITY, ckpt, tmp) + ["--shards",
+                                                               "1"])
+        paths["shards drill Randomforest"] = {"forest": launches}
+        try:
+            _serve(["Randomforest", "--native-checkpoint", ckpt, "--shards",
+                    "2", "--source", "synthetic"])
+        except SystemExit as e:
+            if str(e.code) != "--shards 2 needs 2 visible devices (have 1)":
+                raise
+        else:
+            raise AssertionError("--shards 2 served on one card")
+        print("[shards] --shards 2 on the one card: refused with the JAX "
+              "CLI's message, nothing served")
+    RYU_BASELINES.clear()
+    X = ft.features12(synthetic_table(CAPACITY, 3, device))
+    n_knn, knn = _knn_shards(models["knn"], ops["knn"], X)
+    n_svc, svc = _svc_shards(models["svc"], ops["svc"], X)
+    paths["shards knn_sharded.fused_predict"] = {"knn": n_knn}
+    paths["shards svc_sharded.fused_predict"] = {"svc": n_svc}
+    paths = {p: {f: n.get(f, 0) for f in SERVES} for p, n in paths.items()}
+    return paths, {"forest": {str(n): v for n, v in forest.items()},
+                   "knn": knn, "svc": svc}
+
+
 KERNEL_ROWS = {
     "forest": ("forest_proba", "forest_proba.cu",
                "traffic_classifier_sdn_tpu/ops/pallas_forest.py:241"),
@@ -4596,7 +5028,8 @@ KERNEL_ROWS = {
 
 def kernel_entries(results: dict, launches: dict, paths: dict | None = None,
                    buckets: list | None = None, menus: dict | None = None,
-                   promoted: dict | None = None) -> list[dict]:
+                   promoted: dict | None = None,
+                   shards: dict | None = None) -> list[dict]:
     """The ``{"kernels": [...]}`` entries: each kernel's numbers at the
     main path's 65,536 rows, its launches in the serve, every size under
     ``by_rows``, its launches on each path driven (``paths``: {path:
@@ -4604,7 +5037,9 @@ def kernel_entries(results: dict, launches: dict, paths: dict | None = None,
     and, under ``menus`` ({family: {...}}), the serving-menu forms timed
     beside the kernel (``phase_knn_tiers``, ``phase_ivf``,
     ``phase_svc_dot``); for the forest, ``promoted``: the drift loop's
-    retrained forest through the same kernel (``phase_drift``)."""
+    retrained forest through the same kernel (``phase_drift``); under
+    ``shards`` ({family: {...}}), the sharded spine's numbers
+    (``phase_shards``)."""
     kernels = []
     for family, (name, source, replaces) in KERNEL_ROWS.items():
         by_rows = results[family]
@@ -4618,6 +5053,8 @@ def kernel_entries(results: dict, launches: dict, paths: dict | None = None,
             extra["menus"] = menus[family]
         if family == "forest" and promoted:
             extra["promoted"] = promoted
+        if shards and family in shards:
+            extra["shards"] = shards[family]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -4654,11 +5091,19 @@ def main() -> int:
               "(traffic_classifier_sdn_tpu_torch not found)", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
+    marks = [("start", t0)]
+
+    def mark(name: str) -> None:
+        """Seconds since the previous mark, under ``name``."""
+        marks.append((name, time.perf_counter()))
+
     smi = phase_environment()
     device = torch.device("cuda")
     INSTANCES.update(phase_build())
+    mark("build")
     models, ops, results = phase_kernels(device)
     buckets = phase_dirty_buckets(ops["forest"], device)
+    mark("kernels")
     serial = {
         family: phase_serve(family, models[family], ops[family], device)
         for family in SERVES
@@ -4669,6 +5114,7 @@ def main() -> int:
                                     device)
         for family in SERVES
     }
+    mark("serves")
     paths = {}
     for prefix, counts in (("serve", serial), ("default", launches)):
         for f, n in counts.items():
@@ -4677,23 +5123,18 @@ def main() -> int:
     for f in SERVES:
         n = phase_drills(f, models[f], ops[f], device)
         paths[f"drills {SERVES[f][0]}"] = {g: int(f == g) * n for g in SERVES}
-    paths["warmup Randomforest"] = {
-        "forest": phase_warmup(models["forest"], ops["forest"], device),
-        "knn": 0, "svc": 0}
-    paths["incremental Randomforest"] = {
-        "forest": phase_incremental_serve(models["forest"], ops["forest"],
-                                          device),
-        "knn": 0, "svc": 0}
-    paths["ryu Randomforest"] = {
-        "forest": phase_ryu_serve(models["forest"], ops["forest"], device),
-        "knn": 0, "svc": 0}
-    paths["2^20 Randomforest"] = {
-        "forest": phase_big_serve(models["forest"], ops["forest"], device),
-        "knn": 0, "svc": 0}
-    paths["fanin Randomforest"] = {
-        "forest": phase_fanin(models["forest"], ops["forest"], device),
-        "knn": 0, "svc": 0}
+    mark("drills")
+    for name, phase in (("warmup", phase_warmup),
+                        ("incremental", phase_incremental_serve),
+                        ("ryu", phase_ryu_serve),
+                        ("2^20", phase_big_serve),
+                        ("fanin", phase_fanin)):
+        paths[f"{name} Randomforest"] = {
+            "forest": phase(models["forest"], ops["forest"], device),
+            "knn": 0, "svc": 0}
+        mark(name)
     phase_families(models, device)
+    mark("families")
     paths["families"] = {"forest": 0, "knn": 0, "svc": 0}
     menus = {
         "knn": {"tiers_ms": phase_knn_tiers(models["knn"], ops["knn"], device),
@@ -4701,28 +5142,37 @@ def main() -> int:
         "svc": {"dot_form": phase_svc_dot(models["svc"], ops["svc"], device)},
     }
     paths.update(phase_menu_serves(models, ops, device))
+    mark("menus")
     for name, phase in (("controller", phase_controller),
-                        ("workload", phase_workload)):
+                        ("workload", phase_workload),
+                        ("obs", phase_obs), ("checkpoint", phase_checkpoint)):
         paths[f"{name} Randomforest"] = {
             "forest": phase(models["forest"], ops["forest"], device),
             "knn": 0, "svc": 0}
-    for name, phase in (("obs", phase_obs), ("checkpoint", phase_checkpoint)):
-        paths[f"{name} Randomforest"] = {
-            "forest": phase(models["forest"], ops["forest"], device),
-            "knn": 0, "svc": 0}
+        mark(name)
     n, promoted = phase_drift(models["forest"], ops["forest"], device)
     paths["drift Randomforest"] = {"forest": n, "knn": 0, "svc": 0}
+    mark("drift")
     paths["actuation Randomforest"] = {
         "forest": phase_actuation(models["forest"], ops["forest"], device),
         "knn": 0, "svc": 0}
+    mark("actuation")
     # the scenarios serve a GNB (plain torch ops) and the fleet's members
     # launch in their own processes: neither adds to the counts here
     phase_scenarios(device)
     phase_fleet(models["forest"], device)
+    mark("scenarios, fleet")
+    shard_paths, shards = phase_shards(models, ops, device)
+    paths.update(shard_paths)
+    mark("shards")
     phase_ingest_breakdown(ops["forest"], device)
+    mark("breakdown")
     kernels = kernel_entries(results, launches, paths, buckets, menus,
-                             promoted)
-    print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
+                             promoted, shards)
+    print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "
+          "seconds by phase: " + ", ".join(
+              f"{name} {b - a:.1f}"
+              for (_, a), (name, b) in zip(marks, marks[1:])))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({

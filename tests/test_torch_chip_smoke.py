@@ -328,6 +328,12 @@ def small_card_phases(monkeypatch):
     monkeypatch.setattr(tdegrade.DegradeLadder, "_absorbs",
                         lambda self, e, X: isinstance(e, tfaults.FaultInjected))
     monkeypatch.setattr(chip_smoke, "BIG_FLOWS", 512)
+    # shard_capture's ticks at this size, paced for the CPU
+    monkeypatch.setattr(chip_smoke, "_CAPTURES", {})
+    monkeypatch.setattr(chip_smoke, "RYU_BASELINES", {})
+    monkeypatch.setattr(chip_smoke, "SHARD_SUB", 16)
+    monkeypatch.setattr(chip_smoke, "SHARD_PAUSE", 0.3)
+    monkeypatch.setattr(chip_smoke, "SHARD_FIRST_PAUSE", (0.3, 0.3))
     for mod, plain, wrapper in ((fk, "forest_proba_plain", fk.forest_proba),
                                 (kk, "topk_sim_idx_plain", kk.topk_sim_idx),
                                 (rk, "partial_decision_plain",
@@ -802,3 +808,52 @@ def test_fleet_phase_runs_on_cpu(small_card_phases, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "both exit 0" in out
     assert "member 1 sid 1" in out
+
+
+def test_shard_capture_and_its_emitter(tmp_path, monkeypatch):
+    """``shard_capture``: one tick of every conversation, then small ticks
+    of ``SHARD_SUB``; the replay emitter writes them in order."""
+    monkeypatch.setattr(chip_smoke, "_CAPTURES", {})
+    monkeypatch.setattr(chip_smoke, "SHARD_SUB", 8)
+    paths = chip_smoke.shard_capture(64)
+    assert len(paths) == chip_smoke.SHARD_TICKS
+    lines = [open(p, "rb").read().count(b"\n") for p in paths]
+    assert lines == [128] + [16] * (chip_smoke.SHARD_TICKS - 1)
+    assert sum(lines) == chip_smoke.shard_lines(64)
+    argv = chip_smoke.ryu_capture_argv(64, "ckpt", str(tmp_path))
+    cmd = argv[argv.index("--monitor-cmd") + 1].split()
+    cmd[2:4] = ["0", "0"]  # no pauses
+    out = subprocess.run(cmd, capture_output=True, check=True,
+                         timeout=60).stdout
+    assert out.startswith(b"loading app")
+    assert out.count(b"\n") == 1 + sum(lines)
+
+
+def test_shards_phase_runs_on_cpu(small_card_phases, cpu_timers,
+                                  monkeypatch, capsys):
+    """``phase_shards`` passes its own checks on the CPU at 256 and 512
+    flows: the --shards 1 and 4-shard serves against the un-sharded one,
+    the fused KNN and SVC predicts over 4 shards (shards of padding
+    alone), the kernel-fault drill and the --shards 2 refusal."""
+    monkeypatch.setattr(chip_smoke, "SHARD_GATHER_RUNS", 1)
+    # ticks far enough apart that each small one is one poll of the serve,
+    # however loaded the CPU (the byte-identity rests on it)
+    monkeypatch.setattr(chip_smoke, "SHARD_PAUSE", 0.8)
+    monkeypatch.setattr(chip_smoke, "SHARD_FIRST_PAUSE", (1.5, 1.5))
+    models, ops = small_card_phases
+    paths, numbers = chip_smoke.phase_shards(models, ops,
+                                             torch.device("cpu"))
+    assert paths["shards knn_sharded.fused_predict"]["knn"] == 12
+    assert paths["shards svc_sharded.fused_predict"]["svc"] == 4
+    for n in (256, 512):
+        one = paths[f"shards 1 Randomforest {n}"]["forest"]
+        four = paths[f"shards 4 Randomforest {n}"]["forest"]
+        assert four == 4 * numbers["forest"][str(n)]["shards 4"]["renders"]
+        assert one == numbers["forest"][str(n)]["shards 1"]["renders"] > 0
+    assert [x["real_rows"] for x in numbers["knn"]["per_shard"]] == [
+        200, 0, 0, 0]
+    assert [x["real_svs"] for x in numbers["svc"]["per_shard"]] == [
+        60, 0, 0, 0]
+    out = capsys.readouterr().out
+    assert out.count("byte-identical to the un-sharded serve's") == 4
+    assert "refused with the JAX CLI's message" in out

@@ -1,7 +1,8 @@
 """``--config`` in the port: ``config.py`` (a copy of the JAX package's
-schema) round-trips through JSON in both packages alike, the CLI fills
-only the flags left unset from the file (a flag given wins), and a
-non-zero ``ingest.shards`` is a usage error (sharding is not ported)."""
+schema) round-trips through JSON in both packages alike, and the CLI
+fills only the flags left unset from the file (a flag given wins),
+``ingest.shards`` among them: a shard count the visible devices cannot
+hold ends the serve with the JAX CLI's message."""
 
 import dataclasses
 import json
@@ -84,11 +85,33 @@ def test_defaults_without_config():
 
 
 def test_shards_is_a_usage_error(tmp_path, capsys):
+    """``ingest.shards`` fills ``--shards`` as the JAX CLI does (a given
+    flag wins); a serve asking for more shards than the CPU's one visible
+    device exits with the JAX CLI's message, before any engine exists."""
+    args = _args(["--native-checkpoint", "/a"], tmp_path,
+                 {"ingest": {"shards": 4}})
+    assert args.shards == 4
+    args = _args(["--native-checkpoint", "/a", "--shards", "1"], tmp_path,
+                 {"ingest": {"shards": 4}})
+    assert args.shards == 1
+    import numpy as np
+
+    import chip_smoke
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint as tck
+
+    X = np.abs(np.random.RandomState(0).gamma(1, 100, (200, 12)))
+    d = chip_smoke.random_forest(0, X.astype(np.float32), n_trees=2)
+    tck.save_model(str(tmp_path / "ckpt"), "forest",
+                   interop.forest_params_from_numpy(d, device="cpu"),
+                   classes=("a", "b", "c", "d", "e", "f"))
+    (tmp_path / "cfg.json").write_text(json.dumps({
+        "ingest": {"capacity": 64, "shards": 2},
+        "model": {"native_checkpoint": str(tmp_path / "ckpt")}}))
     with pytest.raises(SystemExit) as ei:
-        _args(["--native-checkpoint", "/a"], tmp_path,
-              {"ingest": {"shards": 4}})
-    assert ei.value.code == 2
-    assert "sharding is not ported yet" in capsys.readouterr().err
+        tcli.main(["Randomforest", "--config", str(tmp_path / "cfg.json"),
+                   "--source", "synthetic", "--device", "cpu"])
+    assert ei.value.code == "--shards 2 needs 2 visible devices (have 1)"
 
 
 def test_missing_checkpoint_is_a_usage_error(tmp_path, capsys):

@@ -22,8 +22,10 @@ every fan-in source annotated with its member, drift state per member,
 Emits one JSON roster line once the fleet is up, then a fleet summary
 line per ``--poll-s`` until the members exit (``--max-ticks``) or
 SIGINT. Exit status 0 iff every member exited 0. Every member runs on
-``--device`` (default cuda; the members share one card). There is no
-``--shards``: the port's CLI has no sharded serve.
+``--device`` (default cuda; the members share one card). The launcher
+has no ``--shards`` of its own (the JAX launcher's, which passes a shard
+count to every member, is not ported): each member serves one device's
+table.
 
 Usage:
   tools/torch_fleet_serve.py gaussiannb --native-checkpoint CKPT \

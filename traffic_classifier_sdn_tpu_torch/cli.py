@@ -259,6 +259,17 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--capacity", type=int, default=None,
                    help="flow-table rows (default 65536)")
     p.add_argument(
+        "--shards", type=int, default=0,
+        help="partition the flow table over an N-shard mesh "
+        "(parallel/table_sharded.py), one shard per visible device of "
+        "--device — serving capacity beyond one device's table; requires "
+        "N visible devices. 1 is an EXPLICIT single-shard mesh (the "
+        "sharded engine and read steps on one device); 0 (default) is "
+        "the single-device engine. Composes with --sources, "
+        "--incremental, --native-ingest, serving checkpoints, and "
+        "--drift (the region serve)",
+    )
+    p.add_argument(
         "--idle-timeout", type=int, default=None,
         help="evict flows idle for N seconds (0 disables; default 60)",
     )
@@ -308,7 +319,10 @@ def _build_parser() -> argparse.ArgumentParser:
         "forest/KNN, the plain torch version on the CPU otherwise) "
         "instead of wedging when a dispatch misses its deadline; probes "
         "re-promote after recovery. On a CUDA device any other device "
-        "error ends the serve. 'off' restores the bare predict path",
+        "error ends the serve. 'auto' enables it for device kernels on "
+        "the single-device serve (sharded and host-native serves have no "
+        "device rung to demote from); 'off' restores the bare predict "
+        "path",
     )
     p.add_argument(
         "--device-deadline", type=float, default=2.0, metavar="SECS",
@@ -338,7 +352,9 @@ def _build_parser() -> argparse.ArgumentParser:
         "Byte-transparent until calibration completes and on "
         "closed-world traffic (output identical to 'off'); composes with "
         "--drift (promotions re-base the gate on the retrain window; "
-        "rejected rows never become training signal)",
+        "rejected rows never become training signal). 'auto' enables it "
+        "for single-device serves (sharded serves bind their predict "
+        "into the per-shard read steps and are skipped)",
     )
     p.add_argument(
         "--openset-margin", type=float, default=3.0, metavar="M",
@@ -360,7 +376,10 @@ def _build_parser() -> argparse.ArgumentParser:
         "the background on sustained divergence (train/, on the serve's "
         "device), and hot-promote the fresh checkpoint through a "
         "parity-gated probe — wrong-but-fresh never promotes, a bad "
-        "promotion rolls back. With no drift the output is "
+        "promotion rolls back. Works on both spines: single-device "
+        "serves hot-swap through the DriftGate, sharded serves install "
+        "through the engine's install_predict (per-shard read steps "
+        "rebuilt, label caches reset). With no drift the output is "
         "byte-identical to 'off'. Requires --drift-dir",
     )
     p.add_argument(
@@ -433,7 +452,9 @@ def _build_parser() -> argparse.ArgumentParser:
         "socket; 'push' programs the switch at --actuation-switch and "
         "degrades itself to dry-run with backoff re-probe on ANY "
         "actuation failure. 'off' (default) is byte-transparent: "
-        "stdout is identical with the tier absent",
+        "stdout is identical with the tier absent. Single-device serves "
+        "only (the sharded render has no per-row label surface to gate "
+        "on)",
     )
     p.add_argument(
         "--policy", default=None, metavar="SPEC",
@@ -580,7 +601,9 @@ def _build_parser() -> argparse.ArgumentParser:
         "completion, render visibility) into the e2e_emit_to_render_s / "
         "queue_wait_s / batch_wait_s / wf_* histograms and the /healthz "
         "latency block. Stamps never touch the wire or the rendered "
-        "output. 'auto' (= on: the port has no sharded serve) or 'off'",
+        "output. 'auto' enables it for single-device serves (the "
+        "sharded read side has no single render-visibility point); "
+        "'off' disables stamping entirely",
     )
     p.add_argument(
         "--latency-slo", type=float, default=0.0, metavar="SECS",
@@ -703,11 +726,13 @@ def _resolved_monitor_cmd(args) -> str:
     return args.monitor_cmd or DEFAULT_MONITOR_CMD
 
 
-def _provenance_on(args) -> bool:
-    """--latency-provenance resolution: 'auto' arms the latency plane (the
-    JAX rule arms it on every single-device serve, and the port has no
-    other kind)."""
-    return args.latency_provenance != "off"
+def _provenance_on(args, sharded: bool = False) -> bool:
+    """--latency-provenance resolution: 'auto' arms the latency plane for
+    single-device serves (the sharded read side has no single
+    render-visibility point to close an end-to-end measurement at)."""
+    if args.latency_provenance == "off":
+        return False
+    return args.latency_provenance == "on" or not sharded
 
 
 def _fanin_tier(args, raw: bool, recorder=None, stamp: bool = False):
@@ -1087,7 +1112,8 @@ def _record_perf_tick(m, dev, perf, ticks, degrade=None, drift=None) -> None:
 def _serve_loop(args, engine, model, predict, serve_params, inc=None,
                 degrade=None, *, m, tracer, recorder=None, health=None,
                 lat=None, usr1=None, drift=None, openset=None,
-                dev=None, perf=None, actuation=None) -> ServeSummary:
+                dev=None, perf=None, actuation=None,
+                drift_feed=None) -> ServeSummary:
     """The poll loop. Spans per tick (obs/trace.py, into ``m``'s
     ``stage_*_s`` histograms): ``poll`` (its own root: waiting on the
     source), then ``tick`` around ``parse``, ``scatter`` (the table update
@@ -1097,7 +1123,11 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
     ``predict`` and ``render`` on the device stage) and ``snapshot``.
     ``drift.poll()`` runs after each render, its frame printed: on the
     device-stage worker when pipelined, else on this thread, and so does
-    the actuation plane's ``observe`` of the rendered rows. With the
+    the actuation plane's ``observe`` of the rendered rows. On the sharded
+    spine (``--shards``) the render is the engine's one read-side
+    dispatch, idle eviction folded in, and ``drift_feed`` (its
+    ``ShardedDriftGate``) takes each render's sampled features and
+    labels. With the
     device plane on, each poll tick leaves one perf-ring sample
     (``_record_perf_tick``)."""
     import functools
@@ -1227,8 +1257,30 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
                             args, engine, model, predict, serve_params,
                             pipe, inc=inc, degrade=degrade, m=m,
                             tracer=tracer, lat=lat, drift=drift,
-                            actuation=actuation,
+                            actuation=actuation, drift_feed=drift_feed,
                         )
+                    elif args.shards >= 1:
+                        # the sharded tick's whole read side (per-shard
+                        # predict, render candidates, stale masks) is one
+                        # dispatch, with eviction folded in
+                        with m.time("predict_s"), tracer.span("predict"):
+                            rows, evicted = engine.tick_render(
+                                now=engine.last_time,
+                                idle_seconds=args.idle_timeout or None,
+                            )
+                        m.inc("evicted", evicted)
+                        with tracer.span("render"):
+                            _print_ranked(engine, model, rows,
+                                          engine.num_flows())
+                        if drift is not None:
+                            # off the hot path: the frame is printed. The
+                            # observation is exact: no ingest between the
+                            # render and the sample
+                            if drift_feed is not None and rows:
+                                _feed_sharded_capture(engine, drift_feed,
+                                                      rows)
+                            drift.poll()
+                        plan = None
                     else:
                         if args.idle_timeout and engine.last_time:
                             m.inc("evicted", engine.evict_idle(
@@ -1283,9 +1335,77 @@ def _serve_loop(args, engine, model, predict, serve_params, inc=None,
     return summary
 
 
+def _feed_sharded_capture(engine, gate, rows) -> None:
+    """Hand the sharded drift gate one render's (features, labels)
+    observation — the stand-in for ``DriftGate.__call__``'s capture. The
+    ranked rows' labels came from this render's per-shard predict;
+    ``feature_sample`` re-reads the same slots in one gathered fetch."""
+    import numpy as np
+
+    X = engine.feature_sample([s for s, *_ in rows])
+    gate.feed_capture(
+        X, np.asarray([c for _, c, *_ in rows], dtype=np.int64)
+    )
+
+
+def _dispatch_sharded_render(args, engine, model, pipe, *, m, tracer,
+                             drift=None, drift_feed=None) -> None:
+    """The pipelined render of the sharded spine. With an idle timeout due,
+    the read side and the eviction run here on the host stage (releasing
+    slots needs the stale bits on the host before ingest resumes), the
+    rendered slots' metadata is resolved here too (a released slot may be
+    reused by the next tick's ingest), and the worker only prints. Without
+    one, the read side is dispatched here and the worker waits for its
+    gather, merges the candidates and prints (``ShardedRead``)."""
+    from .serving.pipeline import RenderJob, ShardedRead
+
+    idle = args.idle_timeout or None
+    if idle is not None and engine.last_time:
+        with m.time("predict_s"), tracer.span("predict"):
+            rows, evicted = engine.tick_render(now=engine.last_time,
+                                               idle_seconds=idle)
+        m.inc("evicted", evicted)
+        n_flows = engine.num_flows()
+        sample = engine.slot_metadata([s for s, *_ in rows])
+        if drift is not None and drift_feed is not None and rows:
+            # exact pairing: still the host stage, before ingest resumes
+            _feed_sharded_capture(engine, drift_feed, rows)
+
+        def render_only(read):
+            with tracer.span("stage.device"), tracer.span("render"):
+                _print_ranked_resolved(model, read.rows(), sample,
+                                       read.n_flows)
+            if drift is not None:
+                drift.poll()
+
+        pipe.submit(RenderJob(ShardedRead(engine, None, n_flows, rows),
+                              render_only))
+        return
+    with tracer.span("dispatch"):
+        outs = engine.tick_read_dispatch(now=engine.last_time)
+        n_flows = engine.num_flows()
+
+    def render(read):
+        with tracer.span("stage.device"):
+            with m.time("predict_s"), tracer.span("predict"):
+                rows = read.rows()  # ends on the gather's copy to the host
+            with tracer.span("render"):
+                _print_ranked(engine, model, rows, read.n_flows)
+        if drift is not None:
+            if drift_feed is not None and rows:
+                # worker-side capture: feature_sample re-reads the LIVE
+                # tables, which the host stage may already be advancing —
+                # a slightly torn observation is acceptable drift signal,
+                # and a torn parity probe only defers a promotion
+                _feed_sharded_capture(engine, drift_feed, rows)
+            drift.poll()
+
+    pipe.submit(RenderJob(ShardedRead(engine, outs, n_flows), render))
+
+
 def _dispatch_render(args, engine, model, predict, serve_params, pipe,
                      inc=None, degrade=None, *, m, tracer, lat=None,
-                     drift=None, actuation=None):
+                     drift=None, actuation=None, drift_feed=None):
     """Host-stage half of one pipelined render tick: evict, dispatch the
     read side against THIS tick's table, and stage the device-stage job.
     It prints what the serial render of the same tick prints: ``n_flows``
@@ -1301,6 +1421,11 @@ def _dispatch_render(args, engine, model, predict, serve_params, pipe,
     ``--incremental off``)."""
     from .serving.pipeline import RenderJob, dispatch_read
 
+    if args.shards >= 1:
+        _dispatch_sharded_render(args, engine, model, pipe, m=m,
+                                 tracer=tracer, drift=drift,
+                                 drift_feed=drift_feed)
+        return None
     idle = args.idle_timeout or None
     if idle is not None and engine.last_time:
         # Whether to evict is decided from data time alone, so the stale
@@ -1382,10 +1507,20 @@ def _observe_actuation(actuation, rows, stale, drift) -> None:
 def _print_ranked(engine, model, ranked, n_flows, stale=False,
                   actuation=None, drift=None) -> None:
     """Render activity-ranked ``(slot, label, fwd, rev)`` rows, then feed
-    them to the actuation plane."""
+    them to the actuation plane — the table surface of the single-device
+    and the sharded serve loops."""
+    sample = engine.slot_metadata(slots=[s for s, *_ in ranked])
+    _print_ranked_resolved(model, ranked, sample, n_flows, stale=stale,
+                           actuation=actuation, drift=drift)
+
+
+def _print_ranked_resolved(model, ranked, sample, n_flows, stale=False,
+                           actuation=None, drift=None) -> None:
+    """``_print_ranked`` with the slot → (src, dst) sample already resolved
+    — the pipelined sharded eviction path resolves it on the host stage
+    (the lookup must precede any slot reuse)."""
     from .utils.table import CLASSIFIER_FIELDS, render_table, status_str
 
-    sample = engine.slot_metadata(slots=[s for s, *_ in ranked])
     rows = [
         (slot, *sample[slot], _label_name(model, c), status_str(fa),
          status_str(ra))
@@ -1493,6 +1628,13 @@ def _check_flags(args) -> None:
         sys.exit("--serve-checkpoint-every needs --serve-checkpoint-dir")
     if args.obs_dump_on_exit and not args.obs_dir:
         sys.exit("--obs-dump-on-exit needs --obs-dir (the dump target)")
+    sharded = args.shards >= 1
+    if args.latency_provenance == "on" and sharded:
+        sys.exit(
+            "--latency-provenance on is single-device: the sharded "
+            "read side has no single render-visibility point to close "
+            "an end-to-end measurement at (auto skips it)"
+        )
     if args.drift != "off" and not args.drift_dir:
         sys.exit(
             "--drift auto needs --drift-dir (the candidate checkpoint "
@@ -1503,8 +1645,6 @@ def _check_flags(args) -> None:
             "--drift-follow needs --drift auto (the follower IS the "
             "drift loop, adopting peers' rotation members)"
         )
-    # the JAX CLI also refuses --actuation on a sharded serve; the port
-    # has none (--config's ingest.shards != 0 is already a usage error)
     if args.actuation != "off" and not args.policy:
         sys.exit("--actuation needs --policy (the per-class action spec)")
     if args.policy and args.actuation == "off":
@@ -1515,6 +1655,12 @@ def _check_flags(args) -> None:
         )
     if args.actuation == "push" and not args.actuation_switch:
         sys.exit("--actuation push needs --actuation-switch HOST:PORT")
+    if args.actuation != "off" and sharded:
+        sys.exit(
+            "--actuation is single-device: the hysteresis tier rides "
+            "the per-row label render plus the open-set/drift gates, "
+            "which the sharded spine's fused read programs don't expose"
+        )
 
 
 def _actuation_plane(args, model, engine, m, recorder):
@@ -1589,11 +1735,81 @@ def _device_plane(args, m, recorder, device):
     return dev, perf, profiler
 
 
-def _build_engine(args, device, recorder):
-    """The serving engine: restored from ``--restore-serve-state`` (its
-    capacity and index kind are the checkpoint's) or fresh."""
+def _build_sharded_engine(args, device, recorder, predict, serve_params):
+    """The sharded spine of ``--shards N`` (parallel/table_sharded.py): a
+    mesh of the first N visible devices of ``device``'s kind, the engine
+    restored from ``--restore-serve-state`` (any spine's checkpoint) or
+    fresh. The refusals are the JAX CLI's, with its text."""
+    from .parallel import mesh as meshlib
+    from .parallel import table_sharded as tsh
+
+    if getattr(predict, "host_native", False):
+        # the sharded engine runs predict inside its per-shard read steps,
+        # on the shards' devices — what a host-native predict cannot do
+        sys.exit(
+            "host-native kernels (TCSDN_FOREST_KERNEL=native, "
+            "TCSDN_KNN_TOPK=native) are single-device host serving; "
+            "use a device kernel with --shards"
+        )
+    if args.table_rows <= 0:
+        # the sharded render merges bounded per-shard candidates; an
+        # unbounded ("0 = all") table would be an O(capacity) fetch
+        sys.exit(
+            "--shards requires a bounded --table-rows "
+            "(the sharded render merges per-shard top-k candidates)"
+        )
+    devs = meshlib.visible_devices(device)
+    if args.shards > len(devs):
+        sys.exit(
+            f"--shards {args.shards} needs {args.shards} visible "
+            f"devices (have {len(devs)})"
+        )
+    # an explicit sub-mesh (--shards 1 included) takes the leading devices
+    mesh = meshlib.make_mesh(n_data=args.shards, n_state=1,
+                             devices=devs[:args.shards])
+    if not args.restore_serve_state:
+        return tsh.ShardedFlowEngine(
+            mesh, args.capacity, predict_fn=predict, params=serve_params,
+            table_rows=args.table_rows, native=_use_native(args),
+            incremental=args.incremental != "off",
+        )
+    from .io import serving_checkpoint as sc
+
+    # the checkpoint's GLOBAL leaf layout scatters across the mesh: the
+    # format is spine-agnostic, so a single-device checkpoint restores
+    # into a sharded serve and the reverse
+    try:
+        engine = sc.restore_sharded(
+            args.restore_serve_state, mesh, predict_fn=predict,
+            params=serve_params, table_rows=args.table_rows,
+            incremental=args.incremental != "off", recorder=recorder,
+        )
+    except ValueError as e:
+        sys.exit(str(e))
+    if engine.capacity != args.capacity:
+        print(
+            f"WARNING: --capacity {args.capacity} ignored — the checkpoint "
+            f"fixes capacity at {engine.capacity}",
+            file=sys.stderr,
+        )
+        args.capacity = engine.capacity
+    print(
+        f"restored {engine.num_flows()} tracked flows from "
+        f"{args.restore_serve_state}",
+        file=sys.stderr,
+    )
+    return engine
+
+
+def _build_engine(args, device, recorder, predict, serve_params):
+    """The serving engine: the sharded spine under ``--shards N``, else
+    one device's, restored from ``--restore-serve-state`` (its capacity
+    and index kind are the checkpoint's) or fresh."""
     from .ingest.batcher import FlowStateEngine
 
+    if args.shards >= 1:
+        return _build_sharded_engine(args, device, recorder, predict,
+                                     serve_params)
     if not args.restore_serve_state:
         return FlowStateEngine(
             args.capacity, device=device, native=_use_native(args),
@@ -1682,6 +1898,9 @@ def run_classify(args) -> ServeSummary:
     from .utils.metrics import global_metrics as m
 
     _check_flags(args)
+    # --shards >= 1 is the sharded spine; 1 is an EXPLICIT single-shard
+    # mesh (the sharded engine and read steps on one device)
+    sharded = args.shards >= 1
     device = resolve_device(args.device)
     model = load_model(args.native_checkpoint, device=device)
     if model.name != SUBCOMMAND_ALIASES[args.subcommand]:
@@ -1702,7 +1921,7 @@ def run_classify(args) -> ServeSummary:
                 if (args.obs_port is not None or args.obs_dir) else None)
     tracer = Tracer(metrics=m, recorder=recorder)
     lat = None
-    if _provenance_on(args):
+    if _provenance_on(args, sharded):
         from .obs import LatencyProvenance
 
         lat = LatencyProvenance(metrics=m, recorder=recorder,
@@ -1710,12 +1929,15 @@ def run_classify(args) -> ServeSummary:
     # the device plane is armed BEFORE the engine is built, so the flow
     # table's allocation shows in its memory readings
     dev, perf, profiler = _device_plane(args, m, recorder, device)
-    engine = _build_engine(args, device, recorder)
+    engine = _build_engine(args, device, recorder, predict, serve_params)
     # The degradation ladder wraps the kernel predict, built BEFORE warmup
     # so warmup routes through it (its first device call, on its grace
-    # deadline, happens there, and its host rung is primed).
+    # deadline, happens there, and its host rung is primed). 'auto' skips
+    # the serves with no device rung to demote from: sharded (the engine
+    # runs its own per-shard predicts) and host-native ones.
     degrade = None
-    if args.degrade != "off" and not getattr(predict, "host_native", False):
+    if (args.degrade != "off" and not sharded
+            and not getattr(predict, "host_native", False)):
         from .models import resolve_fallback
         from .serving.degrade import DegradeLadder
 
@@ -1736,7 +1958,7 @@ def run_classify(args) -> ServeSummary:
     prev_sigterm = prev_sigusr1 = None
     sigterm_seen = False
     usr1 = {"due": False}
-    drift = openset = actuation = None
+    drift = openset = actuation = drift_feed = None
     degrade_surface = degrade
     try:
         wstats = None
@@ -1758,12 +1980,12 @@ def run_classify(args) -> ServeSummary:
         # the drift loop and the open-set gate wrap the predict AFTER
         # warmup primed the boot model, and before the label cache, which
         # watches their label_epoch
-        predict, drift, degrade_surface = _drift_loop(
+        predict, drift, degrade_surface, drift_feed = _drift_loop(
             args, model, predict, degrade, engine, device, m, recorder)
         predict, model, openset = _openset_gate(
             args, model, predict, drift, engine, m, recorder)
         inc = None
-        if args.incremental != "off":
+        if args.incremental != "off" and not sharded:
             from .serving.incremental import IncrementalLabels
 
             inc = IncrementalLabels(engine, predict, serve_params,
@@ -1797,7 +2019,7 @@ def run_classify(args) -> ServeSummary:
                     degrade=degrade_surface, m=m, tracer=tracer,
                     recorder=recorder, health=health, lat=lat, usr1=usr1,
                     drift=drift, openset=openset, dev=dev, perf=perf,
-                    actuation=actuation)
+                    actuation=actuation, drift_feed=drift_feed)
         except BaseException as e:
             # the crash-forensics moment, outside any signal frame: a
             # SystemExit is a dump only when the SIGTERM hook raised it
@@ -1877,23 +2099,42 @@ def run_classify(args) -> ServeSummary:
 
 
 def _drift_loop(args, model, predict, degrade, engine, device, m, recorder):
-    """``(predict, drift, degrade_surface)`` under ``--drift auto``: the
-    predict wrapped in a ``DriftGate`` (a passthrough until the first
-    promotion, the hot-swap point after it), its ``DriftController``, and
-    the ladder surface the render and /healthz read (a ``GateLadderView``
-    that follows promotions). A promotion under ``--degrade auto``
-    rebuilds a ``DegradeLadder`` around the candidate's kernel, with its
-    own host rung. Under ``--drift off`` the three come back as given."""
+    """``(predict, drift, degrade_surface, drift_feed)`` under ``--drift
+    auto``. On one device: the predict wrapped in a ``DriftGate`` (a
+    passthrough until the first promotion, the hot-swap point after it),
+    its ``DriftController``, and the ladder surface the render and
+    /healthz read (a ``GateLadderView`` that follows promotions); a
+    promotion under ``--degrade auto`` rebuilds a ``DegradeLadder`` around
+    the candidate's kernel, with its own host rung. On the sharded spine
+    the predict runs inside the per-shard read steps, so there is no call
+    to wrap: a ``ShardedDriftGate`` installs through
+    ``engine.install_predict``, and the serve loop feeds it each render's
+    (features, labels) as ``drift_feed``. Under ``--drift off`` the first
+    three come back as given and ``drift_feed`` is None."""
     if args.drift == "off":
-        return predict, None, degrade
+        return predict, None, degrade, None
     from .serving.drift import (
         DriftController,
         DriftGate,
         GateLadderView,
+        ShardedDriftGate,
         default_build_serving,
     )
 
     build_bare = default_build_serving(model.name, tuple(model.classes.names))
+
+    def build_sharded(params):
+        """Candidate params → the serving pair a promotion installs on the
+        sharded spine. A host-native candidate can never install there;
+        raising makes it a counted retrain failure, not a crash in the
+        middle of a promotion."""
+        pred, p = build_bare(params)
+        if getattr(pred, "host_native", False):
+            raise RuntimeError(
+                "host-native candidate kernels cannot install on the "
+                "sharded spine"
+            )
+        return pred, p
 
     def build_promoted(params):
         """Candidate params → the serving pair a promotion installs: the
@@ -1912,7 +2153,8 @@ def _drift_loop(args, model, predict, degrade, engine, device, m, recorder):
             recorder=recorder,
         ), p
 
-    gate = DriftGate(predict)
+    sharded = args.shards >= 1
+    gate = ShardedDriftGate(engine) if sharded else DriftGate(predict)
     drift = DriftController(
         gate,
         family=model.name,
@@ -1929,15 +2171,17 @@ def _drift_loop(args, model, predict, degrade, engine, device, m, recorder):
         parity_mode="mode-matched" if model.name == "kmeans" else "exact",
         retrain_deadline=args.retrain_deadline,
         reference=engine.feature_reference,
-        build_serving=build_promoted,
+        build_serving=build_sharded if sharded else build_promoted,
         boot_params=model.params,
         metrics=m,
         recorder=recorder,
         follow_rotation=args.drift_follow,
         device=device,
     )
+    if sharded:
+        return predict, drift, degrade, gate
     surface = GateLadderView(gate, degrade) if degrade is not None else None
-    return gate, drift, surface
+    return gate, drift, surface, None
 
 
 def _openset_gate(args, model, predict, drift, engine, m, recorder):
@@ -1946,8 +2190,9 @@ def _openset_gate(args, model, predict, drift, engine, m, recorder):
     model's class list extended by ``unknown`` so every render decodes the
     rejection index, and the gate; a restored serving checkpoint's armed
     reference boots it ARMED. Under ``--openset off`` the first two come
-    back as given."""
-    if args.openset == "off":
+    back as given. 'auto' skips sharded serves: per-row rejection would
+    need the unknown index threaded through every per-shard read step."""
+    if args.openset == "off" or args.shards >= 1:
         return predict, model, None
     import dataclasses
 
@@ -1984,11 +2229,10 @@ def _apply_config(args, parser) -> None:
         from . import config as config_mod
 
         cfg = config_mod.load(args.config)
-        if cfg.ingest.shards:
-            parser.error("--config: ingest.shards is set, but sharding is "
-                         "not ported yet (set it to 0)")
         if args.capacity is None:
             args.capacity = cfg.ingest.capacity
+        if args.shards == 0 and cfg.ingest.shards:
+            args.shards = cfg.ingest.shards
         if args.idle_timeout is None:
             args.idle_timeout = cfg.ingest.idle_timeout_s
         if args.print_every is None:

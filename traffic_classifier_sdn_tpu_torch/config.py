@@ -10,9 +10,8 @@ overridable field-by-field from CLI flags or environment.
 
 The port's copy of the JAX package's ``config.py`` (same schema, so one
 file configures both CLIs). The port's CLI reads ``ingest.capacity``,
-``ingest.idle_timeout_s``, ``ingest.monitor_cmd``, ``print_every`` and
-``model.native_checkpoint``; a non-zero ``ingest.shards`` is a usage
-error there, since sharding is not ported yet.
+``ingest.shards``, ``ingest.idle_timeout_s``, ``ingest.monitor_cmd``,
+``print_every`` and ``model.native_checkpoint``.
 """
 
 from __future__ import annotations

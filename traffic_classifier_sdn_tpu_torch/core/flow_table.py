@@ -550,6 +550,27 @@ def top_active_slots(table: FlowTable, n: int, floor: int):
     return idx, table.in_use[:-1][idx]
 
 
+def top_active_scored(table: FlowTable, labels, n: int, floor: int):
+    """``top_active_render`` plus the activity scores — the per-shard half
+    of a cross-shard render merge (parallel/table_sharded.py): each shard
+    returns its local top-n with scores, and the global top-n is the best
+    n of the concatenated candidates, exact because the per-shard sets
+    hold every global winner and the merge sorts by the same score.
+    Ranked by the same stable descending sort as ``top_active_slots``:
+    −inf rows tie on every table that is not full."""
+    score = _activity_score(table, floor)
+    vals, idx = torch.sort(score, descending=True, stable=True)
+    vals, idx = vals[:n], idx[:n]
+    return (
+        idx,
+        table.in_use[:-1][idx],
+        vals,
+        labels[idx],
+        table.fwd.active[:-1][idx],
+        table.rev.active[:-1][idx],
+    )
+
+
 def top_active_flags(table: FlowTable, n: int, floor: int):
     """``top_active_render`` minus the label gather: ``(idx, valid,
     fwd_active[idx], rev_active[idx])`` for the ≤n most active slots. The

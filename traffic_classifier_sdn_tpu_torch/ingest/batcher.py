@@ -151,6 +151,15 @@ class Batcher:
             return False
         return True
 
+    def last_flush_was_conflict(self) -> bool:
+        """Always False: one drain of the pending dict holds at most one
+        create and one update row per (slot, direction), however many
+        bucket-capped batches it spans, so the flushes of one drain may
+        be applied as one scatter (parallel/table_sharded.py coalesces
+        them). The C++ engine's generations can conflict; its
+        ``NativeBatcher`` returns the real flag."""
+        return False
+
     def flush(self) -> ft.UpdateBatch | None:
         """Materialize up to one largest-bucket batch (numpy) and clear
         what it consumed; None when empty. Rows beyond the largest bucket

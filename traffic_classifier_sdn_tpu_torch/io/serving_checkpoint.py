@@ -1,7 +1,5 @@
 """Warm-restart checkpoints of the SERVING state — the port of
-``traffic_classifier_sdn_tpu/io/serving_checkpoint.py`` (its single-device
-half; ``restore_sharded`` waits for the sharded spine, ROADMAP Queue 1
-item 4).
+``traffic_classifier_sdn_tpu/io/serving_checkpoint.py``.
 
 A checkpoint holds the live serving spine, so a restarted classifier
 resumes with every flow's counters, rates and slot intact:
@@ -21,6 +19,13 @@ the same 32 bits, reinterpreted, never converted. The Python index keys
 with BLAKE2b-64 (``ingest.protocol.stable_flow_key``) and the C++ engine
 with its own fingerprint, in the port exactly as in JAX, so a checkpoint
 records which index wrote it and restores only onto the same kind.
+
+The on-disk table is in the GLOBAL slot layout whichever spine wrote
+it: a sharded engine's leaves (parallel/table_sharded.py) interleave by
+its routing invariant — global slot g lives on shard g % n_shards at
+local row g // n_shards — so a checkpoint restores across spine kinds
+(``restore`` onto one device, ``restore_sharded`` onto a mesh) and
+across packages.
 
 Restore rebuilds a ``FlowStateEngine`` on the caller's device (CUDA
 unless asked for the CPU) that continues exactly: existing flows resolve
@@ -47,11 +52,10 @@ Durability:
   restore entry.
 
 Format v3 adds the optional ``feature_reference/`` block (the drift
-monitor's and the open-set gate's reference statistics). The port has no
-drift loop yet: ``restore`` hands the block back on
-``engine.feature_reference`` and the CLI writes it again at its next
-save, so a JAX v3 checkpoint keeps it through the port. v2 checkpoints
-(no block) load; v1 is refused as old-format.
+monitor's and the open-set gate's reference statistics): ``restore``
+hands it back on ``engine.feature_reference``, where the drift loop and
+the gate boot from it. v2 checkpoints (no block) load; v1 is refused as
+old-format.
 """
 
 from __future__ import annotations
@@ -125,6 +129,30 @@ def _fetch_leaf(table: ft.FlowTable, name: str) -> np.ndarray:
     return arr
 
 
+def _is_sharded(engine) -> bool:
+    # ShardedFlowEngine holds per-shard ``tables``; the single-device
+    # spine one ``table``
+    return getattr(engine, "tables", None) is not None
+
+
+def _global_leaf(engine, name: str) -> np.ndarray:
+    """One table leaf in the GLOBAL (capacity+1,) slot layout, whichever
+    spine holds it: a sharded engine's per-shard (local+1,) leaves
+    interleave by the routing invariant, and the global scratch row is
+    written zeroed (each shard's scratch is a local scatter target, never
+    state)."""
+    if not _is_sharded(engine):
+        return _fetch_leaf(engine.table, name)
+    stacked = np.stack([_fetch_leaf(t, name) for t in engine.tables])
+    n, local = stacked.shape[0], stacked.shape[1] - 1
+    cap = n * local
+    glob = np.zeros((cap + 1,) + stacked.shape[2:], stacked.dtype)
+    glob[:cap] = np.swapaxes(stacked[:, :local], 0, 1).reshape(
+        (cap,) + stacked.shape[2:]
+    )
+    return glob
+
+
 def _device_leaf(arr: np.ndarray, name: str, device) -> torch.Tensor:
     """The inverse of ``_fetch_leaf``: the port's tensor of a file leaf."""
     arr = np.ascontiguousarray(arr)
@@ -194,7 +222,8 @@ def save(engine, path: str, feature_reference: dict | None = None) -> int:
     engine.step()
     data: dict = {
         "format_version": FORMAT_VERSION,
-        "capacity": engine.table.capacity,
+        "capacity": (engine.capacity if _is_sharded(engine)
+                     else engine.table.capacity),
         "native": int(engine.native),
         "last_time": int(engine.last_time),
         "tick_floor": int(engine.tick_floor),
@@ -203,7 +232,7 @@ def save(engine, path: str, feature_reference: dict | None = None) -> int:
         for key, value in feature_reference.items():
             data[f"{_REF_PREFIX}{key}"] = np.asarray(value)
     for name in _TABLE_LEAVES:
-        data[f"table/{name}"] = _fetch_leaf(engine.table, name)
+        data[f"table/{name}"] = _global_leaf(engine, name)
     data.update(_index_arrays(engine))
     data["crc32"] = np.uint32(_content_crc(data))
     buf = io.BytesIO()
@@ -380,7 +409,9 @@ def _load_for_restore(path: str, recorder=None):
 
 
 def _import_index(eng, z, native: bool) -> None:
-    """Rebuild the host flow index (either kind) and the engine clocks."""
+    """Rebuild the host flow index (either kind) and the engine clocks.
+    Slot ids are GLOBAL on both spines (the sharded engine keys its one
+    index globally), so this is shared."""
     slots = z["index/slots"]
     keys = z["index/keys"]
     next_slot = int(z["index/next_slot"])
@@ -443,6 +474,63 @@ def restore(path: str, buckets=None, recorder=None, device=None):
         fwd=dirstate("fwd"),
         rev=dirstate("rev"),
     )
+    _import_index(eng, z, native)
+    eng.feature_reference = _reference_block(z)
+    return eng
+
+
+def restore_sharded(path: str, mesh, *, predict_fn=None, params=None,
+                    table_rows: int = 64, incremental: bool = False,
+                    buckets=None, recorder=None):
+    """Rebuild a ``ShardedFlowEngine`` on ``mesh`` from ``save`` output —
+    the same spine-agnostic format: each GLOBAL table leaf scatters back
+    to shard g % n_shards at local row g // n_shards, onto that shard's
+    device, so a checkpoint written by either spine (of either package)
+    restores onto the mesh, and a sharded checkpoint restores onto one
+    device through plain ``restore``. The writer's native/Python index
+    kind still binds. When ``incremental``, the dirty masks boot all-dirty,
+    so the first render re-predicts every restored row."""
+    from ..ingest.batcher import DEFAULT_BUCKETS
+    from ..parallel import table_sharded as ts
+    from ..parallel.mesh import DATA_AXIS
+
+    path, z, native = _load_for_restore(path, recorder=recorder)
+    capacity = int(z["capacity"])
+    n = mesh.shape[DATA_AXIS]
+    if capacity % n:
+        raise ValueError(
+            f"checkpoint capacity {capacity} does not divide across "
+            f"{n} shards ({path})"
+        )
+    eng = ts.ShardedFlowEngine(
+        mesh, capacity, buckets=buckets or DEFAULT_BUCKETS,
+        predict_fn=predict_fn, params=params, table_rows=table_rows,
+        native=native, incremental=incremental,
+    )
+    local = capacity // n
+    stacked = {}
+    for name in _TABLE_LEAVES:
+        glob = np.asarray(z[f"table/{name}"])
+        arr = np.zeros((n, local + 1) + glob.shape[1:], glob.dtype)
+        arr[:, :local] = np.swapaxes(
+            glob[:capacity].reshape((local, n) + glob.shape[1:]), 0, 1
+        )
+        stacked[name] = arr
+
+    def shard_table(s: int, device) -> ft.FlowTable:
+        leaf = {name: _device_leaf(stacked[name][s], name, device)
+                for name in _TABLE_LEAVES}
+
+        def dirstate(side: str) -> ft.DirState:
+            return ft.DirState(
+                **{f: leaf[f"{side}.{f}"] for f in _DIR_FIELDS})
+
+        return ft.FlowTable(
+            time_start=leaf["time_start"], in_use=leaf["in_use"],
+            fwd=dirstate("fwd"), rev=dirstate("rev"),
+        )
+
+    eng.tables = [shard_table(s, dev) for s, dev in enumerate(eng.devices)]
     _import_index(eng, z, native)
     eng.feature_reference = _reference_block(z)
     return eng

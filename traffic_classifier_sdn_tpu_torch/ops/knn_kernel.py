@@ -98,15 +98,27 @@ class KnnKernelOperands:
 
 
 def compile_knn(params: knn.KnnModel) -> KnnKernelOperands:
-    """Kernel operands from a ``KnnModel``, on the model's device. Rejects
-    k > 128 (the kernel's top-k list) and a corpus with fewer than k rows,
-    whose top-k does not exist."""
-    k = params.n_neighbors
+    """Kernel operands from a ``KnnModel``, on the model's device
+    (``corpus_operands``)."""
+    return corpus_operands(params.fit_X, params.half_sq_norms, params.fit_y,
+                           params.n_neighbors, params.n_classes)
+
+
+def corpus_operands(fit_X: torch.Tensor, half_sq: torch.Tensor,
+                    fit_y: torch.Tensor, n_neighbors: int,
+                    n_classes: int) -> KnnKernelOperands:
+    """Kernel operands of a corpus, on its device: the one home of the
+    record layout (``compile_knn`` and the corpus shards of
+    parallel/knn_sharded.fused_predict build through it). A padding row
+    (zero features, +inf half norm) has similarity −inf to every finite
+    query. Rejects k > 128 (the kernel's top-k list) and a corpus with
+    fewer than k rows, whose top-k does not exist."""
+    k = n_neighbors
     if k > MAX_NEIGHBORS:
         raise ValueError(
             f"n_neighbors={k} exceeds the kernel's 128-lane top-k carry"
         )
-    S, F = params.fit_X.shape
+    S, F = fit_X.shape
     if S < k:
         raise ValueError(f"corpus has {S} rows < n_neighbors={k}")
     if not 1 <= F <= MAX_FEATURES:
@@ -114,15 +126,15 @@ def compile_knn(params: knn.KnnModel) -> KnnKernelOperands:
             f"the KNN kernel takes 1..{MAX_FEATURES} features, got {F}"
         )
     records = torch.zeros((S, RECORD), dtype=torch.float32,
-                          device=params.fit_X.device)
-    records[:, :F] = params.fit_X
-    records[:, RECORD - 1] = params.half_sq_norms
+                          device=fit_X.device)
+    records[:, :F] = fit_X
+    records[:, RECORD - 1] = half_sq
     return KnnKernelOperands(
         records=records,
-        fit_X=params.fit_X.float().contiguous(),
-        half_sq=params.half_sq_norms.float().contiguous(),
-        fit_y=params.fit_y,
-        n_rows=S, n_neighbors=k, n_classes=params.n_classes, n_features=F,
+        fit_X=fit_X.float().contiguous(),
+        half_sq=half_sq.float().contiguous(),
+        fit_y=fit_y,
+        n_rows=S, n_neighbors=k, n_classes=n_classes, n_features=F,
     )
 
 

@@ -91,33 +91,46 @@ class SvcKernelOperands:
 
 
 def compile_svc(params: svc.SvcModel) -> SvcKernelOperands:
-    """Kernel operands from an ``SvcModel``, on the model's device. Rejects
-    more than 6 classes (15 pairs) and more than 16 features."""
-    S, F = params.sv_hi.shape
-    P = params.pair_coef.shape[0]
+    """Kernel operands from an ``SvcModel``, on the model's device
+    (``sv_operands``)."""
+    return sv_operands(params.sv_hi, params.sv_lo, params.pair_coef,
+                       params.gamma, params.intercept, params.vote_i,
+                       params.vote_j, params.n_classes)
+
+
+def sv_operands(sv_hi: torch.Tensor, sv_lo: torch.Tensor,
+                pair_coef: torch.Tensor, gamma: torch.Tensor,
+                intercept: torch.Tensor, vote_i: torch.Tensor,
+                vote_j: torch.Tensor, n_classes: int) -> SvcKernelOperands:
+    """Kernel operands of a support-vector set, on its device: the one
+    home of the record layout (``compile_svc`` and the SV shards of
+    parallel/svc_sharded.fused_predict build through it). A padding
+    support vector carries zero coefficients, so it adds exactly zero.
+    Rejects more than 6 classes (15 pairs) and more than 16 features."""
+    S, F = sv_hi.shape
+    P = pair_coef.shape[0]
     if P > MAX_PAIRS:
         raise ValueError(
             f"the SVC kernel takes at most {MAX_PAIRS} pairs (6 classes), "
-            f"got {P} ({params.n_classes} classes)"
+            f"got {P} ({n_classes} classes)"
         )
     if not 1 <= F <= MAX_FEATURES:
         raise ValueError(
             f"the SVC kernel takes 1..{MAX_FEATURES} features, got {F}"
         )
-    dev = params.sv_hi.device
-    coef_t = params.pair_coef.t().contiguous()
+    dev = sv_hi.device
+    coef_t = pair_coef.t().contiguous()
     records = torch.zeros((S, RECORD), dtype=torch.float32, device=dev)
-    records[:, :F] = params.sv_hi
-    records[:, LO_SLOT: LO_SLOT + F] = params.sv_lo
+    records[:, :F] = sv_hi
+    records[:, LO_SLOT: LO_SLOT + F] = sv_lo
     records[:, COEF_SLOT: COEF_SLOT + P] = coef_t
-    gamma_t = params.gamma.to(torch.float32)
+    gamma_t = gamma.to(torch.float32)
     return SvcKernelOperands(
         records=records,
-        sv_hi=params.sv_hi.contiguous(), sv_lo=params.sv_lo.contiguous(),
+        sv_hi=sv_hi.contiguous(), sv_lo=sv_lo.contiguous(),
         coef_t=coef_t, gamma_t=gamma_t, gamma=float(gamma_t),
-        intercept=params.intercept, vote_i=params.vote_i,
-        vote_j=params.vote_j,
-        n_sv=S, n_pairs=P, n_classes=params.n_classes, n_features=F,
+        intercept=intercept, vote_i=vote_i, vote_j=vote_j,
+        n_sv=S, n_pairs=P, n_classes=n_classes, n_features=F,
     )
 
 

@@ -1,8 +1,6 @@
 """Close the loop: online drift detection, background retrain, and
 parity-gated hot checkpoint promotion — the port of
-``traffic_classifier_sdn_tpu/serving/drift.py`` (all but
-``ShardedDriftGate``, the sharded spine's gate: the port has no sharded
-serve yet).
+``traffic_classifier_sdn_tpu/serving/drift.py``.
 
 The reference freezes its model at pickle time, so traffic whose
 distribution shifts under the server degrades accuracy with no signal and
@@ -602,6 +600,55 @@ class GateLadderView:
                     close()
                 except Exception:  # noqa: BLE001 — teardown is best-effort
                     pass
+
+
+class ShardedDriftGate:
+    """``DriftGate``-shaped adapter for the SHARDED spine. The
+    single-device gate wraps the predict callable the serve loop invokes;
+    the sharded engine instead runs its predict INSIDE the per-shard read
+    steps (parallel/table_sharded.make_tick_outputs*), so there is no call
+    site to wrap. This adapter gives the ``DriftController`` the same
+    surface — ``take_capture``/``install``/``swapped``/``inner`` — with
+    ``install`` routed through ``ShardedFlowEngine.install_predict``
+    (rebuilds the read steps, places the params on every shard's device,
+    resets the per-shard label caches all-dirty) and captures FED by the
+    serve loop, which samples the rendered rows' features
+    (``engine.feature_sample``) and labels after each render and hands the
+    pair to ``feed_capture``."""
+
+    host_native = False
+
+    def __init__(self, engine):
+        self._engine = engine
+        self._lock = threading.Lock()
+        self._capture = None
+        self._swapped = False
+
+    def feed_capture(self, X, labels) -> None:
+        """Per-render observation hand-off — the sharded stand-in for
+        ``DriftGate.__call__``'s by-reference capture."""
+        with self._lock:
+            self._capture = (X, labels)
+
+    def take_capture(self):
+        with self._lock:
+            cap, self._capture = self._capture, None
+            return cap
+
+    def install(self, fn, params):
+        prev_fn, _prev_params = self._engine.install_predict(fn, params)
+        with self._lock:
+            self._swapped = True
+        return prev_fn
+
+    @property
+    def inner(self):
+        return self._engine._predict_fn
+
+    @property
+    def swapped(self) -> bool:
+        with self._lock:
+            return self._swapped
 
 
 def default_build_serving(family: str, classes):

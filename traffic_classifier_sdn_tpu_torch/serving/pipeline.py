@@ -477,6 +477,30 @@ class NativeRankedRead:
         ]
 
 
+class ShardedRead:
+    """The read of tick N on the sharded spine (parallel/table_sharded.py):
+    the engine's dispatched ``Gathered`` per-shard candidates, or the rows
+    already merged on the host stage (an eviction tick), and the
+    dispatch-time flow count. ``rows()`` (device stage) waits for the
+    gather, whose fences order it after the dispatch, and merges."""
+
+    __slots__ = ("_engine", "_outs", "_rows", "n_flows")
+
+    def __init__(self, engine, outs, n_flows: int, rows=None):
+        self._engine = engine
+        self._outs = outs
+        self._rows = rows
+        self.n_flows = n_flows
+
+    def commit(self) -> None:
+        """Nothing to commit: the label caches merged at dispatch."""
+
+    def rows(self) -> list[tuple]:
+        if self._rows is None:
+            self._rows = self._engine.tick_read_finish(self._outs)
+        return self._rows
+
+
 class FullRead:
     """The unbounded (``--table-rows 0``) read: the whole label vector (or,
     for a ``host_native`` predict, the features it runs on), the

@@ -22,6 +22,12 @@ them once, on scratch state:
 - ``top_active_flags`` / ``top_active_render`` and ``evict``: the ranked
   render and the idle-eviction scan.
 
+The sharded engine (parallel/table_sharded.py) is warmed through one
+``tick_read_dispatch`` on its own state (``sharded.tick_read``), its
+scatter at every wire bucket (``sharded.apply[<B>]``) and, with
+incremental labels, its read step at every dirty bucket
+(``sharded.dirty[<b>]``), on scratch state.
+
 ``--compilation-cache-dir`` (a JAX persistent compile cache) has no
 counterpart: the kernel libraries already persist under ``csrc/build/``,
 named by the hash of their source.
@@ -45,6 +51,16 @@ def warmup_serving(engine, predict, params, *, table_rows: int,
     Returns ``{"warmed": [...], "seconds": float}``."""
     t0 = time.perf_counter()
     warmed: list[str] = []
+    if hasattr(engine, "tables"):  # the sharded spine
+        engine.tick_read_dispatch(now=0).host()
+        warmed.append("sharded.tick_read")
+        warmed.extend(engine.warmup_scatter())
+        if getattr(engine, "native", False):
+            engine.batcher.warm_stage()
+            warmed.append("wire_stage")
+        if incremental and engine.incremental:
+            warmed.extend(engine.warmup_incremental())
+        return {"warmed": warmed, "seconds": time.perf_counter() - t0}
     device = engine.device
     capacity = engine.table.capacity
     host_native = getattr(predict, "host_native", False)
