@@ -220,6 +220,24 @@ the script exits non-zero:
    native spine from raw bytes (each with ``step()`` and a device sync),
    and the device time of each step of the incremental label plan at 0,
    1, 20 and 100 % churn beside the full re-predict;
+7b. train — the training path (PR 13): ``train voice --source replay``
+   on a capture of 65,536 conversations (3 ticks) on the card, its CSV
+   byte for byte the ``--device cpu`` one's, with the host seconds per
+   tick of ingest, the ``features16`` fetch and ``savetxt``; ``retrain``
+   of the six families on the card from ``reference_csvs`` of the
+   notebooks' six classes at 1,483 rows each (8,898 rows, ~4,449 to
+   train), each saved with ``--native-checkpoint`` and its held-out
+   accuracy within 0.02 of the same retrain on the CPU, with the fit's
+   seconds; the logreg SGD trainer (``--checkpoint-every 500
+   --train-state-dir``) killed after step 1,000 and resumed, its params
+   bitwise an uninterrupted run's; the no-flag classify of the retrained
+   ``Randomforest``, ``knearest`` and ``svm`` checkpoints and of the
+   reference-pickle forest (``--checkpoint-dir
+   tests/data/reference_pickles``) at 65,536 synthetic flows (4 ticks, a
+   render every 2): every table's labels the plain version's, one launch
+   a render, the kernel bitwise to its plain version on the served table
+   (every KNN index in [0, S)) and timed there; the analysis numbers
+   (``figures.save_all`` without drawing) within 1e-6 of the CPU's;
 8. summary — a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
    power-limit line, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -1004,7 +1022,9 @@ def _plain_labels(family: str, g, X):
 
 
 def _serve(argv: list) -> tuple[str, object, float]:
-    """(stdout, summary, wall seconds) of one in-process CLI serve."""
+    """(stdout, summary, wall seconds) of one in-process CLI run: the
+    summary is what ``cli.main`` returns (a serve's ``ServeSummary``,
+    ``train``'s ``TrainSummary``, ``retrain``'s ``RetrainResult``)."""
     from traffic_classifier_sdn_tpu_torch import cli
 
     out = io.StringIO()
@@ -2615,13 +2635,22 @@ REFERENCE_CSVS = {
 }
 
 
-def reference_csvs(path: str, rows: int = 256, seed: int = SEED) -> dict:
+# the six classes the notebooks trained on: the reference's five and the
+# quake file its datasets/ lacks
+NOTEBOOK_CSVS = {**REFERENCE_CSVS,
+                 "quake": ("quake_training_data.csv", "\t")}
+
+
+def reference_csvs(path: str, rows: int = 256, seed: int = SEED,
+                   files: dict = REFERENCE_CSVS) -> dict:
     """Write seeded training CSVs in the reference layout (header: the 16
     feature columns and ``Traffic Type``; game comma-delimited, the rest
-    tab-delimited) into ``path``, for ``--source workload``. Class c's
-    per-second packet deltas are gamma draws at 4^c times the first
-    class's rate and its bytes per packet 40 + 10c, forward and reverse
-    (reverse at half the packets), the cumulative and rate columns
+    tab-delimited) into ``path``, for ``--source workload`` and
+    ``retrain``: one per entry of ``files`` (the reference's five classes
+    by default, ``NOTEBOOK_CSVS`` for the notebooks' six). The c-th
+    class's per-second packet deltas are gamma draws at 4^c times the
+    first class's rate and its bytes per packet 40 + 10c, forward and
+    reverse (reverse at half the packets), the cumulative and rate columns
     following from them. Returns {class: rows}."""
     from traffic_classifier_sdn_tpu_torch.core.features import (
         CSV_COLUMNS_16,
@@ -2630,7 +2659,7 @@ def reference_csvs(path: str, rows: int = 256, seed: int = SEED) -> dict:
 
     rng = np.random.RandomState(seed)
     out = {}
-    for c, (name, (fname, delim)) in enumerate(REFERENCE_CSVS.items()):
+    for c, (name, (fname, delim)) in enumerate(files.items()):
         pkts = rng.gamma(4.0, 2.0 * 4.0 ** c, rows).round()
         per_pkt = 40.0 + 10.0 * c
         cols = []
@@ -5016,6 +5045,248 @@ def phase_shards(models: dict, ops: dict, device) -> tuple[dict, dict]:
                    "knn": knn, "svc": svc}
 
 
+TRAIN_TICKS = 3  # collection ticks of the train phase's capture
+TRAIN_ROWS = 1483  # rows per class of its retrain CSVs: 8,898 in all
+RETRAIN_TOLERANCE = 0.02  # card against CPU held-out accuracy
+SGD_EVERY, SGD_KILL = 500, 1000  # logreg train-state saves; the kill
+ANALYSIS_TOLERANCE = 1e-6
+# the retrained families served through their kernels, and the
+# reference-pickle forest: (tag, subcommand, family)
+TRAIN_SERVES = (("retrained", "Randomforest", "forest"),
+                ("retrained", "knearest", "knn"),
+                ("retrained", "svm", "svc"),
+                ("reference", "Randomforest", "forest"))
+REFERENCE_PICKLES = os.path.join(HERE, "tests", "data", "reference_pickles")
+
+
+def _train_collect(tmp: str, device, n_flows: int = CAPACITY) -> dict:
+    """``train voice`` on a capture of ``n_flows`` conversations, on
+    ``device`` and on the CPU: the two CSVs byte for byte."""
+    import filecmp
+
+    cap = os.path.join(tmp, "collect.cap")
+    _capture(cap, n_flows, TRAIN_TICKS)
+    argv = ["train", "voice", "--source", "replay", "--capture", cap,
+            "--capacity", str(n_flows), "--max-ticks", str(TRAIN_TICKS)]
+    _, card, wall = _serve(argv + ["--out", os.path.join(tmp, "voice.csv"),
+                                   "--device", device.type])
+    _, cpu, _ = _serve(argv + ["--out", os.path.join(tmp, "voice-cpu.csv"),
+                               "--device", "cpu"])
+    if not filecmp.cmp(card.path, cpu.path, shallow=False):
+        raise AssertionError("[train collect] the card's CSV differs from "
+                             "the CPU's")
+    if card.rows != n_flows * TRAIN_TICKS:
+        raise AssertionError(f"[train collect] {card.rows} rows, want "
+                             f"{n_flows * TRAIN_TICKS}")
+    size = os.path.getsize(card.path)
+    print(f"[train collect] train voice --source replay ({n_flows} "
+          f"conversations, {TRAIN_TICKS} ticks) on the card in {wall:.2f} s: "
+          f"{card.rows} rows, {size} bytes, byte-identical to --device cpu; "
+          "host s per tick (ingest, features16 fetch, savetxt): " + "; ".join(
+              f"{t['ingest']:.4f}, {t['fetch']:.4f}, {t['write']:.4f}"
+              for t in card.tick_seconds))
+    return {"rows": card.rows, "bytes": size, "wall_s": wall,
+            "tick_seconds": card.tick_seconds}
+
+
+def _train_retrain(data: str, tmp: str, device) -> dict:
+    """``retrain`` of the six families on ``device`` (each saved with
+    ``--native-checkpoint``), each held to the CPU's accuracy; logreg's
+    resumable SGD killed at ``SGD_KILL`` and resumed, bitwise an
+    uninterrupted run. Returns {family: numbers}."""
+    import functools
+
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch.train import logreg as tl
+
+    out = {}
+    for sub in ("logistic", "gaussiannb", "kmeans", "knearest",
+                "Randomforest", "svm"):
+        base = ["retrain", sub, "--data-dir", data]
+        _, card, _ = _serve(base + ["--native-checkpoint",
+                                    os.path.join(tmp, sub), "--device",
+                                    device.type])
+        _, cpu, _ = _serve(base + ["--device", "cpu"])
+        gap = abs(card.accuracy - cpu.accuracy)
+        if gap > RETRAIN_TOLERANCE:
+            raise AssertionError(
+                f"[train retrain {sub}] card accuracy {card.accuracy:.4f}, "
+                f"CPU {cpu.accuracy:.4f}")
+        out[card.family] = {"accuracy": card.accuracy,
+                            "cpu_accuracy": cpu.accuracy,
+                            "fit_s": card.fit_seconds,
+                            "cpu_fit_s": cpu.fit_seconds}
+        print(f"[train retrain {sub}] held-out accuracy {card.accuracy:.4f} "
+              f"on the card (CPU {cpu.accuracy:.4f}), fit "
+              f"{card.fit_seconds:.2f} s (CPU {cpu.fit_seconds:.2f} s)")
+    sgd = ["retrain", "logistic", "--data-dir", data, "--device",
+           device.type, "--checkpoint-every", str(SGD_EVERY),
+           "--train-state-dir"]
+    killed, whole = os.path.join(tmp, "sgd-killed"), os.path.join(tmp,
+                                                                  "sgd-whole")
+    fit_sgd = tl.fit_sgd
+    tl.fit_sgd = functools.partial(fit_sgd, stop_at_step=SGD_KILL)
+    try:
+        _serve(sgd + [killed])
+    finally:
+        tl.fit_sgd = fit_sgd
+    with open(os.path.join(killed, "manifest.json")) as f:
+        step = json.load(f)["step"]
+    _, resumed, resume_s = _serve(sgd + [killed])
+    _, full, _ = _serve(sgd + [whole])
+    a, b = resumed.params, full.params
+    if step != SGD_KILL or not (torch.equal(a.coef, b.coef)
+                                and torch.equal(a.intercept, b.intercept)):
+        raise AssertionError(f"[train sgd] killed at step {step}; resumed "
+                             "params differ from the uninterrupted run's")
+    out["logreg_sgd"] = {"accuracy": full.accuracy, "fit_s": full.fit_seconds,
+                         "resumed_fit_s": resumed.fit_seconds}
+    print(f"[train sgd] retrain logistic --checkpoint-every {SGD_EVERY}: "
+          f"killed after step {step}, resumed in {resume_s:.2f} s, params "
+          f"bitwise the uninterrupted run's (fit {full.fit_seconds:.2f} s, "
+          f"accuracy {full.accuracy:.4f})")
+    return out
+
+
+def _forest_retrained_entry(k, X) -> dict:
+    """The forest kernel bitwise to its plain version on X, timed."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+
+    got, want = fk.forest_proba(k, X), plain_forest_proba(k, X)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("forest kernel != plain version on the served "
+                             "table")
+    bound_ms, bound_by = forest_bound(k, X, node_visits(k, X))
+    return {"rows": X.shape[0], "max_abs_err": 0.0,
+            "ms": cuda_median_ms(lambda: fk.forest_proba(k, X), TIMED_RUNS),
+            "plain_ms": cuda_median_ms(lambda: plain_forest_proba(k, X), 3,
+                                       warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _train_serve(kind: str, sub: str, family: str, tmp: str,
+                 device) -> tuple[int, dict]:
+    """The no-flag classify of a retrained checkpoint (``kind``
+    "retrained") or of the reference-pickle forest ("reference") through
+    its kernel: every printed table's labels the plain version's on its
+    dispatched table, one launch a render, and the kernel bitwise to its
+    plain version on the served table, timed there. Returns (launches,
+    numbers)."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch.io.checkpoint import load_model
+    from traffic_classifier_sdn_tpu_torch.models import load_reference_model
+
+    tag = f"[train serve {kind} {sub}]"
+    if kind == "retrained":
+        src = ["--native-checkpoint", os.path.join(tmp, sub)]
+        model = load_model(os.path.join(tmp, sub), device=device)
+    else:
+        src = ["--checkpoint-dir", REFERENCE_PICKLES]
+        model = load_reference_model(
+            family, os.path.join(REFERENCE_PICKLES, "RandomForestClassifier"),
+            device=device)
+    _, g = model.serving_path()
+    argv = [sub, *src, "--source", "synthetic", "--synthetic-flows",
+            str(CAPACITY), "--capacity", str(CAPACITY), "--max-ticks", "4",
+            "--print-every", "2"]
+    tables, feats, log, summary, launches, _ = _menu_serve(tag, family, argv,
+                                                           {})
+    if family == "forest":
+        def plain(X):
+            return plain_forest_proba(g, X).argmax(-1).cpu()
+    else:
+        def plain(X):
+            return _plain_labels(family, g, X).cpu()
+    _check_dispatched(tag, tables, feats, log, plain,
+                      names=model.classes.names, rows=64)
+    per_render = _per_render_launches(tag, summary, log)
+    own = launches[family]
+    if own != sum(per_render) or own != len(summary.render_ticks) or any(
+            n for f, n in launches.items() if f != family):
+        raise AssertionError(f"{tag} launches {launches} for "
+                             f"{len(summary.render_ticks)} renders")
+    X = summary.engine.features()
+    checked = io.StringIO()  # the shared checks' lines, under this tag
+    with contextlib.redirect_stdout(checked):
+        if family == "forest":
+            numbers = _forest_retrained_entry(g, X)
+            shape = {"trees": g.n_trees, "internal_nodes": g.n_internal}
+        elif family == "knn":
+            from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk
+
+            idx = kk.topk_sim_idx(g, X)[1]
+            if not bool(((idx >= 0) & (idx < g.n_rows)).all()):
+                raise AssertionError(f"{tag} a KNN index outside "
+                                     f"[0, {g.n_rows})")
+            numbers = _check_knn(g, X, CAPACITY)
+            shape = {"corpus_rows": g.n_rows, "k": g.n_neighbors}
+        else:
+            numbers = _check_svc(g, X, CAPACITY)
+            shape = {"support_vectors": g.n_sv}
+    for line in checked.getvalue().splitlines():
+        print(f"{tag} {line.removeprefix('[kernels] ')}")
+    torch.cuda.synchronize()
+    numbers = {**numbers, **shape, "launches": own}
+    print(f"{tag} {own} kernel launches over {len(tables)} tables, labels "
+          f"the plain version's; kernel {numbers['ms']:.4f} ms at "
+          f"{CAPACITY} rows, bitwise its plain version "
+          f"({numbers['plain_ms']:.3f} ms), bound {numbers['bound_ms']:.5f} "
+          f"ms ({numbers['bound_by']}); model {shape}")
+    return own, numbers
+
+
+def _train_analysis(data: str, device) -> dict:
+    """``figures.save_all`` without drawing on the card and on the CPU:
+    the three analysis numbers within ``ANALYSIS_TOLERANCE``."""
+    from traffic_classifier_sdn_tpu_torch.analysis import figures
+    from traffic_classifier_sdn_tpu_torch.io.datasets import (
+        load_reference_datasets,
+    )
+
+    ds = load_reference_datasets(data)
+    t0 = time.perf_counter()
+    card = figures.save_all(ds, None, device=device)
+    wall = time.perf_counter() - t0
+    cpu = figures.save_all(ds, None, device="cpu")
+    keys = ("pca2_explained_variance", "pca_logreg_accuracy",
+            "cluster_accuracy")
+    for k in keys:
+        if abs(card[k] - cpu[k]) > ANALYSIS_TOLERANCE:
+            raise AssertionError(f"[train analysis] {k} {card[k]} on the "
+                                 f"card, {cpu[k]} on the CPU")
+    print(f"[train analysis] on the card in {wall:.2f} s, within "
+          f"{ANALYSIS_TOLERANCE} of the CPU: " + ", ".join(
+              f"{k} {card[k]:.6f}" for k in keys))
+    return {k: card[k] for k in keys}
+
+
+def phase_train(device) -> tuple[dict, dict]:
+    """The training path (module docstring, 7b): collect, retrain the six
+    families, serve the retrained forest, KNN and SVC and the reference-
+    pickle forest through their kernels, the analysis numbers. Returns
+    ({path: {family: launches}}, {family: the retrained kernel's numbers,
+    and "collect", "retrain", "analysis"})."""
+    paths, numbers = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        numbers["collect"] = _train_collect(tmp, device)
+        data = os.path.join(tmp, "datasets")
+        os.mkdir(data)
+        reference_csvs(data, rows=TRAIN_ROWS, files=NOTEBOOK_CSVS)
+        numbers["retrain"] = _train_retrain(data, tmp, device)
+        for kind, sub, family in TRAIN_SERVES:
+            n, numbers[f"{kind} {family}"] = _train_serve(kind, sub, family,
+                                                         tmp, device)
+            paths[f"train {kind} {sub}"] = {f: int(f == family) * n
+                                            for f in SERVES}
+        numbers["analysis"] = _train_analysis(data, device)
+    return paths, numbers
+
+
 KERNEL_ROWS = {
     "forest": ("forest_proba", "forest_proba.cu",
                "traffic_classifier_sdn_tpu/ops/pallas_forest.py:241"),
@@ -5029,7 +5300,8 @@ KERNEL_ROWS = {
 def kernel_entries(results: dict, launches: dict, paths: dict | None = None,
                    buckets: list | None = None, menus: dict | None = None,
                    promoted: dict | None = None,
-                   shards: dict | None = None) -> list[dict]:
+                   shards: dict | None = None,
+                   trained: dict | None = None) -> list[dict]:
     """The ``{"kernels": [...]}`` entries: each kernel's numbers at the
     main path's 65,536 rows, its launches in the serve, every size under
     ``by_rows``, its launches on each path driven (``paths``: {path:
@@ -5039,7 +5311,10 @@ def kernel_entries(results: dict, launches: dict, paths: dict | None = None,
     ``phase_svc_dot``); for the forest, ``promoted``: the drift loop's
     retrained forest through the same kernel (``phase_drift``); under
     ``shards`` ({family: {...}}), the sharded spine's numbers
-    (``phase_shards``)."""
+    (``phase_shards``); under ``retrained``, the kernel on the model the
+    ``retrain`` subcommand fit, and for the forest under
+    ``reference_pickle`` on the reference-shaped sklearn pickle
+    (``phase_train``)."""
     kernels = []
     for family, (name, source, replaces) in KERNEL_ROWS.items():
         by_rows = results[family]
@@ -5055,6 +5330,10 @@ def kernel_entries(results: dict, launches: dict, paths: dict | None = None,
             extra["promoted"] = promoted
         if shards and family in shards:
             extra["shards"] = shards[family]
+        if trained:
+            extra["retrained"] = trained[f"retrained {family}"]
+            if family == "forest":
+                extra["reference_pickle"] = trained["reference forest"]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -5167,8 +5446,11 @@ def main() -> int:
     mark("shards")
     phase_ingest_breakdown(ops["forest"], device)
     mark("breakdown")
+    train_paths, trained = phase_train(device)
+    paths.update(train_paths)
+    mark("train")
     kernels = kernel_entries(results, launches, paths, buckets, menus,
-                             promoted, shards)
+                             promoted, shards, trained)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "
           "seconds by phase: " + ", ".join(
               f"{name} {b - a:.1f}"

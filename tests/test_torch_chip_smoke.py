@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import chip_smoke
+from test_torch_train import one_torch_thread  # noqa: F401
 from traffic_classifier_sdn_tpu_torch import cli, interop
 from traffic_classifier_sdn_tpu_torch.core import flow_table as ft
 from traffic_classifier_sdn_tpu_torch.ingest.batcher import FlowStateEngine
@@ -857,3 +858,58 @@ def test_shards_phase_runs_on_cpu(small_card_phases, cpu_timers,
     out = capsys.readouterr().out
     assert out.count("byte-identical to the un-sharded serve's") == 4
     assert "refused with the JAX CLI's message" in out
+
+
+def test_notebook_csvs_add_quake(tmp_path):
+    """``NOTEBOOK_CSVS``: the reference's five files and quake's; the six
+    classes load in pandas' alphabetical order, the first five classes
+    the same draws as the five-file set's."""
+    from traffic_classifier_sdn_tpu_torch.io.datasets import (
+        load_reference_datasets,
+    )
+
+    six = chip_smoke.reference_csvs(str(tmp_path), rows=16,
+                                    files=chip_smoke.NOTEBOOK_CSVS)
+    (tmp_path / "five").mkdir()
+    five = chip_smoke.reference_csvs(str(tmp_path / "five"), rows=16)
+    for name in chip_smoke.REFERENCE_CSVS:
+        np.testing.assert_array_equal(six[name], five[name])
+    ds = load_reference_datasets(str(tmp_path))
+    assert ds.classes == chip_smoke.CLASSES and ds.X.shape == (96, 12)
+
+
+def test_train_phase_collect_and_analysis_on_cpu(tmp_path, capsys,
+                                                 one_torch_thread):
+    """The ``train`` phase's collection (device and CPU CSVs compared) and
+    analysis helpers, run with the CPU as the device."""
+    cpu = torch.device("cpu")
+    got = chip_smoke._train_collect(str(tmp_path), cpu, n_flows=256)
+    assert got["rows"] == 256 * chip_smoke.TRAIN_TICKS
+    assert len(got["tick_seconds"]) == chip_smoke.TRAIN_TICKS
+    assert "byte-identical to --device cpu" in capsys.readouterr().out
+    data = tmp_path / "datasets"
+    data.mkdir()
+    chip_smoke.reference_csvs(str(data), rows=32,
+                              files=chip_smoke.NOTEBOOK_CSVS)
+    numbers = chip_smoke._train_analysis(str(data), cpu)
+    assert set(numbers) == {"pca2_explained_variance",
+                            "pca_logreg_accuracy", "cluster_accuracy"}
+    assert all(0.0 < v <= 1.0 for v in numbers.values())
+
+
+def test_train_phase_retrain_on_cpu(tmp_path, capsys, one_torch_thread):
+    """The ``train`` phase's retrains with the CPU as the device: six
+    checkpoints saved, the SGD kill (its manifest at ``SGD_KILL``) and
+    resume bitwise."""
+    data = tmp_path / "datasets"
+    data.mkdir()
+    chip_smoke.reference_csvs(str(data), rows=24,
+                              files=chip_smoke.NOTEBOOK_CSVS)
+    out = chip_smoke._train_retrain(str(data), str(tmp_path),
+                                    torch.device("cpu"))
+    assert set(out) == {"logreg", "gnb", "kmeans", "knn", "forest", "svc",
+                        "logreg_sgd"}
+    for sub in ("logistic", "gaussiannb", "kmeans", "knearest",
+                "Randomforest", "svm"):
+        assert (tmp_path / sub / "manifest.json").exists()
+    assert "params bitwise the uninterrupted run's" in capsys.readouterr().out

@@ -2,7 +2,8 @@
 schema) round-trips through JSON in both packages alike, and the CLI
 fills only the flags left unset from the file (a flag given wins),
 ``ingest.shards`` among them: a shard count the visible devices cannot
-hold ends the serve with the JAX CLI's message."""
+hold ends the serve with the JAX CLI's message; and ``train.*`` and
+``model.checkpoint_dir`` fill the training flags."""
 
 import dataclasses
 import json
@@ -49,7 +50,7 @@ def _args(argv, tmp_path, cfg: dict):
     path.write_text(json.dumps(cfg))
     parser = tcli._build_parser()
     args = parser.parse_args(["Randomforest", "--config", str(path), *argv])
-    tcli._apply_config(args, parser)
+    tcli._apply_config(args)
     return args
 
 
@@ -75,13 +76,27 @@ def test_flags_win_over_config(tmp_path):
                                                           "/a")
 
 
+def test_config_fills_training_flags(tmp_path):
+    args = _args([], tmp_path, {
+        "model": {"checkpoint_dir": "/pickles"},
+        "train": {"collect_duration_s": 30, "checkpoint_every": 50,
+                  "train_state_dir": "/state"}})
+    assert (args.checkpoint_dir, args.duration, args.checkpoint_every,
+            args.train_state_dir) == ("/pickles", 30, 50, "/state")
+    args = _args(["--duration", "5", "--checkpoint-every", "0"], tmp_path,
+                 {"train": {"collect_duration_s": 30,
+                            "checkpoint_every": 50}})
+    assert (args.duration, args.checkpoint_every) == (5, 0)
+
+
 def test_defaults_without_config():
     parser = tcli._build_parser()
     args = parser.parse_args(["Randomforest", "--native-checkpoint", "/a"])
-    tcli._apply_config(args, parser)
+    tcli._apply_config(args)
     assert (args.capacity, args.idle_timeout, args.print_every) == (
         65536, 60, 10)
     assert args.monitor_cmd is None
+    assert (args.duration, args.checkpoint_every) == (900, None)
 
 
 def test_shards_is_a_usage_error(tmp_path, capsys):
@@ -114,11 +129,23 @@ def test_shards_is_a_usage_error(tmp_path, capsys):
     assert ei.value.code == "--shards 2 needs 2 visible devices (have 1)"
 
 
-def test_missing_checkpoint_is_a_usage_error(tmp_path, capsys):
-    with pytest.raises(SystemExit) as ei:
-        tcli.main(["Randomforest", "--device", "cpu"])
-    assert ei.value.code == 2
-    assert "--native-checkpoint is required" in capsys.readouterr().err
+def test_missing_checkpoint_is_a_usage_error(tmp_path, monkeypatch):
+    """A missing checkpoint, as the JAX CLI handles it: with no
+    ``--native-checkpoint`` the serve loads the reference pickle from
+    ``--checkpoint-dir`` (default ``$TCSDN_MODELS_DIR``, then
+    ``./models``), and a missing pickle raises FileNotFoundError naming
+    its path in both CLIs."""
+    from traffic_classifier_sdn_tpu import cli as jcli
+
+    missing = str(tmp_path / "none")
+    for main, extra in ((jcli.main, []), (tcli.main, ["--device", "cpu"])):
+        with pytest.raises(FileNotFoundError,
+                           match=f"{missing}/RandomForestClassifier"):
+            main(["Randomforest", "--checkpoint-dir", missing,
+                  "--source", "synthetic", *extra])
+    monkeypatch.setenv("TCSDN_MODELS_DIR", missing)
+    with pytest.raises(FileNotFoundError, match=f"{missing}/SVC"):
+        tcli.main(["svm", "--source", "synthetic", "--device", "cpu"])
 
 
 def test_config_serve_and_compilation_cache_note(tmp_path, capsys):

@@ -947,3 +947,56 @@ def test_openset_card_labels_equal_float64_rule(cuda):
     assert (out[~ties] == want[~ties]).all()
     assert (out == 6).sum() >= X.shape[0] // 7 - ties.sum()
     assert gate.device_stats(Q.device)[0].is_cuda
+
+
+@pytest.mark.parametrize("family", ["knn", "svc"])
+def test_retrained_kernels_bitwise_equal_plain(cuda, family):
+    """The ``retrain`` subcommand's trainers on the card (KNN: the window
+    is the corpus; SVC: the support vectors of its own fit), served
+    through their kernels: the kernel's output bitwise its plain
+    version's at every launch shape, every KNN index in [0, S)."""
+    from traffic_classifier_sdn_tpu_torch.train import knn as tknn
+    from traffic_classifier_sdn_tpu_torch.train import svc as tsvc
+
+    X, y = _train_window(1200)
+    Xs = ft.features12(chip_smoke.synthetic_table(3000, 3, cuda))
+    Xq = torch.cat([torch.from_numpy(X).to(cuda), Xs])
+    if family == "knn":
+        g = kk.compile_knn(tknn.fit(X, y, n_neighbors=5, n_classes=6,
+                                    device=cuda))
+        for rw in (1, 2, 4, 16):
+            v, i = kk._launch(g, Xq, rw)
+            pv, pi = kk.topk_sim_idx_plain(g, Xq)
+            assert torch.equal(i, pi) and torch.equal(
+                v.view(torch.int32), pv.view(torch.int32)), rw
+            assert bool(((i >= 0) & (i < g.n_rows)).all())
+    else:
+        g = rk.compile_svc(tsvc.fit(X, y, 6, n_iters=200, device=cuda))
+        want = rk.partial_decision_plain(g, Xq)
+        for r in (4, 16, 64):
+            got = rk._launch(g, Xq, None, r)
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), r
+
+
+def test_fit_sgd_kill_and_resume_bitwise_on_card(cuda, tmp_path):
+    """``fit_sgd`` on the card, killed at step 120 of 300 (saves every 50)
+    and resumed from its train state: bitwise an uninterrupted run on the
+    card; the state's arrays live on the card, its count on the host."""
+    from traffic_classifier_sdn_tpu_torch.train import logreg as tlogreg
+
+    X, y = _train_window(800)
+    X = np.log1p(X)
+    whole = tlogreg.fit_sgd(X, y, 6, n_steps=300, device=cuda)
+    d = str(tmp_path / "state")
+    tlogreg.fit_sgd(X, y, 6, n_steps=300, checkpoint_dir=d,
+                    checkpoint_every=50, stop_at_step=120, device=cuda)
+    resumed = tlogreg.fit_sgd(X, y, 6, n_steps=300, checkpoint_dir=d,
+                              checkpoint_every=50, device=cuda)
+    assert resumed.coef.is_cuda
+    assert torch.equal(resumed.coef, whole.coef)
+    assert torch.equal(resumed.intercept, whole.intercept)
+    init, _ = tlogreg.make_sgd(device=cuda)
+    state, step = checkpoint.restore_train_state(d, init(6, 12))
+    assert step == 300 and state.params[0].is_cuda
+    assert not state.opt_state.count.is_cuda

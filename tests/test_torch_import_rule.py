@@ -75,8 +75,9 @@ def test_port_imports_with_jax_blocked():
     assert len(names) >= 20  # every module of the port
     # the fan-in tier, the logistic, GNB and k-means families, the IVF
     # tier and its trainer, the controller, the workload source, the
-    # config, the metrics and observability plane and the serving
-    # checkpoints among them
+    # config, the metrics and observability plane, the serving
+    # checkpoints, the importer, the analysis toolkit and the distributed
+    # trainers among them
     assert {f"traffic_classifier_sdn_tpu_torch.{m}" for m in (
         "ingest.fanin", "models.logreg", "models.gnb", "models.kmeans",
         "ops.knn_ivf", "train.kmeans", "controller.openflow",
@@ -86,7 +87,9 @@ def test_port_imports_with_jax_blocked():
         "io.serving_checkpoint", "controller.policy", "serving.actuation",
         "serving.fleet", "obs.device", "obs.perf_recorder",
         "utils.profiling", "scenarios", "scenarios.timeline",
-        "scenarios.library", "scenarios.runner",
+        "scenarios.library", "scenarios.runner", "io.sklearn_import",
+        "core.flow", "analysis", "analysis.eval", "analysis.preprocess",
+        "analysis.figures", "train.distributed",
     )} <= names
 
 

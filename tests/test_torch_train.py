@@ -58,15 +58,19 @@ from traffic_classifier_sdn_tpu_torch.utils import faults
 FOREST_FIELDS = ("left", "right", "feature", "threshold", "values")
 
 
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The port's CPU fits here issue many small torch ops; one intra-op
+@pytest.fixture
+def one_torch_thread():
+    """The port's CPU fits issue many small torch ops; one intra-op
     thread each keeps them from contending with the suite's other
-    workers for every core."""
+    workers for every core. The test modules of the port's trainers
+    share this one fixture."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def blobs(seed: int, n: int, n_classes: int = 3, spread: float = 0.35):

@@ -1,6 +1,9 @@
 """Command-line interface of the port: the ``Randomforest``, ``knearest``
 (alias ``kneighbors``), ``svm``, ``logistic``, ``gaussiannb`` and
-``kmeans`` classify serves.
+``kmeans`` classify serves, and the training path: ``train <traffic
+type>`` (collect labeled flows into a training CSV), ``retrain
+<family>`` (fit a family on the training CSVs and save it) and
+``analyze`` (the notebook's scaler/PCA numbers and figures).
 
 The serve of the JAX CLI (``traffic_classifier_sdn_tpu/cli.py``
 ``_serve_loop``, ``_dispatch_render``, ``_print_table``), with the same flag
@@ -95,7 +98,12 @@ own; ``--openset auto`` wraps the whole composition in an ``OpenSetGate``
 ``unknown``. Both write their reference into each serving checkpoint's
 ``feature_reference/`` block and boot from a restored one.
 
-The model family comes from the checkpoint and must match the subcommand.
+The model comes from the reference's sklearn pickle
+``<--checkpoint-dir>/<file>`` (``--checkpoint-dir``, else
+``model.checkpoint_dir`` in ``--config``, else ``$TCSDN_MODELS_DIR``,
+else ``./models``; io/sklearn_import.py reads it without sklearn), or
+from ``--native-checkpoint DIR`` in the port's format, whose family must
+match the subcommand.
 The JAX package's serving menus pick the predict (models/__init__.py):
 ``--knn-topk`` (or ``TCSDN_KNN_TOPK``; the flag wins) = ``sort`` (default)
 or ``pallas``: the KNN kernel; ``argmax``, ``hier[<group>]``,
@@ -124,6 +132,16 @@ source id, and a source that dies uncleanly has exactly its own
 namespace evicted once ``--source-quarantine`` expires. The serve runs on
 CUDA unless ``--device cpu`` is given.
 
+``train`` steps the flow table on the card each poll tick and appends
+its in-use rows' 16 training features (``features16``) to ``--out``
+(default ``<traffic type>_training_data.csv``) until ``--duration``
+seconds (default 900) or ``--max-ticks``; the CSV is the JAX CLI's byte
+for byte. ``retrain`` reads ``--data-dir``, splits it 50/50 (seed 101),
+fits on ``--device`` (logreg through the resumable SGD trainer with
+``--checkpoint-every N --train-state-dir DIR``), prints the held-out
+report and saves to ``--native-checkpoint``. ``analyze`` writes four
+PNGs into ``--out`` (default ./analysis_out; needs matplotlib).
+
     python -m traffic_classifier_sdn_tpu_torch.cli knearest \\
         --native-checkpoint DIR --source synthetic --max-ticks 4 --print-every 2
 """
@@ -141,8 +159,9 @@ from dataclasses import dataclass, field
 
 import torch
 
-SUBCOMMANDS = ("logistic", "kmeans", "knearest", "kneighbors", "svm",
-               "Randomforest", "randomforest", "gaussiannb")
+SUBCOMMANDS = ("train", "retrain", "analyze", "logistic", "kmeans",
+               "knearest", "kneighbors", "svm", "Randomforest",
+               "randomforest", "gaussiannb")
 # renders the pipelined serve's handoff holds before new ones coalesce
 PIPELINE_DEPTH = 2
 
@@ -155,6 +174,10 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("subcommand", choices=SUBCOMMANDS)
     p.add_argument(
+        "traffic_type", nargs="?",
+        help="traffic label to collect (train), or model family (retrain)",
+    )
+    p.add_argument(
         "--config", default=None,
         help="JSON config file (config.py schema): fills the flags left "
         "unset; a flag given wins",
@@ -165,14 +188,33 @@ def _build_parser() -> argparse.ArgumentParser:
         "--native-checkpoint", default=None,
         help="model checkpoint directory in the port's format "
         "(io/checkpoint.py: manifest.json + one .npy per array in the "
-        "arrays directory it names); required, here or as "
-        "model.native_checkpoint in --config",
+        "arrays directory it names) to load instead of a reference pickle "
+        "(classify), or the save target (retrain)",
+    )
+    p.add_argument(
+        "--checkpoint-dir", default=None,
+        help="directory with the reference's sklearn pickles, loaded by "
+        "the classify subcommands without --native-checkpoint (default: "
+        "model.checkpoint_dir in --config, else $TCSDN_MODELS_DIR, else "
+        "./models)",
+    )
+    p.add_argument(
+        "--checkpoint-every", type=int, default=None,
+        help="retrain: save the train state every N SGD steps (logreg; 0 "
+        "= off, default from config train.checkpoint_every). With "
+        "--train-state-dir, an interrupted retrain resumes from the last "
+        "saved step and ends bitwise where an uninterrupted one does",
+    )
+    p.add_argument(
+        "--train-state-dir", default=None,
+        help="retrain: directory of the resumable train-state checkpoints",
     )
     p.add_argument(
         "--data-dir",
         default=os.environ.get("TCSDN_DATA_DIR", "datasets"),
-        help="training CSV directory of --source workload (default "
-        "$TCSDN_DATA_DIR or ./datasets, the reference repo's own layout)",
+        help="training CSV directory (retrain, analyze and --source "
+        "workload; default $TCSDN_DATA_DIR or ./datasets, the reference "
+        "repo's own layout)",
     )
     p.add_argument(
         "--source",
@@ -278,7 +320,18 @@ def _build_parser() -> argparse.ArgumentParser:
         help="render every N poll ticks (default 10)",
     )
     p.add_argument(
+        "--duration", type=float, default=None,
+        help="train collection seconds (reference TIMEOUT, :27; default "
+        "900)",
+    )
+    p.add_argument(
         "--max-ticks", type=int, default=0, help="stop after N ticks (0=∞)"
+    )
+    p.add_argument(
+        "--out", default=None,
+        help="output path: training CSV (train; default "
+        "<traffic_type>_training_data.csv) or figure directory (analyze; "
+        "default ./analysis_out)",
     )
     p.add_argument(
         "--table-rows", type=int, default=64,
@@ -693,6 +746,13 @@ class ServeSummary:
     def evicted_flows(self) -> int:
         """Flows evicted with dead sources' namespaces."""
         return sum(n for _, _, n, _ in self.source_evictions)
+
+
+def _default_ckpt_dir() -> str:
+    """The reference pickles' directory when neither --checkpoint-dir nor
+    the config names one: $TCSDN_MODELS_DIR, else ./models (read at call
+    time)."""
+    return os.environ.get("TCSDN_MODELS_DIR", "models")
 
 
 def _use_native(args) -> bool:
@@ -1902,14 +1962,25 @@ def run_classify(args) -> ServeSummary:
     # mesh (the sharded engine and read steps on one device)
     sharded = args.shards >= 1
     device = resolve_device(args.device)
-    model = load_model(args.native_checkpoint, device=device)
-    if model.name != SUBCOMMAND_ALIASES[args.subcommand]:
-        sys.exit(
-            f"--native-checkpoint holds a {model.name!r} model, not "
-            f"{SUBCOMMAND_ALIASES[args.subcommand]!r}"
-        )
-    if model.classes is None:
-        sys.exit("--native-checkpoint stores no class names")
+    name = SUBCOMMAND_ALIASES[args.subcommand]
+    if args.native_checkpoint:
+        model = load_model(args.native_checkpoint, device=device)
+        if model.name != name:
+            sys.exit(
+                f"--native-checkpoint holds a {model.name!r} model, not "
+                f"{name!r}"
+            )
+        if model.classes is None:
+            sys.exit("--native-checkpoint stores no class names")
+    else:
+        # the reference's sklearn pickle; a missing file raises
+        # FileNotFoundError naming it, as in the JAX CLI
+        from .io.sklearn_import import REFERENCE_CHECKPOINTS
+        from .models import load_reference_model
+
+        model = load_reference_model(
+            name, f"{args.checkpoint_dir}/{REFERENCE_CHECKPOINTS[name]}",
+            device=device)
     # the serving pair; on a card this builds and loads the kernel, so a
     # kernel that does not build raises here, before the serve starts
     predict, serve_params = model.serving_path()
@@ -2221,7 +2292,221 @@ def _openset_gate(args, model, predict, drift, engine, m, recorder):
     return openset, model, openset
 
 
-def _apply_config(args, parser) -> None:
+@dataclass
+class TrainSummary:
+    """What ``train`` wrote: the CSV's path, its data rows, and per tick the
+    host seconds of ``ingest`` (parse, engine, the wire's scatter
+    dispatch), ``fetch`` (the in-use rows' ``features16`` to the host,
+    which waits for the tick's device work) and ``write`` (``savetxt``)."""
+
+    path: str
+    rows: int = 0
+    tick_seconds: list = field(default_factory=list)
+
+
+def _run_train(args) -> TrainSummary:
+    """The reference's data collection (traffic_classifier.py:181-226):
+    each poll tick is ingested into the device flow table, its in-use
+    rows' 16 training features (``features16``, fetched once a tick) are
+    appended to the CSV with the traffic type as the last column, until
+    ``--duration`` seconds or ``--max-ticks`` ticks. The bytes are the JAX
+    CLI's: the same header and ``np.savetxt(fmt="%s")`` rows."""
+    import numpy as np
+
+    from .core.features import CSV_COLUMNS_16, LABEL_COLUMN
+    from .core.flow_table import features16
+    from .device import resolve_device
+    from .ingest.batcher import FlowStateEngine
+    from .ingest.fanin import RawTick
+
+    if not args.traffic_type:
+        sys.exit("ERROR: specify traffic type.")  # reference :225
+    out_path = args.out or f"{args.traffic_type}_training_data.csv"
+    # with --sources N the fan-in tier delivers each source's bytes, and
+    # the engine keys every flow by its source id: N sources' identical
+    # flow tuples land in N slots
+    engine = FlowStateEngine(args.capacity, device=resolve_device(args.device),
+                             native=_use_native(args))
+    raw = engine.native and (args.source in ("ryu", "controller")
+                             or _fanin_active(args))
+    tier = _fanin_tier(args, raw) if _fanin_active(args) else None
+    deadline = time.time() + args.duration
+    ticks = 0
+    summary = TrainSummary(out_path)
+    # closing: a break stops the source (its collector or fan-in tier)
+    # here, not whenever the generator is collected
+    with open(out_path, "w") as f, contextlib.closing(
+            _tick_source(args, raw=raw, tier=tier)) as source:
+        f.write("\t".join(list(CSV_COLUMNS_16) + [LABEL_COLUMN]) + "\n")
+        for batch in source:
+            t0 = time.perf_counter()
+            if isinstance(batch, bytes):
+                engine.ingest_bytes(batch)
+            elif isinstance(batch, RawTick):
+                for sid, data in batch:
+                    engine.ingest_bytes(data, sid)
+            else:
+                engine.ingest(batch)
+            engine.step()
+            ticks += 1
+            t1 = time.perf_counter()
+            slots = torch.nonzero(engine.table.in_use[:-1]).squeeze(1)
+            rows = features16(engine.table)[slots].cpu().numpy()
+            t2 = time.perf_counter()
+            if rows.shape[0]:
+                # one C-level format per row; ``newline`` carries the
+                # label column (savetxt appends it after each row)
+                np.savetxt(
+                    f, rows.astype(np.float64), fmt="%s", delimiter="\t",
+                    newline=f"\t{args.traffic_type}\n",
+                )
+            summary.rows += rows.shape[0]
+            summary.tick_seconds.append({
+                "ingest": t1 - t0, "fetch": t2 - t1,
+                "write": time.perf_counter() - t2})
+            if time.time() >= deadline:
+                print("Finished collecting data.")  # reference :185
+                break
+            if args.max_ticks and ticks >= args.max_ticks:
+                break
+    print(f"wrote {out_path}")
+    return summary
+
+
+def _run_analyze(args) -> None:
+    """The analysis extras (C13): the reference notebook's scaler/PCA
+    numbers and its four figures (analysis/figures.py) on ``--device``,
+    PNGs into ``--out`` (default ./analysis_out). Drawing needs
+    matplotlib; without it the subcommand exits before any work."""
+    import importlib.util
+
+    if importlib.util.find_spec("matplotlib") is None:
+        sys.exit("ERROR: analyze draws its figures with matplotlib, which "
+                 "is not installed")
+    from .analysis import figures
+    from .device import resolve_device
+    from .io.datasets import load_reference_datasets
+
+    out_dir = args.out or "analysis_out"
+    ds = load_reference_datasets(args.data_dir)
+    res = figures.save_all(ds, out_dir, device=resolve_device(args.device))
+    print(
+        f"PCA-2 explained variance: "
+        f"{res['pca2_explained_variance'] * 100:.2f}%"
+    )
+    print(
+        f"PCA-space logreg accuracy (70/30): "
+        f"{res['pca_logreg_accuracy'] * 100:.2f}%"
+    )
+    print(f"cluster accuracy (mode-matched): "
+          f"{res['cluster_accuracy'] * 100:.2f}%")
+    for name, path in res["paths"].items():
+        print(f"wrote {name}: {path}")
+
+
+@dataclass
+class RetrainResult:
+    """What ``retrain`` fit: the family key, the model (the port's module
+    on ``--device``), the training classes, the held-out accuracy (the
+    mode-matched clustering accuracy for kmeans) and the fit's wall
+    seconds."""
+
+    family: str
+    params: object
+    classes: tuple
+    accuracy: float
+    fit_seconds: float
+
+
+def _run_retrain(args) -> RetrainResult:
+    """Retraining from the training CSVs (the C12 notebook pipeline,
+    SURVEY.md §3.4) on ``--device``: ``load_reference_datasets(--data-dir)``,
+    the 50/50 split of seed 101, the family's fit (``retrain.fit_family``,
+    the drift loop's refit, or logreg's resumable ``fit_sgd`` when
+    ``--checkpoint-every`` > 0), the held-out
+    report in the JAX CLI's layout, and a save to ``--native-checkpoint``
+    when given."""
+    import numpy as np
+
+    from .analysis.eval import accuracy, clustering_accuracy, confusion_matrix
+    from .device import resolve_device
+    from .io.datasets import load_reference_datasets, train_test_split
+    from .models import MODEL_CLASSES, SUBCOMMAND_ALIASES
+
+    family = SUBCOMMAND_ALIASES.get(args.traffic_type, args.traffic_type)
+    if family not in MODEL_CLASSES:
+        sys.exit(
+            f"ERROR: retrain needs a model family "
+            f"({', '.join(MODEL_CLASSES)}), got {args.traffic_type!r}"
+        )
+    device = resolve_device(args.device)
+    ds = load_reference_datasets(args.data_dir)
+    tr, te = train_test_split(ds, test_size=0.5, seed=101)
+    n_classes = len(tr.classes)
+
+    ckpt_every = args.checkpoint_every or 0
+    if ckpt_every > 0 and family != "logreg":
+        print(
+            f"WARNING: --checkpoint-every only applies to the logreg SGD "
+            f"trainer; ignored for {family}", file=sys.stderr,
+        )
+    if family == "logreg" and ckpt_every > 0 and not args.train_state_dir:
+        sys.exit(
+            "ERROR: --checkpoint-every needs --train-state-dir (flag "
+            "or config train.train_state_dir) — the resumable SGD "
+            "path has nowhere to save state"
+        )
+    t0 = time.perf_counter()
+    if family == "logreg" and ckpt_every > 0:
+        from .train import logreg as t
+
+        # a killed run re-invoked with the same --train-state-dir resumes
+        # from the last saved step (train/logreg.fit_sgd)
+        params = t.fit_sgd(
+            tr.X, tr.y, n_classes, checkpoint_dir=args.train_state_dir,
+            checkpoint_every=ckpt_every, device=device,
+        )
+    else:
+        from .serving.retrain import fit_family
+
+        params = fit_family(family, tr.X, tr.y, n_classes, device=device)
+    _sync(device)
+    fit_seconds = time.perf_counter() - t0
+    if family == "kmeans":
+        from .train.kmeans import inertia
+
+        X_tr = torch.tensor(tr.X, dtype=torch.float32, device=device)
+        print(f"kmeans inertia: {float(inertia(X_tr, params.centers)):.4g}")
+
+    y_te = torch.tensor(te.y, dtype=torch.int32, device=device)
+    pred = params.predict(torch.tensor(te.X, dtype=torch.float32,
+                                       device=device))
+    if family != "kmeans":
+        acc = float(accuracy(y_te, pred))
+        print(f"{family} held-out accuracy: {acc:.4f} "
+              f"({len(te.y)} rows, classes={list(tr.classes)})")
+        cm = confusion_matrix(y_te, pred, n_classes).cpu().numpy()
+        width = max(8, max(len(c) for c in tr.classes) + 1)
+        print("confusion matrix (rows=true, cols=predicted):")
+        print(" " * width + "".join(f"{c:>{width}}" for c in tr.classes))
+        for i, c in enumerate(tr.classes):
+            print(f"{c:>{width}}" + "".join(
+                f"{v:>{width}}" for v in np.asarray(cm[i])
+            ))
+    else:
+        acc = float(clustering_accuracy(
+            pred, y_te, k=int(params.centers.shape[0]), n_classes=n_classes))
+        print(f"kmeans mode-matched clustering accuracy: {acc:.4f} "
+              f"({len(te.y)} rows)")
+    if args.native_checkpoint:
+        from .io.checkpoint import save_model
+
+        save_model(args.native_checkpoint, family, params, tr.classes)
+        print(f"saved native checkpoint to {args.native_checkpoint}")
+    return RetrainResult(family, params, tr.classes, acc, fit_seconds)
+
+
+def _apply_config(args) -> None:
     """Fill the flags left unset from ``--config`` (config.py's schema),
     then the built-in defaults. A flag given wins over the file."""
     cfg = None
@@ -2239,20 +2524,32 @@ def _apply_config(args, parser) -> None:
             args.print_every = cfg.print_every
         if args.monitor_cmd is None:
             args.monitor_cmd = cfg.ingest.monitor_cmd
+        if args.duration is None:
+            args.duration = cfg.train.collect_duration_s
+        if args.checkpoint_dir is None:
+            args.checkpoint_dir = cfg.model.checkpoint_dir
         if args.native_checkpoint is None:
             args.native_checkpoint = cfg.model.native_checkpoint
+        if args.checkpoint_every is None:
+            args.checkpoint_every = cfg.train.checkpoint_every
+        if args.train_state_dir is None:
+            args.train_state_dir = cfg.train.train_state_dir
     if args.capacity is None:
         args.capacity = 65536
     if args.idle_timeout is None:
         args.idle_timeout = 60
     if args.print_every is None:
         args.print_every = 10
-    if args.native_checkpoint is None:
-        parser.error("--native-checkpoint is required (or "
-                     "model.native_checkpoint in --config)")
+    if args.duration is None:
+        args.duration = 15 * 60
+    if args.checkpoint_dir is None:
+        args.checkpoint_dir = _default_ckpt_dir()
 
 
-def main(argv=None) -> ServeSummary:
+def main(argv=None):
+    """Run one subcommand: a classify serve returns its ``ServeSummary``,
+    ``train`` its ``TrainSummary``, ``retrain`` its ``RetrainResult``,
+    ``analyze`` None."""
     from .utils.metrics import global_metrics
 
     global_metrics.reset()  # per-run metrics, even for embedded reuse
@@ -2270,11 +2567,17 @@ def main(argv=None) -> ServeSummary:
         except ValueError as e:
             parser.error(f"--knn-topk: {e}")
         os.environ["TCSDN_KNN_TOPK"] = args.knn_topk
-    _apply_config(args, parser)
+    _apply_config(args)
     if args.compilation_cache_dir:
         print("NOTE: --compilation-cache-dir is ignored: the port compiles "
               "no XLA program, and its kernel libraries persist under "
               "csrc/build/ by source hash", file=sys.stderr)
+    if args.subcommand == "train":
+        return _run_train(args)
+    if args.subcommand == "retrain":
+        return _run_retrain(args)
+    if args.subcommand == "analyze":
+        return _run_analyze(args)
     return run_classify(args)
 
 

@@ -621,3 +621,21 @@ def features12(table: FlowTable) -> torch.Tensor:
     if X.shape[1] != NUM_FEATURES:
         raise AssertionError("features12 must produce 12 columns")
     return X.contiguous()
+
+
+def features16(table: FlowTable) -> torch.Tensor:
+    """(capacity, 16) training-row matrix, order of
+    traffic_classifier.py:124-141 / the CSV header at :217 — rows for
+    unused slots are zero."""
+    f, r = table.fwd, table.rev
+    f32 = torch.float32
+    cols = [
+        f.pkts_f, f.bytes_f,
+        f.delta_pkts.to(f32), f.delta_bytes.to(f32),
+        f.inst_pps, f.avg_pps, f.inst_bps, f.avg_bps,
+        r.pkts_f, r.bytes_f,
+        r.delta_pkts.to(f32), r.delta_bytes.to(f32),
+        r.inst_pps, r.avg_pps, r.inst_bps, r.avg_bps,
+    ]
+    X = torch.stack(cols, dim=1)[:-1]  # drop scratch row
+    return torch.where(table.in_use[:-1, None], X, torch.zeros_like(X))

@@ -138,3 +138,15 @@ def kmeans_params_from_numpy(d, device=None) -> KmeansModel:
     key = "centers" if _has(d, "centers") else "cluster_centers"
     return KmeansModel.from_numpy({"cluster_centers": np.asarray(get(key))},
                                   device=device)
+
+
+def sgd_state_from_numpy(leaves, device=None):
+    """The JAX ``train/logreg.SGDState`` — its leaves as numpy arrays, in
+    ``jax.tree_util.tree_leaves`` order (coef, intercept; count; mu coef,
+    mu intercept; nu coef, nu intercept) — as the port's
+    ``train.logreg.SGDState`` on ``device`` (default CUDA), from which
+    ``fit_sgd`` resumes (save it with ``io.checkpoint.save_train_state``)."""
+    from .train.logreg import SGDState
+
+    return SGDState.from_leaves([np.asarray(a) for a in leaves],
+                                device=device)

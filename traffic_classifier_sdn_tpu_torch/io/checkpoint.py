@@ -18,6 +18,12 @@ removed. A crash at any point leaves either the previous complete
 checkpoint or the new one. The ``train_ckpt.write`` fault site fires
 before the manifest's rename. Directories of the first layout (arrays
 beside the manifest, no ``arrays_dir``) still load.
+
+A resumable train state (``save_train_state``; train/logreg.fit_sgd's
+``SGDState``) uses the same staging and commit: its leaves are
+``leaf_<i>.npy`` in the state's ``leaves()`` order — the JAX package's
+tree-flatten order — under a manifest with ``kind: "train_state"``,
+``step``, ``n_leaves`` and ``dtypes``.
 """
 
 from __future__ import annotations
@@ -168,3 +174,50 @@ def load_model(path: str, device=None):
         else None
     )
     return make_loaded_model(name, params, classes)
+
+
+def save_train_state(path: str, state, step: int) -> None:
+    """Persist a training state (an object with ``leaves()``, e.g.
+    train.logreg.SGDState) and its step counter for resume; the commit is
+    the manifest's, as for a model (module note)."""
+    arrays = {
+        f"leaf_{i}": leaf.detach().cpu().numpy()
+        for i, leaf in enumerate(state.leaves())
+    }
+    os.makedirs(path, exist_ok=True)
+    rel = _stage_arrays(path, arrays)
+    _publish(
+        path,
+        {
+            "format_version": FORMAT_VERSION,
+            "kind": "train_state",
+            "step": int(step),
+            "n_leaves": len(arrays),
+            "dtypes": {k: str(v.dtype) for k, v in arrays.items()},
+        },
+        rel,
+    )
+
+
+def restore_train_state(path: str, template) -> tuple:
+    """``(state, step)`` of the train state at ``path``, built like
+    ``template`` (a freshly initialized state of the same structure:
+    ``type(template).from_leaves`` on the device of its first leaf)."""
+    with open(os.path.join(path, _MANIFEST)) as f:
+        manifest = json.load(f)
+    n = len(template.leaves())
+    if manifest.get("kind") != "train_state" or n != manifest["n_leaves"]:
+        raise ValueError(
+            f"template has {n} leaves, checkpoint {path} "
+            f"{manifest.get('n_leaves')} ({manifest.get('kind')!r})"
+        )
+    arrays = _arrays_dir(path, manifest)
+    leaves = []
+    for i in range(n):
+        a = np.load(os.path.join(arrays, f"leaf_{i}.npy"), allow_pickle=False)
+        if str(a.dtype) != manifest["dtypes"][f"leaf_{i}"]:
+            raise ValueError(f"checkpoint {path}: leaf_{i}.npy is {a.dtype}")
+        leaves.append(a)
+    state = type(template).from_leaves(
+        leaves, device=template.leaves()[0].device)
+    return state, int(manifest["step"])

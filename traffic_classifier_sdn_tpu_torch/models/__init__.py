@@ -417,3 +417,22 @@ def make_loaded_model(name: str, params, classes) -> LoadedModel:
         predict=params.predict,
         scores=params.scores,
     )
+
+
+def load_reference_model(name: str, checkpoint_path: str,
+                         device=None) -> LoadedModel:
+    """Import a reference sklearn pickle (io/sklearn_import.py) as the
+    port's module on ``device`` (default CUDA, see device.py). ``name`` is
+    a family key or a CLI subcommand. A k-means model decodes its cluster
+    ids through ``kmeans.CLUSTER_LABELS_CHECKPOINT``, the others through
+    the pickle's ``classes_``. A missing file raises FileNotFoundError."""
+    from ..io import sklearn_import
+
+    name = SUBCOMMAND_ALIASES.get(name, name)
+    raw = sklearn_import.IMPORTERS[name](checkpoint_path)
+    params = MODEL_CLASSES[name].from_numpy(raw, device=device)
+    if name == "kmeans":
+        classes = ClassList(kmeans.CLUSTER_LABELS_CHECKPOINT)
+    else:
+        classes = ClassList.from_array(raw["classes"])
+    return make_loaded_model(name, params, classes)

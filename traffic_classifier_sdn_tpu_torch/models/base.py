@@ -26,6 +26,11 @@ class ClassList:
 
     names: tuple
 
+    @classmethod
+    def from_array(cls, arr) -> "ClassList":
+        """The names of an importer's ``classes`` array, as strings."""
+        return cls(tuple(str(x) for x in np.asarray(arr).tolist()))
+
     def decode(self, indices) -> list:
         idx = np.asarray(indices).ravel()
         return [self.names[i] for i in idx]

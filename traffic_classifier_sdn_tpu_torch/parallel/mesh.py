@@ -130,6 +130,16 @@ def replicated(mesh: Mesh, obj, axis: str = DATA_AXIS) -> list:
     return out
 
 
+def shard_sum(parts: list) -> torch.Tensor:
+    """Per-shard partial sums added in shard order on the first shard's
+    device: the port's ``psum`` (a fixed order, so a sum over the same
+    shards rounds the same way on every run)."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p.to(total.device)
+    return total
+
+
 def _split_rows(mesh: Mesh, X: torch.Tensor, axis: str) -> list:
     devs = mesh.axis_devices(axis)
     n = len(devs)

@@ -6,10 +6,10 @@ Two halves:
 
 - **Fitting** (``fit_family``): fresh params for any of the six families
   from the drift monitor's recent labeled window, through the port's
-  trainers on the given device (train/: forest, gnb, svc and kmeans stand
-  for the JAX package's single-device ``train/distributed.py`` fits,
-  logreg and knn for its canonical ones). The ``retrain.fit`` fault site
-  sits at the entry.
+  trainers on the given device: forest, gnb, svc and kmeans through
+  train/distributed.py on a one-device mesh, logreg and knn through their
+  canonical trainers, as in the JAX package. The ``retrain.fit`` fault
+  site sits at the entry.
 - **Candidate rotation**: candidates are written through
   ``io/checkpoint.save_model`` — staged arrays and an atomic manifest
   commit, so a crash mid-save never publishes a half-written candidate —
@@ -54,28 +54,26 @@ FAILED = "failed"
 
 def fit_family(family: str, X, y, n_classes: int, *, device=None, **kw):
     """Fresh ``family`` params (the port's module, on ``device``, default
-    CUDA) from the labeled window ``(X, y)``. ``kw`` forwards the
-    trainer's knobs (e.g. ``n_trees``). Raises whatever the trainer
-    raises — the background worker owns failure semantics."""
+    CUDA) from the labeled window ``(X, y)``: gnb, kmeans, forest and svc
+    through train/distributed.py on a one-device mesh, logreg and knn
+    through their canonical trainers (no distributed variant exists), as
+    in the JAX package. ``kw`` forwards the trainer's knobs (e.g.
+    ``n_trees``). Raises whatever the trainer raises — the background
+    worker owns failure semantics."""
     faults.fault_point("retrain.fit")
     X = np.asarray(X, np.float32)
     y = np.asarray(y, np.int32)
-    if family == "gnb":
-        from ..train import gnb as t
+    if family in ("gnb", "kmeans", "forest", "svc"):
+        from ..train import distributed as dist
 
-        return t.fit(X, y, n_classes, device=device, **kw)
-    if family == "kmeans":
-        from ..train import kmeans as t
-
-        return t.fit(X, k=n_classes, device=device, **kw)[0]
-    if family == "forest":
-        from ..train import forest as t
-
-        return t.fit(X, y, n_classes, device=device, **kw)
-    if family == "svc":
-        from ..train import svc as t
-
-        return t.fit(X, y, n_classes, device=device, **kw)
+        mesh = dist.single_device_mesh(device)
+        if family == "gnb":
+            return dist.fit_gnb(mesh, X, y, n_classes, **kw)
+        if family == "kmeans":
+            return dist.fit_kmeans(mesh, X, k=n_classes, **kw)[0]
+        if family == "forest":
+            return dist.fit_forest(mesh, X, y, n_classes, **kw)
+        return dist.fit_svc(mesh, X, y, n_classes, **kw)
     if family == "logreg":
         from ..train import logreg as t
 

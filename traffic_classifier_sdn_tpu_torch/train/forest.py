@@ -29,10 +29,9 @@ Randomness: a tree's draws are its bootstrap weights and its per-level
 feature scores, made by ``tree_draws`` from one explicit
 ``torch.Generator``. ``build_tree`` takes them as tensors,
 so a test can feed the JAX package's ``jax.random`` draws and compare node
-stacks; the port's own draws are not ``jax.random``'s. JAX's
-single-device ``train/distributed.fit_forest`` equals its
-``train/forest.fit`` on the gathered data bit for bit, so this one fit
-stands for both.
+stacks; the port's own draws are not ``jax.random``'s.
+train/distributed.fit_forest drives the builder over row shards; ``fit`` is
+it on a one-device mesh.
 """
 
 from __future__ import annotations
@@ -40,8 +39,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..models.forest import ForestModel
+from ..parallel.mesh import shard_sum
 
 
 def make_bins(X: np.ndarray, n_bins: int) -> np.ndarray:
@@ -103,44 +102,65 @@ def _first_argmax(a: torch.Tensor) -> torch.Tensor:
     return torch.where(a == m, idx, a.shape[1]).min(dim=1).values
 
 
-def build_tree(Xb: torch.Tensor, y: torch.Tensor, edges: torch.Tensor,
-               weights: torch.Tensor, scores: list, *, n_classes: int,
-               max_depth: int, n_bins: int, max_features: int) -> tuple:
+def build_tree(Xb, y, edges: torch.Tensor, weights, scores: list, *,
+               n_classes: int, max_depth: int, n_bins: int,
+               max_features: int) -> tuple:
     """One tree from binned features ``Xb`` (N, F) int64, labels ``y``
     (N,) int64, candidate thresholds ``edges`` (F, n_bins-1) float32, the
     row ``weights`` and per-level feature ``scores`` (``tree_draws``).
     Returns the perfect-layout node arrays ``(left, right, feature,
     threshold, values)``: (M,) int32, int32, int32, float32 and (M, C)
-    float32 class counts, M = 2^(max_depth+1) - 1."""
-    N, F = Xb.shape
+    float32 class counts, M = 2^(max_depth+1) - 1, on ``edges``' device.
+
+    ``Xb``, ``y`` and ``weights`` may instead be lists of row shards
+    (train/distributed.fit_forest): each level's class-count histograms
+    are then built per shard and added in shard order
+    (``parallel.mesh.shard_sum``), the split decisions made once on
+    ``edges``' device, and each shard's rows routed on its own device.
+    The counts are integer-valued, so the tree equals the one of the
+    gathered rows bit for bit."""
+    if isinstance(Xb, torch.Tensor):
+        Xb, y, weights = [Xb], [y], [weights]
+    F = Xb[0].shape[1]
     E = n_bins - 1  # candidate split count per feature
     M = 2 ** (max_depth + 1) - 1
-    dev = Xb.device
+    dev = edges.device
     left = torch.full((M,), -1, dtype=torch.int32, device=dev)
     right = torch.full((M,), -1, dtype=torch.int32, device=dev)
     feature = torch.zeros(M, dtype=torch.int32, device=dev)
     threshold = torch.zeros(M, dtype=torch.float32, device=dev)
     values = torch.zeros((M, n_classes), dtype=torch.float32, device=dev)
-    pos = torch.zeros(N, dtype=torch.int64, device=dev)  # node in its level
-    wa = weights  # per-row weight, zeroed once its node is a leaf
-    fi = torch.arange(F, device=dev)
+    # node in its level, per row of each shard
+    pos = [torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+           for x in Xb]
+    wa = list(weights)  # per-row weight, zeroed once its node is a leaf
     for d in range(max_depth + 1):
         n_nodes = 2 ** d
         off = n_nodes - 1  # global offset of this level
-        cnt = torch.zeros((n_nodes, n_classes), dtype=torch.float32,
-                          device=dev)
-        cnt.index_put_((pos, y), wa, accumulate=True)
+        cnts, hists = [], []
+        for xs, ys, ps, ws in zip(Xb, y, pos, wa):
+            c = torch.zeros((n_nodes, n_classes), dtype=torch.float32,
+                            device=xs.device)
+            c.index_put_((ps, ys), ws, accumulate=True)
+            cnts.append(c)
+            if d == max_depth:
+                continue
+            N = xs.shape[0]
+            fi = torch.arange(F, device=xs.device)
+            H = torch.zeros((n_nodes, F, n_bins, n_classes),
+                            dtype=torch.float32, device=xs.device)
+            H.index_put_((ps[:, None].expand(N, F),
+                          fi[None, :].expand(N, F), xs,
+                          ys[:, None].expand(N, F)),
+                         ws[:, None].expand(N, F), accumulate=True)
+            hists.append(H)
+        cnt = shard_sum(cnts).to(dev)
         n_node = cnt.sum(1)
         values[off:off + n_nodes] = cnt
         if d == max_depth:
             break  # deepest level: all leaves
-        H = torch.zeros((n_nodes, F, n_bins, n_classes), dtype=torch.float32,
-                        device=dev)
-        H.index_put_((pos[:, None].expand(N, F), fi[None, :].expand(N, F),
-                      Xb, y[:, None].expand(N, F)),
-                     wa[:, None].expand(N, F), accumulate=True)
         # every left/right candidate at once: L[n, f, b, c] counts bin <= b
-        L = torch.cumsum(H, dim=2)[:, :, :E, :]
+        L = torch.cumsum(shard_sum(hists).to(dev), dim=2)[:, :, :E, :]
         nL = L.sum(-1)
         R = cnt[:, None, None, :] - L
         nR = n_node[:, None, None] - nL
@@ -171,41 +191,26 @@ def build_tree(Xb: torch.Tensor, y: torch.Tensor, edges: torch.Tensor,
         threshold[off:off + n_nodes] = torch.where(
             is_split, edges[f_star, b_star], 0.0)
         # route rows one level down; rows in leaf nodes go inert
-        go_left = torch.gather(Xb, 1, f_star[pos][:, None])[:, 0] <= b_star[pos]
-        wa = torch.where(is_split[pos], wa, 0.0)
-        pos = 2 * pos + torch.where(go_left, 0, 1)
+        for s, xs in enumerate(Xb):
+            fs, bs, sp = (a.to(xs.device) for a in (f_star, b_star, is_split))
+            p = pos[s]
+            go_left = torch.gather(xs, 1, fs[p][:, None])[:, 0] <= bs[p]
+            wa[s] = torch.where(sp[p], wa[s], 0.0)
+            pos[s] = 2 * p + torch.where(go_left, 0, 1)
     return left, right, feature, threshold, values
 
 
 def fit(X, y, n_classes: int, *, n_trees: int = 100, max_depth: int = 10,
         n_bins: int = 128, max_features: int | str = "sqrt",
         bootstrap: bool = True, seed: int = 0, device=None) -> ForestModel:
-    """Fit a random forest on ``device`` (default CUDA, see device.py);
-    returns a ``ForestModel`` of perfect-layout node stacks. The draws of
-    tree t come from ``tree_draws`` on a generator seeded by ``seed``."""
-    device = resolve_device(device)
-    X = np.asarray(X, np.float32)
-    y_np = np.asarray(y, np.int32)
-    F = X.shape[1]
-    max_features = resolve_max_features(max_features, F)
-    edges = make_bins(X, n_bins)
-    Xb = torch.from_numpy(bin_features(X, edges)).to(device, torch.int64)
-    yt = torch.from_numpy(y_np).to(device, torch.int64)
-    et = torch.from_numpy(edges).to(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    trees = []
-    for t in range(n_trees):
-        weights, scores = tree_draws(
-            gen, t, X.shape[0], F, max_depth, bootstrap=bootstrap,
-            max_features=max_features, device=device,
-        )
-        trees.append(build_tree(
-            Xb, yt, et, weights, scores, n_classes=n_classes,
-            max_depth=max_depth, n_bins=n_bins, max_features=max_features,
-        ))
-    left, right, feature, threshold, values = (
-        torch.stack(a) for a in zip(*trees))
-    # thresholds stay the float32 bin edges: no float64 round trip
-    return ForestModel(left=left, right=right, feature=feature,
-                       threshold=threshold, values=values,
-                       max_depth=max_depth)
+    """Fit a random forest on ``device`` (default CUDA, see device.py):
+    train/distributed.fit_forest on a one-device mesh. Returns a
+    ``ForestModel`` of perfect-layout node stacks; the draws of tree t
+    come from ``tree_draws`` on a generator seeded by ``seed``."""
+    from . import distributed
+
+    return distributed.fit_forest(
+        distributed.single_device_mesh(device), X, y, n_classes,
+        n_trees=n_trees, max_depth=max_depth, n_bins=n_bins,
+        max_features=max_features, bootstrap=bootstrap, seed=seed,
+    )

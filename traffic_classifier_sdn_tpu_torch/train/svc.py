@@ -1,6 +1,6 @@
 """RBF-SVC training by batched one-vs-one dual ascent — the torch port of
-``traffic_classifier_sdn_tpu/train/svc.py`` and of its single-device
-``train/distributed.fit_svc``.
+``traffic_classifier_sdn_tpu/train/svc.py`` (train/distributed.fit_svc
+spreads the pairs over a mesh's state axis).
 
 The JAX package's reformulation of libsvm's SMO:
 
@@ -26,7 +26,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..models.svc import SvcModel, split_hilo
 
 
@@ -137,13 +136,11 @@ def fit(X, y, n_classes: int, *, C: float = 1.0,
         gamma: float | str = "scale", n_iters: int = 800,
         power_iters: int = 24, sv_tol: float = 1e-6,
         device=None) -> SvcModel:
-    """Fit ovo RBF-SVC on ``device`` (default CUDA, see device.py)."""
-    device = resolve_device(device)
-    prob = prepare_ovo(X, y, n_classes, C, gamma, device)
-    alphas = solve_pairs(
-        prob["K"], torch.from_numpy(prob["idx"]).to(device),
-        torch.from_numpy(prob["t"]).to(device),
-        torch.from_numpy(prob["Cbox"]).to(device),
-        n_iters=n_iters, power_iters=power_iters,
+    """Fit ovo RBF-SVC on ``device`` (default CUDA, see device.py):
+    train/distributed.fit_svc on a one-device mesh."""
+    from . import distributed
+
+    return distributed.fit_svc(
+        distributed.single_device_mesh(device), X, y, n_classes, C=C,
+        gamma=gamma, n_iters=n_iters, power_iters=power_iters, sv_tol=sv_tol,
     )
-    return pack_params(prob, alphas.cpu().numpy(), n_classes, sv_tol, device)
