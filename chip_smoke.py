@@ -3327,7 +3327,7 @@ def _trace_kernels(trace: str) -> tuple[list, list]:
                     if e.get("cat") == "kernel"}))
 
 
-def _serve_process(argv: list, stderr_path: str):
+def _serve_process(argv: list, stderr_path: str, env=None):
     """A CLI serve in a process of its own, stdout discarded, stderr to a
     file; returns (process, the obs port it printed or None)."""
     import subprocess
@@ -3335,7 +3335,7 @@ def _serve_process(argv: list, stderr_path: str):
     err = open(stderr_path, "wb")
     proc = subprocess.Popen(
         [sys.executable, "-m", "traffic_classifier_sdn_tpu_torch.cli", *argv],
-        stdout=subprocess.DEVNULL, stderr=err, cwd=HERE)
+        stdout=subprocess.DEVNULL, stderr=err, cwd=HERE, env=env)
     err.close()
     deadline = time.monotonic() + 120
     while time.monotonic() < deadline and proc.poll() is None:
@@ -3347,14 +3347,69 @@ def _serve_process(argv: list, stderr_path: str):
     return proc, None
 
 
-def profiled_serves(ckpt: str, tmp: str, device) -> dict:
+PROFILE_WINDOW = 8  # device-stage predicts compared before and after it
+PROFILE_SLOWDOWN = 1.2  # the most a capture may slow the predicts after it
+PROFILE_WAIT_S = 60.0  # the longest wait for a window's predicts
+
+
+def predicts(ring: str) -> list:
+    """``(wall time, s)`` of each device-stage predict in a perf ring of
+    one sample per tick: each new ``stage_predict_s`` reading is one
+    predict (a sample repeats the newest reading until the device stage
+    finishes another). The first, cold predict is left out."""
+    from traffic_classifier_sdn_tpu_torch.obs import perf_recorder
+
+    seen, prev = [], None
+    try:
+        samples = perf_recorder.replay(ring)
+    except OSError:
+        return []
+    for s in samples:
+        v = s.get("stage_predict_s")
+        if v is not None and v != prev:
+            seen.append((s["ts"], v))
+        prev = v
+    return seen[1:]
+
+
+def wait_predicts(ring: str, after: float, n: int) -> None:
+    """Wait until ``n`` predicts later than wall time ``after`` are in
+    the ring (or ``PROFILE_WAIT_S`` passed)."""
+    deadline = time.monotonic() + PROFILE_WAIT_S
+    while time.monotonic() < deadline:
+        if sum(ts > after for ts, _ in predicts(ring)) >= n:
+            return
+        time.sleep(0.2)
+
+
+def predict_around(ring: str, t0: float, t1: float) -> dict:
+    """The device-stage predict p50 (ms) of the ``PROFILE_WINDOW``
+    predicts before wall time ``t0`` and the ``PROFILE_WINDOW`` after
+    ``t1``."""
+    seen = predicts(ring)
+    before = [v for ts, v in seen if ts < t0][-PROFILE_WINDOW:]
+    after = [v for ts, v in seen if ts > t1][:PROFILE_WINDOW]
+    return {
+        "before": [round(v * 1e3, 3) for v in before],
+        "after": [round(v * 1e3, 3) for v in after],
+        "p50_before": round(nearest_rank_p50(before) * 1e3, 3)
+        if before else None,
+        "p50_after": round(nearest_rank_p50(after) * 1e3, 3)
+        if after else None,
+    }
+
+
+def profiled_serves(ckpt: str, tmp: str, device, env=None) -> dict:
     """The profiler's two surfaces, each on a serve in a process of its
     own: ``/profile?seconds=1`` on a forest serve rendering every tick
     (``--source-spec synthetic:65536``, a tick every ``PROFILE_TICK_S``),
     with a second request while the first runs; then a 2-tick serve under
     ``--profile-dir``. In the script's own process, after its earlier
     phases, a capture recorded no GPU activity at all (PR 11; ROADMAP
-    Queue 3 item 21): a fresh process is where an operator's serve runs."""
+    Queue 3 item 21): a fresh process is where an operator's serve runs.
+    The serve keeps one perf-ring segment per tick, so the device-stage
+    predicts of the ``PROFILE_WINDOW`` renders before the capture and
+    after it can be compared (``predict_around``)."""
     import threading
 
     out: dict = {}
@@ -3363,14 +3418,17 @@ def profiled_serves(ckpt: str, tmp: str, device) -> dict:
         ["Randomforest", "--native-checkpoint", ckpt, "--source-spec",
          f"synthetic:{CAPACITY}", "--source-interval", str(PROFILE_TICK_S),
          "--capacity", str(CAPACITY), "--print-every", "1", "--max-ticks",
-         "400", "--obs-port", "0", "--obs-dir", obs_dir, "--device",
-         device.type], os.path.join(tmp, "profiled.err"))
+         "400", "--obs-port", "0", "--obs-dir", obs_dir,
+         "--perf-ring-ticks", "1", "--perf-ring-keep", "400", "--device",
+         device.type], os.path.join(tmp, "profiled.err"), env=env)
     try:
         if port is None:
             raise AssertionError("the profiled serve bound no obs port: "
                                  + open(os.path.join(tmp, "profiled.err"))
                                  .read()[-2000:])
-        time.sleep(2.0)  # a few renders in before the capture
+        ring = os.path.join(obs_dir, "perf")
+        # warm predicts in before the capture
+        wait_predicts(ring, 0.0, PROFILE_WINDOW)
 
         def first():
             try:
@@ -3379,15 +3437,19 @@ def profiled_serves(ckpt: str, tmp: str, device) -> dict:
                 out["first"] = (None, json.dumps({"error": repr(e)}).encode())
 
         t = threading.Thread(target=first)
+        capture_t0 = time.time()
         t.start()
         time.sleep(0.5)
         out["second"] = _get(port, "/profile?seconds=1")
         t.join(timeout=150)
+        capture_t1 = time.time()
         out["healthz"] = json.loads(_get(port, "/healthz")[1])
+        wait_predicts(ring, capture_t1, PROFILE_WINDOW)
     finally:
         proc.terminate()
         proc.wait(timeout=60)
     out["rc"] = proc.returncode
+    out["predict_ms"] = predict_around(ring, capture_t0, capture_t1)
     pdir = os.path.join(tmp, "profile-dir")
     t0 = time.perf_counter()
     proc, _ = _serve_process(
@@ -3395,7 +3457,7 @@ def profiled_serves(ckpt: str, tmp: str, device) -> dict:
          "synthetic", "--synthetic-flows", str(CAPACITY), "--capacity",
          str(CAPACITY), "--max-ticks", "2", "--print-every", "1",
          "--profile-dir", pdir, "--device", device.type],
-        os.path.join(tmp, "profile-dir.err"))
+        os.path.join(tmp, "profile-dir.err"), env=env)
     out["profile_dir_rc"] = proc.wait(timeout=300)
     out["profile_dir_s"] = time.perf_counter() - t0
     out["profile_dir"] = [os.path.join(pdir, n) for n in os.listdir(pdir)] \
@@ -3459,6 +3521,18 @@ def _check_profiled(tag: str, got: dict, device) -> None:
                              f"{want in trace} ({len(trace)} bytes, event "
                              f"kinds {kinds}, kernels {kernels[:12]})")
     names = [n for n in kernels if "forest_proba" in n]
+    pm = got["predict_ms"]
+    if (len(pm["before"]) < PROFILE_WINDOW or len(pm["after"])
+            < PROFILE_WINDOW or pm["p50_after"]
+            > PROFILE_SLOWDOWN * pm["p50_before"]):
+        raise AssertionError(
+            f"{tag} device-stage predict around the /profile capture: "
+            f"{pm} (the {PROFILE_WINDOW} after it must stay within "
+            f"{PROFILE_SLOWDOWN}x the {PROFILE_WINDOW} before it)")
+    print(f"{tag} device-stage predict p50 {pm['p50_before']} ms over the "
+          f"{PROFILE_WINDOW} renders before the capture, {pm['p50_after']} "
+          f"ms over the {PROFILE_WINDOW} after it (within "
+          f"{PROFILE_SLOWDOWN}x): {pm['before']} / {pm['after']}")
     print(f"{tag} /profile?seconds=1 on a serve process of its own: 200, a "
           f"{len(trace)}-byte trace (wall {out['wall_s']} s, the process's "
           f"first CUDA profiler start included) naming {names or want!r}; "
@@ -5354,6 +5428,154 @@ def kernel_entries(results: dict, launches: dict, paths: dict | None = None,
     return kernels
 
 
+WITNESS_SCHEDULE = (1.0, 1.0, 0.01, 0.0)  # plans full, full, subset, none
+WITNESS_PAUSE = 1.0  # s between the emitter's ticks
+WITNESS_ENV = {"TCSDN_LOCKTRACE": "1", "TCSDN_SYNCGUARD": "1",
+               "TCSDN_SYNCGUARD_TG": "log"}
+WITNESS_DRIVER = (
+    "import json, sys\n"
+    "from traffic_classifier_sdn_tpu_torch import cli\n"
+    "s = cli.main(sys.argv[1:])\n"
+    "print(json.dumps({'ticks': s.ticks, 'renders': len(s.render_ticks),"
+    " 'plans': s.render_plans}), file=sys.stderr)\n"
+)
+
+
+def sync_census(report: dict, budget: dict, ticks: int) -> dict:
+    """The per-tick host↔device census of a witnessed serve: for every
+    site where the shims saw data cross between the card and the host,
+    its device→host syncs and host→device uploads per tick and whether the site lies in a static hot span; the
+    CUDA sync-debug warnings per tick by site; and the sites that mode saw
+    which the static budget does not list."""
+    from traffic_classifier_sdn_tpu_torch.utils import syncguard
+
+    probe = syncguard.SyncWitness(budget=budget)
+    sites = {}
+    # the conversions that crossed between the card and the host (the
+    # shims count host-tensor conversions too, which move nothing here)
+    for site, kinds in report["device_counts"].items():
+        path, line = probe._split(site)
+        d2h = sum(n for k, n in kinds.items() if k in syncguard.D2H_KINDS)
+        h2d = sum(n for k, n in kinds.items() if k in syncguard.H2D_KINDS)
+        sites[site] = {
+            "d2h_per_tick": round(d2h / ticks, 3),
+            "h2d_per_tick": round(h2d / ticks, 3),
+            "kinds": kinds, "hot": probe._in_hot_span(path, line),
+            "threads": report["threads"].get(site, []),
+        }
+    cuda = {s: round(n / ticks, 3) for s, n in report["cuda_sync"].items()}
+    return {
+        "sites": sites,
+        "d2h_per_tick": round(sum(v["d2h_per_tick"]
+                                  for v in sites.values()), 3),
+        "h2d_per_tick": round(sum(v["h2d_per_tick"]
+                                  for v in sites.values()), 3),
+        "hot_d2h_per_tick": round(sum(v["d2h_per_tick"] for v in
+                                      sites.values() if v["hot"]), 3),
+        "cuda_sync_per_tick": cuda,
+        "unbudgeted_cuda_syncs": report["cross_check"].get(
+            "unbudgeted_cuda_syncs", []),
+    }
+
+
+def phase_witness(model: dict, k, device) -> dict:
+    """The main path under both runtime witnesses, in a process of its
+    own: the no-flag forest serve of ``--source ryu`` pipe bytes (65,536
+    conversations, 4 ticks: plans full, full, subset, none) with
+    ``TCSDN_LOCKTRACE=1 TCSDN_SYNCGUARD=1 TCSDN_SYNCGUARD_TG=log``. Holds it
+    to zero lock-order violations, zero sync-budget violations and the
+    plain forest's labels on the last printed table (the same capture
+    replayed in this process gives the table state); prints the per-tick
+    sync census by site from the shims and the card's sync-debug mode."""
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+    from traffic_classifier_sdn_tpu_torch.utils import syncguard
+
+    tag = "[witness Randomforest]"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, capture = os.path.join(tmp, "ckpt"), os.path.join(tmp, "capture")
+        emitter = os.path.join(tmp, "emitter.py")
+        lock_out = os.path.join(tmp, "locktrace.json")
+        sync_out = os.path.join(tmp, "syncguard.json")
+        checkpoint.save_model(ckpt, "forest",
+                              interop.forest_params_from_numpy(model, device),
+                              classes=CLASSES)
+        churn_capture(capture, CAPACITY, WITNESS_SCHEDULE)
+        with open(emitter, "w") as f:
+            f.write(EMITTER)
+        env = dict(os.environ, **WITNESS_ENV, TCSDN_LOCKTRACE_OUT=lock_out,
+                   TCSDN_SYNCGUARD_OUT=sync_out)
+        proc = subprocess.run(
+            [sys.executable, "-c", WITNESS_DRIVER, "Randomforest",
+             "--source", "ryu", "--monitor-cmd",
+             f"{sys.executable} {emitter} {capture} {WITNESS_PAUSE}",
+             "--capacity", str(CAPACITY), "--print-every", "1",
+             "--native-checkpoint", ckpt, "--device", device.type],
+            cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"{tag} serve exit {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        serve_s = time.perf_counter() - t0
+        stats = json.loads(proc.stderr.strip().splitlines()[-1])
+        with open(lock_out) as f:
+            locks = json.load(f)
+        with open(sync_out) as f:
+            syncs = json.load(f)
+        # the table state the witnessed serve rendered last: the same
+        # capture replayed in this process (the last render follows the
+        # last poll, which brought every line of the capture)
+        _, summary, _ = _serve([
+            "Randomforest", "--source", "replay", "--capture", capture,
+            "--capacity", str(CAPACITY), "--print-every", "1",
+            "--native-checkpoint", ckpt, "--device", device.type, *SERIAL])
+    tables = parse_tables(proc.stdout)
+    plain = fk.forest_proba_plain(k, summary.engine.features()).argmax(-1).cpu()
+    _check_tables(tag, tables[-1:], [plain])
+    budget = syncguard.load_budget()
+    census = sync_census(syncs, budget, stats["ticks"])
+    print(f"{tag} serve process {serve_s:.1f} s: {stats['ticks']} ticks, "
+          f"{stats['renders']} renders, plans {stats['plans']}; last table's "
+          "labels equal the plain version's")
+    print(f"{tag} locktrace: {len(locks['sites'])} lock sites, "
+          f"{len(locks['edges'])} observed edges, violations "
+          f"{locks['violations']}; static cross-check unknown edges "
+          f"{locks['cross_check'].get('unknown_edges')}, unmapped sites "
+          f"{locks['cross_check'].get('unmapped_sites')}")
+    print(f"{tag} sync census per tick (shims): d2h "
+          f"{census['d2h_per_tick']} (hot spans {census['hot_d2h_per_tick']}),"
+          f" h2d {census['h2d_per_tick']}; by site: " + json.dumps(
+              {s: {k: v[k] for k in ("d2h_per_tick", "h2d_per_tick", "hot",
+                                     "threads")}
+               for s, v in sorted(census["sites"].items())},
+              sort_keys=True))
+    print(f"{tag} CUDA sync-debug warnings per tick by site: "
+          + json.dumps(census["cuda_sync_per_tick"], sort_keys=True)
+          + "; sites the static budget lacks: "
+          + json.dumps(census["unbudgeted_cuda_syncs"]))
+    if locks["violations"] or syncs["violations"]:
+        raise AssertionError(f"{tag} lock-order violations "
+                             f"{locks['violations']}, sync-budget violations "
+                             f"{syncs['violations']}")
+    if not syncs["counts"] or not locks["sites"]:
+        raise AssertionError(f"{tag} the witnesses saw nothing: "
+                             f"{len(syncs['counts'])} sync sites, "
+                             f"{len(locks['sites'])} lock sites")
+    print("[witness] " + json.dumps({
+        "ticks": stats["ticks"],
+        "d2h_per_tick": census["d2h_per_tick"],
+        "h2d_per_tick": census["h2d_per_tick"],
+        "hot_d2h_per_tick": census["hot_d2h_per_tick"],
+        "cuda_sync_per_tick": round(sum(
+            census["cuda_sync_per_tick"].values()), 3),
+        "unbudgeted_cuda_sites": len(census["unbudgeted_cuda_syncs"]),
+        "lock_violations": 0, "sync_violations": 0,
+        "seconds": round(time.perf_counter() - t0, 1),
+    }, sort_keys=True))
+    return census
+
+
 def main() -> int:
     try:
         import torch
@@ -5394,6 +5616,9 @@ def main() -> int:
         for family in SERVES
     }
     mark("serves")
+    # the main path again, in a process of its own under both witnesses
+    phase_witness(models["forest"], ops["forest"], device)
+    mark("witness")
     paths = {}
     for prefix, counts in (("serve", serial), ("default", launches)):
         for f, n in counts.items():

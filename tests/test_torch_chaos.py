@@ -27,6 +27,7 @@ from traffic_classifier_sdn_tpu_torch.ingest.batcher import FlowStateEngine
 from traffic_classifier_sdn_tpu_torch.ingest.protocol import TelemetryRecord
 from traffic_classifier_sdn_tpu_torch.io import serving_checkpoint as sc
 from traffic_classifier_sdn_tpu_torch.utils import faults
+from torch_witnesses import _torch_locktrace_witness  # noqa: F401 — the lock witness rides this suite
 
 SEED = int(os.environ.get("TCSDN_CHAOS_SEED", "0"))
 

@@ -36,6 +36,7 @@ from traffic_classifier_sdn_tpu_torch.serving.incremental import (
     IncrementalLabels,
 )
 from traffic_classifier_sdn_tpu_torch.utils import faults as tfaults
+from torch_witnesses import _torch_locktrace_witness, _torch_syncguard_witness  # noqa: F401 — the lock witness and the sync witness ride this suite
 
 IMPLS = {"jax": jdegrade, "port": tdegrade}
 

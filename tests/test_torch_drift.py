@@ -59,6 +59,7 @@ from traffic_classifier_sdn_tpu_torch.serving import drift as tdrift
 from traffic_classifier_sdn_tpu_torch.serving import retrain as tretrain
 from traffic_classifier_sdn_tpu_torch.utils import faults as tfaults
 from traffic_classifier_sdn_tpu_torch.utils.metrics import Metrics as TMetrics
+from torch_witnesses import _torch_locktrace_witness, _torch_syncguard_witness  # noqa: F401 — the lock witness and the sync witness ride this suite
 
 CLASSES = chip_smoke.CLASSES
 

@@ -337,7 +337,7 @@ def test_launcher_member_argv_is_the_ports_cli():
         model="Randomforest", native_checkpoint="CKPT", synthetic_flows=16,
         capacity=1024, table_rows=8, print_every=5, max_ticks=4,
         drift_dir="ROT", lockstep=True, member_arg=["--warmup"],
-        device="cpu")
+        device="cpu", shards=0)
     lead = tfs._member_argv(args, 2, follower=False)
     follow = tfs._member_argv(args, 2, follower=True)
     assert lead[1:4] == ["-m", "traffic_classifier_sdn_tpu_torch.cli",
@@ -347,6 +347,10 @@ def test_launcher_member_argv_is_the_ports_cli():
     assert "--shards" not in lead
     assert "--drift-follow" not in lead and "--drift-follow" in follow
     assert lead[-1] == "--warmup"
+    args.shards = 2
+    sharded = tfs._member_argv(args, 2, follower=False)
+    assert sharded[sharded.index("--shards") + 1] == "2"
+    assert tfs._shards_per_device(2, "cpu") == 2
 
 
 def test_launcher_runs_two_cpu_members_to_the_end(tmp_path, capsys):
@@ -377,3 +381,48 @@ def test_launcher_runs_two_cpu_members_to_the_end(tmp_path, capsys):
         {"first": 0, "count": 2}, {"first": 2, "count": 2}]
     log1 = open(tmp_path / "logs" / "member-1.log", "rb").read()
     assert b"Flow ID" in log1
+
+
+def _fleet_tables(tfs, tmp_path, ckpt, tag, extra):
+    logs = tmp_path / f"logs-{tag}"
+    rc = tfs.main([
+        "gaussiannb", "--native-checkpoint", ckpt, "--members", "2",
+        "--total-sources", "4", "--synthetic-flows", "8",
+        "--capacity", "64", "--max-ticks", "6", "--print-every", "2",
+        "--lockstep", "--poll-s", "0.2", "--device", "cpu",
+        "--log-dir", str(logs), "--member-arg=--pipeline",
+        "--member-arg=off", *extra,
+    ])
+    assert rc == 0
+    out = []
+    for i in range(2):
+        text = (logs / f"member-{i}.log").read_text(errors="replace")
+        # the tables only: stderr (ephemeral ports, timings) shares the log
+        out.append([ln for ln in text.splitlines()
+                    if ln.startswith(("|", "+", "..."))])
+    return out
+
+
+def test_launcher_shards_members_match_the_unsharded_fleet(tmp_path,
+                                                           capsys):
+    """``--shards 2``: every member serves the sharded spine with its two
+    shards on the one CPU (``TCSDN_SHARDS_PER_DEVICE``), and each member
+    prints the tables the un-sharded fleet's member prints."""
+    tfs = _launcher()
+    rng = np.random.RandomState(0)
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint as tck
+
+    d = {"theta": rng.gamma(2.0, 100.0, (2, 12)),
+         "var": rng.gamma(2.0, 50.0, (2, 12)) + 1.0,
+         "class_prior": np.full(2, 0.5)}
+    ckpt = str(tmp_path / "gnb")
+    tck.save_model(ckpt, "gnb", interop.gnb_params_from_numpy(d, device="cpu"),
+                   classes=("ping", "voice"))
+    plain = _fleet_tables(tfs, tmp_path, ckpt, "plain", [])
+    sharded = _fleet_tables(tfs, tmp_path, ckpt, "sharded",
+                            ["--shards", "2"])
+    capsys.readouterr()
+    assert all(plain)
+    assert sharded == plain
+    assert all(sum(ln.startswith("| Flow ID") or "Flow ID" in ln
+                   for ln in m) >= 3 for m in sharded)

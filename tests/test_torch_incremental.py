@@ -49,6 +49,7 @@ from traffic_classifier_sdn_tpu_torch.serving.incremental import (
     dirty_buckets,
 )
 from traffic_classifier_sdn_tpu_torch.utils import faults
+from torch_witnesses import _torch_syncguard_witness  # noqa: F401 — the sync witness rides this suite
 
 CLASSES = chip_smoke.CLASSES
 

@@ -39,6 +39,7 @@ from traffic_classifier_sdn_tpu_torch.io import checkpoint as tck
 from traffic_classifier_sdn_tpu_torch.serving import openset as tos
 from traffic_classifier_sdn_tpu_torch.utils import faults as tfaults
 from traffic_classifier_sdn_tpu_torch.utils.metrics import Metrics as TMetrics
+from torch_witnesses import _torch_syncguard_witness  # noqa: F401 — the sync witness rides this suite
 
 CLASSES = chip_smoke.CLASSES
 TIE_RTOL = 1e-5

@@ -377,6 +377,41 @@ def test_svc_state_sharded_matches(served):
     assert plain.dtype == torch.int32 and plain.shape == (served.shape[0],)
 
 
+@pytest.mark.parametrize("threads", [1, 0], ids=["one-thread", "default"])
+def test_svc_state_sharded_decisions_independent_of_threads(served, threads):
+    """The SV-sharded decisions of ``test_svc_state_sharded_matches``
+    under ``torch.set_num_threads(1)`` and the process default (0 here)
+    are bitwise the ones of 4 threads — the summation of
+    ``svc.decision_sum`` and the distances runs in a fixed order whatever
+    the intra-op thread count — and within that test's atol of JAX's."""
+    d, jp, _, atol = _svc_case(served, 150)
+    X64 = served.astype(np.float64) * (
+        1 + 1e-4 * np.random.RandomState(1).rand(*served.shape))
+    X_hi, X_lo = jsvc.split_hilo(X64)
+    _, tm = _state_mesh(8)
+    tp = interop.svc_params_from_numpy(
+        jsvc.from_numpy(tss.pad_support(d, 8)), device="cpu")
+    Xh = torch.from_numpy(np.array(X_hi))
+    Xl = torch.from_numpy(np.array(X_lo))
+    before = torch.get_num_threads()
+
+    def decisions(n):
+        torch.set_num_threads(n)
+        return [tss.sharded_decision(tm, tp)(Xh, lo)[1].numpy()
+                for lo in (Xl, None)]
+
+    try:
+        want = decisions(4)
+        got = decisions(threads or before)
+    finally:
+        torch.set_num_threads(before)
+    for w, g, lo in zip(want, got, (X_lo, None)):
+        np.testing.assert_array_equal(g, w)
+        jdec = np.asarray(jsvc.decision_ovo(
+            jp, jnp.asarray(X_hi), None if lo is None else jnp.asarray(lo)))
+        np.testing.assert_allclose(g, jdec, rtol=0, atol=atol)
+
+
 @pytest.mark.parametrize("n_sv,n_shards", [(150, 4), (1200, 4)],
                          ids=["one-real-shard", "padding-tail-shard"])
 def test_svc_fused_matches(served, n_sv, n_shards):

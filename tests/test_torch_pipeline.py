@@ -36,6 +36,7 @@ from traffic_classifier_sdn_tpu_torch.ops import cuda_build
 from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
 from traffic_classifier_sdn_tpu_torch.serving import pipeline as tpipeline
 from traffic_classifier_sdn_tpu_torch.utils import faults as tfaults
+from torch_witnesses import _torch_locktrace_witness, _torch_syncguard_witness  # noqa: F401 — the lock witness and the sync witness ride this suite
 
 IMPLS = {"jax": jpipeline, "port": tpipeline}
 both = pytest.mark.parametrize("impl", sorted(IMPLS))

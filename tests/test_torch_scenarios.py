@@ -49,6 +49,7 @@ from traffic_classifier_sdn_tpu_torch.scenarios.timeline import (
     gate_accounting,
     gate_cadence,
 )
+from torch_witnesses import _torch_locktrace_witness  # noqa: F401 — the lock witness rides this suite
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMED = {"cadence_p50", "e2e_p99"}

@@ -22,10 +22,12 @@ every fan-in source annotated with its member, drift state per member,
 Emits one JSON roster line once the fleet is up, then a fleet summary
 line per ``--poll-s`` until the members exit (``--max-ticks``) or
 SIGINT. Exit status 0 iff every member exited 0. Every member runs on
-``--device`` (default cuda; the members share one card). The launcher
-has no ``--shards`` of its own (the JAX launcher's, which passes a shard
-count to every member, is not ported): each member serves one device's
-table.
+``--device`` (default cuda; the members share one card). ``--shards N``
+passes a shard count to every member, as the JAX launcher does: each
+member serves the sharded spine over N shards, and where the device kind
+has fewer than N devices (the one CPU, or one card) the launcher sets
+``TCSDN_SHARDS_PER_DEVICE`` so that the member's N shards share them
+(parallel/mesh.visible_devices).
 
 Usage:
   tools/torch_fleet_serve.py gaussiannb --native-checkpoint CKPT \
@@ -68,6 +70,8 @@ def _member_argv(args: argparse.Namespace, count: int,
         "--device", args.device,
     ]
     argv += ["--native-checkpoint", args.native_checkpoint]
+    if args.shards:
+        argv += ["--shards", str(args.shards)]
     if args.drift_dir:
         argv += ["--drift", "auto", "--drift-dir", args.drift_dir]
         if follower:
@@ -76,6 +80,17 @@ def _member_argv(args: argparse.Namespace, count: int,
         argv.append("--source-lockstep")
     argv += args.member_arg
     return argv
+
+
+def _shards_per_device(shards: int, device: str) -> int:
+    """How many of a member's ``shards`` each visible device holds: all
+    of them on the one CPU, else spread over the process's cards."""
+    if device == "cpu":
+        return shards
+    import torch
+
+    n = max(1, torch.cuda.device_count())
+    return -(-shards // n)
 
 
 class _Member:
@@ -140,6 +155,9 @@ def main(argv=None) -> int:
     ap.add_argument("--total-sources", type=int, default=4,
                     help="region-wide telemetry sources, partitioned "
                     "contiguously across members")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="per-member shards (0 = single-device spine); "
+                    "shards beyond the device count share devices")
     ap.add_argument("--drift-dir", default=None, metavar="DIR",
                     help="SHARED rotation directory — what makes the "
                     "fleet one system; member 0 leads, the rest follow")
@@ -176,6 +194,9 @@ def main(argv=None) -> int:
         )
 
     env = dict(os.environ)
+    if args.shards:
+        env["TCSDN_SHARDS_PER_DEVICE"] = str(
+            _shards_per_device(args.shards, args.device))
     if args.log_dir:
         os.makedirs(args.log_dir, exist_ok=True)
 

@@ -1664,11 +1664,11 @@ def _print_table(engine, model, predict, serve_params, args, inc=None,
                           actuation=actuation, drift=drift)
         else:
             if not on_host:
-                labels = labels.cpu().numpy()
+                labels = labels.cpu().numpy()  # graftlint: disable=implicit-sync -- render-sync: the full render's labels must reach the host
                 if lat is not None:
                     lat.mark_device(seal)
-            fwd_active = engine.table.fwd.active[:-1].cpu().numpy()
-            rev_active = engine.table.rev.active[:-1].cpu().numpy()
+            fwd_active = engine.table.fwd.active[:-1].cpu().numpy()  # graftlint: disable=implicit-sync -- render-sync: the full render's activity flags must reach the host
+            rev_active = engine.table.rev.active[:-1].cpu().numpy()  # graftlint: disable=implicit-sync -- render-sync: the full render's activity flags must reach the host
             rows = [
                 (slot, src, dst, int(labels[slot]), bool(fwd_active[slot]),
                  bool(rev_active[slot]))
@@ -1951,6 +1951,35 @@ def _start_exposition(args, m, recorder, degrade, inc, lat, drift=None,
 
 
 def run_classify(args) -> ServeSummary:
+    # lockdep witness (utils/locktrace.py): TCSDN_LOCKTRACE=1 wraps
+    # every port lock constructed from here on, so the serve's real
+    # schedules become lock-ordering evidence. Armed in this thin
+    # wrapper so the monkeypatched factories can NEVER leak: any exit
+    # out of the serve body — the flag-validation sys.exit guards, a
+    # failed restore, an exception before the serve loop's own
+    # try/finally — lands in this finally, which uninstalls and
+    # reports iff the serve body's finish didn't already run
+    from .utils import locktrace, syncguard
+
+    lock_witness = locktrace.maybe_trace_from_env()
+    # device-boundary witness (utils/syncguard.py): TCSDN_SYNCGUARD=1
+    # site-keys every host↔device conversion from here on and checks
+    # it live against the static hot-path sync budget — same
+    # leak-proofing shape as the lock witness above
+    sync_witness = syncguard.maybe_guard_from_env()
+    try:
+        return _run_classify_armed(args, lock_witness, sync_witness)
+    finally:
+        if (lock_witness is not None
+                and locktrace._installed is lock_witness):
+            locktrace.finish(lock_witness)
+        if (sync_witness is not None
+                and syncguard._installed is sync_witness):
+            syncguard.finish(sync_witness)
+
+
+def _run_classify_armed(args, lock_witness,
+                        sync_witness=None) -> ServeSummary:
     from .device import resolve_device
     from .io.checkpoint import load_model
     from .models import SUBCOMMAND_ALIASES
@@ -2121,6 +2150,19 @@ def run_classify(args) -> ServeSummary:
                     _dump_flight(recorder, args.obs_dir, "on-demand")
                     _dump_device(dev, perf, args.obs_dir, "on-demand")
     finally:
+        if lock_witness is not None:
+            from .utils import locktrace
+
+            # surface ordering violations + the static-graph
+            # cross-check before the recorder goes away (violations
+            # also land in the ring as locktrace.violation events)
+            locktrace.finish(lock_witness, recorder=recorder)
+        if sync_witness is not None:
+            # same for the device-boundary witness: unknown hot-span
+            # syncs land as syncguard.violation events + stderr
+            from .utils import syncguard
+
+            syncguard.finish(sync_witness, recorder=recorder)
         if server is not None:
             server.stop()
         if perf is not None:

@@ -281,7 +281,7 @@ def save_rotating(engine, directory: str, tick: int, keep: int = 3,
         # atomic_write_bytes's cleanup
         sweep_stale_tmp(directory)
         path = checkpoint_path(directory, tick)
-        n = save(engine, path, feature_reference=feature_reference)
+        n = save(engine, path, feature_reference=feature_reference)  # graftlint: disable=blocking-under-lock -- serializing the whole sweep+save+prune file-I/O pass under the per-directory rotation lock is the lock's purpose; it is taken only by checkpoint writers, never by the serve tick
         for _, old in list_checkpoints(directory)[max(keep, 1):]:
             try:
                 os.unlink(old)

@@ -52,7 +52,7 @@ def _load():
     with _lock:
         if _lib is not None:
             return _lib
-        lib = _lazy.load()
+        lib = _lazy.load()  # graftlint: disable=blocking-under-lock -- one-time g++ build serialized under the module lock by design (build-once); later calls are cache hits
         for name, (restype, argtypes) in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.restype = restype

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -59,11 +60,18 @@ class Mesh:
 
 def visible_devices(device=None) -> list[torch.device]:
     """Every device a mesh may use on ``device``'s kind: each CUDA device
-    of the process, or the one ``cpu`` device."""
+    of the process, or the one ``cpu`` device. ``TCSDN_SHARDS_PER_DEVICE=K``
+    lists each device K times, so a ``--shards`` serve places K shards on
+    each (the fleet launcher sets it when a member's shards outnumber the
+    devices)."""
     dev = resolve_device(device)
     if dev.type == "cpu":
-        return [torch.device("cpu")]
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        devs = [torch.device("cpu")]
+    else:
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    k = int(os.environ.get("TCSDN_SHARDS_PER_DEVICE", "1") or 1)
+    return [d for d in devs for _ in range(max(1, k))]
 
 
 def make_mesh(n_data: int | None = None, n_state: int = 1,

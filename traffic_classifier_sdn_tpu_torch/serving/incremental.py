@@ -192,12 +192,12 @@ class IncrementalLabels:
         if plan.kind == "none":
             with self._lock:
                 return self._host_cache
-        labels = np.asarray(self._predict(self._params, plan.X))
+        labels = np.asarray(self._predict(self._params, plan.X))  # graftlint: disable=implicit-sync -- host-native: host mode's predict is the ladder's, which returns host labels
         if self._stale_now():
             # the ladder served last-known-good (BROKEN): never commit;
             # the rows this tick tried are marked dirty again
             if plan.kind == "subset":
-                idx_host = plan.idx.cpu().numpy()  # before taking the lock
+                idx_host = plan.idx.cpu().numpy()  # before taking the lock  # graftlint: disable=implicit-sync -- cold-path: BROKEN-rung recovery re-mark only
                 with self._lock:
                     self._pending_redirty.append(idx_host)
             else:
@@ -214,7 +214,7 @@ class IncrementalLabels:
         if plan.kind == "full-nocommit":
             return labels
         if plan.kind == "subset":
-            idx = plan.idx.cpu().numpy()
+            idx = plan.idx.cpu().numpy()  # graftlint: disable=implicit-sync -- host-native: the host-mode commit needs the host idx; the ladder's host predict above already waited for this tick's device work
             valid = idx < self.capacity
             with self._lock:
                 cache = self._host_cache
@@ -261,7 +261,7 @@ class IncrementalLabels:
             return _Pending("full-nocommit", n_dirty=self.capacity)
         for slots in redirty:
             ft.mark_dirty_slots(
-                eng.dirty, torch.from_numpy(slots).to(eng.dirty.device)
+                eng.dirty, torch.from_numpy(slots).to(eng.dirty.device)  # graftlint: disable=transfer-discipline -- cold-path: re-marks the rows of a stale (BROKEN-rung) predict only
             )
         if invalidate or not primed or self._ladder_rung() not in (
             None, "HEALTHY"
@@ -271,7 +271,7 @@ class IncrementalLabels:
             eng.dirty.zero_()
             self._note(self.capacity)
             return _Pending("full", n_dirty=self.capacity)
-        n = int(ft.dirty_count(eng.dirty))  # the tick's one device sync
+        n = int(ft.dirty_count(eng.dirty))  # the tick's one device sync  # graftlint: disable=implicit-sync -- tick-plan: O(1) scalar that sizes this tick's dispatch
         self._note(n)
         if n == 0:
             if self._metrics is not None:
@@ -372,8 +372,8 @@ class IncRankedRead:
 
     def rows(self) -> list[tuple]:
         with self._fence.enter():
-            labels = np.asarray(self._inc.finish(self._pending))
-            idx, valid, fa, ra = (t.cpu().numpy() for t in self._flags)
+            labels = np.asarray(self._inc.finish(self._pending))  # graftlint: disable=implicit-sync -- host-native: finish() ran the ladder's host predict
+            idx, valid, fa, ra = (t.cpu().numpy() for t in self._flags)  # graftlint: disable=implicit-sync -- render-sync: the ranked render's flags must reach the host
         return [
             (int(s), int(labels[int(s)]), bool(f), bool(r))
             for s, v, f, r in zip(idx, valid, fa, ra)
@@ -411,8 +411,8 @@ class IncFullRead:
             labels = (self._inc.finish(self._pending)
                       if self._labels is None else self._labels)
             if isinstance(labels, torch.Tensor):
-                labels = labels.cpu().numpy()
-            fa, ra = self._fa.cpu().numpy(), self._ra.cpu().numpy()
+                labels = labels.cpu().numpy()  # graftlint: disable=implicit-sync -- render-sync: the full render's labels must reach the host
+            fa, ra = self._fa.cpu().numpy(), self._ra.cpu().numpy()  # graftlint: disable=implicit-sync -- render-sync: the full render's activity flags must reach the host
         return [
             (slot, src, dst, int(labels[slot]), bool(fa[slot]),
              bool(ra[slot]))

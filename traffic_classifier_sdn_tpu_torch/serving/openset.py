@@ -68,8 +68,8 @@ _EPS = 1e-9
 def host_array(a) -> np.ndarray:
     """A host numpy view of a tensor (copied off the card) or array."""
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
-    return np.asarray(a)
+        return a.detach().cpu().numpy()  # graftlint: disable=implicit-sync -- deferred-drain: the hot callers read the prior tick's pair at calibration (or the host-mode gate's already-host X)
+    return np.asarray(a)  # graftlint: disable=implicit-sync -- host-native: the same seam for a host value, a no-op conversion
 
 
 def class_reference(X, y, n_classes: int, eps: float = _EPS) -> dict:
@@ -433,13 +433,13 @@ class OpenSetGate:
             epoch = self._epoch
             cached = self._device_stats
             cached_epoch = self._device_stats_epoch
-        if (cached is not None and cached_epoch == epoch
+        if (cached is not None and cached_epoch == epoch  # graftlint: disable=implicit-sync -- epoch-cached: compares the cached stats' device handle and epoch, both host values
                 and cached[0] == device):
             return cached[1:]
         stats = (
-            torch.tensor(mean, dtype=torch.float32, device=device),
-            torch.tensor(inv_std, dtype=torch.float32, device=device),
-            torch.tensor(thr, dtype=torch.float32, device=device),
+            torch.tensor(mean, dtype=torch.float32, device=device),  # graftlint: disable=transfer-discipline -- epoch-cached: one upload per calibration epoch
+            torch.tensor(inv_std, dtype=torch.float32, device=device),  # graftlint: disable=transfer-discipline -- epoch-cached: one upload per calibration epoch
+            torch.tensor(thr, dtype=torch.float32, device=device),  # graftlint: disable=transfer-discipline -- epoch-cached: one upload per calibration epoch
         )
         with self._lock:
             if self._epoch == epoch:
@@ -468,7 +468,7 @@ class OpenSetGate:
         if count is None:
             return
         try:
-            self._note_rejections(int(count))
+            self._note_rejections(int(count))  # graftlint: disable=implicit-sync -- deferred-drain: last tick's count
         except Exception:  # noqa: BLE001 — a lost scalar drops the sample
             pass
 

@@ -395,7 +395,7 @@ class Fence:
 
     def __init__(self, device: torch.device, tensors=()):
         self._device = torch.device(device)
-        self._tensors = [t for t in tensors if isinstance(t, torch.Tensor)]
+        self._tensors = [t for t in tensors if isinstance(t, torch.Tensor)]  # graftlint: disable=implicit-sync -- host-native: iterates the Python tuple of tensor handles the dispatch passed; no tensor data is read
         self._event = None
         if self._device.type == "cuda":
             self._event = torch.cuda.Event()
@@ -417,7 +417,7 @@ class Fence:
 
 
 def _host(tensors) -> list[np.ndarray]:
-    return [t.cpu().numpy() for t in tensors]
+    return [t.cpu().numpy() for t in tensors]  # graftlint: disable=implicit-sync -- render-sync: the ranked render's outputs must reach the host
 
 
 class RankedRead:
@@ -468,7 +468,7 @@ class NativeRankedRead:
 
     def rows(self) -> list[tuple]:
         with self._fence.enter():
-            labels = np.asarray(self._predict(self._params, self._X))
+            labels = np.asarray(self._predict(self._params, self._X))  # graftlint: disable=implicit-sync -- host-native: the ladder's predict returns host labels
             idx, valid, fa, ra = _host(self._flags)
         return [
             (int(s), int(labels[int(s)]), bool(f), bool(r))
@@ -530,7 +530,7 @@ class FullRead:
             labels = (self._predict(self._params, self._X)
                       if self._labels is None else self._labels)
             if isinstance(labels, torch.Tensor):
-                labels = labels.cpu().numpy()
+                labels = labels.cpu().numpy()  # graftlint: disable=implicit-sync -- render-sync: the full render's labels must reach the host
             fa, ra = _host((self._fa, self._ra))
         return [
             (slot, src, dst, int(labels[slot]), bool(fa[slot]),
