@@ -238,6 +238,19 @@ the script exits non-zero:
    a render, the kernel bitwise to its plain version on the served table
    (every KNN index in [0, S)) and timed there; the analysis numbers
    (``figures.save_all`` without drawing) within 1e-6 of the CPU's;
+7c. doctor — ``tools/torch_doctor.py --platform default --expect gpu``
+   at a 2^20-row table taking 65,536 flows a tick, in a process of its
+   own: verdict ``pass`` with ``hbm`` and ``retrace`` passed, each check
+   printed on its own line;
+7d. sanitize — ``tools/torch_native_sanitize.sh --cuda-only``:
+   compute-sanitizer's memcheck, racecheck, initcheck and synccheck over
+   the three kernels at rows 1, 7 and 777 (non-finite rows, KNN corpora
+   with k == S and off the stage, the depth-10 forest; every launch
+   shape), each held bitwise to its plain version, then the same program
+   alone with NaN-padded inputs and 0xFF-poisoned outputs
+   (``kernel_guards``, which must pass); a sanitizer tool whose log holds
+   nothing but its refusal of the card is printed as ``unsupported``
+   with its own words, and then that tool has checked nothing;
 8. summary — a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
    power-limit line, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -1283,8 +1296,9 @@ def phase_default_serve(family: str, model: dict, g, device) -> int:
 # Flows of each family's drill serve: 16,384 for the forest and KNN (a
 # quarter of the serve's size, to keep the script within its time: the
 # per-record synthetic source takes most of a drill's seconds),
-# 4,096 for SVC, whose host rung (the plain version on the CPU) takes
-# about 1 s a render at 4,096 rows. One demoted render of each family at
+# 4,096 for SVC, whose host rung (the plain version on the CPU, its loops
+# in C++: native/svc.py) took about 1 s a render at 4,096 rows when its
+# decision loop ran as torch ops beside the serve's host stage. One demoted render of each family at
 # 65,536 rows is timed on its own (``demoted_render_at_size``).
 DRILL_FLOWS = {"forest": CAPACITY // 4, "knn": CAPACITY // 4, "svc": 4096}
 
@@ -3316,9 +3330,6 @@ def nearest_rank_p50(xs: list) -> float:
     return s[min(len(s) - 1, max(0, int(round(0.5 * (len(s) - 1)))))]
 
 
-PROFILE_TICK_S = 0.25  # the profiled serve's source interval
-
-
 def _trace_kernels(trace: str) -> tuple[list, list]:
     """(event kinds, kernel names) of a Chrome trace's text."""
     events = json.loads(trace).get("traceEvents", []) if trace else []
@@ -3347,9 +3358,23 @@ def _serve_process(argv: list, stderr_path: str, env=None):
     return proc, None
 
 
-PROFILE_WINDOW = 8  # device-stage predicts compared before and after it
 PROFILE_SLOWDOWN = 1.2  # the most a capture may slow the predicts after it
 PROFILE_WAIT_S = 60.0  # the longest wait for a window's predicts
+
+
+def profile_plan(device) -> tuple:
+    """``(source interval s, predicts compared on each side of the
+    capture, warm predicts left out before them)`` for the profiled
+    serve. On a card, where the p50s are held to ``PROFILE_SLOWDOWN``:
+    one predict's host-side time there runs 0.7-5 ms about a ~2 ms p50,
+    so 8 a side put the ratio anywhere in 0.53-1.31 on an H100, with no
+    capture effect to explain it, where 48 a side after warm ones, at a
+    0.1 s interval, put it in 0.98-1.10 (PERF.md, Findings). The first predicts of a serve run slower than
+    its steady state, so the warm ones are left out of the window before
+    the capture. On the CPU only both windows must fill."""
+    if device.type == "cuda":
+        return 0.1, 48, 16
+    return 0.25, 8, 0
 
 
 def predicts(ring: str) -> list:
@@ -3382,14 +3407,14 @@ def wait_predicts(ring: str, after: float, n: int) -> None:
         time.sleep(0.2)
 
 
-def predict_around(ring: str, t0: float, t1: float) -> dict:
-    """The device-stage predict p50 (ms) of the ``PROFILE_WINDOW``
-    predicts before wall time ``t0`` and the ``PROFILE_WINDOW`` after
-    ``t1``."""
+def predict_around(ring: str, t0: float, t1: float, window: int) -> dict:
+    """The device-stage predict p50 (ms) of the ``window`` predicts
+    before wall time ``t0`` and the ``window`` after ``t1``."""
     seen = predicts(ring)
-    before = [v for ts, v in seen if ts < t0][-PROFILE_WINDOW:]
-    after = [v for ts, v in seen if ts > t1][:PROFILE_WINDOW]
+    before = [v for ts, v in seen if ts < t0][-window:]
+    after = [v for ts, v in seen if ts > t1][:window]
     return {
+        "window": window,
         "before": [round(v * 1e3, 3) for v in before],
         "after": [round(v * 1e3, 3) for v in after],
         "p50_before": round(nearest_rank_p50(before) * 1e3, 3)
@@ -3402,21 +3427,22 @@ def predict_around(ring: str, t0: float, t1: float) -> dict:
 def profiled_serves(ckpt: str, tmp: str, device, env=None) -> dict:
     """The profiler's two surfaces, each on a serve in a process of its
     own: ``/profile?seconds=1`` on a forest serve rendering every tick
-    (``--source-spec synthetic:65536``, a tick every ``PROFILE_TICK_S``),
+    (``--source-spec synthetic:65536`` at ``profile_plan``'s interval),
     with a second request while the first runs; then a 2-tick serve under
     ``--profile-dir``. In the script's own process, after its earlier
     phases, a capture recorded no GPU activity at all (PR 11; ROADMAP
     Queue 3 item 21): a fresh process is where an operator's serve runs.
     The serve keeps one perf-ring segment per tick, so the device-stage
-    predicts of the ``PROFILE_WINDOW`` renders before the capture and
-    after it can be compared (``predict_around``)."""
+    predicts of the renders before the capture and after it can be
+    compared (``predict_around``)."""
     import threading
 
+    tick_s, window, warm = profile_plan(device)
     out: dict = {}
     obs_dir = os.path.join(tmp, "profiled-obs")
     proc, port = _serve_process(
         ["Randomforest", "--native-checkpoint", ckpt, "--source-spec",
-         f"synthetic:{CAPACITY}", "--source-interval", str(PROFILE_TICK_S),
+         f"synthetic:{CAPACITY}", "--source-interval", str(tick_s),
          "--capacity", str(CAPACITY), "--print-every", "1", "--max-ticks",
          "400", "--obs-port", "0", "--obs-dir", obs_dir,
          "--perf-ring-ticks", "1", "--perf-ring-keep", "400", "--device",
@@ -3428,7 +3454,7 @@ def profiled_serves(ckpt: str, tmp: str, device, env=None) -> dict:
                                  .read()[-2000:])
         ring = os.path.join(obs_dir, "perf")
         # warm predicts in before the capture
-        wait_predicts(ring, 0.0, PROFILE_WINDOW)
+        wait_predicts(ring, 0.0, warm + window)
 
         def first():
             try:
@@ -3444,12 +3470,12 @@ def profiled_serves(ckpt: str, tmp: str, device, env=None) -> dict:
         t.join(timeout=150)
         capture_t1 = time.time()
         out["healthz"] = json.loads(_get(port, "/healthz")[1])
-        wait_predicts(ring, capture_t1, PROFILE_WINDOW)
+        wait_predicts(ring, capture_t1, window)
     finally:
         proc.terminate()
         proc.wait(timeout=60)
     out["rc"] = proc.returncode
-    out["predict_ms"] = predict_around(ring, capture_t0, capture_t1)
+    out["predict_ms"] = predict_around(ring, capture_t0, capture_t1, window)
     pdir = os.path.join(tmp, "profile-dir")
     t0 = time.perf_counter()
     proc, _ = _serve_process(
@@ -3522,17 +3548,25 @@ def _check_profiled(tag: str, got: dict, device) -> None:
                              f"kinds {kinds}, kernels {kernels[:12]})")
     names = [n for n in kernels if "forest_proba" in n]
     pm = got["predict_ms"]
-    if (len(pm["before"]) < PROFILE_WINDOW or len(pm["after"])
-            < PROFILE_WINDOW or pm["p50_after"]
-            > PROFILE_SLOWDOWN * pm["p50_before"]):
+    window = pm["window"]
+    # The slowdown gate is a card's: a capture that slowed the card's
+    # predicts (ROADMAP Queue 3 item 21). On the CPU there is no card and
+    # no CUDA profiler, and the predicts' times follow the host's load
+    # (p50 114 ms before, 181 ms after beside five loaded test workers),
+    # so there both windows must fill and the ratio is printed, not held.
+    slowed = (device.type == "cuda"
+              and pm["p50_after"] > PROFILE_SLOWDOWN * pm["p50_before"])
+    if len(pm["before"]) < window or len(pm["after"]) < window or slowed:
         raise AssertionError(
             f"{tag} device-stage predict around the /profile capture: "
-            f"{pm} (the {PROFILE_WINDOW} after it must stay within "
-            f"{PROFILE_SLOWDOWN}x the {PROFILE_WINDOW} before it)")
+            f"{pm} (the {window} after it must stay within "
+            f"{PROFILE_SLOWDOWN}x the {window} before it)")
+    held = (f"within {PROFILE_SLOWDOWN}x" if device.type == "cuda"
+            else "ratio not held on the CPU")
     print(f"{tag} device-stage predict p50 {pm['p50_before']} ms over the "
-          f"{PROFILE_WINDOW} renders before the capture, {pm['p50_after']} "
-          f"ms over the {PROFILE_WINDOW} after it (within "
-          f"{PROFILE_SLOWDOWN}x): {pm['before']} / {pm['after']}")
+          f"{window} renders before the capture, {pm['p50_after']} "
+          f"ms over the {window} after it ({held}): "
+          f"{pm['before']} / {pm['after']}")
     print(f"{tag} /profile?seconds=1 on a serve process of its own: 200, a "
           f"{len(trace)}-byte trace (wall {out['wall_s']} s, the process's "
           f"first CUDA profiler start included) naming {names or want!r}; "
@@ -4617,8 +4651,16 @@ def phase_actuation(model: dict, k, device) -> int:
         if (not subsequence(pair[0][0], pair[1][0])
                 or len(frames(pair[1][0])) - len(frames(pair[0][0]))
                 != abs(summary.ticks_coalesced - off_sum.ticks_coalesced)):
-            raise AssertionError(f"{tag} stdout against --actuation off "
-                                 "breaks the subsequence rule")
+            got, want = frames(out), frames(off_out)
+            last = bool(got and want) and got[-1] == want[-1]
+            first = next((i for i, (a, b) in enumerate(zip(got, want))
+                          if a != b), None)
+            raise AssertionError(
+                f"{tag} stdout against --actuation off breaks the "
+                f"subsequence rule: {len(got)} tables, {summary.ticks} "
+                f"polls, {summary.ticks_coalesced} coalesced against "
+                f"{len(want)}, {off_sum.ticks}, {off_sum.ticks_coalesced}; "
+                f"last tables equal: {last}; first differing table: {first}")
         block = (hz["report"] or {}).get("actuation")
         if block is None:
             raise AssertionError(f"{tag} no /healthz actuation block")
@@ -5576,6 +5618,106 @@ def phase_witness(model: dict, k, device) -> dict:
     return census
 
 
+DOCTOR_IDS = ("platform", "compile", "retrace", "hbm", "transfers",
+              "cadence")
+
+
+def phase_doctor(device, capacity: int = 1 << 20,
+                 flows_per_tick: int = CAPACITY) -> dict:
+    """``tools/torch_doctor.py`` in a process of its own at the serve's
+    full width (on the card: ``--platform default --expect gpu``, a
+    2^20-row table taking 65,536 flows a tick). Requires exit 0, verdict
+    ``pass``, JAX's six check ids in order and, on a card, ``hbm`` and
+    ``retrace`` passed, not skipped. Prints each check on its own line;
+    returns the bundle."""
+    tag = "[doctor]"
+    on_card = device.type == "cuda"
+    if on_card:
+        import torch
+
+        # the doctor reads the card's free memory: hand back this
+        # process's cached blocks first (59 GB after the earlier phases)
+        torch.cuda.empty_cache()
+        print(f"{tag} this process holds "
+              f"{torch.cuda.memory_allocated(device)} bytes of live "
+              "tensors on the card while the doctor runs")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "doctor.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.join(HERE, "tools", "torch_doctor.py"),
+             "--platform", "default" if on_card else "cpu",
+             "--expect", "gpu" if on_card else "cpu",
+             "--capacity", str(capacity),
+             "--flows-per-tick", str(flows_per_tick), "--out", out],
+            cwd=HERE, capture_output=True, text=True, timeout=600,
+        )
+        bundle = json.loads(open(out).read()) if os.path.exists(out) else {}
+    checks = {c["id"]: c for c in bundle.get("checks", ())}
+    for c in bundle.get("checks", ()):
+        fields = {k: v for k, v in c.items()
+                  if k not in ("id", "status", "detail")}
+        print(f"{tag} {c['id']}: {c['status']} — {c['detail']} "
+              f"{json.dumps(fields, sort_keys=True)}")
+    want = ("hbm", "retrace") if on_card else ("retrace",)
+    if (proc.returncode != 0 or bundle.get("verdict") != "pass"
+            or list(checks) != list(DOCTOR_IDS)
+            or any(checks[c]["status"] != "pass" for c in want)):
+        raise AssertionError(
+            f"{tag} rc {proc.returncode}, verdict {bundle.get('verdict')}, "
+            f"checks {[(c, x['status']) for c, x in checks.items()]}: "
+            f"{proc.stderr[-3000:]}")
+    print(f"{tag} verdict pass at capacity {capacity}, {flows_per_tick} "
+          f"flows a tick on {bundle['platform']}, in "
+          f"{time.perf_counter() - t0:.1f} s (the process's start included)")
+    return bundle
+
+
+def phase_sanitize(device) -> dict:
+    """``tools/torch_native_sanitize.sh --cuda-only``: compute-sanitizer's
+    memcheck, racecheck, initcheck and synccheck over the three kernels at
+    small odd shapes (each held bitwise to its plain version), then the
+    same program alone with padded inputs and poisoned outputs
+    (``kernel_guards``). On a card no phase may fail and kernel_guards
+    must pass; a sanitizer tool whose log holds nothing but its refusal
+    of the card reports ``unsupported`` with its own words, which is
+    printed, not hidden: that tool has then checked nothing. On the CPU
+    every phase is skipped. Returns the summary."""
+    tag = "[sanitize]"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "summary.json")
+        proc = subprocess.run(
+            ["sh", os.path.join(HERE, "tools", "torch_native_sanitize.sh"),
+             "--cuda-only"], cwd=HERE, capture_output=True, text=True,
+            timeout=900, env=dict(os.environ, NATIVE_SANITIZE_SUMMARY=out,
+                                  TMPDIR=tmp),
+        )
+        summary = json.loads(open(out).read()) if os.path.exists(out) else {}
+    phases = {p["name"]: p for p in summary.get("phases", ())}
+    for p in summary.get("phases", ()):
+        print(f"{tag} {p['name']}: {p['status']}"
+              + (f" ({p['reason']})" if p.get("reason") else ""))
+    names = ("memcheck", "racecheck", "initcheck", "synccheck",
+             "kernel_guards")
+    if device.type == "cuda":
+        bad = (proc.returncode != 0 or list(phases) != list(names)
+               or phases["kernel_guards"]["status"] != "pass"
+               or any(phases[n]["status"] not in ("pass", "unsupported")
+                      for n in names))
+    else:
+        bad = any(phases.get(n, {}).get("status") != "skipped"
+                  for n in names)
+    if bad:
+        raise AssertionError(f"{tag} rc {proc.returncode}: {summary}\n"
+                             f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
+    for line in proc.stdout.splitlines():
+        if line.startswith("kernel guards:"):
+            print(f"{tag} {line.strip()}")
+    print(f"{tag} {time.perf_counter() - t0:.1f} s")
+    return summary
+
+
 def main() -> int:
     try:
         import torch
@@ -5674,6 +5816,12 @@ def main() -> int:
     train_paths, trained = phase_train(device)
     paths.update(train_paths)
     mark("train")
+    # the operator's gates, each in processes of its own: launches there
+    # add nothing to the counts here
+    phase_doctor(device)
+    mark("doctor")
+    phase_sanitize(device)
+    mark("sanitize")
     kernels = kernel_entries(results, launches, paths, buckets, menus,
                              promoted, shards, trained)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "

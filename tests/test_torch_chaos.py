@@ -1,5 +1,5 @@
-"""Crash, restore and continue: the ``serving_ckpt.write``, ``.rename`` and
-``.restore`` subset of ``tests/test_chaos.py``, on the port.
+"""The port's chaos suite: crash, restore and continue at the port's fault
+sites, the counterpart of ``tests/test_chaos.py``.
 
 A seeded ``FaultPlan`` (utils/faults.py) kills a save mid-write or at the
 rename, or a restore at its entry, and the recovery guarantee is proved
@@ -7,12 +7,21 @@ end to end: the previous member stays valid, the rotation rolls back to
 it, and a replayed record stream converges bit for bit with a
 never-killed engine; through the CLI, the fault propagates out of
 ``cli.main`` and the flight-recorder dump names the failing ``snapshot``
-span. The probability schedules must hold for any seed
-(``TCSDN_CHAOS_SEED`` and three more).
+span. The drift loop, the open-set gate, the perf ring, the profiler and
+the actuation plane absorb their sites as JAX's do; the sharded spine
+absorbs a dead source, a dirty-mask fault and a dropped burst.
+
+The probability schedules must hold for any seed: ``TCSDN_CHAOS_SEED``
+and the seeds after it (``tools/torch_chaos_matrix.sh`` sweeps it). Where
+the port drives a plan's sites in one order, JAX's ``FaultPlan`` fed the
+same hits under the same seed and rules must fire the same hits. Every
+test here carries the ``chaos`` marker (``-m chaos``), as do the fault
+tests in the port's other test files.
 """
 
 import json
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -30,6 +39,8 @@ from traffic_classifier_sdn_tpu_torch.utils import faults
 from torch_witnesses import _torch_locktrace_witness  # noqa: F401 — the lock witness rides this suite
 
 SEED = int(os.environ.get("TCSDN_CHAOS_SEED", "0"))
+
+pytestmark = pytest.mark.chaos
 
 
 @pytest.fixture(autouse=True)
@@ -716,3 +727,548 @@ def test_actuation_retract_fault_absorbed_and_pair_reconverges():
     assert final["state"] == "push" and final["ledger"]["exact"]
     assert live == 3
     assert pair_rules == [[]]  # one rule for the pair: its new verdict, drop
+
+
+# ---------------------------------------------------------------------------
+# the seed-dependent twins: probability schedules that must hold at any
+# seed. Each asserts JAX's invariant on the port and, where the serve
+# drives the sites in one order, that JAX's FaultPlan fed the port's hits
+# under the same seed and rules fires the same hits.
+# ---------------------------------------------------------------------------
+
+SEEDS = [SEED, SEED + 1, SEED + 2]
+
+
+class _Recorded(faults.FaultPlan):
+    """A FaultPlan that keeps its hits in the order they were drawn."""
+
+    def __init__(self, rules, seed):
+        super().__init__([faults.FaultRule(**r) for r in rules], seed)
+        self.rule_args = rules
+        self.sequence = []
+        self._order = threading.Lock()
+
+    def check(self, site):
+        with self._order:
+            self.sequence.append(site)
+            return super().check(site)
+
+
+def _fires_equal_jax(plan) -> None:
+    """JAX's FaultPlan under the same seed and rules, fed the port's hits
+    in the port's order, fires exactly the port's hits."""
+    jplan = jfaults.FaultPlan(
+        [jfaults.FaultRule(**r) for r in plan.rule_args], plan.seed)
+    for site in plan.sequence:
+        jplan.check(site)
+    assert jplan.fires == plan.fires and jplan.hits == plan.hits
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_degrade_dispatch_error_probabilistic_any_seed_always_renders(
+        tmp_path, seed):
+    """Probability-scheduled dispatch errors: whatever subset of device
+    calls fail, the serve never crashes and every render tick prints a
+    frame."""
+    import contextlib
+    import io
+
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint as tck
+
+    rng = np.random.RandomState(0)
+    ckpt = str(tmp_path / "gnb_ckpt")
+    tck.save_model(ckpt, "gnb", interop.gnb_params_from_numpy({
+        "theta": rng.gamma(2.0, 100.0, (2, 12)),
+        "var": rng.gamma(2.0, 50.0, (2, 12)) + 1.0,
+        "class_prior": np.full(2, 0.5),
+    }, "cpu"), classes=("ping", "voice"))
+    plan = _Recorded([dict(site="degrade.dispatch_error", p=0.5,
+                           times=None)], seed)
+    out = io.StringIO()
+    with faults.installed(plan), contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        cli.main([
+            "gaussiannb", "--native-checkpoint", ckpt,
+            "--source", "synthetic", "--synthetic-flows", "16",
+            "--capacity", "64", "--print-every", "2", "--max-ticks", "40",
+            "--idle-timeout", "0", "--table-rows", "8", "--pipeline", "off",
+            "--degrade", "auto", "--probe-every", "0.001",
+            "--probe-successes", "1", "--device", "cpu",
+        ])
+    assert out.getvalue().count("Flow ID") == 20
+    _fires_equal_jax(plan)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_drift_loop_probabilistic_any_seed_always_serves(tmp_path, seed):
+    """Probability-scheduled failures at all four drift seams: the loop
+    never raises into the serve path, every tick serves labels, and the
+    state machine stays on its documented states."""
+    from test_torch_drift import _controller, _drive, _teacher, _wait
+    from traffic_classifier_sdn_tpu_torch.serving import drift
+
+    gate = drift.DriftGate(_teacher)
+    ctl = _controller("port", tmp_path, gate, None)
+    valid = {drift.STEADY, drift.DRIFTING, drift.RETRAINING,
+             drift.CANDIDATE, drift.PROMOTED, drift.ROLLED_BACK}
+    plan = faults.FaultPlan([
+        faults.FaultRule("drift.window", p=0.2, times=None),
+        faults.FaultRule("retrain.fit", p=0.5, times=None),
+        faults.FaultRule("promote.swap", p=0.5, times=None),
+        faults.FaultRule("promote.rollback", p=0.5, times=None),
+    ], seed)
+    try:
+        with faults.installed(plan):
+            for i in range(1, 121):
+                labels = _drive("port", gate, ctl, i, shifted=i > 12)
+                assert labels.shape == (16,)
+                assert ctl.state in valid
+                if ctl.state == drift.RETRAINING:
+                    _wait("port", ctl)
+    finally:
+        ctl.close()
+    assert all(s in ("drift.window", "retrain.fit", "promote.swap",
+                     "promote.rollback") for s, _ in plan.fires)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_pipeline_handoff_probabilistic_any_seed_serve_survivable(seed):
+    """Probability-scheduled handoff failures: every fire surfaces as
+    FaultInjected at submit — never a hang, never a silent drop — and the
+    pipeline drains between fires."""
+    from traffic_classifier_sdn_tpu_torch.serving.pipeline import (
+        ServePipeline,
+    )
+
+    done = []
+    pipe = ServePipeline(done.append).start()
+    attempted = queued = 0
+    plan = _Recorded([dict(site="pipeline.handoff", p=0.3, times=None)],
+                     seed)
+    try:
+        with faults.installed(plan):
+            for i in range(20):
+                attempted += 1
+                try:
+                    if pipe.submit(i):
+                        queued += 1
+                except faults.FaultInjected:
+                    pass
+            assert pipe.drain(timeout=5)
+            coalesced = pipe.stats()["ticks_coalesced"]
+            assert queued + coalesced + len(plan.fires) == attempted
+    finally:
+        pipe.shutdown(drain=False)
+    assert len(done) == queued
+    _fires_equal_jax(plan)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_serve_dirty_mask_and_label_cache_probabilistic_any_seed(seed):
+    """Probability-scheduled fires at both incremental seams: every
+    tick's served labels equal a fresh full-table re-predict."""
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.models import module_predict
+    from traffic_classifier_sdn_tpu_torch.serving.incremental import (
+        IncrementalLabels,
+    )
+
+    rng = np.random.RandomState(0)
+    params = interop.gnb_params_from_numpy({
+        "theta": rng.gamma(2.0, 100.0, (3, 12)),
+        "var": rng.gamma(2.0, 50.0, (3, 12)) + 1.0,
+        "class_prior": np.full(3, 1 / 3),
+    }, "cpu")
+    full = _engine(64)
+    inc_eng = FlowStateEngine(64, device="cpu", track_dirty=True)
+    inc = IncrementalLabels(inc_eng, module_predict, params)
+    plan = _Recorded([dict(site="serve.dirty_mask", p=0.3, times=None),
+                      dict(site="serve.label_cache", p=0.3, times=None)],
+                     seed)
+    with faults.installed(plan):
+        for t in range(1, 13):
+            n = (5 * t) % 30
+            _drive(full, t, n)
+            _drive(inc_eng, t, n)
+            want = module_predict(params, full.features()).numpy()
+            got = np.asarray(inc.labels())
+            in_use = full.table.in_use.numpy()[:-1]
+            np.testing.assert_array_equal(want[in_use], got[in_use])
+    assert all(s in ("serve.dirty_mask", "serve.label_cache")
+               for s, _ in plan.fires)
+    _fires_equal_jax(plan)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fanin_put_probabilistic_accounting_any_seed(seed):
+    """Probability-scheduled enqueue failures: put never raises and every
+    record is accounted once — accepted + dropped == emitted, per
+    source."""
+    from traffic_classifier_sdn_tpu_torch.ingest import fanin
+
+    q = fanin.FanInQueue(max_records=1 << 20)
+    r = TelemetryRecord(time=1, datapath="1", in_port="1", eth_src="aa",
+                        eth_dst="bb", out_port="2", packets=1, bytes=10)
+    emitted = {0: 0, 1: 0, 2: 0}
+    plan = _Recorded([dict(site="ingest.fanin_put", times=None, p=0.3)],
+                     seed)
+    with faults.installed(plan):
+        for i in range(60):
+            sid = i % 3
+            q.put(sid, [r] * (1 + i % 4))
+            emitted[sid] += 1 + i % 4
+    drops, acc = q.drops(), q.accepted()
+    for sid in emitted:
+        assert acc.get(sid, 0) + drops.get(sid, 0) == emitted[sid]
+    assert sum(drops.values()) == sum(
+        1 + (hit - 1) % 4 for _, hit in plan.fires)
+    _fires_equal_jax(plan)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_native_parse_probabilistic_accounting_any_seed(seed):
+    """Probability-scheduled parse-seam fires: feeds never raise, and
+    parsed + skipped == emitted lines for every source, with an untouched
+    source reading zero errors."""
+    from traffic_classifier_sdn_tpu_torch.ingest.protocol import format_line
+    from traffic_classifier_sdn_tpu_torch.native import engine as native_engine
+
+    if not native_engine.available():
+        pytest.skip("C++ engine unavailable (no g++)")
+    nat = FlowStateEngine(256, device="cpu", native=True)
+    r = TelemetryRecord(time=1, datapath="1", in_port="1", eth_src="aa",
+                        eth_dst="bb", out_port="2", packets=1, bytes=10)
+    emitted = {1: 0, 2: 0}
+    plan = _Recorded([dict(site="ingest.native_parse", times=None,
+                           p=0.35)], seed)
+    with faults.installed(plan):
+        for i in range(40):
+            sid = 1 + i % 2
+            n_lines = 1 + i % 3
+            nat.ingest_bytes(format_line(r) * n_lines, source=sid)
+            emitted[sid] += n_lines
+    for sid in emitted:
+        parsed = nat.batcher.source_parsed(sid)
+        skipped = nat.parse_errors(sid)
+        assert parsed + skipped == emitted[sid], (sid, parsed, skipped)
+    assert nat.parse_errors(7) == 0
+    nat.step()
+    _fires_equal_jax(plan)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fanin_source_dead_probabilistic_survival_any_seed(seed):
+    """Probability-scheduled source deaths: whatever subset of the three
+    pumps dies, the serve side never sees an exception, every evicted
+    namespace belongs to a dead source, and live namespaces keep their
+    flows."""
+    import time
+
+    from test_torch_fanin import _drive as _fanin_drive
+    from test_torch_fanin import _synthetic_specs
+    from traffic_classifier_sdn_tpu_torch.ingest import fanin
+
+    tier = fanin.FanInIngest(_synthetic_specs(3, 3), quarantine_s=0.05)
+    eng = _engine(64)
+    gen = tier.ticks(tick_timeout=2.0)
+    evicted = {}
+    try:
+        with faults.installed(faults.FaultPlan(
+                [faults.FaultRule("ingest.source_dead", after=3,
+                                  times=None, p=0.15)], seed)):
+            deadline = time.monotonic() + 30.0
+            while time.monotonic() < deadline:
+                evicted.update(_fanin_drive(tier, eng, gen, 1))
+                if not tier.running:
+                    break
+            for sid in tier.take_evictions():
+                evicted[sid] = eng.evict_source(sid)
+    finally:
+        gen.close()
+    states = {r["id"]: r["state"] for r in tier.roster()}
+    clean = {r["id"]: r["clean"] for r in tier.roster()}
+    for sid in evicted:
+        assert states[sid] == "DEAD" and not clean[sid]
+        assert eng.index.slots_for_source(sid) == []
+    for sid, state in states.items():
+        if state != "DEAD" and eng.num_flows():
+            assert len(eng.index.slots_for_source(sid)) in (0, 3)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_obs_stamp_probabilistic_accounting_any_seed(seed):
+    """Probability-scheduled stamp failures: every batch is accounted once
+    — folded-stamped + counted-unstamped == batches delivered — and no
+    record is lost to the observability plane."""
+    from test_torch_fanin import _synthetic_specs
+    from traffic_classifier_sdn_tpu_torch.ingest import fanin
+    from traffic_classifier_sdn_tpu_torch.obs.latency import LatencyProvenance
+    from traffic_classifier_sdn_tpu_torch.utils.metrics import Metrics
+
+    tier = fanin.FanInIngest(_synthetic_specs(3, 2), quarantine_s=5.0,
+                             stamp=True)
+    eng = _engine(64)
+    m = Metrics()
+    lat = LatencyProvenance(metrics=m)
+    gen = tier.ticks(tick_timeout=5.0)
+    batches = records = 0
+    try:
+        with faults.installed(faults.FaultPlan(
+                [faults.FaultRule("obs.stamp", times=None, p=0.4)], seed)):
+            for _ in range(5):
+                batch = next(gen, None)
+                assert batch is not None
+                entries = tier.pop_provenance()
+                batches += len(entries)
+                lat.begin_tick(entries)
+                eng.mark_tick()
+                records += eng.ingest(batch)
+                lat.mark_parse()
+                eng.step()
+                lat.mark_scatter()
+                s = lat.seal()
+                lat.mark_device(s)
+                lat.render_visible(s)
+    finally:
+        gen.close()
+    assert records == 3 * 5 * 2 * 2
+    folded = m.histograms.get("e2e_emit_to_render_s")
+    folded_n = folded.count if folded is not None else 0
+    unstamped = int(m.counters.get("latency_unstamped_batches", 0))
+    assert folded_n + unstamped == batches == 15
+
+
+def _region_engine(incremental=True, capacity=64, table_rows=16):
+    """The port's sharded spine over eight shards of the CPU, serving a
+    three-class GNB."""
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.models import module_predict
+    from traffic_classifier_sdn_tpu_torch.parallel import mesh as meshlib
+    from traffic_classifier_sdn_tpu_torch.parallel import table_sharded
+
+    rng = np.random.RandomState(0)
+    params = interop.gnb_params_from_numpy({
+        "theta": rng.gamma(2.0, 100.0, (3, 12)),
+        "var": rng.gamma(2.0, 50.0, (3, 12)) + 1.0,
+        "class_prior": np.full(3, 1 / 3),
+    }, "cpu")
+    return table_sharded.ShardedFlowEngine(
+        meshlib.make_mesh(devices=["cpu"] * 8), capacity,
+        predict_fn=module_predict, params=params, table_rows=table_rows,
+        incremental=incremental,
+    )
+
+
+def _region_tier(n_sources, n_flows, quarantine_s):
+    from test_torch_fanin import _synthetic_specs
+    from traffic_classifier_sdn_tpu_torch.ingest import fanin
+
+    return fanin.FanInIngest(_synthetic_specs(n_sources, n_flows),
+                             quarantine_s=quarantine_s)
+
+
+def test_region_source_dead_sharded_blast_radius_one_namespace():
+    """``ingest.source_dead`` in one of three pumps feeding the sharded
+    spine: the dead namespace evicts from every shard it spans, the
+    survivors keep their slots across shards, and the ranked read serves
+    exactly them."""
+    import time
+
+    from test_torch_fanin import _drive as _fanin_drive
+
+    tier = _region_tier(3, 4, 0.1)
+    eng = _region_engine()
+    gen = tier.ticks(tick_timeout=5.0)
+    plan = faults.FaultPlan(
+        [faults.FaultRule("ingest.source_dead", after=7)], SEED)
+    try:
+        with faults.installed(plan):
+            _fanin_drive(tier, eng, gen, 2)
+            assert eng.num_flows() == 12
+            evicted = {}
+            deadline = time.monotonic() + 30.0
+            while not evicted and time.monotonic() < deadline:
+                evicted.update(_fanin_drive(tier, eng, gen, 1))
+        assert plan.fires, "the death rule never fired"
+        states = {r["id"]: r["state"] for r in tier.roster()}
+        dead = [sid for sid, s in states.items() if s == "DEAD"]
+        assert len(dead) == 1
+        assert evicted == {dead[0]: 4}
+        assert eng.index.slots_for_source(dead[0]) == []
+        survivor_slots = set()
+        for sid in set(states) - set(dead):
+            slots = eng.index.slots_for_source(sid)
+            assert len(slots) == 4
+            survivor_slots.update(slots)
+        assert len({g % eng.n_shards for g in survivor_slots}) > 1
+        rows, _ = eng.tick_render(now=eng.last_time, idle_seconds=None)
+        assert {s for s, *_ in rows} == survivor_slots
+    finally:
+        gen.close()
+
+
+def test_region_dirty_mask_fault_composed_spine_absorbed():
+    """``serve.dirty_mask`` on the composed spine (fan-in batches into the
+    sharded incremental table): that render degrades to the full
+    per-shard re-predict and equals a full-predict twin fed the same
+    lockstep traffic, then and after."""
+    from test_torch_fanin import _drive as _fanin_drive
+
+    tier_full, tier_inc = _region_tier(2, 6, 5.0), _region_tier(2, 6, 5.0)
+    full = _region_engine(incremental=False)
+    inc = _region_engine(incremental=True)
+    gen_full = tier_full.ticks(tick_timeout=5.0)
+    gen_inc = tier_inc.ticks(tick_timeout=5.0)
+    try:
+        _fanin_drive(tier_full, full, gen_full, 3)
+        _fanin_drive(tier_inc, inc, gen_inc, 3)
+        assert full.num_flows() == inc.num_flows() == 12
+        with faults.installed(faults.FaultPlan(
+                [faults.FaultRule("serve.dirty_mask")], SEED)) as plan:
+            rf, _ = full.tick_render(now=full.last_time, idle_seconds=3600)
+            ri, _ = inc.tick_render(now=inc.last_time, idle_seconds=3600)
+        assert rf == ri
+        assert plan.fires == [("serve.dirty_mask", 1)]
+        _fanin_drive(tier_full, full, gen_full, 2)
+        _fanin_drive(tier_inc, inc, gen_inc, 2)
+        rf, _ = full.tick_render(now=full.last_time, idle_seconds=3600)
+        ri, _ = inc.tick_render(now=inc.last_time, idle_seconds=3600)
+        assert rf == ri
+    finally:
+        gen_full.close()
+        gen_inc.close()
+
+
+def test_region_fanin_put_drop_never_tears_sharded_scatter():
+    """``ingest.fanin_put`` while pumps feed the sharded spine: a dropped
+    burst costs only its own source's telemetry, and every namespace
+    holds its whole population or none of it."""
+    from test_torch_fanin import _drive as _fanin_drive
+
+    tier = _region_tier(3, 4, 5.0)
+    eng = _region_engine()
+    gen = tier.ticks(tick_timeout=5.0)
+    try:
+        with faults.installed(faults.FaultPlan(
+                [faults.FaultRule("ingest.fanin_put", after=2, times=2)],
+                SEED)) as plan:
+            _fanin_drive(tier, eng, gen, 4)
+        assert plan.fires, "the drop rule never fired"
+        assert tier.queue.drops()
+        for r in tier.roster():
+            assert len(eng.index.slots_for_source(r["id"])) in (0, 4)
+        rows, _ = eng.tick_render(now=eng.last_time, idle_seconds=None)
+        assert {s for s, *_ in rows} <= {
+            g for r in tier.roster()
+            for g in eng.index.slots_for_source(r["id"])
+        }
+    finally:
+        gen.close()
+
+
+def _openset_rows(lo, hi, n=32, seed=0):
+    rng = np.random.RandomState(seed)
+    X = np.zeros((n, 12), np.float32)
+    X[: n // 2, 0] = lo * (1 + 0.01 * rng.rand(n // 2))
+    X[n // 2:, 0] = hi * (1 + 0.01 * rng.rand(n - n // 2))
+    X[:, 1] = 1.0
+    return X
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_openset_probabilistic_any_seed_never_fabricates_unknown(seed):
+    """Probability-scheduled fires at both open-set seams: the gate never
+    raises, and a tick whose scoring faulted equals the closed-world
+    predict — the inner labels served fresh, never a fabricated
+    ``unknown``."""
+    from traffic_classifier_sdn_tpu_torch.serving import openset
+
+    def teacher(params, X):
+        return (np.asarray(X)[:, 0] > 500.0).astype(np.int32)
+
+    gate = openset.OpenSetGate(teacher, n_classes=2, calibration_rows=64)
+    i = 0
+    while gate.state == openset.CALIBRATING:
+        i += 1
+        assert i < 64
+        gate(None, _openset_rows(10.0, 1000.0, seed=i))
+    rng = np.random.RandomState(77)
+    novel = np.zeros((16, 12), np.float32)
+    novel[:, 0] = 5e4 * (1 + 0.1 * rng.rand(16))
+    novel[:, 1] = 1.0
+    X = np.concatenate([_openset_rows(10.0, 1000.0, seed=77), novel])
+    closed = teacher(None, X)
+    plan = _Recorded([dict(site="openset.score", p=0.4, times=None),
+                      dict(site="openset.calibrate", p=0.4, times=None)],
+                     seed)
+    with faults.installed(plan):
+        for _ in range(20):
+            before = sum(s == "openset.score" for s, _ in plan.fires)
+            out = np.asarray(gate(None, X))
+            if sum(s == "openset.score" for s, _ in plan.fires) > before:
+                np.testing.assert_array_equal(out, closed)
+            else:
+                np.testing.assert_array_equal(out[:32], closed[:32])
+                assert (out[32:] == gate.unknown_index).all()
+    _fires_equal_jax(plan)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_actuation_probabilistic_any_seed_ledger_exact_never_raises(seed):
+    """Probability-scheduled fires at all three actuation wire seams:
+    observe() never raises, the rule ledger is exact at every tick, and
+    once the wire is quiet the re-probe reconverges the switch to exactly
+    the plane's installed census.
+
+    The plane's clock is virtual but its socket waits are real time: the
+    link here waits up to 5 s (JAX's test: 0.25 s, a barrier 4 x 0.25 s)
+    and the switch's census is awaited up to 30 s, so a loaded host only
+    slows the test. A fault fires before the socket call it stands for,
+    so the longer waits change no schedule."""
+    import io as _io
+    import time
+
+    act, pol, _fmod, sw_cls = _act_pkgs()["port"]
+    vclock = {"t": 0.0}
+    rng = np.random.RandomState(seed)
+    plan = _Recorded([dict(site=s, p=0.3, times=None) for s in (
+        "actuation.send", "actuation.barrier", "actuation.retract")], seed)
+    with sw_cls() as sw:
+        plane = act.ActuationPlane(
+            pol.parse_policy("video=queue:1,attack=drop",
+                             ("video", "attack", "bulk")),
+            mode="push", k_install=2, k_retract=2,
+            clock=lambda: vclock["t"],
+            link_factory=lambda: act.SwitchLink(sw.host, sw.port,
+                                                timeout=5.0),
+            backoff_base_s=1.0, out=_io.StringIO(),
+        )
+        try:
+            with faults.installed(plan):
+                for t in range(40):
+                    rows = [
+                        (0, _ACT_ROWS[0][1], _ACT_ROWS[0][2],
+                         "video" if (t // 3) % 2 else "attack"),
+                        _ACT_ROWS[1],
+                        (2, _ACT_ROWS[2][1], _ACT_ROWS[2][2],
+                         ["attack", "video", "bulk"][rng.randint(3)]),
+                    ]
+                    plane.observe(rows)
+                    assert plane.status()["ledger"]["exact"]
+                    vclock["t"] += 1.0
+            for _ in range(6):
+                vclock["t"] += 60.0
+                plane.observe([_ACT_ROWS[1]])
+            st = plane.status()
+            assert st["state"] == "push"
+            assert st["ledger"]["exact"]
+            assert st["orphan_pairs"] == 0
+            deadline = time.monotonic() + 30.0
+            while (len(sw.live_cookies()) != st["installed_rules"]
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            assert len(sw.live_cookies()) == st["installed_rules"]
+        finally:
+            plane.close()
+    _fires_equal_jax(plan)

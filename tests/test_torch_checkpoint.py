@@ -188,6 +188,7 @@ def test_interrupted_save_keeps_the_old_checkpoint_whole(tmp_path,
         ["manifest.json", manifest["arrays_dir"]])
 
 
+@pytest.mark.chaos
 def test_train_ckpt_write_fault_keeps_the_previous_checkpoint(tmp_path):
     """The ``train_ckpt.write`` site fires before the manifest's rename:
     the previous checkpoint still loads whole, and the next save succeeds

@@ -660,6 +660,34 @@ def test_obs_phase_runs_on_cpu(small_card_phases, monkeypatch, capsys):
     assert "/healthz 200 with rung DEGRADED" in out
 
 
+def test_doctor_phase_runs_on_cpu(capsys):
+    """``phase_doctor`` on the CPU at a small table: the doctor in its own
+    process passes, every check is printed on its own line, and the bundle
+    has JAX's six check ids in order."""
+    bundle = chip_smoke.phase_doctor(torch.device("cpu"), capacity=1024,
+                                     flows_per_tick=128)
+    assert [c["id"] for c in bundle["checks"]] == list(chip_smoke.DOCTOR_IDS)
+    assert bundle["verdict"] == "pass" and bundle["platform"] == "cpu"
+    out = capsys.readouterr().out
+    for cid in chip_smoke.DOCTOR_IDS:
+        assert f"[doctor] {cid}: " in out
+    assert "[doctor] hbm: skip" in out and "[doctor] verdict pass" in out
+
+
+def test_sanitize_phase_skips_every_cuda_phase_on_cpu(capsys):
+    """``phase_sanitize`` without a card: the four compute-sanitizer
+    phases and the kernel guards report ``skipped`` with the reason."""
+    summary = chip_smoke.phase_sanitize(torch.device("cpu"))
+    assert [(p["name"], p["status"], p["reason"])
+            for p in summary["phases"]] == [
+        (n, "skipped", "no CUDA device")
+        for n in ("memcheck", "racecheck", "initcheck", "synccheck",
+                  "kernel_guards")]
+    assert summary["ok"] is True
+    assert "[sanitize] memcheck: skipped (no CUDA device)" in \
+        capsys.readouterr().out
+
+
 def test_checkpoint_phase_runs_on_cpu(small_card_phases, monkeypatch,
                                       capsys):
     """``phase_checkpoint`` at 256 flows (and 512 for the large save):

@@ -133,6 +133,7 @@ def test_stamped_records_carry_the_read_time(capture):
     assert fresh.emit_ts is None
 
 
+@pytest.mark.chaos
 def test_torn_read_costs_lines_never_corrupts_them(tmp_path, capture):
     """``collector.read`` truncating the first chunk: both packages'
     collectors count the lost lines and poison the seam, so every line
@@ -213,6 +214,7 @@ def _ladder(mod, fmod, deaths: int, fail_spawn: bool):
     return log, sup.terminal_reason
 
 
+@pytest.mark.chaos
 @pytest.mark.parametrize("deaths, fail_spawn", [(1, False), (2, True),
                                                 (4, False)])
 def test_backoff_ladder_matches_jax(deaths, fail_spawn):
@@ -224,6 +226,7 @@ def test_backoff_ladder_matches_jax(deaths, fail_spawn):
         assert port[1] == "restart-budget"
 
 
+@pytest.mark.chaos
 def test_supervisor_restarts_a_monitor_that_died_mid_line(tmp_path, capture):
     """The first incarnation dies halfway into a line; the supervisor
     drains it, adds the ``\\x00\\n`` seam, restarts after the backoff, and

@@ -484,6 +484,7 @@ def test_probe_from_broken_needs_no_parity_reference(impl):
         lad.close()
 
 
+@pytest.mark.chaos
 @pytest.mark.parametrize("site", ["degrade.dispatch_error",
                                   "degrade.dispatch_stall"])
 def test_fault_sites_demote_like_jax(site):
@@ -712,6 +713,7 @@ def _checkpoints(tmp_path, sub):
     return capture, jdir, tdir
 
 
+@pytest.mark.chaos
 @pytest.mark.parametrize("pipeline", ["off", "auto"])
 @pytest.mark.parametrize("sub", FAMILIES)
 def test_armed_dispatch_error_demotes_and_repromotes_like_jax(

@@ -207,10 +207,15 @@ def test_perf_ring_last_segment_reconciles_with_latency_plane(
     assert len(samples) == 12  # one per tick, every segment committed
     assert samples == [s for s in jperf.replay(str(obs / "perf"))
                        if "stage_tick_s" in s]
-    ring_p50 = float(np.median([s["stage_tick_s"] for s in samples]))
+    # the plane's p50 is the nearest rank of its samples (utils/metrics),
+    # the ring's samples are the same ticks rounded to the microsecond: the
+    # same rank of the ring equals it. (np.median averages the 6th and 7th
+    # of 12 ticks, which a loaded host pulls more than 10 % apart.)
+    ticks = sorted(s["stage_tick_s"] for s in samples)
+    ring_p50 = ticks[int(round(0.5 * (len(ticks) - 1)))]
     plane_p50 = global_metrics.snapshot()["stage_tick_s_p50"]
     assert ring_p50 > 0 and plane_p50 > 0
-    assert abs(ring_p50 - plane_p50) <= 0.10 * plane_p50
+    assert ring_p50 == round(plane_p50, 6)
     # the keys JAX's serve writes, the compile counters at 0
     assert samples[-1]["jit_compiles"] == 0
     assert samples[-1]["retraces_after_warmup"] == 0
@@ -345,6 +350,7 @@ def test_profiler_capture_writes_a_trace_and_guards_concurrency(tmp_path):
     assert int(m.counters["profiler_captures"]) == 1
 
 
+@pytest.mark.chaos
 def test_profiler_fault_500s_counts_and_next_capture_succeeds(tmp_path):
     m = Metrics()
     prof = ProfilerCapture(str(tmp_path / "profile"), metrics=m, device="cpu")

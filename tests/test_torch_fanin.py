@@ -152,6 +152,7 @@ def test_raw_queue_bound_purge_and_provenance():
     assert q.take() == []
 
 
+@pytest.mark.chaos
 def test_fanin_put_fault_drops_against_its_own_source():
     """Fault site ``ingest.fanin_put``: a fire drops the incoming batch,
     counted against its source only; the next put of the other source
@@ -334,6 +335,7 @@ def test_restart_within_quarantine_cancels_eviction():
         gen.close()
 
 
+@pytest.mark.chaos
 def test_source_dead_fault_quarantines_and_evicts():
     """Fault site ``ingest.source_dead``: source 1's pump dies on its third
     emission; the tier quarantines it and evicts its namespace while

@@ -8,10 +8,13 @@ blocker installed for those names (this test process already has JAX
 loaded; the two ``__main__`` modules, which run an entry point when
 imported, run instead under the blocker as ``python -m`` does); a
 source scan of the port, ``chip_smoke.py``,
-``tools/torch_fake_switch.py`` and ``tools/torch_fleet_serve.py`` finds no
-such import statement, and no
+``tools/torch_fake_switch.py``, ``tools/torch_fleet_serve.py``,
+``tools/torch_doctor.py``, ``tools/torch_sanitize_kernels.py`` and
+``tools/torch_profile_gate.py`` finds no such import statement, and no
 string outside a docstring that names the JAX package (the way a path
-into its tree would be spelled); in a fresh interpreter that records
+into its tree would be spelled); the Python programs inside
+``tools/torch_*.sh`` import none of it and the scripts name no module or
+path of it; in a fresh interpreter that records
 every ``ctypes.CDLL`` load and every process started, a build of the
 native engine and a native-ingest serve touch no path under that tree;
 and a spawned port controller, blocker installed, serves a fake switch's
@@ -20,6 +23,7 @@ telemetry.
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -58,11 +62,15 @@ print(" ".join(names))
 
 FAKE_SWITCH = ROOT / "tools" / "torch_fake_switch.py"
 FLEET_SERVE = ROOT / "tools" / "torch_fleet_serve.py"
+DOCTOR = ROOT / "tools" / "torch_doctor.py"
+SANITIZE_KERNELS = ROOT / "tools" / "torch_sanitize_kernels.py"
+PROFILE_GATE = ROOT / "tools" / "torch_profile_gate.py"
+TOOLS = [FAKE_SWITCH, FLEET_SERVE, DOCTOR, SANITIZE_KERNELS, PROFILE_GATE]
+SHELL_TOOLS = sorted((ROOT / "tools").glob("torch_*.sh"))
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", FAKE_SWITCH,
-                                         FLEET_SERVE]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", *TOOLS]
 
 
 def test_port_imports_with_jax_blocked():
@@ -119,6 +127,42 @@ def test_source_has_no_blocked_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def _shell_python(path: pathlib.Path) -> list[str]:
+    """The Python programs a shell tool runs: each ``python - <<'EOF'``
+    here-document and each ``python -c '...'`` argument."""
+    text = path.read_text()
+    docs = re.findall(r"python - [^\n]*<<'EOF'\n(.*?)^EOF$", text, re.M | re.S)
+    inline = re.findall(r"python -c '([^']*)'", text)
+    return docs + inline
+
+
+def test_shell_tools_are_found():
+    assert {p.name for p in SHELL_TOOLS} >= {
+        "torch_chaos_matrix.sh", "torch_lint.sh", "torch_native_sanitize.sh"}
+    assert len(_shell_python(ROOT / "tools" / "torch_native_sanitize.sh")) >= 3
+
+
+@pytest.mark.parametrize("path", SHELL_TOOLS,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_shell_tool_python_imports_nothing_of_jax(path):
+    """The Python inside ``tools/torch_*.sh`` imports nothing of JAX or
+    of the JAX package, and the scripts start no module of that package
+    (``python -m traffic_classifier_sdn_tpu...``) and build nothing from
+    its tree."""
+    for i, src in enumerate(_shell_python(path)):
+        names = []
+        for node in ast.walk(ast.parse(src, f"{path.name}#{i}")):
+            if isinstance(node, ast.Import):
+                names += [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names.append(node.module or "")
+        bad = [n for n in names
+               if any(n == b or n.startswith(b + ".") for b in BLOCKED)]
+        assert not bad, f"{path.name} program {i} imports {bad}"
+    text = path.read_text().replace(PORT.name, "")
+    assert "traffic_classifier_sdn_tpu" not in text, path.name
+
+
 def _code_strings(path: pathlib.Path) -> list[str]:
     """The string constants of a source that are not docstrings."""
     tree = ast.parse(path.read_text(), str(path))
@@ -138,7 +182,7 @@ def _code_strings(path: pathlib.Path) -> list[str]:
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [FAKE_SWITCH, FLEET_SERVE],
+    "path", sorted(PORT.rglob("*.py")) + TOOLS,
     ids=lambda p: str(p.relative_to(ROOT))
 )
 def test_source_names_no_path_into_the_jax_package(path):

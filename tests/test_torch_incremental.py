@@ -233,6 +233,7 @@ def test_label_cache_equals_full_predict(native):
     assert inc.status()["subset_predicts"] == 5
 
 
+@pytest.mark.chaos
 @pytest.mark.parametrize("site", ["serve.dirty_mask", "serve.label_cache"])
 def test_faults_are_absorbed_with_fresh_labels(site):
     """A fire serves that tick from a direct full predict (never a stale

@@ -249,7 +249,7 @@ def test_svc_and_forest_menus(monkeypatch):
     every TPU layout name → the forest kernel module, native → a
     ``host_native`` C++ walk (labels equal), anything else raises. The
     degrade ladder's rung ignores both: it is the kernel path's plain
-    version."""
+    version (SVC's with its loops in C++, the same labels)."""
     import chip_smoke
     from traffic_classifier_sdn_tpu_torch.models import svc
     from traffic_classifier_sdn_tpu_torch.native import forest as nforest
@@ -268,7 +268,7 @@ def test_svc_and_forest_menus(monkeypatch):
     fn, p = tmodels._build_serving_path("svc", sp)
     assert fn is svc.serve_predict_dot and p is sp
     np.testing.assert_array_equal(fn(p, X).numpy(), sp.predict_dot(X).numpy())
-    assert tmodels.resolve_fallback("svc", sp).kind == "plain-cpu"
+    assert tmodels.resolve_fallback("svc", sp).kind == "native-svc"
     np.testing.assert_array_equal(
         tmodels.resolve_fallback("svc", sp).predict(X.numpy()),
         rbf_kernel.predict(rbf_kernel.compile_svc(sp), X).numpy())

@@ -469,6 +469,7 @@ def _fault_plans(site: str, seed: int):
     )
 
 
+@pytest.mark.chaos
 def test_parse_fault_with_pending_tail_never_tears_framing():
     """An ``ingest.native_parse`` fire while a partial line is carried
     turns the boundary line malformed; both native spines (each under its
@@ -496,6 +497,7 @@ def test_parse_fault_with_pending_tail_never_tears_framing():
         np.testing.assert_array_equal(v, t_jax[k], err_msg=k)
 
 
+@pytest.mark.chaos
 def test_parse_fault_on_newline_less_fragment_keeps_framing():
     l0 = format_line(TelemetryRecord(1, "1", "1", "aa", "bb", "2", 5, 100))
     l1 = format_line(TelemetryRecord(1, "1", "1", "cc", "dd", "2", 7, 700))
@@ -513,6 +515,7 @@ def test_parse_fault_on_newline_less_fragment_keeps_framing():
         assert list(e.slot_metadata().values()) == [("cc", "dd")]
 
 
+@pytest.mark.chaos
 def test_native_load_fault_is_absorbed_uncached():
     plan = faults.FaultPlan([faults.FaultRule("native.load", times=1)])
     with faults.installed(plan):

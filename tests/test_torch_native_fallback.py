@@ -9,10 +9,10 @@ Tolerances, stated:
 - native forest labels and probabilities, native KNN labels and votes,
   ``top_active_flags``: bitwise (the same C++ on the same bytes; the same
   ranking), non-finite rows included;
-- the SVC host rung (the port's plain torch version on the CPU) against
-  the JAX eager-CPU rung: decisions within 1e-5 of the largest
-  coefficient sum (tests/test_torch_svc.py), labels equal on every row
-  whose smallest |D| exceeds that.
+- the SVC host rung (the port's plain version on the CPU, its loops in
+  ``native/svc_eval.cpp``) against the JAX eager-CPU rung: decisions
+  within 1e-5 of the largest coefficient sum (tests/test_torch_svc.py),
+  labels equal on every row whose smallest |D| exceeds that.
 """
 
 import jax.numpy as jnp
@@ -128,7 +128,7 @@ def _families(X):
 
 @pytest.mark.parametrize("family,kind", [("forest", "native-forest"),
                                          ("knn", "native-knn"),
-                                         ("svc", "plain-cpu")])
+                                         ("svc", "native-svc")])
 def test_resolve_fallback_matches_jax(served, family, kind):
     """Each family's host rung has the JAX kind's counterpart and gives
     the JAX rung's labels (SVC: on rows clear of the decision rounding),
@@ -161,7 +161,7 @@ def test_resolve_fallback_matches_jax(served, family, kind):
 def test_without_gpp_forest_and_knn_fall_back_to_the_plain_version(
         served, monkeypatch, family):
     """Where the native evaluators cannot be built, forest and KNN take the
-    plain torch version on the CPU, as SVC always does."""
+    plain torch version on the CPU (SVC: tests/test_torch_native_svc.py)."""
     X = served[0]
     d, carry, jmod = _families(X)[family]
     params = carry(d if family == "forest" else jmod.from_numpy(d),

@@ -312,6 +312,7 @@ def test_cli_serve_exposes_obs_plane_during_replay(served, capsys):
     assert set(dumps) == {*flight, *device, "perf"}
 
 
+@pytest.mark.chaos
 def test_sigterm_and_sigusr1_dump_the_flight_recorder(served, capsys):
     """SIGUSR1 mid-serve dumps the ring and a metrics snapshot and the
     serve goes on; SIGTERM then ends it with exit status 143, a dump whose

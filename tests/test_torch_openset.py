@@ -273,6 +273,7 @@ def test_capture_is_opt_in_and_carries_the_relabels():
     assert t.take_capture() is None
 
 
+@pytest.mark.chaos
 @pytest.mark.parametrize("site", ["openset.score", "openset.calibrate"])
 def test_fault_sites_are_absorbed(site):
     """``openset.score``: the tick serves the inner labels fresh;

@@ -165,6 +165,7 @@ class _Read:
         self.log.append(("commit", self.name))
 
 
+@pytest.mark.chaos
 def test_coalesced_render_still_commits_in_order():
     """A render superseded in the handoff prints nothing, but its label
     commit runs before the render that replaced it; the fault sites sit

@@ -62,6 +62,16 @@ def _untimed(card):
             for e in card["transitions"]]
 
 
+def _jax_reference(name):
+    """JAX's scorecard of the timeline, from its second run in this
+    process. Its first run compiles programs inside the timeline: beside
+    a loaded CPU those compiles took e2e p99 to 1.6-3.0 s against the
+    2.5 s gate of ``device_wedge_degrade``, where a warm run takes
+    0.01-0.05 s."""
+    jrun(jbuild(name, "t1"))
+    return jrun(jbuild(name, "t1"))
+
+
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
 def test_scenario_passes_and_deterministic_gates_equal_jax(name):
     card = run_scenario(build(name, "t1"), device="cpu")
@@ -70,7 +80,7 @@ def test_scenario_passes_and_deterministic_gates_equal_jax(name):
     assert card["ticks_run"] > 0
     json.dumps(card)
     assert card["device"]["platform"] == "cpu"
-    want = jrun(jbuild(name, "t1"))
+    want = _jax_reference(name)
     assert want["passed"]
     assert [(g["id"], g["passed"]) for g in card["gates"]] == [
         (g["id"], g["passed"]) for g in want["gates"]]

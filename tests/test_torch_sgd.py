@@ -150,6 +150,7 @@ def test_manifest_fields_and_restore(tmp_path):
             params=(state.params[0],)))
 
 
+@pytest.mark.chaos
 def test_train_state_write_fault_keeps_the_previous_step(tmp_path):
     """A save that fails at its commit (``train_ckpt.write``) leaves the
     previous state whole: the restore gives the earlier step's leaves."""

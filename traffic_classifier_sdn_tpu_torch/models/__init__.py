@@ -322,7 +322,10 @@ def resolve_fallback(name: str, params) -> ServingFallback | None:
 
     - forest / knn: the native C++ host evaluators of this package
       (native/forest_eval.cpp, native/knn_eval.cpp);
-    - svc, logreg, gnb, kmeans, and forest / knn where g++ cannot build
+    - svc: the SVC kernel's plain version on the CPU with its distance and
+      decision loops in C++ (native/svc_eval.cpp), the plain version's
+      bits, each loop one call that leaves the GIL to the host stage;
+    - logreg, gnb, kmeans, and forest / knn / svc where g++ cannot build
       those: the family's plain torch version on the CPU, with the params
       copied to the CPU once here, so a sick card is never entered again.
       For a kernel family it is the kernel module's CPU path: the KNN and
@@ -368,6 +371,12 @@ def resolve_fallback(name: str, params) -> ServingFallback | None:
     predict, operands = _kernel_serving_path(
         name, copy.deepcopy(params).to("cpu")
     )
+    if name == "svc":
+        from ..native import svc as native_svc
+
+        if native_svc.available():
+            ns = native_svc.NativeSvc(operands)
+            return ServingFallback(ns.predict, "native-svc", scores=ns.scores)
     scores = {"forest": forest_kernel.forest_proba, "knn": knn_kernel.scores,
               "svc": rbf_kernel.scores}.get(name, lambda p, X: p.scores(X))
 
