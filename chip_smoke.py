@@ -215,6 +215,21 @@ the script exits non-zero:
    kernel's (SVC: off near-ties), each shard's kernel timed beside its
    plain version and bound; a kernel fault in a sharded serve ends it,
    and ``--shards 2`` on one card is refused;
+6q. multihost — the mesh spanning processes (``parallel/mesh.py``
+   ``init_distributed``, gloo): the script's CUDA cache emptied, then two
+   ranks of ``tests/torch_multihost_worker.py`` on the one card, two
+   shards each, a ``file://`` rendezvous: JAX's four multi-host checks at
+   full width — the logreg predict batch-sharded over 65,536 rows, the
+   row count summed across the processes, the KNN of 4,448 corpus rows
+   (k = 5) over 4 state shards on 65,536 queries (the torch local stage
+   and ``fused_predict``, the KNN kernel once per owned shard) and the
+   sharded table of 6p's 65,536-flow capture for 4 ticks (native ingest,
+   incremental labels, the forest installed as its predict: the forest
+   kernel once per owned shard a tick). Each rank holds its results to
+   its single-device references, and the script holds every rank's
+   results bitwise to its own one-process 4-shard mesh on the same
+   inputs; the rendezvous seconds, each rank's host ms per tick and the
+   bytes and ms it exchanged per tick are printed;
 7. breakdown — host seconds per tick of 131,072 records into 65,536 flows
    through the Python spine, the native spine from records and the
    native spine from raw bytes (each with ``step()`` and a device sync),
@@ -5161,6 +5176,146 @@ def phase_shards(models: dict, ops: dict, device) -> tuple[dict, dict]:
                    "knn": knn, "svc": svc}
 
 
+MULTIHOST_RANKS = 2
+MULTIHOST_SHARDS = 2  # per rank: SHARD_MESH in all
+MULTIHOST_TIMEOUT_S = 300.0  # the longest wait for the ranks to exit
+MULTIHOST_PEER_TIMEOUT_S = 120.0  # a rank's wait for a lost peer
+
+
+def multihost_worker():
+    """``tests/torch_multihost_worker.py`` of this checkout, as a module:
+    the ranks' program, whose ``run_checks`` the script also runs on its
+    own one-process mesh."""
+    import importlib.util
+
+    path = os.path.join(HERE, "tests", "torch_multihost_worker.py")
+    spec = importlib.util.spec_from_file_location("torch_multihost_worker",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_ranks(cmds: list, timeout: float) -> list:
+    """Start every rank, wait at most ``timeout`` s in all, and return each
+    one's ``(returncode, stdout, stderr)``; every rank still running on the
+    way out is killed."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env,
+                              cwd=HERE) for c in cmds]
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def phase_multihost(models: dict, device) -> tuple[dict, dict]:
+    """JAX's multi-host checks over two ranks on the one card (module
+    docstring, 6q). Returns ({path: {family: launches}}, {"ranks": each
+    rank's numbers})."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch.core import flow_table as ft
+    from traffic_classifier_sdn_tpu_torch.parallel import mesh as meshlib
+
+    tag = "[multihost]"
+    t_phase = time.perf_counter()
+    if device.type == "cuda":
+        # the earlier phases' cached blocks stay with this process
+        torch.cuda.empty_cache()
+    worker = multihost_worker()
+    n_shards = MULTIHOST_RANKS * MULTIHOST_SHARDS
+    X = ft.features12(synthetic_table(CAPACITY, 3, device)).cpu().numpy()
+    ticks = shard_capture(CAPACITY)
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "inputs")
+        worker.save_inputs(inputs, X, models["logreg"], models["knn"],
+                           models["forest"], ticks, CAPACITY, 64)
+        cmds = [[sys.executable, worker.__file__,
+                 f"file://{os.path.join(tmp, 'rendezvous')}", str(i),
+                 str(MULTIHOST_RANKS), "--device", device.type,
+                 "--shards-per-rank", str(MULTIHOST_SHARDS),
+                 "--inputs", inputs, "--out",
+                 os.path.join(tmp, f"rank{i}.npz"),
+                 "--timeout", str(MULTIHOST_PEER_TIMEOUT_S)]
+                for i in range(MULTIHOST_RANKS)]
+        t0 = time.perf_counter()
+        outs = run_ranks(cmds, MULTIHOST_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        for i, (rc, out, err) in enumerate(outs):
+            if rc != 0 or f"MULTIHOST OK pid={i} devices={n_shards}" \
+                    not in out:
+                raise AssertionError(f"{tag} rank {i} exit {rc}:\n{out}\n"
+                                     f"{err[-4000:]}")
+        got = []
+        for i in range(MULTIHOST_RANKS):
+            with np.load(os.path.join(tmp, f"rank{i}.npz")) as z:
+                got.append(({k: z[k] for k in z.files if k != "meta"},
+                            json.loads(z["meta"].item())))
+        inp = worker.load_inputs(inputs)
+    devs = [device] * n_shards
+    dmesh = meshlib.make_mesh(n_data=n_shards, n_state=1, devices=devs)
+    smesh = meshlib.make_mesh(n_data=1, n_state=n_shards, devices=devs)
+    want, _ = worker.run_checks(inp, dmesh, smesh, device)
+    for i, (res, _) in enumerate(got):
+        if sorted(res) != sorted(want):
+            raise AssertionError(f"{tag} rank {i} results {sorted(res)}")
+        for key, a in want.items():
+            if res[key].dtype != a.dtype or not np.array_equal(res[key], a):
+                raise AssertionError(f"{tag} rank {i}: {key} differs from "
+                                     "the one-process mesh's")
+    n_ticks = len(ticks)
+    on_card = device.type == "cuda"
+    launches = {"forest": 0, "knn": 0}
+    for i, (_, meta) in enumerate(got):
+        # the CPU's wrappers run their plain versions and count nothing
+        want_n = {"forest": MULTIHOST_SHARDS * n_ticks * on_card,
+                  "knn": MULTIHOST_SHARDS * on_card}
+        if meta["launches"] != want_n:
+            raise AssertionError(f"{tag} rank {i} launches "
+                                 f"{meta['launches']}, want {want_n}")
+        for f in launches:
+            launches[f] += meta["launches"][f]
+    ranks = [{
+        "pid": meta["pid"], "local_shards": meta["local_shards"],
+        "rendezvous_s": meta["rendezvous_s"], "launches": meta["launches"],
+        "host_ms_per_tick": meta["host_ms"],
+        "exchange_bytes_per_tick": meta["exchange_bytes"],
+        "exchange_ms_per_tick": meta["exchange_ms"],
+    } for _, meta in got]
+    flows = int(want["num_flows"])
+    rendered = int(want["render_counts"].sum())
+    for r in ranks:
+        print(f"{tag} rank {r['pid']} (shards {r['local_shards']}): "
+              f"rendezvous {r['rendezvous_s']:.3f} s; launches "
+              f"{r['launches']}; host ms per tick "
+              + ", ".join(f"{x:.2f}" for x in r["host_ms_per_tick"])
+              + "; exchanged bytes per tick "
+              + ", ".join(str(x) for x in r["exchange_bytes_per_tick"])
+              + " in ms " + ", ".join(f"{x:.2f}"
+                                      for x in r["exchange_ms_per_tick"]))
+    print(f"{tag} {MULTIHOST_RANKS} ranks x {MULTIHOST_SHARDS} shards on "
+          f"{device.type}: logreg labels of {X.shape[0]} rows, the row count "
+          f"{int(want['row_count'])}, KNN labels of {X.shape[0]} queries "
+          f"(torch and kernel local stages) and {rendered} render rows over "
+          f"{n_ticks} ticks of {flows} flows bitwise the one-process "
+          f"{n_shards}-shard mesh's on every rank; ranks {ranks_s:.1f} s, "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    return ({"multihost 2 ranks": {**launches, "svc": 0}},
+            {"ranks": ranks, "ranks_s": ranks_s})
+
+
 TRAIN_TICKS = 3  # collection ticks of the train phase's capture
 TRAIN_ROWS = 1483  # rows per class of its retrain CSVs: 8,898 in all
 RETRAIN_TOLERANCE = 0.02  # card against CPU held-out accuracy
@@ -5417,7 +5572,8 @@ def kernel_entries(results: dict, launches: dict, paths: dict | None = None,
                    buckets: list | None = None, menus: dict | None = None,
                    promoted: dict | None = None,
                    shards: dict | None = None,
-                   trained: dict | None = None) -> list[dict]:
+                   trained: dict | None = None,
+                   multihost: dict | None = None) -> list[dict]:
     """The ``{"kernels": [...]}`` entries: each kernel's numbers at the
     main path's 65,536 rows, its launches in the serve, every size under
     ``by_rows``, its launches on each path driven (``paths``: {path:
@@ -5430,7 +5586,8 @@ def kernel_entries(results: dict, launches: dict, paths: dict | None = None,
     (``phase_shards``); under ``retrained``, the kernel on the model the
     ``retrain`` subcommand fit, and for the forest under
     ``reference_pickle`` on the reference-shaped sklearn pickle
-    (``phase_train``)."""
+    (``phase_train``); under ``multihost``, for the forest and KNN, each
+    rank's launches and exchanges (``phase_multihost``)."""
     kernels = []
     for family, (name, source, replaces) in KERNEL_ROWS.items():
         by_rows = results[family]
@@ -5446,6 +5603,10 @@ def kernel_entries(results: dict, launches: dict, paths: dict | None = None,
             extra["promoted"] = promoted
         if shards and family in shards:
             extra["shards"] = shards[family]
+        if multihost and family in ("forest", "knn"):
+            extra["multihost"] = [
+                {**r, "launches": r["launches"][family]}
+                for r in multihost["ranks"]]
         if trained:
             extra["retrained"] = trained[f"retrained {family}"]
             if family == "forest":
@@ -5811,6 +5972,9 @@ def main() -> int:
     shard_paths, shards = phase_shards(models, ops, device)
     paths.update(shard_paths)
     mark("shards")
+    multihost_paths, multihost = phase_multihost(models, device)
+    paths.update(multihost_paths)
+    mark("multihost")
     phase_ingest_breakdown(ops["forest"], device)
     mark("breakdown")
     train_paths, trained = phase_train(device)
@@ -5823,7 +5987,7 @@ def main() -> int:
     phase_sanitize(device)
     mark("sanitize")
     kernels = kernel_entries(results, launches, paths, buckets, menus,
-                             promoted, shards, trained)
+                             promoted, shards, trained, multihost)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "
           "seconds by phase: " + ", ".join(
               f"{name} {b - a:.1f}"

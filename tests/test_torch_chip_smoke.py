@@ -660,6 +660,23 @@ def test_obs_phase_runs_on_cpu(small_card_phases, monkeypatch, capsys):
     assert "/healthz 200 with rung DEGRADED" in out
 
 
+def test_multihost_phase_runs_on_cpu(small_card_phases, capsys):
+    """``phase_multihost`` at 256 flows with the small forest and KNN: two
+    gloo ranks of two shards on the CPU pass their single-device checks,
+    and each rank's results are bitwise the script's one-process 4-shard
+    mesh's; the CPU's wrappers launch nothing."""
+    models, _ = small_card_phases
+    paths, numbers = chip_smoke.phase_multihost(models, torch.device("cpu"))
+    assert paths == {"multihost 2 ranks": {"forest": 0, "knn": 0, "svc": 0}}
+    ranks = numbers["ranks"]
+    assert [r["local_shards"] for r in ranks] == [[0, 1], [2, 3]]
+    for r in ranks:
+        assert len(r["host_ms_per_tick"]) == chip_smoke.SHARD_TICKS
+        assert all(b > 0 for b in r["exchange_bytes_per_tick"])
+    out = capsys.readouterr().out
+    assert "bitwise the one-process 4-shard mesh's on every rank" in out
+
+
 def test_doctor_phase_runs_on_cpu(capsys):
     """``phase_doctor`` on the CPU at a small table: the doctor in its own
     process passes, every check is printed on its own line, and the bundle

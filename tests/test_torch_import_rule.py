@@ -67,10 +67,13 @@ SANITIZE_KERNELS = ROOT / "tools" / "torch_sanitize_kernels.py"
 PROFILE_GATE = ROOT / "tools" / "torch_profile_gate.py"
 TOOLS = [FAKE_SWITCH, FLEET_SERVE, DOCTOR, SANITIZE_KERNELS, PROFILE_GATE]
 SHELL_TOOLS = sorted((ROOT / "tools").glob("torch_*.sh"))
+# the rank program chip_smoke.py spawns on the card
+MULTIHOST_WORKER = ROOT / "tests" / "torch_multihost_worker.py"
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", *TOOLS]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", *TOOLS,
+                                         MULTIHOST_WORKER]
 
 
 def test_port_imports_with_jax_blocked():

@@ -4,11 +4,19 @@ serve's device-stage predicts vary with no capture to explain it.
 
 Two measurements, each in processes of their own:
 
-* ``--iso N``: N fresh processes with no serve threads. Each times, on
-  the host clock, 300 forest predicts of 65,536 rows (kernel, argmax,
-  copy of the labels to the host) and 20 runs of 1,000 one-element
-  launches: before a 1 s ``torch.profiler`` capture with CUDA activity
-  (``utils/profiling.trace``), right after it, and ten seconds later.
+* ``--iso N``: N fresh processes with no serve threads for each of
+  ``--variants``. Each times, on the host clock, 300 forest predicts of
+  65,536 rows (kernel, argmax, copy of the labels to the host) and 20
+  runs of 1,000 one-element launches: before a 1 s ``torch.profiler``
+  capture with CUDA activity (``utils/profiling.trace``), right after
+  it, and ten seconds later, and counts the process's threads before and
+  after. A variant changes the capture (``utils/profiling.trace``
+  throughout): ``none``; ``cpu-only`` (no CUDA activity, so no CUPTI);
+  ``teardown`` and ``keep-cupti`` (the process started with
+  ``TEARDOWN_CUPTI=1`` or ``0``: kineto tears CUPTI down after the
+  trace, or keeps it subscribed); ``twice`` and ``teardown-twice`` (two
+  captures back to back). Each capture prints whether its trace names
+  the forest kernel.
 * ``--serves N``: N runs of ``chip_smoke.profiled_serves`` (a forest
   serve of 65,536 flows in a process of its own, one perf-ring segment a
   tick, ``/profile?seconds=1`` after its warm predicts). Each prints the
@@ -49,7 +57,18 @@ def _forest(cs, dev):
     return cs.random_forest(cs.SEED, sample.cpu().numpy()), X
 
 
-def iso_child() -> None:
+VARIANT_ENV = {"teardown": {"TEARDOWN_CUPTI": "1"},
+               "teardown-twice": {"TEARDOWN_CUPTI": "1"},
+               "keep-cupti": {"TEARDOWN_CUPTI": "0"}}
+VARIANTS = ("none", "cpu-only", "teardown", "keep-cupti", "twice",
+            "teardown-twice")
+
+
+def _threads() -> int:
+    return len(os.listdir("/proc/self/task"))
+
+
+def iso_child(variant: str = "none") -> None:
     """One process: predicts and launches before and after a capture."""
     import torch
 
@@ -83,17 +102,28 @@ def iso_child() -> None:
             torch.cuda.synchronize()
         pm, lm = statistics.median(p) * 1e3, statistics.median(launch) * 1e6
         print(f"  {tag}: predict p50 {pm:.4f} ms (min {min(p) * 1e3:.4f}), "
-              f"launch {lm:.3f} us", flush=True)
+              f"launch {lm:.3f} us (min {min(launch) * 1e6:.3f})",
+              flush=True)
         return pm, lm
 
     before = measure("before")
+    threads = _threads()
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
-        with profiling.trace(d, dev):
-            end = time.perf_counter() + 1.0
-            while time.perf_counter() < end:
-                predict()
-        print(f"  capture {time.perf_counter() - t0:.2f} s", flush=True)
+        named = []
+        for _ in range(2 if variant.endswith("twice") else 1):
+            with profiling.trace(d, None if variant == "cpu-only" else dev):
+                end = time.perf_counter() + 1.0
+                while time.perf_counter() < end:
+                    predict()
+            trace = max((os.path.join(d, f) for f in os.listdir(d)),
+                        key=os.path.getmtime)
+            with open(trace) as f:
+                named.append("forest_proba" in f.read())
+            os.remove(trace)
+        print(f"  capture {time.perf_counter() - t0:.2f} s ({variant}); "
+              f"threads {threads} -> {_threads()}; the kernel in each "
+              f"trace: {named}", flush=True)
     after = measure("after")
     time.sleep(10)
     later = measure("after+10s")
@@ -156,8 +186,10 @@ def main(argv=None) -> int:
                     help="fresh processes timing around a capture")
     ap.add_argument("--serves", type=int, default=2,
                     help="profiled serves read around their capture")
-    ap.add_argument("--iso-child", action="store_true",
-                    help=argparse.SUPPRESS)
+    ap.add_argument("--variants", default="none",
+                    help="comma-separated variants of the --iso capture: "
+                    + ", ".join(VARIANTS))
+    ap.add_argument("--iso-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
 
@@ -167,19 +199,25 @@ def main(argv=None) -> int:
     import chip_smoke as cs
 
     if args.iso_child:
-        iso_child()  # loads the kernels the parent built
+        iso_child(args.iso_child)  # loads the kernels the parent built
         return 0
+    variants = args.variants.split(",")
+    unknown = set(variants) - set(VARIANTS)
+    if unknown:
+        ap.error(f"unknown variants {sorted(unknown)}")
     cs.phase_environment()
     cs.INSTANCES.update(cs.phase_build())
     for i in range(args.iso):
-        print(f"ISO {i}", flush=True)
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--iso-child"], cwd=ROOT, capture_output=True,
-                           text=True, timeout=600)
-        print(r.stdout.rstrip(), flush=True)
-        if r.returncode:
-            print(r.stderr[-3000:], file=sys.stderr)
-            return 1
+        for v in variants:
+            print(f"ISO {i} {v}", flush=True)
+            r = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--iso-child", v],
+                cwd=ROOT, capture_output=True, text=True, timeout=600,
+                env={**os.environ, **VARIANT_ENV.get(v, {})})
+            print(r.stdout.rstrip(), flush=True)
+            if r.returncode:
+                print(r.stderr[-3000:], file=sys.stderr)
+                return 1
     serves(args.serves)
     return 0
 

@@ -9,7 +9,8 @@ in no hand-written kernel); the (N, C) per-shard sums are added in shard
 order on the first shard's device — JAX's ``psum`` — and divided by the
 real tree count. The sum order differs from one device's, so the
 ensemble mean agrees with it to ``atol=1e-5`` (ROADMAP Queue 3 item 6),
-not bitwise.
+not bitwise. One process only: a mesh spanning processes is refused
+(ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from ..models.forest import ForestModel
 from ..ops import tree_eval, tree_gemm
-from .mesh import STATE_AXIS
+from .mesh import STATE_AXIS, require_one_process
 
 
 def pad_trees(d: dict, n_shards: int) -> dict:
@@ -56,6 +57,8 @@ def sharded_proba(mesh, params: ForestModel,
                   n_real_trees: int | None = None):
     """``fn(X) -> (N, C)`` ensemble-mean class probabilities, each shard's
     trees walked by the gather traversal."""
+    require_one_process(mesh, "the tree-sharded forest (ROADMAP Queue 1 "
+                              "item 12)")
     devs = mesh.axis_devices(STATE_AXIS)
     D = len(devs)
     T = params.left.shape[0]
@@ -103,6 +106,8 @@ def gemm_sharded_proba(mesh, d: dict, n_features: int | None = None,
     leaf values pre-divided by the REAL tree count — then each shard takes
     its block of T/D trees. ``d`` is the node-array dict (``pad_trees``
     output)."""
+    require_one_process(mesh, "the tree-sharded forest (ROADMAP Queue 1 "
+                              "item 12)")
     devs = mesh.axis_devices(STATE_AXIS)
     D_mesh = len(devs)
     T = d["left"].shape[0]

@@ -22,6 +22,12 @@ local stage to the port's CUDA KNN kernel (ops/knn_kernel.py): one launch
 per corpus shard, on the JAX layout — ``per`` rows a shard, rounded up to
 whole 512-row chunks, padding only at the tail with +inf half norms, so a
 shard may hold nothing but padding.
+
+On a mesh spanning processes (``mesh.init_distributed``) each rank scores
+only the corpus shards it owns; the ``all_gather`` merge trades the
+(N, k) candidates of every shard through ``mesh.exchange`` and each rank
+votes the same global top-k. ``ring`` and ``tournament`` run in one
+process only (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from torch import nn
 
 from ..models import knn
 from ..ops import knn_kernel
-from .mesh import STATE_AXIS, to_device
+from .mesh import STATE_AXIS, exchange, to_device
 
 
 def pad_corpus(d: dict, n_shards: int) -> dict:
@@ -206,12 +212,33 @@ def _tournament_merge(held: list, k: int, packable: bool, devices) -> list:
     return held
 
 
-def _finish(merge: str, vals, labs, gidxs, k: int, n_classes: int,
-            packable: bool, devices) -> torch.Tensor:
-    """The merge schedule over the shards' local top-k: (N,) int32 labels
-    of shard 0's result (every shard holds the same)."""
+def _check_merge(mesh, merge: str) -> None:
+    if merge not in ("all_gather", "ring", "tournament"):
+        raise ValueError(f"unknown merge {merge!r}")
+    if merge != "all_gather" and mesh.spans_processes:
+        raise NotImplementedError(
+            f"the {merge} merge runs in one process only (ROADMAP Queue 1 "
+            "item 11); use merge='all_gather' on a mesh spanning processes")
+    if merge == "tournament":
+        _require_pow2_state(mesh.shape[STATE_AXIS])
+
+
+def _finish(mesh, merge: str, vals, labs, gidxs, k: int, n_classes: int,
+            packable: bool) -> torch.Tensor:
+    """The merge schedule over the shards' local top-k (``vals``,
+    ``labs``, ``gidxs``: one entry per shard, None in another rank's):
+    (N,) int32 labels of the first local shard's result (every shard
+    holds the same)."""
+    devices = mesh.axis_devices(STATE_AXIS)
+    local = mesh.local_shards(STATE_AXIS)
     if merge == "all_gather":
-        return _gather_merge_vote(vals, labs, k, n_classes, devices[0])
+        if mesh.spans_processes:
+            hosts = exchange(mesh, STATE_AXIS, [
+                None if v is None else (v.cpu().numpy(), lab.cpu().numpy())
+                for v, lab in zip(vals, labs)])
+            vals = [torch.from_numpy(h[0]) for h in hosts]
+            labs = [torch.from_numpy(h[1]) for h in hosts]
+        return _gather_merge_vote(vals, labs, k, n_classes, devices[local[0]])
     if len(vals) == 1:
         return _vote(labs[0], n_classes)
     held = [_make_held(v, lab, g, n_classes, packable)
@@ -227,6 +254,7 @@ def _build(mesh, params: knn.KnnModel, pad_mask, merge: str):
     """The torch local stage: the corpus split into contiguous state-axis
     blocks, each shard's (N, S/D) similarity and top-k on its device, then
     the ``merge`` schedule."""
+    _check_merge(mesh, merge)
     _check_real_rows(params, pad_mask)
     devs = mesh.axis_devices(STATE_AXIS)
     D = len(devs)
@@ -237,24 +265,25 @@ def _build(mesh, params: knn.KnnModel, pad_mask, merge: str):
     per = S // D
     k, n_classes = params.n_neighbors, params.n_classes
     half = _mask_half_norms(params, pad_mask)
-    shards = [
-        (params.fit_X[s * per: (s + 1) * per].to(dev),
-         params.fit_y[s * per: (s + 1) * per].to(dev),
-         half[s * per: (s + 1) * per].to(dev))
-        for s, dev in enumerate(devs)
-    ]
+    local = mesh.local_shards(STATE_AXIS)
+    shards = {
+        s: (params.fit_X[s * per: (s + 1) * per].to(devs[s]),
+            params.fit_y[s * per: (s + 1) * per].to(devs[s]),
+            half[s * per: (s + 1) * per].to(devs[s]))
+        for s in local
+    }
     packable = _packable(S, n_classes)
 
     def fn(X: torch.Tensor) -> torch.Tensor:
-        vals, labs, gidxs = [], [], []
-        for s, (fit_X, fit_y, h) in enumerate(shards):
+        vals, labs, gidxs = [None] * D, [None] * D, [None] * D
+        for s, (fit_X, fit_y, h) in shards.items():
             Xs = X.to(devs[s])
             val, idx = knn.topk_stable(knn.dot_expansion_sim(Xs, fit_X, h), k)
-            vals.append(val)
-            labs.append(fit_y[idx.long()].to(torch.int32))
-            gidxs.append(idx + s * per)
-        return _finish(merge, vals, labs, gidxs, k, n_classes, packable,
-                       devs).to(X.device)
+            vals[s] = val
+            labs[s] = fit_y[idx.long()].to(torch.int32)
+            gidxs[s] = idx + s * per
+        return _finish(mesh, merge, vals, labs, gidxs, k, n_classes,
+                       packable).to(X.device)
 
     return fn
 
@@ -273,7 +302,6 @@ def ring_predict(mesh, params: knn.KnnModel, pad_mask=None):
 def tournament_predict(mesh, params: knn.KnnModel, pad_mask=None):
     """The recursive-doubling merge (power-of-two state axis), exactly
     the other merges' labels; ``fn(X) -> (N,) int32``."""
-    _require_pow2_state(mesh.shape[STATE_AXIS])
     return _build(mesh, params, pad_mask, "tournament")
 
 
@@ -321,30 +349,33 @@ def fused_predict(mesh, params: knn.KnnModel, pad_mask=None, *,
     equal to the torch local stage's and the un-sharded predict's.
 
     Returns ``fn(X) -> (N,) int32``; ``fn.operands`` holds each shard's
-    kernel operands (on its device) and ``fn.per`` the rows per shard."""
+    kernel operands (on its device; None in another rank's shards) and
+    ``fn.per`` the rows per shard. On a mesh spanning processes the kernel
+    launches once per shard this rank owns."""
     n_classes = params.n_classes
     k = params.n_neighbors
     devs = mesh.axis_devices(STATE_AXIS)
     D = len(devs)
-    if merge not in ("all_gather", "ring", "tournament"):
-        raise ValueError(f"unknown merge {merge!r}")
-    if merge == "tournament":
-        _require_pow2_state(D)
+    _check_merge(mesh, merge)
     per, layout = fused_layout(params, pad_mask, D, corpus_chunk)
-    operands = [to_device(g, dev) for g, dev in zip(layout, devs)]
+    local = set(mesh.local_shards(STATE_AXIS))
+    operands = [to_device(g, dev) if s in local else None
+                for s, (g, dev) in enumerate(zip(layout, devs))]
     # packability of gidx·C+lab against the PADDED corpus: gidx runs up to
     # per·D
     packable = _packable(per * D, n_classes)
 
     def fn(X: torch.Tensor) -> torch.Tensor:
-        vals, labs, gidxs = [], [], []
+        vals, labs, gidxs = [None] * D, [None] * D, [None] * D
         for s, g in enumerate(operands):
+            if g is None:
+                continue
             val, idx = knn_kernel.topk_sim_idx(g, X.to(devs[s]))
-            vals.append(val)
-            labs.append(g.fit_y[idx.long()].to(torch.int32))
-            gidxs.append(idx + s * per)
-        return _finish(merge, vals, labs, gidxs, k, n_classes, packable,
-                       devs).to(X.device)
+            vals[s] = val
+            labs[s] = g.fit_y[idx.long()].to(torch.int32)
+            gidxs[s] = idx + s * per
+        return _finish(mesh, merge, vals, labs, gidxs, k, n_classes,
+                       packable).to(X.device)
 
     fn.operands = operands
     fn.per = per

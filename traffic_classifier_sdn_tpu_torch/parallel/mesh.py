@@ -16,15 +16,31 @@ program. Two axes, as in JAX:
 
 ``make_mesh`` accepts a device list that repeats one device: N shards on
 one CPU or on one card, the port's counterpart of the JAX tests'
-``--xla_force_host_platform_device_count=8``. Multi-host bring-up
-(``init_distributed``) is not ported.
+``--xla_force_host_platform_device_count=8``.
+
+Multi-host (JAX's ``jax.distributed``): ``init_distributed`` joins this
+process to a ``torch.distributed`` group (gloo, whose collectives move
+host tensors) as one rank of several. ``make_mesh`` with no device list
+then builds the GLOBAL mesh, every rank's ``local_devices()`` in rank
+order (JAX's ``jax.devices()``), and records the rank that owns each slot
+(``Mesh.owners``). A shard's tensors exist only on its owner: the
+per-shard lists hold ``None`` in the other ranks' slots. Every rank runs
+the same host program (SPMD), computes its own shards and trades host
+copies of their outputs through ``exchange``, which returns every shard's
+in shard order, never in rank-arrival order; so each rank's results are
+bitwise those of the one-process mesh with the same shard count.
+``shard_sum`` (the ``psum``) goes through it. The exchanges are
+collectives: every rank must make the same ones in the same order, from
+one thread.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import datetime
 import os
+import time
 
 import numpy as np
 import torch
@@ -36,26 +52,70 @@ DATA_AXIS = "data"
 STATE_AXIS = "state"
 
 
+# the seconds a rank waits for the rendezvous or a peer's collective
+# before it raises: a lost peer ends the program, never hangs it
+DEFAULT_TIMEOUT_S = 60.0
+
+# this rank's device kind, set by init_distributed (None: the default)
+_LOCAL_KIND: dict = {"device": None}
+
+# what the exchanges of this process moved: calls, bytes of the arrays
+# sent and received, seconds inside the collective
+EXCHANGE_STATS = {"calls": 0, "bytes_sent": 0, "bytes_received": 0,
+                  "seconds": 0.0}
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """``devices``: an (n_data, n_state) object array of ``torch.device``;
-    ``shape[DATA_AXIS]`` and ``shape[STATE_AXIS]`` are its two sizes."""
+    ``shape[DATA_AXIS]`` and ``shape[STATE_AXIS]`` are its two sizes.
+    ``owners``: None when this process owns every slot, else the
+    (n_data, n_state) rank of each slot's process (a mesh spanning a
+    process group)."""
 
     devices: np.ndarray
+    owners: np.ndarray | None = None
 
     @property
     def shape(self) -> dict:
         n_data, n_state = self.devices.shape
         return {DATA_AXIS: n_data, STATE_AXIS: n_state}
 
+    @property
+    def spans_processes(self) -> bool:
+        return self.owners is not None
+
+    def _axis(self, grid: np.ndarray, axis: str) -> list:
+        if axis == DATA_AXIS:
+            return list(grid[:, 0])
+        if axis == STATE_AXIS:
+            return list(grid[0, :])
+        raise ValueError(f"unknown mesh axis {axis!r}")
+
     def axis_devices(self, axis: str) -> list[torch.device]:
         """The devices along ``axis``, in shard order (the first row or
-        column: the other axis's replicas hold the same shards)."""
-        if axis == DATA_AXIS:
-            return list(self.devices[:, 0])
-        if axis == STATE_AXIS:
-            return list(self.devices[0, :])
-        raise ValueError(f"unknown mesh axis {axis!r}")
+        column: the other axis's replicas hold the same shards). On a mesh
+        spanning processes a slot of another rank names that rank's
+        device: nothing is placed there from this process."""
+        return self._axis(self.devices, axis)
+
+    def local_shards(self, axis: str) -> list[int]:
+        """The shard indices along ``axis`` this process owns, ascending:
+        every one of them unless the mesh spans processes."""
+        n = len(self.axis_devices(axis))
+        if self.owners is None:
+            return list(range(n))
+        me = process_index()
+        return [s for s, r in enumerate(self._axis(self.owners, axis))
+                if int(r) == me]
+
+
+def require_one_process(mesh: Mesh, what: str) -> None:
+    """Refuse a mesh spanning processes for a path that runs in one
+    process only (``what`` names it and the ROADMAP item it waits on)."""
+    if mesh.spans_processes:
+        raise NotImplementedError(
+            f"{what} does not run on a mesh spanning processes")
 
 
 def visible_devices(device=None) -> list[torch.device]:
@@ -74,16 +134,73 @@ def visible_devices(device=None) -> list[torch.device]:
     return [d for d in devs for _ in range(max(1, k))]
 
 
-def make_mesh(n_data: int | None = None, n_state: int = 1,
-              devices=None) -> Mesh:
-    """A (data, state) mesh over ``devices`` (default: every visible CUDA
-    device), all on the data axis unless ``n_data`` says otherwise. A
-    device may appear more than once."""
-    devs = list(devices) if devices is not None else visible_devices()
-    if n_data is None:
-        n_data = len(devs) // n_state
-    if n_data * n_state != len(devs):
-        raise ValueError(f"mesh {n_data}x{n_state} != {len(devs)} devices")
+def _distributed():
+    """``torch.distributed`` when this process is a rank of a group, else
+    None."""
+    import torch.distributed as dist
+
+    return dist if dist.is_available() and dist.is_initialized() else None
+
+
+def init_distributed(coordinator: str | None = None, *,
+                     coordinator_address: str | None = None,
+                     num_processes: int, process_id: int,
+                     init_method: str | None = None,
+                     initialization_timeout: float = DEFAULT_TIMEOUT_S,
+                     device=None) -> None:
+    """Multi-host bring-up with JAX's keyword names: join this process to
+    a gloo group as rank ``process_id`` of ``num_processes``. A
+    ``"host:port"`` coordinator becomes ``tcp://host:port``; an
+    ``init_method`` (for example ``file:///path``), or a coordinator
+    already in URL form, is passed through. The timeout is finite, so a
+    lost peer raises. ``device`` is the kind of this rank's devices
+    (default: the card; ``"cpu"`` for the tests), which ``local_devices``
+    and a global ``make_mesh`` list."""
+    import torch.distributed as dist
+
+    coordinator = coordinator or coordinator_address
+    if init_method is None:
+        if coordinator is None:
+            raise ValueError("init_distributed needs a coordinator or an "
+                             "init_method")
+        init_method = (coordinator if "://" in coordinator
+                       else f"tcp://{coordinator}")
+    elif coordinator is not None:
+        raise ValueError("pass a coordinator or an init_method, not both")
+    dist.init_process_group(
+        backend="gloo", init_method=init_method,
+        world_size=int(num_processes), rank=int(process_id),
+        timeout=datetime.timedelta(seconds=float(initialization_timeout)))
+    _LOCAL_KIND["device"] = device
+
+
+def shutdown_distributed() -> None:
+    """Leave the group (no-op outside one)."""
+    dist = _distributed()
+    if dist is not None:
+        dist.destroy_process_group()
+    _LOCAL_KIND["device"] = None
+
+
+def process_index() -> int:
+    """This process's rank (0 outside a group)."""
+    dist = _distributed()
+    return dist.get_rank() if dist is not None else 0
+
+
+def process_count() -> int:
+    """The ranks of the group (1 outside one)."""
+    dist = _distributed()
+    return dist.get_world_size() if dist is not None else 1
+
+
+def local_devices() -> list[torch.device]:
+    """This process's devices: ``visible_devices`` of the kind
+    ``init_distributed`` was given (JAX's ``jax.local_devices()``)."""
+    return visible_devices(_LOCAL_KIND["device"])
+
+
+def _grid(devs: list) -> np.ndarray:
     grid = np.empty(len(devs), dtype=object)
     for i, d in enumerate(devs):
         d = torch.device(d)
@@ -92,7 +209,64 @@ def make_mesh(n_data: int | None = None, n_state: int = 1,
             # "cuda" and "cuda:<current>" are one device
             d = torch.device("cuda", torch.cuda.current_device())
         grid[i] = d
-    return Mesh(grid.reshape(n_data, n_state))
+    return grid
+
+
+def make_mesh(n_data: int | None = None, n_state: int = 1,
+              devices=None) -> Mesh:
+    """A (data, state) mesh over ``devices`` (default: every visible CUDA
+    device), all on the data axis unless ``n_data`` says otherwise. A
+    device may appear more than once. In a process group and with no
+    ``devices``, the global mesh: every rank's ``local_devices()`` in rank
+    order, each slot owned by its rank; a device list always makes a mesh
+    of this process alone."""
+    owners = None
+    dist = _distributed() if devices is None else None
+    if dist is not None:
+        local = [str(d) for d in _grid(local_devices())]
+        per_rank: list = [None] * dist.get_world_size()
+        dist.all_gather_object(per_rank, local)
+        devs = [d for devs in per_rank for d in devs]
+        owners = np.asarray([r for r, devs in enumerate(per_rank)
+                             for _ in devs], dtype=np.int64)
+    else:
+        devs = list(devices) if devices is not None else visible_devices()
+    if n_data is None:
+        n_data = len(devs) // n_state
+    if n_data * n_state != len(devs):
+        raise ValueError(f"mesh {n_data}x{n_state} != {len(devs)} devices")
+    grid = _grid(devs).reshape(n_data, n_state)
+    if owners is None:
+        return Mesh(grid)
+    return Mesh(grid, owners.reshape(n_data, n_state))
+
+
+def exchange(mesh: Mesh, axis: str, parts: list) -> list:
+    """Every shard's host arrays, in shard order, from this rank's:
+    ``parts`` holds one entry per shard along ``axis`` — a tuple of numpy
+    arrays for each shard this process owns, anything (None) for the
+    others — and the result fills the others' entries with what their
+    owners sent. One gloo ``all_gather_object`` of {shard: arrays}; the
+    identity when the mesh does not span processes."""
+    if not mesh.spans_processes:
+        return list(parts)
+    dist = _distributed()
+    mine = {s: tuple(parts[s]) for s in mesh.local_shards(axis)}
+    got: list = [None] * dist.get_world_size()
+    t0 = time.perf_counter()
+    dist.all_gather_object(got, mine)
+    EXCHANGE_STATS["seconds"] += time.perf_counter() - t0
+    EXCHANGE_STATS["calls"] += 1
+    out = list(parts)
+    for rank, theirs in enumerate(got):
+        nbytes = sum(a.nbytes for arrays in theirs.values() for a in arrays)
+        if rank == dist.get_rank():
+            EXCHANGE_STATS["bytes_sent"] += nbytes
+            continue
+        EXCHANGE_STATS["bytes_received"] += nbytes
+        for s, arrays in theirs.items():
+            out[s] = arrays
+    return out
 
 
 def to_device(obj, device: torch.device):
@@ -128,20 +302,32 @@ def to_device(obj, device: torch.device):
 
 def replicated(mesh: Mesh, obj, axis: str = DATA_AXIS) -> list:
     """``obj`` on every device along ``axis``: one entry per shard, one
-    copy per distinct device."""
+    copy per distinct device (None in another rank's slots)."""
     copies: dict = {}
-    out = []
-    for dev in mesh.axis_devices(axis):
+    out: list = [None] * len(mesh.axis_devices(axis))
+    for s in mesh.local_shards(axis):
+        dev = mesh.axis_devices(axis)[s]
         if dev not in copies:
             copies[dev] = to_device(obj, dev)
-        out.append(copies[dev])
+        out[s] = copies[dev]
     return out
 
 
-def shard_sum(parts: list) -> torch.Tensor:
+def shard_sum(parts: list, mesh: Mesh | None = None,
+              axis: str = DATA_AXIS) -> torch.Tensor:
     """Per-shard partial sums added in shard order on the first shard's
     device: the port's ``psum`` (a fixed order, so a sum over the same
-    shards rounds the same way on every run)."""
+    shards rounds the same way on every run). On a ``mesh`` spanning
+    processes, ``parts`` holds this rank's shards along ``axis`` (None in
+    the others'); every shard's part comes through ``exchange`` and each
+    rank adds them all, in shard order, on its first shard's device."""
+    if mesh is not None and mesh.spans_processes:
+        local = mesh.local_shards(axis)
+        dev = parts[local[0]].device
+        hosts = exchange(mesh, axis, [
+            None if p is None else (p.detach().cpu().numpy(),)
+            for p in parts])
+        parts = [torch.from_numpy(h[0]).to(dev) for h in hosts]
     total = parts[0]
     for p in parts[1:]:
         total = total + p.to(total.device)
@@ -154,12 +340,15 @@ def _split_rows(mesh: Mesh, X: torch.Tensor, axis: str) -> list:
     if X.shape[0] % n:
         raise ValueError(f"{X.shape[0]} rows do not split over {n} shards")
     per = X.shape[0] // n
-    return [X[s * per: (s + 1) * per].to(dev) for s, dev in enumerate(devs)]
+    out: list = [None] * n
+    for s in mesh.local_shards(axis):
+        out[s] = X[s * per: (s + 1) * per].to(devs[s])
+    return out
 
 
 def batch_sharded(mesh: Mesh, X: torch.Tensor) -> list:
     """Rows of an (N, …) batch split over the data axis, one contiguous
-    block per shard on its device."""
+    block per shard on its device (None in another rank's slots)."""
     return _split_rows(mesh, X, DATA_AXIS)
 
 

@@ -16,7 +16,8 @@ The f32 sum over support vectors runs in another order than one
 device's, so decision values agree with the un-sharded ones to the
 tolerance ``tests/test_torch_svc.py`` states (1e-5 of the largest
 coefficient sum), and labels exactly wherever the smallest |decision|
-exceeds it.
+exceeds it. One process only: a mesh spanning processes is refused
+(ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 
 from ..models import svc
 from ..ops import rbf_kernel
-from .mesh import STATE_AXIS, to_device
+from .mesh import STATE_AXIS, require_one_process, to_device
 
 
 def pad_support(d: dict, n_shards: int) -> dict:
@@ -70,6 +71,8 @@ def sharded_decision(mesh, params: svc.SvcModel):
     """``fn(X, X_lo=None) -> (labels, (N, P) decisions)`` with the torch
     local stage: contiguous SV blocks, each shard's two-float distances,
     kernel values and partial decision on its device."""
+    require_one_process(mesh, "the SV-sharded SVC (ROADMAP Queue 1 "
+                              "item 12)")
     devs = mesh.axis_devices(STATE_AXIS)
     D = len(devs)
     S = params.sv_hi.shape[0]
@@ -156,6 +159,8 @@ def fused_decision(mesh, params: svc.SvcModel, *, sv_chunk: int = 512):
     its SV block; the partials are summed in shard order and the
     intercept added once. ``fn.operands`` holds each shard's kernel
     operands (on its device) and ``fn.per`` the SVs per shard."""
+    require_one_process(mesh, "the SV-sharded SVC (ROADMAP Queue 1 "
+                              "item 12)")
     devs = mesh.axis_devices(STATE_AXIS)
     per, layout = fused_layout(params, len(devs), sv_chunk)
     operands = [to_device(g, dev) for g, dev in zip(layout, devs)]

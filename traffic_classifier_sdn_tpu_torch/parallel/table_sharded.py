@@ -18,6 +18,16 @@ so a tick's read side crosses to the host in one copy per device, not one
 per shard and output.
 
 Global slot g lives on shard g % n_shards at local row g // n_shards.
+
+On a mesh spanning processes (``mesh.init_distributed``) the engine runs
+in JAX's SPMD host pattern: every rank ingests the same records and keeps
+the same host spine (index, routing, eviction choices), but holds only
+the tables of the shards it owns, so the per-shard lists hold ``None`` in
+the other ranks' slots and every device step, clear and eviction touches
+local shards alone. ``Gathered.host()`` fills the other shards' outputs
+through ``mesh.exchange``, so the render merge gives the same rows on
+every rank. Such an engine is driven serially (``tick_render``), one
+collective at a time, never from the pipelined serve.
 """
 
 from __future__ import annotations
@@ -28,7 +38,7 @@ import torch
 from ..core import flow_table as ft
 from ..ingest.batcher import DEFAULT_BUCKETS, HostSpine, bucket_size
 from ..serving.pipeline import Fence
-from .mesh import DATA_AXIS, replicated
+from .mesh import DATA_AXIS, exchange, replicated
 
 
 def _n_shards(mesh) -> int:
@@ -40,29 +50,42 @@ def shard_devices(mesh) -> list[torch.device]:
     return mesh.axis_devices(DATA_AXIS)
 
 
-def make_sharded_table(mesh, capacity_total: int) -> list[ft.FlowTable]:
-    """One empty ``(capacity_total / n_shards)``-row table per shard, each
-    on its shard's device."""
+def make_sharded_table(mesh, capacity_total: int) -> list:
+    """One empty ``(capacity_total / n_shards)``-row table per shard this
+    process owns, each on its shard's device (None in another rank's
+    slots)."""
     n = _n_shards(mesh)
     if capacity_total % n:
         raise ValueError(f"capacity {capacity_total} not divisible by {n}")
-    return [ft.make_table(capacity_total // n, dev)
-            for dev in shard_devices(mesh)]
+    devs = shard_devices(mesh)
+    out: list = [None] * n
+    for s in mesh.local_shards(DATA_AXIS):
+        out[s] = ft.make_table(capacity_total // n, devs[s])
+    return out
 
 
-def _placed(devices, arr: np.ndarray) -> list[torch.Tensor]:
-    """A host (n_shards, …) array as per-shard tensors on the shards'
-    devices: one host-to-device copy per distinct device. uint32 arrays
-    cross as int32 bit patterns (``flow_table.wire_tensor``)."""
+def _placed(mesh, arr: np.ndarray) -> list:
+    """A host (n_shards, …) array as per-shard tensors on the devices of
+    the shards this process owns (None in another rank's slots): one
+    host-to-device copy of the owned rows per distinct device. uint32
+    arrays cross as int32 bit patterns (``flow_table.wire_tensor``)."""
     if arr.dtype == np.uint32:
         arr = arr.view(np.int32)
+    devices = shard_devices(mesh)
+    local = mesh.local_shards(DATA_AXIS)
+    # the row of arr holding each local shard's entry
+    row = {s: s for s in local}
+    if mesh.spans_processes:
+        arr = arr[local]
+        row = {s: j for j, s in enumerate(local)}
     whole: dict = {}
-    out = []
-    for s, dev in enumerate(devices):
+    out: list = [None] * len(devices)
+    for s in local:
+        dev = devices[s]
         if dev not in whole:
             whole[dev] = torch.from_numpy(np.ascontiguousarray(arr)).to(
                 dev, non_blocking=True)
-        out.append(whole[dev][s])
+        out[s] = whole[dev][row[s]]
     return out
 
 
@@ -74,15 +97,18 @@ class Gathered:
     host side of JAX's ``all_gather``. With ``fenced``, each buffer carries
     a ``Fence``, so a pipelined device stage may finish the gather on a
     stream of its own; without, ``host()`` copies on the caller's
-    stream."""
+    stream. Given a ``mesh`` spanning processes, ``host()`` then fills the
+    other ranks' shards through ``mesh.exchange``."""
 
-    __slots__ = ("_bufs", "_layout", "_n")
+    __slots__ = ("_bufs", "_layout", "_n", "_mesh")
 
-    def __init__(self, per_shard: list[tuple], fenced: bool = False):
+    def __init__(self, per_shard: list, fenced: bool = False, mesh=None):
         """``per_shard``: each shard's outputs, a tuple of tensors of the
-        same shapes on every shard, in shard order."""
+        same shapes on every shard, in shard order (None for a shard of
+        another rank of ``mesh``)."""
         self._n = len(per_shard)
-        first = per_shard[0]
+        self._mesh = mesh
+        first = next(outs for outs in per_shard if outs is not None)
         # (shape, numpy dtype) of each output; every shard's agree
         self._layout = [
             (tuple(t.shape), torch.empty(0, dtype=t.dtype).numpy().dtype)
@@ -90,7 +116,8 @@ class Gathered:
         ]
         groups: dict = {}
         for s, outs in enumerate(per_shard):
-            groups.setdefault(outs[0].device, []).append((s, outs))
+            if outs is not None:
+                groups.setdefault(outs[0].device, []).append((s, outs))
         self._bufs = []
         for dev, members in groups.items():
             parts = [t.contiguous().reshape(-1).view(torch.uint8)
@@ -116,6 +143,15 @@ class Gathered:
                     stacked[j][s] = raw[off: off + nbytes].view(dtype).reshape(
                         shape)
                     off += nbytes
+        if self._mesh is not None and self._mesh.spans_processes:
+            local = set(self._mesh.local_shards(DATA_AXIS))
+            every = exchange(self._mesh, DATA_AXIS, [
+                tuple(a[s] for a in stacked) if s in local else None
+                for s in range(self._n)])
+            for s in range(self._n):
+                if s not in local:
+                    for j, a in enumerate(every[s]):
+                        stacked[j][s] = a
         return tuple(stacked)
 
 
@@ -123,11 +159,10 @@ def make_apply(mesh):
     """``(tables, wire) -> tables``: per-shard ``apply_wire``. ``wire`` is
     the host (n_shards, B, ncols) uint32 chunk of ``_route_chunks`` (ncols
     4 compact or 6 full, ``flow_table.pack_wire``)."""
-    devices = shard_devices(mesh)
-
     def apply(tables, wire):
-        w = _placed(devices, wire)
-        return [ft.apply_wire(t, w[s]) for s, t in enumerate(tables)]
+        w = _placed(mesh, wire)
+        return [None if t is None else ft.apply_wire(t, w[s])
+                for s, t in enumerate(tables)]
 
     return apply
 
@@ -135,11 +170,10 @@ def make_apply(mesh):
 def make_apply_dirty(mesh):
     """``make_apply`` fused with the per-slot dirty-bit scatter
     (incremental serving): ``(tables, dirty, wire) -> (tables, dirty)``."""
-    devices = shard_devices(mesh)
-
     def apply(tables, dirty, wire):
-        w = _placed(devices, wire)
-        out = [ft.apply_wire_dirty(t, dirty[s], w[s])
+        w = _placed(mesh, wire)
+        out = [(None, None) if t is None
+               else ft.apply_wire_dirty(t, dirty[s], w[s])
                for s, t in enumerate(tables)]
         return [t for t, _ in out], [d for _, d in out]
 
@@ -155,12 +189,14 @@ def make_tick_outputs(mesh, predict_fn, n_rows: int):
     O(n_rows + capacity/8) per shard."""
 
     def tick(tables, params, floor, now, idle_seconds):
-        per = []
+        per: list = [None] * len(tables)
         for s, t in enumerate(tables):
+            if t is None:
+                continue
             labels = predict_fn(params[s], ft.features12(t))
             outs = ft.top_active_scored(t, labels, n_rows, floor)
-            per.append((*outs, ft.stale_bits(t, now, idle_seconds)))
-        return Gathered(per, fenced=True)
+            per[s] = (*outs, ft.stale_bits(t, now, idle_seconds))
+        return Gathered(per, fenced=True, mesh=mesh)
 
     return tick
 
@@ -171,7 +207,8 @@ def make_dirty_counts(mesh):
     largest count across shards)."""
 
     def counts(dirty):
-        return Gathered([(ft.dirty_count(d),) for d in dirty]).host()[0]
+        return Gathered([None if d is None else (ft.dirty_count(d),)
+                         for d in dirty], mesh=mesh).host()[0]
 
     return counts
 
@@ -190,15 +227,17 @@ def make_tick_outputs_inc(mesh, predict_fn, n_rows: int):
 
     def tick(tables, caches, dirty, params, floor, now, idle_seconds,
              bucket: int):
-        per = []
+        per: list = [None] * len(tables)
         for s, t in enumerate(tables):
+            if t is None:
+                continue
             idx = ft.compact_dirty(dirty[s], bucket)
             labels = predict_fn(params[s], ft.features12_at(t, idx))
             cache = ft.merge_labels(caches[s], idx, labels)
             outs = ft.top_active_scored(t, cache, n_rows, floor)
-            per.append((*outs, ft.stale_bits(t, now, idle_seconds)))
+            per[s] = (*outs, ft.stale_bits(t, now, idle_seconds))
             dirty[s].zero_()
-        return Gathered(per, fenced=True)
+        return Gathered(per, fenced=True, mesh=mesh)
 
     return tick
 
@@ -208,12 +247,11 @@ def make_feature_sample(mesh):
     per-shard ``features12_at`` over (n_shards, k) LOCAL slot ids padded
     with local_capacity (the scratch row, never in use: zeros). O(k) across
     the wire; the drift monitor's observation tap on the sharded spine."""
-    devices = shard_devices(mesh)
-
     def sample(tables, slots):
-        idx = _placed(devices, slots)
-        return Gathered([(ft.features12_at(t, idx[s]),)
-                       for s, t in enumerate(tables)]).host()[0]
+        idx = _placed(mesh, slots)
+        return Gathered([None if t is None
+                         else (ft.features12_at(t, idx[s]),)
+                         for s, t in enumerate(tables)], mesh=mesh).host()[0]
 
     return sample
 
@@ -221,11 +259,10 @@ def make_feature_sample(mesh):
 def make_clear(mesh):
     """``(tables, slots) -> tables``: per-shard ``clear_slots``; ``slots``
     is (n_shards, E) LOCAL slot ids padded with local_capacity."""
-    devices = shard_devices(mesh)
-
     def clear(tables, slots):
-        idx = _placed(devices, slots)
-        return [ft.clear_slots(t, idx[s]) for s, t in enumerate(tables)]
+        idx = _placed(mesh, slots)
+        return [None if t is None else ft.clear_slots(t, idx[s])
+                for s, t in enumerate(tables)]
 
     return clear
 
@@ -234,11 +271,10 @@ def make_clear_dirty(mesh):
     """``make_clear`` fused with label-cache invalidation: evicted slots'
     features drop to zero, so their cached labels must be re-predicted
     (``flow_table.clear_slots_dirty``, per shard)."""
-    devices = shard_devices(mesh)
-
     def clear(tables, dirty, slots):
-        idx = _placed(devices, slots)
-        out = [ft.clear_slots_dirty(t, dirty[s], idx[s])
+        idx = _placed(mesh, slots)
+        out = [(None, None) if t is None
+               else ft.clear_slots_dirty(t, dirty[s], idx[s])
                for s, t in enumerate(tables)]
         return [t for t, _ in out], [d for _, d in out]
 
@@ -259,7 +295,9 @@ class ShardedFlowEngine(HostSpine):
 
     ``predict_fn(params, X)`` runs on each shard's rows with that shard's
     copy of ``params`` (``mesh.replicated``): on the card a kernel family's
-    predict launches its kernel once per shard per render."""
+    predict launches its kernel once per shard per render. On a mesh
+    spanning processes, once per shard this rank owns (module
+    docstring)."""
 
     def __init__(self, mesh, capacity_total: int, buckets=DEFAULT_BUCKETS,
                  predict_fn=None, params=None, table_rows: int = 64,
@@ -269,6 +307,9 @@ class ShardedFlowEngine(HostSpine):
         if capacity_total % self.n_shards:
             raise ValueError("capacity must divide evenly across shards")
         self.devices = shard_devices(mesh)
+        self.local_shards = mesh.local_shards(DATA_AXIS)
+        if not self.local_shards:
+            raise ValueError("this process owns no shard of the mesh")
         self.local_capacity = capacity_total // self.n_shards
         self.capacity = capacity_total
         self._init_spine(capacity_total, buckets, native)
@@ -307,12 +348,16 @@ class ShardedFlowEngine(HostSpine):
 
     @property
     def device(self) -> torch.device:
-        """Shard 0's device (where the serve loop's syncs wait)."""
-        return self.devices[0]
+        """The first local shard's device (where the serve loop's syncs
+        wait)."""
+        return self.devices[self.local_shards[0]]
 
-    def _all_dirty(self) -> list[torch.Tensor]:
-        return [torch.ones(self.local_capacity + 1, dtype=torch.bool,
-                           device=dev) for dev in self.devices]
+    def _all_dirty(self) -> list:
+        out: list = [None] * self.n_shards
+        for s in self.local_shards:
+            out[s] = torch.ones(self.local_capacity + 1, dtype=torch.bool,
+                                device=self.devices[s])
+        return out
 
     # -- device steps ------------------------------------------------------
     def _route_chunks(self, w: np.ndarray):
@@ -585,10 +630,11 @@ class ShardedFlowEngine(HostSpine):
             self.dirty = self._all_dirty()
             # labels are int32 in every family; the extra entry is the
             # scratch target of padded merges (flow_table.merge_labels)
-            self.caches = [
-                torch.zeros(self.local_capacity + 1, dtype=torch.int32,
-                            device=dev) for dev in self.devices
-            ]
+            self.caches = [None] * self.n_shards
+            for s in self.local_shards:
+                self.caches[s] = torch.zeros(
+                    self.local_capacity + 1, dtype=torch.int32,
+                    device=self.devices[s])
         return prev
 
     def feature_sample(self, gslots) -> np.ndarray:
@@ -636,7 +682,7 @@ class ShardedFlowEngine(HostSpine):
             return []
         warmed = []
         scratch_t = make_sharded_table(self.mesh, self.capacity)
-        scratch_c = [c.clone() for c in self.caches]
+        scratch_c = [None if c is None else c.clone() for c in self.caches]
         for b in self.dirty_buckets:
             self._tick_outputs_inc(
                 scratch_t, scratch_c, self._all_dirty(), self._shard_params,
@@ -668,7 +714,7 @@ class ShardedFlowEngine(HostSpine):
             else:
                 scratch_t = self._apply(scratch_t, chunk)
                 warmed.append(f"sharded.apply[{b}]")
-        Gathered([(t.in_use,) for t in scratch_t]).host()
+        Gathered([(t.in_use,) for t in scratch_t if t is not None]).host()
         return warmed
 
     def slot_metadata(self, slots):

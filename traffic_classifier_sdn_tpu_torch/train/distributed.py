@@ -44,6 +44,7 @@ from ..parallel.mesh import (
     batch_sharded,
     make_mesh,
     replicated,
+    require_one_process,
     shard_sum,
 )
 from . import forest as forest_train
@@ -73,6 +74,8 @@ def fit_gnb(mesh, X, y, n_classes: int, *,
     data axis with ``y = -1`` rows, which every count and sum excludes.
     An empty class has a 0/0 mean, which the model's fold
     (models/gnb.fold) makes absent (prior 0)."""
+    require_one_process(mesh, "train/distributed.py (ROADMAP Queue 1 "
+                              "item 13)")
     d = mesh.shape[DATA_AXIS]
     X = np.asarray(X, np.float64)
     y = np.asarray(y, np.int64)
@@ -117,6 +120,8 @@ def fit_kmeans(mesh, X, k: int = 4, *, n_init: int = 10, n_iter: int = 50,
     devices−1 rows: padding cannot be made assignment-neutral). X is a
     numpy array or a tensor. The seeding draws come from a host
     generator seeded by ``seed`` (train/kmeans.py)."""
+    require_one_process(mesh, "train/distributed.py (ROADMAP Queue 1 "
+                              "item 13)")
     d = mesh.shape[DATA_AXIS]
     if not isinstance(X, torch.Tensor):
         X = torch.from_numpy(np.asarray(X, np.float32))
@@ -144,6 +149,8 @@ def fit_forest(mesh, X, y, n_classes: int, *, n_trees: int = 100,
     on a generator of the first shard's device seeded by ``seed``, so
     the result is train/forest.fit's on the gathered rows. Rows are
     padded to a multiple of the data axis with weight-0 rows."""
+    require_one_process(mesh, "train/distributed.py (ROADMAP Queue 1 "
+                              "item 13)")
     X = np.asarray(X, np.float32)
     y = np.asarray(y, np.int64)
     n_real, F = X.shape
@@ -183,6 +190,8 @@ def fit_svc(mesh, X, y, n_classes: int, *, C: float = 1.0,
     .solve_pairs) against the replicated (N, N) kernel; the α gather back
     in shard order. Pairs are padded to a multiple of the state axis with
     inert all-zero problems (their α clamps to the [0, 0] box)."""
+    require_one_process(mesh, "train/distributed.py (ROADMAP Queue 1 "
+                              "item 13)")
     devs = mesh.axis_devices(STATE_AXIS)
     prob = svc_train.prepare_ovo(X, y, n_classes, C, gamma, devs[0])
     pad = (-prob["idx"].shape[0]) % len(devs)
