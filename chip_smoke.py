@@ -225,11 +225,25 @@ the script exits non-zero:
    and ``fused_predict``, the KNN kernel once per owned shard) and the
    sharded table of 6p's 65,536-flow capture for 4 ticks (native ingest,
    incremental labels, the forest installed as its predict: the forest
-   kernel once per owned shard a tick). Each rank holds its results to
-   its single-device references, and the script holds every rank's
+   kernel once per owned shard a tick); then every other function the
+   JAX package runs under ``shard_map``, at the same widths: the KNN's
+   ring and tournament merges (``mesh.permute`` hops; torch and kernel
+   local stages, the fused ones ``MERGE_CALLS`` times each, the KNN
+   kernel once per owned shard a call, each call's bytes exactly its
+   hops' (65,536, 5) blocks), the 100-tree forest sharded by trees
+   (gather and GEMM forms) and the 2,281-SV SVC sharded by SVs (torch
+   and RBF kernel local stages, the kernel once per owned shard: 2 a
+   rank, shard 3 all padding) on the 65,536 query rows, and
+   ``train/distributed.py``'s four fits on the 8,898 labelled rows of
+   7b's retrain CSVs at ``retrain``'s settings (forest depth 10, its
+   trees cut to 20, ``MULTIHOST_FIT_KW``; SVC 15 pairs over the state
+   axis; k-means k = 6) with a Lloyd run
+   from given centers. Each rank holds its results to its single-device
+   references where those are bitwise, and the script holds every rank's
    results bitwise to its own one-process 4-shard mesh on the same
-   inputs; the rendezvous seconds, each rank's host ms per tick and the
-   bytes and ms it exchanged per tick are printed;
+   inputs; the rendezvous seconds, each rank's host ms per tick, the
+   bytes and ms it exchanged per tick and per merge call, and the fits'
+   seconds are printed;
 7. breakdown — host seconds per tick of 131,072 records into 65,536 flows
    through the Python spine, the native spine from records and the
    native spine from raw bytes (each with ``step()`` and a device sync),
@@ -5180,6 +5194,12 @@ MULTIHOST_RANKS = 2
 MULTIHOST_SHARDS = 2  # per rank: SHARD_MESH in all
 MULTIHOST_TIMEOUT_S = 300.0  # the longest wait for the ranks to exit
 MULTIHOST_PEER_TIMEOUT_S = 120.0  # a rank's wait for a lost peer
+# the fits' settings beside k-means' k and steps: retrain's
+# (serving/retrain.fit_family: the SVC 800 iterations, the forest depth 10
+# and 128 bins) but for the forest's tree count, cut from 100 to 20: each
+# tree's histograms cross the ranks level by level (75 MB a rank a tree),
+# and 100 trees took 49.0 s of the phase's 77.6 s on the card
+MULTIHOST_FIT_KW = {"forest": {"n_trees": 20}, "svc": {}}
 
 
 def multihost_worker():
@@ -5229,6 +5249,10 @@ def phase_multihost(models: dict, device) -> tuple[dict, dict]:
     from traffic_classifier_sdn_tpu_torch.core import flow_table as ft
     from traffic_classifier_sdn_tpu_torch.parallel import mesh as meshlib
 
+    from traffic_classifier_sdn_tpu_torch.io.datasets import (
+        load_reference_datasets,
+    )
+
     tag = "[multihost]"
     t_phase = time.perf_counter()
     if device.type == "cuda":
@@ -5239,9 +5263,18 @@ def phase_multihost(models: dict, device) -> tuple[dict, dict]:
     X = ft.features12(synthetic_table(CAPACITY, 3, device)).cpu().numpy()
     ticks = shard_capture(CAPACITY)
     with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "datasets")
+        os.mkdir(data)
+        reference_csvs(data, rows=TRAIN_ROWS, files=NOTEBOOK_CSVS)
+        ds = load_reference_datasets(data)
+        n_classes = len(ds.classes)
+        X_fit = np.asarray(ds.X, np.float32)  # as retrain's fit_family
+        fit = {"X": X_fit, "y": ds.y, "X_test": X_fit, "y_test": ds.y,
+               "n_classes": n_classes,
+               "kw": {"kmeans": {"k": n_classes, "n_iter": 50},
+                      **MULTIHOST_FIT_KW}}
         inputs = os.path.join(tmp, "inputs")
-        worker.save_inputs(inputs, X, models["logreg"], models["knn"],
-                           models["forest"], ticks, CAPACITY, 64)
+        worker.save_inputs(inputs, X, models, ticks, CAPACITY, 64, fit)
         cmds = [[sys.executable, worker.__file__,
                  f"file://{os.path.join(tmp, 'rendezvous')}", str(i),
                  str(MULTIHOST_RANKS), "--device", device.type,
@@ -5277,14 +5310,35 @@ def phase_multihost(models: dict, device) -> tuple[dict, dict]:
                                      "the one-process mesh's")
     n_ticks = len(ticks)
     on_card = device.type == "cuda"
-    launches = {"forest": 0, "knn": 0}
+    calls = worker.MERGE_CALLS
+    launches = {"forest": 0, "knn": 0, "svc": 0}
+    owners = [r for r in range(MULTIHOST_RANKS)
+              for _ in range(MULTIHOST_SHARDS)]
     for i, (_, meta) in enumerate(got):
-        # the CPU's wrappers run their plain versions and count nothing
+        # the CPU's wrappers run their plain versions and count nothing:
+        # the forest once per owned shard a tick, the KNN once per owned
+        # shard a fused call (all_gather once, ring and tournament
+        # MERGE_CALLS times each), the RBF kernel once per owned shard
         want_n = {"forest": MULTIHOST_SHARDS * n_ticks * on_card,
-                  "knn": MULTIHOST_SHARDS * on_card}
+                  "knn": MULTIHOST_SHARDS * (1 + 2 * calls) * on_card,
+                  "svc": MULTIHOST_SHARDS * on_card}
         if meta["launches"] != want_n:
             raise AssertionError(f"{tag} rank {i} launches "
                                  f"{meta['launches']}, want {want_n}")
+        if meta["svc_fused"]["launches"] != MULTIHOST_SHARDS * on_card:
+            raise AssertionError(f"{tag} rank {i} fused SVC launches "
+                                 f"{meta['svc_fused']['launches']}")
+        blocks = worker.hop_blocks(owners, i)
+        for merge, m in meta["merges"].items():
+            block = m["rows"] * m["k"] * 8  # (N, k) f32 values, int32 ids
+            if m["launches"] != MULTIHOST_SHARDS * calls * on_card or any(
+                    c["bytes_sent"] != blocks[merge] * block
+                    or c["bytes_received"] != blocks[merge] * block
+                    for c in m["calls"]):
+                raise AssertionError(
+                    f"{tag} rank {i} {merge}: {m['launches']} launches, "
+                    f"bytes {[c['bytes_sent'] for c in m['calls']]}, want "
+                    f"{blocks[merge]} blocks of {block}")
         for f in launches:
             launches[f] += meta["launches"][f]
     ranks = [{
@@ -5293,7 +5347,13 @@ def phase_multihost(models: dict, device) -> tuple[dict, dict]:
         "host_ms_per_tick": meta["host_ms"],
         "exchange_bytes_per_tick": meta["exchange_bytes"],
         "exchange_ms_per_tick": meta["exchange_ms"],
+        "merges": meta["merges"], "svc_fused": meta["svc_fused"],
+        "fit_s": meta["fit_s"], "tree_draws": meta["tree_draws"],
     } for _, meta in got]
+    if [r["tree_draws"] for r in ranks] != [want["fit_forest_left"].shape[0]] \
+            + [0] * (MULTIHOST_RANKS - 1):
+        raise AssertionError(f"{tag} forest draws made by rank: "
+                             f"{[r['tree_draws'] for r in ranks]}")
     flows = int(want["num_flows"])
     rendered = int(want["render_counts"].sum())
     for r in ranks:
@@ -5305,14 +5365,34 @@ def phase_multihost(models: dict, device) -> tuple[dict, dict]:
               + ", ".join(str(x) for x in r["exchange_bytes_per_tick"])
               + " in ms " + ", ".join(f"{x:.2f}"
                                       for x in r["exchange_ms_per_tick"]))
+        for merge, m in r["merges"].items():
+            print(f"{tag} rank {r['pid']} fused {merge}: {m['launches']} "
+                  f"KNN launches in {len(m['calls'])} calls; bytes sent/"
+                  "received per call " + ", ".join(
+                      f"{c['bytes_sent']}/{c['bytes_received']}"
+                      for c in m["calls"])
+                  + "; exchange ms " + ", ".join(
+                      f"{c['exchange_ms']:.2f}" for c in m["calls"])
+                  + "; call ms " + ", ".join(f"{c['ms']:.2f}"
+                                             for c in m["calls"]))
+        sf = r["svc_fused"]
+        print(f"{tag} rank {r['pid']} fused SVC: {sf['launches']} RBF "
+              f"launches, {sf['bytes_sent']}/{sf['bytes_received']} bytes "
+              f"in {sf['exchange_ms']:.2f} ms, call {sf['ms']:.2f} ms; fits "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in r["fit_s"].items())
+              + f"; forest draws made here {r['tree_draws']}")
     print(f"{tag} {MULTIHOST_RANKS} ranks x {MULTIHOST_SHARDS} shards on "
           f"{device.type}: logreg labels of {X.shape[0]} rows, the row count "
           f"{int(want['row_count'])}, KNN labels of {X.shape[0]} queries "
-          f"(torch and kernel local stages) and {rendered} render rows over "
+          "(all_gather, ring and tournament merges; torch and kernel local "
+          f"stages), the {want['forest_proba'].shape[0]}-row forest "
+          "probabilities (gather and GEMM forms) and SVC decisions (torch "
+          "and kernel forms), the four fits on "
+          f"{fit['X'].shape[0]} rows and {rendered} render rows over "
           f"{n_ticks} ticks of {flows} flows bitwise the one-process "
           f"{n_shards}-shard mesh's on every rank; ranks {ranks_s:.1f} s, "
           f"phase {time.perf_counter() - t_phase:.1f} s")
-    return ({"multihost 2 ranks": {**launches, "svc": 0}},
+    return ({"multihost 2 ranks": launches},
             {"ranks": ranks, "ranks_s": ranks_s})
 
 
@@ -5586,8 +5666,8 @@ def kernel_entries(results: dict, launches: dict, paths: dict | None = None,
     (``phase_shards``); under ``retrained``, the kernel on the model the
     ``retrain`` subcommand fit, and for the forest under
     ``reference_pickle`` on the reference-shaped sklearn pickle
-    (``phase_train``); under ``multihost``, for the forest and KNN, each
-    rank's launches and exchanges (``phase_multihost``)."""
+    (``phase_train``); under ``multihost``, each rank's launches and
+    exchanges (``phase_multihost``)."""
     kernels = []
     for family, (name, source, replaces) in KERNEL_ROWS.items():
         by_rows = results[family]
@@ -5603,7 +5683,7 @@ def kernel_entries(results: dict, launches: dict, paths: dict | None = None,
             extra["promoted"] = promoted
         if shards and family in shards:
             extra["shards"] = shards[family]
-        if multihost and family in ("forest", "knn"):
+        if multihost:
             extra["multihost"] = [
                 {**r, "launches": r["launches"][family]}
                 for r in multihost["ranks"]]

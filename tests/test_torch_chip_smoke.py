@@ -660,12 +660,19 @@ def test_obs_phase_runs_on_cpu(small_card_phases, monkeypatch, capsys):
     assert "/healthz 200 with rung DEGRADED" in out
 
 
-def test_multihost_phase_runs_on_cpu(small_card_phases, capsys):
-    """``phase_multihost`` at 256 flows with the small forest and KNN: two
-    gloo ranks of two shards on the CPU pass their single-device checks,
-    and each rank's results are bitwise the script's one-process 4-shard
-    mesh's; the CPU's wrappers launch nothing."""
+def test_multihost_phase_runs_on_cpu(small_card_phases, capsys,
+                                     monkeypatch):
+    """``phase_multihost`` at 256 flows with the small forest, KNN and
+    SVC, and the fits on 120 retrain rows (a 4-tree forest of depth 4, 50
+    SVC iterations): two gloo ranks of two shards on the CPU pass their
+    single-device checks, and each rank's results are bitwise the
+    script's one-process 4-shard mesh's; the ring and tournament calls
+    move their hops' blocks; only rank 0 draws the forest; the CPU's
+    wrappers launch nothing."""
     models, _ = small_card_phases
+    monkeypatch.setattr(chip_smoke, "TRAIN_ROWS", 20)
+    monkeypatch.setattr(chip_smoke, "MULTIHOST_FIT_KW", {
+        "forest": {"n_trees": 4, "max_depth": 4}, "svc": {"n_iters": 50}})
     paths, numbers = chip_smoke.phase_multihost(models, torch.device("cpu"))
     assert paths == {"multihost 2 ranks": {"forest": 0, "knn": 0, "svc": 0}}
     ranks = numbers["ranks"]
@@ -673,8 +680,15 @@ def test_multihost_phase_runs_on_cpu(small_card_phases, capsys):
     for r in ranks:
         assert len(r["host_ms_per_tick"]) == chip_smoke.SHARD_TICKS
         assert all(b > 0 for b in r["exchange_bytes_per_tick"])
+        for merge, blocks in (("ring", 3), ("tournament", 2)):
+            calls = r["merges"][merge]["calls"]
+            assert [c["bytes_sent"] for c in calls] == \
+                [blocks * 256 * 5 * 8] * 3
+        assert sorted(r["fit_s"]) == ["forest", "gnb", "kmeans", "svc"]
+    assert [r["tree_draws"] for r in ranks] == [4, 0]
     out = capsys.readouterr().out
     assert "bitwise the one-process 4-shard mesh's on every rank" in out
+    assert "[multihost] rank 1 fused ring: 0 KNN launches in 3 calls" in out
 
 
 def test_doctor_phase_runs_on_cpu(capsys):

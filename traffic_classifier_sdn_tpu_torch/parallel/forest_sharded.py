@@ -6,11 +6,13 @@ Each shard holds T/D trees and evaluates its sub-ensemble with the port's
 torch forms (``ops/tree_eval.py``'s gather traversal, or
 ``ops/tree_gemm.py``'s three GEMMs: the JAX package computes both in XLA,
 in no hand-written kernel); the (N, C) per-shard sums are added in shard
-order on the first shard's device — JAX's ``psum`` — and divided by the
-real tree count. The sum order differs from one device's, so the
-ensemble mean agrees with it to ``atol=1e-5`` (ROADMAP Queue 3 item 6),
-not bitwise. One process only: a mesh spanning processes is refused
-(ROADMAP Queue 1 item 12).
+order on the first shard's device — JAX's ``psum``, ``mesh.shard_sum`` —
+and divided by the real tree count. The sum order differs from one
+device's, so the ensemble mean agrees with it to ``atol=1e-5`` (ROADMAP
+Queue 3 item 6), not bitwise. On a mesh spanning processes each rank
+builds and holds only its own shards' trees or GEMM groups, and the
+(N, C) sums cross through ``mesh.exchange``: every rank adds the same
+host copies in shard order, so each gets the one-process mesh's bits.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 from ..models.forest import ForestModel
 from ..ops import tree_eval, tree_gemm
-from .mesh import STATE_AXIS, require_one_process
+from .mesh import STATE_AXIS, shard_sum
 
 
 def pad_trees(d: dict, n_shards: int) -> dict:
@@ -44,21 +46,10 @@ def pad_trees(d: dict, n_shards: int) -> dict:
     return out
 
 
-def _shard_sum(parts: list[torch.Tensor]) -> torch.Tensor:
-    """The per-shard (N, C) sums added in shard order on shard 0's
-    device."""
-    total = parts[0]
-    for p in parts[1:]:
-        total = total + p.to(total.device)
-    return total
-
-
 def sharded_proba(mesh, params: ForestModel,
                   n_real_trees: int | None = None):
     """``fn(X) -> (N, C)`` ensemble-mean class probabilities, each shard's
     trees walked by the gather traversal."""
-    require_one_process(mesh, "the tree-sharded forest (ROADMAP Queue 1 "
-                              "item 12)")
     devs = mesh.axis_devices(STATE_AXIS)
     D = len(devs)
     T = params.left.shape[0]
@@ -68,11 +59,12 @@ def sharded_proba(mesh, params: ForestModel,
         )
     n_real = n_real_trees if n_real_trees is not None else T
     per = T // D
-    shards = [
-        tuple(getattr(params, k)[s * per: (s + 1) * per].to(dev)
-              for k in ("left", "right", "feature", "threshold", "values"))
-        for s, dev in enumerate(devs)
-    ]
+    shards = {
+        s: tuple(getattr(params, k)[s * per: (s + 1) * per].to(devs[s])
+                 for k in ("left", "right", "feature", "threshold",
+                           "values"))
+        for s in mesh.local_shards(STATE_AXIS)
+    }
 
     def local_sum(s: int, X: torch.Tensor) -> torch.Tensor:
         left, right, feature, threshold, values = shards[s]
@@ -86,8 +78,9 @@ def sharded_proba(mesh, params: ForestModel,
         return torch.sum(probs, dim=1)
 
     def fn(X: torch.Tensor) -> torch.Tensor:
-        parts = [local_sum(s, X.to(dev)) for s, dev in enumerate(devs)]
-        return _shard_sum(parts) / n_real
+        parts = [local_sum(s, X.to(dev)) if s in shards else None
+                 for s, dev in enumerate(devs)]
+        return shard_sum(parts, mesh, STATE_AXIS) / n_real
 
     return fn
 
@@ -105,9 +98,7 @@ def gemm_sharded_proba(mesh, d: dict, n_features: int | None = None,
     over the whole (padded) ensemble — uniform (D_max, L_max) padding,
     leaf values pre-divided by the REAL tree count — then each shard takes
     its block of T/D trees. ``d`` is the node-array dict (``pad_trees``
-    output)."""
-    require_one_process(mesh, "the tree-sharded forest (ROADMAP Queue 1 "
-                              "item 12)")
+    output). Only this process's shards get a group."""
     devs = mesh.axis_devices(STATE_AXIS)
     D_mesh = len(devs)
     T = d["left"].shape[0]
@@ -123,8 +114,8 @@ def gemm_sharded_proba(mesh, d: dict, n_features: int | None = None,
     per = T // D_mesh
     feat3 = np.asarray(ops["feat_onehot"]).reshape(F, T, Dm)
     thr2 = np.asarray(ops["thresholds"]).reshape(T, Dm)
-    groups = []
-    for s, dev in enumerate(devs):
+    groups: list = [None] * D_mesh
+    for s in mesh.local_shards(STATE_AXIS):
         sl = slice(s * per, (s + 1) * per)
         sub = dict(
             ops,
@@ -134,13 +125,14 @@ def gemm_sharded_proba(mesh, d: dict, n_features: int | None = None,
             leaf_depth=np.asarray(ops["leaf_depth"])[sl],
             leaf_values=np.asarray(ops["leaf_values"])[sl],
         )
-        groups.append(tree_gemm.gemm_group(sub, row_chunk, dev))
+        groups[s] = tree_gemm.gemm_group(sub, row_chunk, devs[s])
 
     def fn(X: torch.Tensor) -> torch.Tensor:
-        return _shard_sum([
-            tree_gemm.forest_proba_gemm([g], X.to(dev))
+        return shard_sum([
+            None if g is None else tree_gemm.forest_proba_gemm([g],
+                                                              X.to(dev))
             for g, dev in zip(groups, devs)
-        ])
+        ], mesh, STATE_AXIS)
 
     return fn
 

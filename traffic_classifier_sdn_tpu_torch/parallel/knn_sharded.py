@@ -24,10 +24,13 @@ whole 512-row chunks, padding only at the tail with +inf half norms, so a
 shard may hold nothing but padding.
 
 On a mesh spanning processes (``mesh.init_distributed``) each rank scores
-only the corpus shards it owns; the ``all_gather`` merge trades the
-(N, k) candidates of every shard through ``mesh.exchange`` and each rank
-votes the same global top-k. ``ring`` and ``tournament`` run in one
-process only (ROADMAP Queue 1 item 11).
+only the corpus shards it owns. The ``all_gather`` merge trades the
+(N, k) candidates of every shard through ``mesh.exchange``; the ``ring``
+and the ``tournament`` take each hop through ``mesh.permute``, addressed
+by shard (rank order is not shard order), so an (N, k) block moves point
+to point and no shard ever holds all D blocks. Each rank merges its own
+shards' blocks in the one-process schedule's order and votes its first
+shard's global top-k: every rank's labels are the one-process mesh's.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from torch import nn
 
 from ..models import knn
 from ..ops import knn_kernel
-from .mesh import STATE_AXIS, exchange, to_device
+from .mesh import STATE_AXIS, exchange, permute, to_device
 
 
 def pad_corpus(d: dict, n_shards: int) -> dict:
@@ -173,21 +176,25 @@ def _held_labels(held, n_classes: int, packable: bool):
     return held[1] % n_classes if packable else held[2]
 
 
-def _to(held, device):
-    return tuple(t.to(device) for t in held)
+def _merge_owned(acc: list, got: list, k: int, packable: bool) -> list:
+    """Each owned shard's block merged with the one it received (None
+    stays None in another rank's slots)."""
+    return [None if a is None else _merge_held(a, b, k, packable)
+            for a, b in zip(acc, got)]
 
 
-def _ring_merge(held: list, k: int, packable: bool, devices) -> list:
+def _ring_merge(mesh, held: list, k: int, packable: bool) -> list:
     """The ring schedule: at each hop every shard passes the block it
     received last to the next shard (JAX's ``ppermute`` i → i+1) and
     merges the block it receives, so after D − 1 hops every shard holds
-    the global top-k. Returns each shard's result."""
+    the global top-k. Returns each owned shard's result."""
     n = len(held)
+    ring = [(i, (i + 1) % n) for i in range(n)]
     acc = list(held)
     prev = list(held)
     for _ in range(n - 1):
-        prev = [_to(prev[(i - 1) % n], devices[i]) for i in range(n)]
-        acc = [_merge_held(acc[i], prev[i], k, packable) for i in range(n)]
+        prev = permute(mesh, STATE_AXIS, prev, ring)
+        acc = _merge_owned(acc, prev, k, packable)
     return acc
 
 
@@ -198,16 +205,17 @@ def _require_pow2_state(n_dev: int) -> None:
         )
 
 
-def _tournament_merge(held: list, k: int, packable: bool, devices) -> list:
+def _tournament_merge(mesh, held: list, k: int, packable: bool) -> list:
     """Recursive doubling: round r exchanges blocks with the XOR-2^r
     partner and merges, so every shard holds the global top-k after
-    ⌈log₂ D⌉ rounds. Power-of-two D (checked by the callers)."""
+    ⌈log₂ D⌉ rounds. Power-of-two D (checked by the callers). Returns
+    each owned shard's result."""
     n = len(held)
     d = 1
     while d < n:
-        other = [_to(held[i ^ d], devices[i]) for i in range(n)]
-        held = [_merge_held(held[i], other[i], k, packable)
-                for i in range(n)]
+        other = permute(mesh, STATE_AXIS, held,
+                        [(i ^ d, i) for i in range(n)])
+        held = _merge_owned(held, other, k, packable)
         d <<= 1
     return held
 
@@ -215,10 +223,6 @@ def _tournament_merge(held: list, k: int, packable: bool, devices) -> list:
 def _check_merge(mesh, merge: str) -> None:
     if merge not in ("all_gather", "ring", "tournament"):
         raise ValueError(f"unknown merge {merge!r}")
-    if merge != "all_gather" and mesh.spans_processes:
-        raise NotImplementedError(
-            f"the {merge} merge runs in one process only (ROADMAP Queue 1 "
-            "item 11); use merge='all_gather' on a mesh spanning processes")
     if merge == "tournament":
         _require_pow2_state(mesh.shape[STATE_AXIS])
 
@@ -241,13 +245,14 @@ def _finish(mesh, merge: str, vals, labs, gidxs, k: int, n_classes: int,
         return _gather_merge_vote(vals, labs, k, n_classes, devices[local[0]])
     if len(vals) == 1:
         return _vote(labs[0], n_classes)
-    held = [_make_held(v, lab, g, n_classes, packable)
+    held = [None if v is None else _make_held(v, lab, g, n_classes, packable)
             for v, lab, g in zip(vals, labs, gidxs)]
     if merge == "ring":
-        held = _ring_merge(held, k, packable, devices)
+        held = _ring_merge(mesh, held, k, packable)
     else:
-        held = _tournament_merge(held, k, packable, devices)
-    return _vote(_held_labels(held[0], n_classes, packable), n_classes)
+        held = _tournament_merge(mesh, held, k, packable)
+    return _vote(_held_labels(held[local[0]], n_classes, packable),
+                 n_classes)
 
 
 def _build(mesh, params: knn.KnnModel, pad_mask, merge: str):

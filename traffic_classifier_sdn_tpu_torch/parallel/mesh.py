@@ -29,9 +29,13 @@ the same host program (SPMD), computes its own shards and trades host
 copies of their outputs through ``exchange``, which returns every shard's
 in shard order, never in rank-arrival order; so each rank's results are
 bitwise those of the one-process mesh with the same shard count.
-``shard_sum`` (the ``psum``) goes through it. The exchanges are
-collectives: every rank must make the same ones in the same order, from
-one thread.
+``shard_sum`` (the ``psum``) goes through ``gather_tensors``, its
+fixed-shape twin (a tensor ``all_gather``, no pickling). ``permute`` (the
+``ppermute``) moves blocks point to point between named shards, the KNN
+ring and tournament's hops; ``broadcast`` hands the host arrays of the
+process owning shard 0 to every rank (the forest fit's draws). The
+exchanges are collectives: every rank must make the same ones in the
+same order, from one thread.
 """
 
 from __future__ import annotations
@@ -56,8 +60,9 @@ STATE_AXIS = "state"
 # before it raises: a lost peer ends the program, never hangs it
 DEFAULT_TIMEOUT_S = 60.0
 
-# this rank's device kind, set by init_distributed (None: the default)
-_LOCAL_KIND: dict = {"device": None}
+# this rank's device kind (None: the default) and the group's timeout in
+# seconds, set by init_distributed
+_LOCAL_KIND: dict = {"device": None, "timeout": DEFAULT_TIMEOUT_S}
 
 # what the exchanges of this process moved: calls, bytes of the arrays
 # sent and received, seconds inside the collective
@@ -108,14 +113,6 @@ class Mesh:
         me = process_index()
         return [s for s, r in enumerate(self._axis(self.owners, axis))
                 if int(r) == me]
-
-
-def require_one_process(mesh: Mesh, what: str) -> None:
-    """Refuse a mesh spanning processes for a path that runs in one
-    process only (``what`` names it and the ROADMAP item it waits on)."""
-    if mesh.spans_processes:
-        raise NotImplementedError(
-            f"{what} does not run on a mesh spanning processes")
 
 
 def visible_devices(device=None) -> list[torch.device]:
@@ -172,6 +169,7 @@ def init_distributed(coordinator: str | None = None, *,
         world_size=int(num_processes), rank=int(process_id),
         timeout=datetime.timedelta(seconds=float(initialization_timeout)))
     _LOCAL_KIND["device"] = device
+    _LOCAL_KIND["timeout"] = float(initialization_timeout)
 
 
 def shutdown_distributed() -> None:
@@ -180,6 +178,7 @@ def shutdown_distributed() -> None:
     if dist is not None:
         dist.destroy_process_group()
     _LOCAL_KIND["device"] = None
+    _LOCAL_KIND["timeout"] = DEFAULT_TIMEOUT_S
 
 
 def process_index() -> int:
@@ -269,6 +268,83 @@ def exchange(mesh: Mesh, axis: str, parts: list) -> list:
     return out
 
 
+def permute(mesh: Mesh, axis: str, parts: list, perm) -> list:
+    """The port's ``lax.ppermute``: ``parts`` holds one block (a tuple of
+    tensors) for each shard along ``axis`` this process owns, None in the
+    other slots; ``perm`` lists (source shard, destination shard) pairs,
+    each destination at most once. Returns, for each destination shard
+    this process owns, the block its source sent, on the destination's
+    device (None in every other slot). Between two shards of one process a
+    block moves device to device; between ranks it is a gloo ``isend`` /
+    ``irecv`` of host copies, every receive and send posted before any
+    wait and each wait bounded by the group's timeout. Every block of a
+    call has the shapes and dtypes of this process's own, which size the
+    receive buffers: a call moves the blocks its pairs name, point to
+    point, and nothing else."""
+    devs = mesh.axis_devices(axis)
+    out: list = [None] * len(devs)
+    if not mesh.spans_processes:
+        for src, dst in perm:
+            out[dst] = tuple(t.to(devs[dst]) for t in parts[src])
+        return out
+    dist = _distributed()
+    me = dist.get_rank()
+    owners = [int(r) for r in mesh._axis(mesh.owners, axis)]
+    own = [p for p in parts if p is not None]
+    if not own:
+        raise ValueError("permute needs a block of a shard this process "
+                         "owns")
+    template = own[0]
+    works, held, recvs = [], [], []
+    t0 = time.perf_counter()
+    for src, dst in perm:
+        # one tag per destination and tensor: a destination has one source
+        tag = dst * len(template)
+        if owners[src] == me and owners[dst] == me:
+            out[dst] = tuple(t.to(devs[dst]) for t in parts[src])
+        elif owners[src] == me:
+            for j, t in enumerate(parts[src]):
+                host = t.detach().cpu().contiguous()
+                held.append(host)  # alive until its send is waited on
+                works.append(dist.isend(host, owners[dst], tag=tag + j))
+        elif owners[dst] == me:
+            bufs = tuple(torch.empty(t.shape, dtype=t.dtype)
+                         for t in template)
+            for j, b in enumerate(bufs):
+                works.append(dist.irecv(b, owners[src], tag=tag + j))
+            recvs.append((dst, bufs))
+    timeout = datetime.timedelta(seconds=_LOCAL_KIND["timeout"])
+    for w in works:
+        w.wait(timeout)
+    EXCHANGE_STATS["seconds"] += time.perf_counter() - t0
+    EXCHANGE_STATS["calls"] += 1
+    EXCHANGE_STATS["bytes_sent"] += sum(h.nbytes for h in held)
+    for dst, bufs in recvs:
+        EXCHANGE_STATS["bytes_received"] += sum(b.nbytes for b in bufs)
+        out[dst] = tuple(b.to(devs[dst]) for b in bufs)
+    return out
+
+
+def broadcast(mesh: Mesh, axis: str, arrays: tuple | None) -> tuple:
+    """The host arrays of the process owning shard 0 along ``axis``, on
+    every process (``arrays`` is read there only): one gloo
+    ``broadcast_object_list``; ``arrays`` itself when the mesh does not
+    span processes."""
+    if not mesh.spans_processes:
+        return arrays
+    dist = _distributed()
+    src = int(mesh._axis(mesh.owners, axis)[0])
+    box = [tuple(arrays) if dist.get_rank() == src else None]
+    t0 = time.perf_counter()
+    dist.broadcast_object_list(box, src=src)
+    EXCHANGE_STATS["seconds"] += time.perf_counter() - t0
+    EXCHANGE_STATS["calls"] += 1
+    nbytes = sum(a.nbytes for a in box[0])
+    key = "bytes_sent" if dist.get_rank() == src else "bytes_received"
+    EXCHANGE_STATS[key] += nbytes
+    return box[0]
+
+
 def to_device(obj, device: torch.device):
     """``obj`` with every tensor it holds on ``device``: a tensor, an
     ``nn.Module`` (copied), a dataclass, a list, tuple or dict of these,
@@ -313,21 +389,51 @@ def replicated(mesh: Mesh, obj, axis: str = DATA_AXIS) -> list:
     return out
 
 
+def gather_tensors(mesh: Mesh, axis: str, parts: list) -> list:
+    """Every shard's tensor along ``axis``, in shard order, as host
+    tensors, from this rank's (``parts``: a tensor for each shard this
+    process owns, None in the others' slots; one shape and dtype in
+    all). One gloo ``all_gather`` of host tensors, no pickling: each rank
+    sends its shards stacked in ascending order, padded to the most
+    shards a rank owns."""
+    dist = _distributed()
+    me = dist.get_rank()
+    owners = [int(r) for r in mesh._axis(mesh.owners, axis)]
+    by_rank = [[s for s, r in enumerate(owners) if r == rank]
+               for rank in range(dist.get_world_size())]
+    template = parts[by_rank[me][0]]
+    stack = torch.zeros((max(map(len, by_rank)), *template.shape),
+                        dtype=template.dtype)
+    for j, s in enumerate(by_rank[me]):
+        stack[j] = parts[s].detach().cpu()
+    got = [torch.empty_like(stack) for _ in by_rank]
+    t0 = time.perf_counter()
+    dist.all_gather(got, stack)
+    EXCHANGE_STATS["seconds"] += time.perf_counter() - t0
+    EXCHANGE_STATS["calls"] += 1
+    out: list = [None] * len(owners)
+    for rank, shards in enumerate(by_rank):
+        nbytes = len(shards) * template.numel() * template.element_size()
+        key = "bytes_sent" if rank == me else "bytes_received"
+        EXCHANGE_STATS[key] += nbytes
+        for j, s in enumerate(shards):
+            out[s] = got[rank][j]
+    return out
+
+
 def shard_sum(parts: list, mesh: Mesh | None = None,
               axis: str = DATA_AXIS) -> torch.Tensor:
     """Per-shard partial sums added in shard order on the first shard's
     device: the port's ``psum`` (a fixed order, so a sum over the same
     shards rounds the same way on every run). On a ``mesh`` spanning
     processes, ``parts`` holds this rank's shards along ``axis`` (None in
-    the others'); every shard's part comes through ``exchange`` and each
-    rank adds them all, in shard order, on its first shard's device."""
+    the others'); every shard's part comes through ``gather_tensors`` and
+    each rank adds them all, in shard order, on its first shard's
+    device."""
     if mesh is not None and mesh.spans_processes:
         local = mesh.local_shards(axis)
         dev = parts[local[0]].device
-        hosts = exchange(mesh, axis, [
-            None if p is None else (p.detach().cpu().numpy(),)
-            for p in parts])
-        parts = [torch.from_numpy(h[0]).to(dev) for h in hosts]
+        parts = [h.to(dev) for h in gather_tensors(mesh, axis, parts)]
     total = parts[0]
     for p in parts[1:]:
         total = total + p.to(total.device)

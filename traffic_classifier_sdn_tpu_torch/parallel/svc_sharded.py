@@ -16,8 +16,11 @@ The f32 sum over support vectors runs in another order than one
 device's, so decision values agree with the un-sharded ones to the
 tolerance ``tests/test_torch_svc.py`` states (1e-5 of the largest
 coefficient sum), and labels exactly wherever the smallest |decision|
-exceeds it. One process only: a mesh spanning processes is refused
-(ROADMAP Queue 1 item 12).
+exceeds it. On a mesh spanning processes each rank computes only its own
+SV shards (the RBF kernel once per owned shard, padding shards too) and
+the (N, P) partials cross through ``mesh.shard_sum``: every rank adds the
+same host copies in shard order on its first shard's device, so its
+decisions are the one-process mesh's bits.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 
 from ..models import svc
 from ..ops import rbf_kernel
-from .mesh import STATE_AXIS, require_one_process, to_device
+from .mesh import STATE_AXIS, shard_sum, to_device
 
 
 def pad_support(d: dict, n_shards: int) -> dict:
@@ -57,13 +60,19 @@ def _ovo_vote_argmax(D, vote_i, vote_j, n_classes: int) -> torch.Tensor:
     return torch.argmax(votes, dim=-1).to(torch.int32)
 
 
-def _decide(parts, intercept, vote_i, vote_j, n_classes: int):
-    """Sum the per-shard (N, P) partials in shard order on shard 0's
-    device, add the intercept once, vote."""
-    total = parts[0]
-    for p in parts[1:]:
-        total = total + p.to(total.device)
-    Dv = total + intercept[None, :]
+def _head(mesh, params: svc.SvcModel):
+    """The intercept and vote pairs on the device where the partials add:
+    this process's first shard's."""
+    head = mesh.axis_devices(STATE_AXIS)[mesh.local_shards(STATE_AXIS)[0]]
+    return (params.intercept.to(head), params.vote_i.to(head),
+            params.vote_j.to(head))
+
+
+def _decide(mesh, parts, intercept, vote_i, vote_j, n_classes: int):
+    """Sum the per-shard (N, P) partials in shard order on this process's
+    first shard's device (``mesh.shard_sum``; None in another rank's
+    slots), add the intercept once, vote."""
+    Dv = shard_sum(parts, mesh, STATE_AXIS) + intercept[None, :]
     return _ovo_vote_argmax(Dv, vote_i, vote_j, n_classes), Dv
 
 
@@ -71,8 +80,6 @@ def sharded_decision(mesh, params: svc.SvcModel):
     """``fn(X, X_lo=None) -> (labels, (N, P) decisions)`` with the torch
     local stage: contiguous SV blocks, each shard's two-float distances,
     kernel values and partial decision on its device."""
-    require_one_process(mesh, "the SV-sharded SVC (ROADMAP Queue 1 "
-                              "item 12)")
     devs = mesh.axis_devices(STATE_AXIS)
     D = len(devs)
     S = params.sv_hi.shape[0]
@@ -81,25 +88,24 @@ def sharded_decision(mesh, params: svc.SvcModel):
                          "shards — pad_support first")
     per = S // D
     coef_t = params.pair_coef.t()
-    shards = [
-        (params.sv_hi[s * per: (s + 1) * per].to(dev),
-         params.sv_lo[s * per: (s + 1) * per].to(dev),
-         coef_t[s * per: (s + 1) * per].contiguous().to(dev),
-         params.gamma.to(dev))
-        for s, dev in enumerate(devs)
-    ]
-    head = devs[0]
-    intercept = params.intercept.to(head)
-    vote_i, vote_j = params.vote_i.to(head), params.vote_j.to(head)
+    shards = {
+        s: (params.sv_hi[s * per: (s + 1) * per].to(devs[s]),
+            params.sv_lo[s * per: (s + 1) * per].to(devs[s]),
+            coef_t[s * per: (s + 1) * per].contiguous().to(devs[s]),
+            params.gamma.to(devs[s]))
+        for s in mesh.local_shards(STATE_AXIS)
+    }
+    intercept, vote_i, vote_j = _head(mesh, params)
 
     def fn(X: torch.Tensor, X_lo=None):
-        parts = []
-        for s, (sv_hi, sv_lo, ct, gamma) in enumerate(shards):
+        parts: list = [None] * D
+        for s, (sv_hi, sv_lo, ct, gamma) in shards.items():
             Xs = X.to(devs[s])
             Xl = None if X_lo is None else X_lo.to(devs[s])
             K = torch.exp(-gamma * svc.sq_dist(Xs, Xl, sv_hi, sv_lo))
-            parts.append(svc.decision_sum(K, ct))
-        return _decide(parts, intercept, vote_i, vote_j, params.n_classes)
+            parts[s] = svc.decision_sum(K, ct)
+        return _decide(mesh, parts, intercept, vote_i, vote_j,
+                       params.n_classes)
 
     return fn
 
@@ -158,23 +164,25 @@ def fused_decision(mesh, params: svc.SvcModel, *, sv_chunk: int = 512):
     (``rbf_kernel.partial_decision``, one launch per shard on a card) over
     its SV block; the partials are summed in shard order and the
     intercept added once. ``fn.operands`` holds each shard's kernel
-    operands (on its device) and ``fn.per`` the SVs per shard."""
-    require_one_process(mesh, "the SV-sharded SVC (ROADMAP Queue 1 "
-                              "item 12)")
+    operands (on its device; None in another rank's shards) and
+    ``fn.per`` the SVs per shard. On a mesh spanning processes the kernel
+    launches once per shard this rank owns, a shard of padding alone
+    included."""
     devs = mesh.axis_devices(STATE_AXIS)
     per, layout = fused_layout(params, len(devs), sv_chunk)
-    operands = [to_device(g, dev) for g, dev in zip(layout, devs)]
-    head = devs[0]
-    intercept = params.intercept.to(head)
-    vote_i, vote_j = params.vote_i.to(head), params.vote_j.to(head)
+    local = set(mesh.local_shards(STATE_AXIS))
+    operands = [to_device(g, dev) if s in local else None
+                for s, (g, dev) in enumerate(zip(layout, devs))]
+    intercept, vote_i, vote_j = _head(mesh, params)
 
     def fn(X: torch.Tensor, X_lo=None):
         parts = [
-            rbf_kernel.partial_decision(
+            None if g is None else rbf_kernel.partial_decision(
                 g, X.to(dev), None if X_lo is None else X_lo.to(dev))
             for g, dev in zip(operands, devs)
         ]
-        return _decide(parts, intercept, vote_i, vote_j, params.n_classes)
+        return _decide(mesh, parts, intercept, vote_i, vote_j,
+                       params.n_classes)
 
     fn.operands = operands
     fn.per = per

@@ -104,7 +104,7 @@ def _first_argmax(a: torch.Tensor) -> torch.Tensor:
 
 def build_tree(Xb, y, edges: torch.Tensor, weights, scores: list, *,
                n_classes: int, max_depth: int, n_bins: int,
-               max_features: int) -> tuple:
+               max_features: int, mesh=None) -> tuple:
     """One tree from binned features ``Xb`` (N, F) int64, labels ``y``
     (N,) int64, candidate thresholds ``edges`` (F, n_bins-1) float32, the
     row ``weights`` and per-level feature ``scores`` (``tree_draws``).
@@ -118,10 +118,12 @@ def build_tree(Xb, y, edges: torch.Tensor, weights, scores: list, *,
     (``parallel.mesh.shard_sum``), the split decisions made once on
     ``edges``' device, and each shard's rows routed on its own device.
     The counts are integer-valued, so the tree equals the one of the
-    gathered rows bit for bit."""
+    gathered rows bit for bit. On a ``mesh`` spanning processes the
+    lists hold None in another rank's shards and the histograms add
+    across the ranks (``shard_sum`` over the data axis)."""
     if isinstance(Xb, torch.Tensor):
         Xb, y, weights = [Xb], [y], [weights]
-    F = Xb[0].shape[1]
+    F = next(x for x in Xb if x is not None).shape[1]
     E = n_bins - 1  # candidate split count per feature
     M = 2 ** (max_depth + 1) - 1
     dev = edges.device
@@ -131,18 +133,22 @@ def build_tree(Xb, y, edges: torch.Tensor, weights, scores: list, *,
     threshold = torch.zeros(M, dtype=torch.float32, device=dev)
     values = torch.zeros((M, n_classes), dtype=torch.float32, device=dev)
     # node in its level, per row of each shard
-    pos = [torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+    pos = [None if x is None
+           else torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
            for x in Xb]
     wa = list(weights)  # per-row weight, zeroed once its node is a leaf
     for d in range(max_depth + 1):
         n_nodes = 2 ** d
         off = n_nodes - 1  # global offset of this level
-        cnts, hists = [], []
-        for xs, ys, ps, ws in zip(Xb, y, pos, wa):
+        cnts: list = [None] * len(Xb)
+        hists: list = [None] * len(Xb)
+        for s, (xs, ys, ps, ws) in enumerate(zip(Xb, y, pos, wa)):
+            if xs is None:
+                continue
             c = torch.zeros((n_nodes, n_classes), dtype=torch.float32,
                             device=xs.device)
             c.index_put_((ps, ys), ws, accumulate=True)
-            cnts.append(c)
+            cnts[s] = c
             if d == max_depth:
                 continue
             N = xs.shape[0]
@@ -153,14 +159,14 @@ def build_tree(Xb, y, edges: torch.Tensor, weights, scores: list, *,
                           fi[None, :].expand(N, F), xs,
                           ys[:, None].expand(N, F)),
                          ws[:, None].expand(N, F), accumulate=True)
-            hists.append(H)
-        cnt = shard_sum(cnts).to(dev)
+            hists[s] = H
+        cnt = shard_sum(cnts, mesh).to(dev)
         n_node = cnt.sum(1)
         values[off:off + n_nodes] = cnt
         if d == max_depth:
             break  # deepest level: all leaves
         # every left/right candidate at once: L[n, f, b, c] counts bin <= b
-        L = torch.cumsum(shard_sum(hists).to(dev), dim=2)[:, :, :E, :]
+        L = torch.cumsum(shard_sum(hists, mesh).to(dev), dim=2)[:, :, :E, :]
         nL = L.sum(-1)
         R = cnt[:, None, None, :] - L
         nR = n_node[:, None, None] - nL
@@ -192,6 +198,8 @@ def build_tree(Xb, y, edges: torch.Tensor, weights, scores: list, *,
             is_split, edges[f_star, b_star], 0.0)
         # route rows one level down; rows in leaf nodes go inert
         for s, xs in enumerate(Xb):
+            if xs is None:
+                continue
             fs, bs, sp = (a.to(xs.device) for a in (f_star, b_star, is_split))
             p = pos[s]
             go_left = torch.gather(xs, 1, fs[p][:, None])[:, 0] <= bs[p]

@@ -53,38 +53,46 @@ def _plusplus_init(gen: torch.Generator, X: torch.Tensor, k: int):
     return torch.cat(centers)
 
 
-def _lloyd(X, centers0: torch.Tensor, n_iter: int):
+def _lloyd(X, centers0: torch.Tensor, n_iter: int, mesh=None):
     """(centers, inertia) after ``n_iter`` Lloyd steps from ``centers0``:
     per-cluster sums as one one-hot matmul, an empty cluster keeping its
     center (sklearn relocates it; JAX keeps it too). ``X`` may be a list
     of row shards (train/distributed.fit_kmeans): each shard assigns its
     rows and sums them, and the sums add in shard order
-    (``parallel.mesh.shard_sum``)."""
+    (``parallel.mesh.shard_sum``; on a ``mesh`` spanning processes the
+    list holds None in another rank's shards and the sums add across the
+    ranks)."""
     shards = [X] if isinstance(X, torch.Tensor) else list(X)
     centers = centers0
     K = centers.shape[0]
     for _ in range(n_iter):
-        counts, sums = [], []
-        for xs in shards:
+        counts: list = [None] * len(shards)
+        sums: list = [None] * len(shards)
+        for s, xs in enumerate(shards):
+            if xs is None:
+                continue
             labels, _ = _assign(xs, centers.to(xs.device))
             onehot = torch.nn.functional.one_hot(labels, K).to(xs.dtype)
-            counts.append(onehot.sum(0))
-            sums.append(torch.matmul(onehot.t(), xs))
-        counts, sums = shard_sum(counts), shard_sum(sums)
+            counts[s] = onehot.sum(0)
+            sums[s] = torch.matmul(onehot.t(), xs)
+        counts, sums = shard_sum(counts, mesh), shard_sum(sums, mesh)
         new = sums / torch.clamp(counts[:, None], min=1.0)
         centers = torch.where(counts[:, None] > 0, new, centers)
-    return centers, inertia(shards, centers)
+    return centers, inertia(shards, centers, mesh)
 
 
-def inertia(X, centers: torch.Tensor) -> torch.Tensor:
+def inertia(X, centers: torch.Tensor, mesh=None) -> torch.Tensor:
     """Σ over the rows of ``X`` (a tensor or row shards, summed in shard
-    order) of the squared distance to the nearest of ``centers``."""
+    order; across the ranks of a spanning ``mesh``) of the squared
+    distance to the nearest of ``centers``."""
     shards = [X] if isinstance(X, torch.Tensor) else list(X)
-    parts = []
-    for xs in shards:
+    parts: list = [None] * len(shards)
+    for s, xs in enumerate(shards):
+        if xs is None:
+            continue
         labels, d2 = _assign(xs, centers.to(xs.device))
-        parts.append(torch.gather(d2, 1, labels[:, None]).sum())
-    return shard_sum(parts)
+        parts[s] = torch.gather(d2, 1, labels[:, None]).sum()
+    return shard_sum(parts, mesh)
 
 
 def fit(X, k: int = 4, *, n_init: int = 10, n_iter: int = 50,
