@@ -183,8 +183,9 @@ the script exits non-zero:
    render, the switch's live rules equal to the ledger's installed -
    retracted and to the plane's INSTALLED rules, each on a rendered pair
    whose label maps to an action, its FLOW_MOD bytes ``compile_install``'s;
-   stdout against ``--actuation off`` (subsequence rule, no actuation
-   line); the /healthz ``actuation`` block and the ledger; a
+   stdout against ``--actuation off`` (``same_ticks``: the subsequence
+   rule, tables placed by tick where the pipe split a tick across polls;
+   no actuation line); the /healthz ``actuation`` block and the ledger; a
    ``script_refuse(3)`` drill (degrade, each refusal accounted, re-probe
    to push) and a ``script_stall_barrier(1)`` drill (the flush refused),
    each with every host tick under 1 s;
@@ -280,6 +281,27 @@ the script exits non-zero:
    (``kernel_guards``, which must pass); a sanitizer tool whose log holds
    nothing but its refusal of the card is printed as ``unsupported``
    with its own words, and then that tool has checked nothing;
+7e. bench_tools — the port's measurement tools (``tools/torch_bench_*.py``,
+   twins of the JAX package's bench tools), each in a process of its own
+   on the card at the JAX tool's widths (``bench_plan``: depths cut as
+   each entry's ``cuts`` says): ``torch_bench_serve`` at capacity 2^20
+   with ``--pipeline both --warmup`` for ``--model gnb`` and ``--model
+   forest`` (the committed pickle through the forest kernel), a fan-in
+   sweep and a region sweep judged by it; ``torch_bench_e2e`` and its
+   ``--serve-budget``; ``torch_bench_e2e_live``; ``torch_bench_knn`` at
+   16,384 queries; ``torch_bench_forest_buckets`` at 131,072 rows;
+   ``torch_bench_sharded``; ``torch_bench_sharded_scaling`` at a 2^20-row
+   corpus; ``torch_bench_openset``; ``torch_bench_scenarios``. Each must
+   exit 0, print its JAX tool's ``metric`` (or ``artifact``/``bench``)
+   with ``platform`` cuda, and every parity and gate field it prints must
+   hold (``_bench_failures``). Three verdicts are printed, not required:
+   the region sweep's ``exceeds_*`` comparators (its shards share the one
+   card), the live budget's ``within_10pct`` and the serve budget's
+   ``e2e_within_5x_device`` (budget claims of the JAX artifacts that the
+   card's host has not met; PERF.md). Each prints a line with its seconds
+   and cuts, and the kernels
+   each launched (counted in the tool's process by ``BENCH_DRIVER``) go
+   into ``launches_by_path`` as ``bench_tools <tool>``;
 8. summary — a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
    power-limit line, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -291,8 +313,10 @@ visible, and imports nothing of JAX.
 from __future__ import annotations
 
 import atexit
+import bisect
 import contextlib
 import io
+import itertools
 import json
 import os
 import re
@@ -2893,6 +2917,8 @@ def phase_incremental_serve(model: dict, k, device) -> int:
     return launches["forest"]
 
 
+# the line EMITTER writes before the first tick
+EMITTER_BANNER = b"loading app simple_monitor_13.py\n"
 EMITTER = """\
 import sys, time
 ticks = {}
@@ -3290,6 +3316,89 @@ def subsequence(got: str, want: str) -> bool:
     it = iter(w)
     return bool(g) and g[-1] == w[-1] and all(any(f == x for x in it)
                                               for f in g)
+
+
+@contextlib.contextmanager
+def watched_polls():
+    """While active, every poll a serve takes from its tick source records
+    its size (``sizes``, in order: bytes of a raw batch, records of a
+    parsed one)."""
+    from traffic_classifier_sdn_tpu_torch import cli
+
+    sizes, source = [], cli._tick_source
+
+    def watched(*args, **kw):
+        for batch in source(*args, **kw):
+            sizes.append(len(batch))
+            yield batch
+
+    cli._tick_source = watched
+    try:
+        yield sizes
+    finally:
+        cli._tick_source = source
+
+
+def tick_keys(sizes: list, ends: list) -> list:
+    """Per poll of a raw serve of a monitor stream whose ticks end at the
+    byte offsets ``ends`` (ascending): how many whole ticks the stream had
+    delivered when the poll ended, or None where the poll began or ended
+    inside a tick (the pipe split that tick across polls). Bytes past the
+    last tick (the collector's end-of-stream seam) are in no tick."""
+    bounds = {0, *ends}
+    keys, at = [], 0
+    for n in sizes:
+        a, b = min(at, ends[-1]), min(at + n, ends[-1])
+        keys.append(bisect.bisect(ends, b) if {a, b} <= bounds else None)
+        at += n
+    return keys
+
+
+def same_ticks(a: tuple, b: tuple) -> str | None:
+    """The stdout rule for two serves of one monitor stream, each given as
+    (stdout, ticks coalesced, ``tick_keys``): None where it holds, else
+    what broke it. With every poll on tick boundaries it is the
+    subsequence rule, the shorter run's tables missing as many of the
+    longer's as it coalesced more. A tick that the pipe split across polls
+    (the serve waits 50 ms for a tick's bytes after the first arrive)
+    prints tables of part of a tick, which depend on where the pipe split
+    it; then each run must print one table a poll, none coalesced, and
+    the first table each printed after the same whole tick is equal, the
+    last tick's included, and the last tables too."""
+    (out_a, co_a, keys_a), (out_b, co_b, keys_b) = a, b
+    fa, fb = frames(out_a), frames(out_b)
+    if None not in keys_a and None not in keys_b:
+        short, long_ = sorted((a, b), key=lambda x: len(frames(x[0])))
+        if (subsequence(short[0], long_[0]) and len(frames(long_[0]))
+                - len(frames(short[0])) == abs(co_a - co_b)):
+            return None
+        first = next((i for i, (x, y) in enumerate(zip(fa, fb)) if x != y),
+                     None)
+        return (f"breaks the subsequence rule: {len(fa)} tables, "
+                f"{co_a} coalesced against {len(fb)}, {co_b}; last tables "
+                f"equal: {bool(fa and fb) and fa[-1] == fb[-1]}; first "
+                f"differing table: {first}")
+    if co_a or co_b or len(fa) != len(keys_a) or len(fb) != len(keys_b):
+        return (f"a tick split across polls, and not one table a poll: "
+                f"{len(fa)} tables, {len(keys_a)} polls, {co_a} coalesced "
+                f"against {len(fb)}, {len(keys_b)}, {co_b}")
+    by_tick = []
+    for keys, tables in ((keys_a, fa), (keys_b, fb)):
+        first = {}
+        for k, t in zip(keys, tables):
+            if k is not None:
+                first.setdefault(k, t)
+        by_tick.append(first)
+    common = sorted(by_tick[0].keys() & by_tick[1].keys())
+    differ = [k for k in common if by_tick[0][k] != by_tick[1][k]]
+    last = max((k for k in keys_a + keys_b if k is not None), default=None)
+    if differ or last not in common or fa[-1] != fb[-1]:
+        split = [[i for i, k in enumerate(keys) if k is None]
+                 for keys in (keys_a, keys_b)]
+        return (f"polls split by the pipe {split[0]} and {split[1]}; "
+                f"tables after whole ticks {common} compared, {differ} "
+                f"differ; last tables equal: {fa[-1] == fb[-1]}")
+    return None
 
 
 def _renders_done(m, renders: int) -> bool:
@@ -4464,11 +4573,12 @@ ACT_REFUSE = 3  # flow-mods the refusal drill's switch bounces
 
 
 def steady_capture(path: str, n_flows: int, ticks: int,
-                   seed: int = SEED) -> None:
+                   seed: int = SEED) -> list:
     """A monitor capture of ``n_flows`` conversations whose packet and
     byte rates hold steady: ``SyntheticFlows``' per-conversation rates
     without its Poisson draws, so every flow's features (and labels) settle
-    after its second poll and the activity ranking stays put."""
+    after its second poll and the activity ranking stays put. Returns each
+    tick's size in bytes."""
     from traffic_classifier_sdn_tpu_torch.ingest.replay import SyntheticFlows
 
     syn = SyntheticFlows(n_flows=n_flows, seed=seed)
@@ -4476,14 +4586,16 @@ def steady_capture(path: str, n_flows: int, ticks: int,
     pr = np.maximum(1, np.int64(syn.pps_rev))
     bf, br = np.int64(pf * syn.bpp_fwd), np.int64(pr * syn.bpp_rev)
     macs = [(syn._mac(i, 0), syn._mac(i, 1)) for i in range(n_flows)]
+    sizes = []
     with open(path, "wb") as f:
         for t in range(1, ticks + 1):
             rows = zip(macs, (pf * t).tolist(), (bf * t).tolist(),
                        (pr * t).tolist(), (br * t).tolist())
-            f.write("".join(
+            sizes.append(f.write("".join(
                 f"data\t{t}\t1\t1\t{s}\t{d}\t2\t{a}\t{b}\n"
                 f"data\t{t}\t1\t2\t{d}\t{s}\t1\t{c}\t{e}\n"
-                for (s, d), a, b, c, e in rows).encode())
+                for (s, d), a, b, c, e in rows).encode()))
+    return sizes
 
 
 def recording_switch():
@@ -4618,8 +4730,8 @@ def phase_actuation(model: dict, k, device) -> int:
     an in-process ``AccountingSwitch``. Checks: every table against the
     plain forest on its dispatched table, one kernel launch a render, the
     switch's live rules against the ledger and the rendered labels (bytes
-    included), stdout against the ``--actuation off`` serve (the
-    subsequence rule) with no actuation line; then a refusal drill (the
+    included), stdout against the ``--actuation off`` serve
+    (``same_ticks``) with no actuation line; then a refusal drill (the
     plane degrades, accounts each refusal and re-probes back to push, every
     host tick under 1 s) and a withheld-barrier drill (the flush refused,
     no host tick waiting on it). Returns the forest kernel's launches."""
@@ -4635,7 +4747,9 @@ def phase_actuation(model: dict, k, device) -> int:
                               interop.forest_params_from_numpy(model, device),
                               classes=CLASSES)
         t0 = time.perf_counter()
-        steady_capture(capture, CAPACITY, ACT_TICKS)
+        ends = list(itertools.accumulate(
+            steady_capture(capture, CAPACITY, ACT_TICKS),
+            initial=len(EMITTER_BANNER)))[1:]
         print(f"{tag} steady capture of {CAPACITY} conversations x "
               f"{ACT_TICKS} ticks written in {time.perf_counter() - t0:.2f} s")
         with open(emitter, "w") as f:
@@ -4645,13 +4759,15 @@ def phase_actuation(model: dict, k, device) -> int:
                 "--capacity", str(CAPACITY), "--print-every", "1",
                 "--native-checkpoint", ckpt]
         fk.forest_proba.launches = 0
-        off_out, off_sum, _ = _serve(base)
+        with watched_polls() as off_polls:
+            off_out, off_sum, _ = _serve(base)
         launches = fk.forest_proba.launches
 
         sw = recording_switch()
         try:
             with kept_planes() as planes, healthz_watch("actuation") as hz, \
-                    watched_dispatch("forest") as (features, log):
+                    watched_dispatch("forest") as (features, log), \
+                    watched_polls() as polls:
                 fk.forest_proba.launches = 0
                 out, summary, wall = _serve(base + [
                     *ACT_FLAGS, "--actuation-switch", f"{sw.host}:{sw.port}",
@@ -4674,22 +4790,14 @@ def phase_actuation(model: dict, k, device) -> int:
             raise AssertionError(f"{tag} plane {st}")
         if "actuation" in out or "actuation" in off_out:
             raise AssertionError(f"{tag} an actuation line on stdout")
-        pair = sorted(((out, summary.ticks_coalesced),
-                       (off_out, off_sum.ticks_coalesced)),
-                      key=lambda x: len(frames(x[0])))
-        if (not subsequence(pair[0][0], pair[1][0])
-                or len(frames(pair[1][0])) - len(frames(pair[0][0]))
-                != abs(summary.ticks_coalesced - off_sum.ticks_coalesced)):
-            got, want = frames(out), frames(off_out)
-            last = bool(got and want) and got[-1] == want[-1]
-            first = next((i for i, (a, b) in enumerate(zip(got, want))
-                          if a != b), None)
+        keys = [tick_keys(polls, ends), tick_keys(off_polls, ends)]
+        why = same_ticks((out, summary.ticks_coalesced, keys[0]),
+                         (off_out, off_sum.ticks_coalesced, keys[1]))
+        if why:
             raise AssertionError(
-                f"{tag} stdout against --actuation off breaks the "
-                f"subsequence rule: {len(got)} tables, {summary.ticks} "
-                f"polls, {summary.ticks_coalesced} coalesced against "
-                f"{len(want)}, {off_sum.ticks}, {off_sum.ticks_coalesced}; "
-                f"last tables equal: {last}; first differing table: {first}")
+                f"{tag} stdout against --actuation off ({summary.ticks} "
+                f"and {off_sum.ticks} polls): {why}")
+        split = [sum(k is None for k in ks) for ks in keys]
         block = (hz["report"] or {}).get("actuation")
         if block is None:
             raise AssertionError(f"{tag} no /healthz actuation block")
@@ -4697,9 +4805,10 @@ def phase_actuation(model: dict, k, device) -> int:
               "tick (s): " + ", ".join(f"{x:.3f}" for x in summary.tick_seconds)
               + f"; {len(tables)} tables, each one's labels the plain "
               f"forest's; {main_launches} forest launches, one per render "
-              f"{per_render}; stdout against --actuation off: subsequence "
-              f"rule ({summary.ticks_coalesced} and "
-              f"{off_sum.ticks_coalesced} coalesced), no actuation line")
+              f"{per_render}; stdout against --actuation off: "
+              f"{summary.ticks_coalesced} and {off_sum.ticks_coalesced} "
+              f"coalesced, {split[0]} and {split[1]} polls inside a tick "
+              f"(placed by tick when not 0), no actuation line")
         print(f"{tag} switch: {live} live rules = the plane's INSTALLED "
               f"rules = ledger installed - retracted, each on a rendered "
               "pair whose label maps to a non-observe action, FLOW_MOD bytes "
@@ -5958,6 +6067,264 @@ def phase_sanitize(device) -> dict:
     print(f"{tag} {time.perf_counter() - t0:.1f} s")
     return summary
 
+BENCH_DRIVER = (
+    "import json, os, runpy, sys\n"
+    "from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk\n"
+    "from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk\n"
+    "from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk\n"
+    "tool = sys.argv[1]\n"
+    "sys.argv = sys.argv[1:]\n"
+    "sys.path.insert(0, os.path.dirname(tool))\n"
+    "try:\n"
+    "    runpy.run_path(tool, run_name='__main__')\n"
+    "finally:\n"
+    "    print('BENCH_LAUNCHES ' + json.dumps({'forest': fk.forest_proba.launches,"
+    " 'knn': kk.topk_sim_idx.launches, 'svc': rk.partial_decision.launches}),"
+    " file=sys.stderr, flush=True)\n"
+)
+BENCH_TIMEOUT_S = 600
+
+
+def _lines(out: str) -> list[dict]:
+    """The JSON objects a tool printed on stdout, in order."""
+    found = []
+    for line in out.splitlines():
+        if line.startswith("{"):
+            found.append(json.loads(line))
+    return found
+
+
+def _bench_failures(name: str, docs: list[dict]) -> list[str]:
+    """The parity and gate fields of a tool's JSON lines that do not
+    hold."""
+    bad = []
+    last = docs[-1]
+
+    def need(cond: bool, what: str) -> None:
+        if not cond:
+            bad.append(what)
+
+    if name.startswith("serve"):
+        if last["metric"] == "serve_pipeline_ab":
+            for mode in ("serial", "pipelined"):
+                need(last[mode]["serve_flows_per_sec"] > 0,
+                     f"{mode} serve_flows_per_sec")
+            need(last["tracked_flows"] * 2 == last["records_per_tick"],
+                 "tracked_flows")
+            need(last["compiles_in_measured_region"] == 0, "compiles")
+        elif last["metric"] == "serve_fanin_sources":
+            need(all(lv["total_drops"] == 0 for lv in last["levels"]),
+                 "drops")
+        elif last["metric"] == "serve_region":
+            need(last["render_identical"], "render_identical")
+            need(last["compiles_in_measured_region"] == 0, "compiles")
+            need(last["unsharded_fanin_knee_records_per_sec"] is not None,
+                 "the fan-in knee was read")
+    elif name == "e2e serve-budget":
+        need(last["render_identical"], "render_identical")
+    elif name == "e2e_live":
+        ab = last["stamp_overhead_ab"]
+        need(ab["within_3pct"], "within_3pct")
+        need(ab["render_identical"], "render_identical")
+        need(all(lv["reconciliation_ratio"] is not None
+                 for lv in last["levels"]), "reconciliation_ratio")
+    elif name == "knn":
+        prune, recall = docs[-2], docs[-1]
+        for key in ("native_votes_parity", "screened_bitwise_parity",
+                    "kernel_bitwise_parity"):
+            need(prune[key], key)
+        need(prune["native_label_parity_vs_sort_pct"] == 100.0,
+             "native_label_parity_vs_sort_pct")
+        need(recall["default_nprobe_recall_ok"], "default_nprobe_recall_ok")
+        need(recall["nprobe_equals_K_bitwise_exact"], "nprobe == K exact")
+    elif name == "forest_buckets":
+        need(all(p["parity_pct"] == 100.0 for p in last["points"].values()),
+             "parity_pct")
+    elif name in ("sharded",):
+        need(last["parity_ok"], "parity_ok")
+    elif name == "sharded_scaling":
+        need(all(r["parity_pct_vs_single"] == 100.0
+                 for r in last["results"].values()), "parity_pct_vs_single")
+    elif name == "openset":
+        need(len(last["families"]) == 6, "six families")
+    elif name == "scenarios":
+        need(last["passed"] and not last["gate_failures"], "gates")
+    return bad
+
+
+def bench_plan(tmp: str, device, small: bool = False) -> list[tuple]:
+    """The ``bench_tools`` runs: ``(name, tool, argv, want, cuts)``, where
+    ``want`` is the key and value that name the JAX tool's output
+    (``metric``, ``artifact`` or ``bench``). At the JAX tools' widths on a
+    card; ``small`` gives toy sizes for a CPU run of the phase."""
+    data = os.path.join(tmp, "data")
+    os.makedirs(data, exist_ok=True)
+    reference_csvs(data, rows=64 if small else 1483, files=NOTEBOOK_CSVS)
+    fanin = os.path.join(tmp, "fanin.json")
+    cap = 4096 if small else 1 << 20
+    serve = ["--capacity", str(cap), "--ticks", "2" if small else "3",
+             "--pipeline", "both", "--warmup"]
+    sweep = ["--capacity", str(cap), "--ticks", "2",
+             "--flows-per-tick", "1024" if small else "65536",
+             "--source-interval", "0.1" if small else "0.25"]
+    plan = [
+        ("serve gnb", "torch_bench_serve.py", serve + ["--model", "gnb"],
+         ("metric", "serve_pipeline_ab"), "ticks 5 -> 3"),
+        ("serve forest", "torch_bench_serve.py",
+         serve + ["--model", "forest"], ("metric", "serve_pipeline_ab"),
+         "ticks 5 -> 3"),
+        ("serve fanin", "torch_bench_serve.py",
+         sweep + ["--sources-sweep", "1,16", "--warmup"],
+         ("metric", "serve_fanin_sources"),
+         "sweep points 1,16; 2 ticks at a 0.25 s cadence"),
+        ("serve region", "torch_bench_serve.py",
+         sweep + ["--region-sweep", "--region-sources", "1,16",
+                  "--region-shards", "0,4", "--region-churn", "1.0",
+                  "--baseline-fanin", fanin],
+         ("metric", "serve_region"),
+         "sources 1,16 x shards 0,4 x churn 1.0; 2 ticks at 0.25 s"),
+        ("e2e", "torch_bench_e2e.py", [],
+         ("metric", "e2e_latency_budget_16k_slice"), "none"),
+        ("e2e serve-budget", "torch_bench_e2e.py",
+         ["--serve-budget", "--ticks", "5"],
+         ("metric", "e2e_serve_budget_16k"), "ticks 9 -> 5"),
+        ("e2e_live", "torch_bench_e2e_live.py",
+         ["--ticks", "3", "--sources", "1,16", "--ab-repeat", "1"]
+         + (["--records-per-tick", "1024", "--interval", "0.1",
+             "--capacity", "4096"] if small else []),
+         ("metric", "e2e_budget_live"),
+         "ticks 12 -> 3, sources 1,16,64 -> 1,16, A/B repeats 3 -> 1"),
+        ("knn", "torch_bench_knn.py",
+         ["--batch", "512" if small else "16384", "--repeat", "2",
+          "--out-prune", os.path.join(tmp, "knn_prune.json"),
+          "--out-recall", os.path.join(tmp, "knn_recall.json")],
+         ("artifact", "knn_ivf_recall"), "repeats 3 -> 2"),
+        ("forest_buckets", "torch_bench_forest_buckets.py",
+         ["--batch", "1024" if small else "131072", "--buckets", "2,8,32",
+          "--data-dir", data],
+         ("metric", "forest_bucket_sweep"),
+         "buckets 2,4,8,16,32 -> 2,8,32; parity rows: "
+         "chip_smoke.reference_csvs"),
+        ("sharded", "torch_bench_sharded.py",
+         ["--repeats", "3"] + (["--batch", "256"] if small else []),
+         ("metric", "sharded_scaling_cpu_mesh"), "repeats 5 -> 3"),
+        ("sharded_scaling", "torch_bench_sharded_scaling.py",
+         ["--repeats", "3"]
+         + (["--corpus", "8192", "--batch", "512"] if small else []),
+         ("metric", "sharded_knn_scaling_fixed_total_work"),
+         "repeats 5 -> 3"),
+        ("openset", "torch_bench_openset.py",
+         ["--rows-per-class", "64"] if small else [],
+         ("bench", "openset_eval"), "none"),
+        ("scenarios", "torch_bench_scenarios.py",
+         ["--profile", "t1" if small else "cpu",
+          "--out", os.path.join(tmp, "scenarios.json"),
+          "--obs-dir", os.path.join(tmp, "postmortem")],
+         ("bench", "scenario_matrix"), "none"),
+    ]
+    dev = ["--device", device.type]
+    return [(n, t, a + dev, w, c) for n, t, a, w, c in plan]
+
+
+def phase_bench_tools(device, small: bool = False,
+                      only: tuple | None = None) -> dict:
+    """Each twin of ``bench_plan`` in a process of its own through
+    ``BENCH_DRIVER`` (module docstring, 7e). Returns {``bench_tools
+    <name>``: {family: launches}}."""
+    tag = "[bench_tools]"
+    paths = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, tool, argv, (key, want), cuts in bench_plan(tmp, device,
+                                                              small):
+            if only is not None and name not in only:
+                continue
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", BENCH_DRIVER,
+                 os.path.join(HERE, "tools", tool), *argv],
+                cwd=HERE, capture_output=True, text=True,
+                timeout=BENCH_TIMEOUT_S,
+            )
+            wall = time.perf_counter() - t0
+            launch_lines = [ln for ln in proc.stderr.splitlines()
+                            if ln.startswith("BENCH_LAUNCHES ")]
+            if proc.returncode != 0 or not launch_lines:
+                raise AssertionError(
+                    f"{tag} {name}: exit {proc.returncode}\n"
+                    f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+            launches = json.loads(launch_lines[-1].split(" ", 1)[1])
+            docs = _lines(proc.stdout)
+            if not docs or docs[-1].get(key) != want:
+                raise AssertionError(f"{tag} {name}: last line is not "
+                                     f"{key}={want}: {proc.stdout[-1000:]}")
+            if docs[-1].get("platform") != device.type:
+                raise AssertionError(f"{tag} {name}: platform "
+                                     f"{docs[-1].get('platform')}")
+            bad = _bench_failures(name, docs)
+            if bad:
+                raise AssertionError(f"{tag} {name}: {bad} do not hold: "
+                                     f"{json.dumps(docs[-1])[:3000]}")
+            if name == "serve fanin":
+                with open(os.path.join(tmp, "fanin.json"), "w") as f:
+                    json.dump(docs[-1], f)
+            paths[f"bench_tools {name}"] = launches
+            print(f"{tag} {name}: {tool} {' '.join(argv)} — exit 0 in "
+                  f"{wall:.1f} s, cuts: {cuts}; launches {launches}; "
+                  f"{json.dumps(_bench_summary(name, docs))}")
+    print(f"{tag} {len(paths)} runs in {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+def _bench_summary(name: str, docs: list[dict]) -> dict:
+    """The headline numbers of a tool's last line, for the phase's log."""
+    d = docs[-1]
+    if name.startswith("serve") and d["metric"] == "serve_pipeline_ab":
+        return {m: {k: d[m][k] for k in ("serve_flows_per_sec",
+                                          "steady_tick_p50_ms")}
+                for m in ("serial", "pipelined")} | {
+            "speedup": d["speedup_flows_per_sec"],
+            "overlap_ratio": d["pipelined"]["overlap_ratio"]}
+    if name == "serve fanin":
+        return {"knee": d["max_sources_holding_1s_p50"],
+                "p50_ms": [lv["tick_processing_p50_ms"] for lv in d["levels"]]}
+    if name == "serve region":
+        return {k: d[k] for k in ("best_composed_records_per_sec",
+                                  "unsharded_fanin_knee_records_per_sec",
+                                  "exceeds_unsharded_fanin_knee")}
+    if name == "e2e":
+        return d["budget_p50_ms"] | {"served_predict": d["served_predict"]}
+    if name == "e2e serve-budget":
+        # e2e_within_5x_device is printed, not required: the host's ingest
+        # of 16,384 records outweighs the card's predict many times over
+        return {k: d[k] for k in ("device_side_p50_ms", "e2e_p50_ms",
+                                  "e2e_over_device_ratio",
+                                  "e2e_within_5x_device")}
+    if name == "e2e_live":
+        # within_10pct (the JAX artifact's reconciliation verdict) is
+        # printed, not required: on the card it has not held past one
+        # source (PERF.md, Findings)
+        return {"e2e_p50_ms": [lv["e2e_p50_ms"] for lv in d["levels"]],
+                "reconciliation_ratio": [lv["reconciliation_ratio"]
+                                         for lv in d["levels"]],
+                "within_10pct": [lv["within_10pct"] for lv in d["levels"]],
+                "stamp_frac": d["stamp_overhead_ab"][
+                    "stamp_cost_frac_of_tick_p50"]}
+    if name == "knn":
+        return {k: docs[-2][k] for k in ("knn_sort_topk_flows_per_sec",
+                                         "knn_kernel_topk_flows_per_sec",
+                                         "knn_native_topk_flows_per_sec")}
+    if name == "forest_buckets":
+        return {nb: p["device_ms"] for nb, p in d["points"].items()}
+    if name == "sharded":
+        return d["results"]["state_8"]
+    if name == "sharded_scaling":
+        return {s: r["wall_ms_total_work_fixed"]
+                for s, r in d["results"].items()}
+    if name == "openset":
+        return {f: r["gated_accuracy"] for f, r in d["families"].items()}
+    return {"scenarios": len(d["scenarios"]), "passed": d["passed"]}
+
 
 def main() -> int:
     try:
@@ -6066,6 +6433,10 @@ def main() -> int:
     mark("doctor")
     phase_sanitize(device)
     mark("sanitize")
+    # the measurement tools, each in a process of its own: their launches
+    # are counted there and reported by BENCH_DRIVER
+    paths.update(phase_bench_tools(device))
+    mark("bench_tools")
     kernels = kernel_entries(results, launches, paths, buckets, menus,
                              promoted, shards, trained, multihost)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "

@@ -719,6 +719,70 @@ def test_sanitize_phase_skips_every_cuda_phase_on_cpu(capsys):
         capsys.readouterr().out
 
 
+def test_bench_tools_phase_runs_on_cpu(capsys):
+    """``phase_bench_tools`` at toy size on the CPU, for the serve tool's
+    pipelined A/B, fan-in and region sweeps (judged by that fan-in sweep)
+    and the scenario matrix: each twin in its own process exits 0, its
+    line carries the JAX tool's metric and the CPU platform, its parity
+    and gate fields hold, and its launch counts (none: no card) are read
+    back from ``BENCH_DRIVER``."""
+    only = ("serve gnb", "serve fanin", "serve region", "scenarios")
+    paths = chip_smoke.phase_bench_tools(torch.device("cpu"), small=True,
+                                         only=only)
+    assert list(paths) == [f"bench_tools {n}" for n in only]
+    assert all(n == {"forest": 0, "knn": 0, "svc": 0}
+               for n in paths.values())
+    out = capsys.readouterr().out
+    assert "[bench_tools] serve region: torch_bench_serve.py" in out
+    assert "[bench_tools] 4 runs in" in out
+
+
+def test_bench_plan_runs_every_twin(tmp_path):
+    """The card's plan runs each of the nine measurement tools at the JAX
+    tools' widths, on the card, every run named once with its cuts."""
+    plan = chip_smoke.bench_plan(str(tmp_path), torch.device("cuda"))
+    names = [p[0] for p in plan]
+    assert len(set(names)) == len(names) == 13
+    assert {p[1] for p in plan} == {
+        f"torch_bench_{t}.py" for t in (
+            "serve", "e2e", "e2e_live", "knn", "forest_buckets", "sharded",
+            "sharded_scaling", "openset", "scenarios")}
+    argv = {p[0]: p[2] for p in plan}
+    assert all(a[-2:] == ["--device", "cuda"] for a in argv.values())
+    assert argv["serve gnb"][:2] == ["--capacity", str(1 << 20)]
+    assert "--model" in argv["serve forest"] and "forest" in argv[
+        "serve forest"]
+    assert argv["knn"][:2] == ["--batch", "16384"]
+    assert argv["forest_buckets"][:2] == ["--batch", "131072"]
+    assert "--corpus" not in argv["sharded_scaling"]  # the 2^20 default
+    assert all(p[4] for p in plan)
+    assert len((tmp_path / "data").iterdir().__next__().read_text()
+               .splitlines()) == 1484  # 1,483 rows a class and the header
+
+
+def test_bench_failures_name_what_does_not_hold():
+    """``_bench_failures`` reads each tool's parity and gate fields."""
+    ok = {"metric": "serve_region", "render_identical": True,
+          "compiles_in_measured_region": 0,
+          "unsharded_fanin_knee_records_per_sec": 5}
+    assert chip_smoke._bench_failures("serve region", [ok]) == []
+    bad = dict(ok, render_identical=False,
+               unsharded_fanin_knee_records_per_sec=None)
+    assert chip_smoke._bench_failures("serve region", [bad]) == [
+        "render_identical", "the fan-in knee was read"]
+    assert chip_smoke._bench_failures(
+        "sharded", [{"parity_ok": False}]) == ["parity_ok"]
+    prune = {"native_votes_parity": True, "screened_bitwise_parity": True,
+             "kernel_bitwise_parity": False,
+             "native_label_parity_vs_sort_pct": 100.0}
+    recall = {"default_nprobe_recall_ok": True,
+              "nprobe_equals_K_bitwise_exact": True}
+    assert chip_smoke._bench_failures("knn", [prune, recall]) == [
+        "kernel_bitwise_parity"]
+    assert chip_smoke._bench_failures(
+        "scenarios", [{"passed": False, "gate_failures": [{}]}]) == ["gates"]
+
+
 def test_checkpoint_phase_runs_on_cpu(small_card_phases, monkeypatch,
                                       capsys):
     """``phase_checkpoint`` at 256 flows (and 512 for the large save):
@@ -742,6 +806,106 @@ def test_frames_and_the_subsequence_rule():
     assert chip_smoke.subsequence(other, table + other)
     assert not chip_smoke.subsequence(table, table + other)
     assert not chip_smoke.subsequence("", table)
+
+
+def test_tick_keys_place_polls_by_tick():
+    """Ticks ending at 10, 25 and 30: a poll on tick boundaries counts the
+    whole ticks delivered, one that begins or ends inside a tick is None,
+    and the end-of-stream seam belongs to no tick."""
+    ends = [10, 25, 30]
+    assert chip_smoke.tick_keys([10, 15, 5, 2], ends) == [1, 2, 3, 3]
+    assert chip_smoke.tick_keys([25, 5], ends) == [2, 3]
+    assert chip_smoke.tick_keys([4, 6, 20, 2], ends) == [None, None, 3, 3]
+    assert chip_smoke.tick_keys([10, 17, 3], ends) == [1, None, None]
+
+
+def _tables(*names) -> str:
+    return "".join(f"+---+\n| Flow ID |\n| {n} |\n+---+\n... showing\n"
+                   for n in names)
+
+
+def test_same_ticks_is_the_subsequence_rule_on_whole_ticks():
+    whole = [1, 2, 3]
+    assert chip_smoke.same_ticks((_tables("a", "b", "c"), 0, whole),
+                                 (_tables("a", "b", "c"), 0, whole)) is None
+    # one render coalesced: a table missing, the last one kept
+    assert chip_smoke.same_ticks((_tables("a", "c"), 1, whole),
+                                 (_tables("a", "b", "c"), 0, whole)) is None
+    why = chip_smoke.same_ticks((_tables("a", "x", "c"), 0, whole),
+                                (_tables("a", "b", "c"), 0, whole))
+    assert why.startswith("breaks the subsequence rule")
+    # a table missing with nothing coalesced
+    assert chip_smoke.same_ticks((_tables("a", "c"), 0, whole),
+                                 (_tables("a", "b", "c"), 0, whole))
+
+
+def test_same_ticks_places_the_tables_of_a_split_tick():
+    """Tick 1 split across two polls in one serve: its two partial tables
+    are not compared, every whole tick's table is, and so are the last
+    ones; a whole tick's table that differs still fails, and so does a
+    split run that coalesced a render."""
+    whole = (_tables("t1", "t2", "t3", "end"), 0, [1, 2, 3, 3])
+    split = (_tables("p", "q", "t2", "t3", "end"), 0, [None, None, 2, 3, 3])
+    assert chip_smoke.same_ticks(split, whole) is None
+    assert chip_smoke.same_ticks(whole, split) is None
+    bad = (_tables("p", "q", "t2", "x", "end"), 0, [None, None, 2, 3, 3])
+    assert "[3] differ" in chip_smoke.same_ticks(bad, whole)
+    coalesced = (_tables("p", "t2", "t3", "end"), 1, [None, None, 2, 3, 3])
+    assert "not one table a poll" in chip_smoke.same_ticks(coalesced, whole)
+    # the last whole tick must be compared
+    late = (_tables("t1", "t2", "p", "end"), 0, [1, 2, None, None])
+    assert "compared" in chip_smoke.same_ticks(late, whole)
+
+
+# EMITTER, with tick 1's bytes written in two halves 0.3 s apart
+SPLIT_EMITTER = chip_smoke.EMITTER.replace(
+    "for lines in ticks.values():\n    out.write(b\"\".join(lines))\n",
+    "for i, lines in enumerate(ticks.values()):\n"
+    "    blob = b\"\".join(lines)\n"
+    "    if i == 0:\n"
+    "        out.write(blob[:len(blob) // 2])\n"
+    "        out.flush()\n"
+    "        time.sleep(0.3)\n"
+    "        blob = blob[len(blob) // 2:]\n"
+    "    out.write(blob)\n")
+
+
+def test_a_split_tick_leaves_the_whole_ticks_tables_equal(
+        small_card_phases, tmp_path):
+    """The premise of ``same_ticks`` on the actuation serve: where the
+    pipe splits tick 1 across two polls, the tables printed after every
+    later whole tick, and the last, are those of the serve that read it
+    in one poll; only the two partial polls' tables differ."""
+    assert SPLIT_EMITTER != chip_smoke.EMITTER
+    models, _ = small_card_phases
+    ckpt = str(tmp_path / "ckpt")
+    checkpoint.save_model(
+        ckpt, "forest", interop.forest_params_from_numpy(models["forest"],
+                                                         "cpu"),
+        classes=chip_smoke.CLASSES)
+    capture = str(tmp_path / "capture")
+    ends = list(np.cumsum([len(chip_smoke.EMITTER_BANNER)]
+                          + chip_smoke.steady_capture(capture, 256, 4))[1:])
+    runs = []
+    for name, source in (("whole", chip_smoke.EMITTER),
+                         ("split", SPLIT_EMITTER)):
+        emitter = tmp_path / f"{name}.py"
+        emitter.write_text(source)
+        with chip_smoke.watched_polls() as polls:
+            out, summary, _ = chip_smoke._serve([
+                "Randomforest", "--source", "ryu", "--monitor-cmd",
+                f"{sys.executable} {emitter} {capture} 0.3",
+                "--capacity", "256", "--print-every", "1",
+                "--native-checkpoint", ckpt])
+        runs.append((out, summary.ticks_coalesced,
+                     chip_smoke.tick_keys(polls, ends)))
+    (whole, _, whole_keys), (split, _, split_keys) = runs
+    assert None not in whole_keys
+    assert split_keys[:2] == [None, None]
+    assert None not in split_keys[2:]
+    assert not chip_smoke.subsequence(whole, split)
+    assert chip_smoke.same_ticks(*runs) is None
+    assert chip_smoke.frames(split)[2:] == chip_smoke.frames(whole)[1:]
 
 
 
@@ -890,11 +1054,15 @@ def test_shard_capture_and_its_emitter(tmp_path, monkeypatch):
 
 
 def test_shards_phase_runs_on_cpu(small_card_phases, cpu_timers,
-                                  monkeypatch, capsys):
+                                  monkeypatch, capsys, one_torch_thread):
     """``phase_shards`` passes its own checks on the CPU at 256 and 512
     flows: the --shards 1 and 4-shard serves against the un-sharded one,
     the fused KNN and SVC predicts over 4 shards (shards of padding
-    alone), the kernel-fault drill and the --shards 2 refusal."""
+    alone), the kernel-fault drill and the --shards 2 refusal. One torch
+    thread: with every core, a loaded host lets the BLAS take fewer
+    threads for one product than for the other, and the SVC's decisions
+    (a padded shard's product against the whole set's) then differed by
+    2.0e-4 against the phase's 1.3e-4 bound."""
     monkeypatch.setattr(chip_smoke, "SHARD_GATHER_RUNS", 1)
     # ticks far enough apart that each small one is one poll of the serve,
     # however loaded the CPU (the byte-identity rests on it)

@@ -7,12 +7,12 @@ Checks: every module imports in a fresh interpreter with a meta-path
 blocker installed for those names (this test process already has JAX
 loaded; the two ``__main__`` modules, which run an entry point when
 imported, run instead under the blocker as ``python -m`` does); a
-source scan of the port, ``chip_smoke.py``,
-``tools/torch_fake_switch.py``, ``tools/torch_fleet_serve.py``,
-``tools/torch_doctor.py``, ``tools/torch_sanitize_kernels.py`` and
-``tools/torch_profile_gate.py`` finds no such import statement, and no
-string outside a docstring that names the JAX package (the way a path
-into its tree would be spelled); the Python programs inside
+source scan of the port, ``chip_smoke.py`` and every ``tools/torch_*.py``
+(the measurement tools among them, which import neither ``bench.py``
+nor anything else of the JAX side) finds no such import statement, and
+no string outside a docstring that names the JAX package (the way a path
+into its tree would be spelled); each measurement tool imports in a fresh
+interpreter with the blocker installed; the Python programs inside
 ``tools/torch_*.sh`` import none of it and the scripts name no module or
 path of it; in a fresh interpreter that records
 every ``ctypes.CDLL`` load and every process started, a build of the
@@ -60,12 +60,15 @@ print(" ".join(names))
 '''
 
 
-FAKE_SWITCH = ROOT / "tools" / "torch_fake_switch.py"
-FLEET_SERVE = ROOT / "tools" / "torch_fleet_serve.py"
-DOCTOR = ROOT / "tools" / "torch_doctor.py"
-SANITIZE_KERNELS = ROOT / "tools" / "torch_sanitize_kernels.py"
-PROFILE_GATE = ROOT / "tools" / "torch_profile_gate.py"
-TOOLS = [FAKE_SWITCH, FLEET_SERVE, DOCTOR, SANITIZE_KERNELS, PROFILE_GATE]
+# every Python tool of the port: the operator's tools, the drift
+# simulator, the kernel sweep, the pickle writer, the measurement tools
+# (twins of the JAX package's bench tools) and their shared module
+TOOLS = sorted((ROOT / "tools").glob("torch_*.py"))
+BENCH_TWINS = ("torch_bench_serve", "torch_bench_e2e", "torch_bench_e2e_live",
+               "torch_bench_knn", "torch_bench_forest_buckets",
+               "torch_bench_sharded", "torch_bench_sharded_scaling",
+               "torch_bench_openset", "torch_bench_scenarios",
+               "torch_fake_monitor")
 SHELL_TOOLS = sorted((ROOT / "tools").glob("torch_*.sh"))
 # the rank program chip_smoke.py spawns on the card
 MULTIHOST_WORKER = ROOT / "tests" / "torch_multihost_worker.py"
@@ -125,9 +128,46 @@ def _imported_names(path: pathlib.Path) -> list[str]:
 def test_source_has_no_blocked_import(path):
     bad = [
         n for n in _imported_names(path)
-        if any(n == b or n.startswith(b + ".") for b in BLOCKED)
+        if any(n == b or n.startswith(b + ".") or n == "bench"
+               for b in BLOCKED)
     ]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_tool_glob_finds_every_tool():
+    """The glob finds the earlier tools and the ten measurement tools, and
+    nothing else: a tool added later must be scanned on purpose."""
+    names = {p.stem for p in TOOLS}
+    assert names == {
+        "torch_doctor", "torch_drift_sim", "torch_fake_switch",
+        "torch_fleet_serve", "torch_kernel_sweep", "torch_profile_gate",
+        "torch_reference_pickles", "torch_sanitize_kernels",
+        "torch_bench_common", *BENCH_TWINS,
+    }
+    assert len(TOOLS) == 19
+
+
+TWIN_IMPORT = BLOCKER.split("import traffic_classifier_sdn_tpu_torch as pkg")[0] + \
+    """
+sys.path.insert(0, {tools!r})
+mod = importlib.import_module({name!r})
+assert callable(mod.main)
+leaked = sorted(m for m in sys.modules if blocked(m))
+assert not leaked, leaked
+"""
+
+
+@pytest.mark.parametrize("name", BENCH_TWINS)
+def test_measurement_tool_imports_with_jax_and_bench_blocked(name):
+    """Each measurement tool's module imports with JAX, the JAX package
+    and ``bench.py`` (which imports JAX) blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", TWIN_IMPORT.format(
+            blocked=BLOCKED + ("bench",), tools=str(ROOT / "tools"),
+            name=name)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
 
 
 def _shell_python(path: pathlib.Path) -> list[str]:

@@ -116,9 +116,13 @@ def _device(name: str) -> bool:
 SCENARIOS = {
     # eviction at --idle-timeout 2, snapshots every 2 ticks
     "plain": ("Randomforest", [], None),
-    # an armed dispatch error: demotion, probes, re-promotion
+    # an armed dispatch error: demotion, probes, re-promotion. No
+    # real-time deadline: a device call or probe past it (a JAX compile
+    # on a loaded host) demotes again, 3 more transitions on that side
+    # only; the armed error alone drives the ladder, on both sides
     "drill": ("Randomforest", ["--probe-every", "0", "--probe-successes",
-                               "2"], "degrade.dispatch_error"),
+                               "2", "--device-deadline", "0"],
+              "degrade.dispatch_error"),
     # every obs surface on: the JAX CLI arms its device plane too
     "obs": ("Randomforest", ["--obs-port", "0", "--obs-dir", "{tmp}/obs",
                              "--latency-slo", "0.000001"], None),

@@ -234,6 +234,9 @@ class HostSpine:
         # counterpart of the C++ engine's counters
         self._parse_errors: dict[int, int] = {}
         self._last_time = 0
+        # cumulative host→device update-batch bytes (padded wire matrices):
+        # what the serving benches report as crossing the link
+        self.wire_bytes = 0
         # freshness floor for the activity-ranked render sample
         self._tick_floor = 0
 
@@ -443,6 +446,7 @@ class FlowStateEngine(HostSpine):
     def _apply_wire(self, w: np.ndarray) -> None:
         """One packed wire batch into the device table (with the dirty
         bits of its slots when the label cache is live)."""
+        self.wire_bytes += w.nbytes  # padded, i.e. what actually moves
         wire = ft.wire_tensor(w, self.device)
         if self.dirty is None:
             self.table = ft.apply_wire(self.table, wire)

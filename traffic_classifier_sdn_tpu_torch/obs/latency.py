@@ -88,6 +88,10 @@ class LatencyProvenance:
         self._pending: list[_Entry] = []   # scattered, awaiting render
         self._seal_seq = 0
         self._breached = False
+        # optional per-entry fold tap: fn(entry, render_ts) per folded
+        # stamped entry — tools/torch_bench_e2e_live.py computes the
+        # per-batch stage increments from it
+        self.on_fold = None
 
     # -- host stage --------------------------------------------------------
     def begin_tick(self, entries) -> None:
@@ -212,6 +216,8 @@ class LatencyProvenance:
             for name, ts in bounds:
                 if ts is not None:
                     m.observe(f"wf_{name}_s", max(0.0, ts - e.emit))
+            if self.on_fold is not None:
+                self.on_fold(e, render_ts)
         self._check_slo()
 
     def _check_slo(self) -> None:

@@ -450,6 +450,7 @@ class ShardedFlowEngine(HostSpine):
                 packed = [ft.widen_wire(p) for p in packed]
             w = packed[0] if len(packed) == 1 else np.concatenate(packed)
             for chunk in self._route_chunks(w):
+                self.wire_bytes += chunk.nbytes
                 if self.incremental:
                     self.tables, self.dirty = self._apply_dirty(
                         self.tables, self.dirty, chunk)
