@@ -34,7 +34,7 @@ the script exits non-zero:
    (``with_nonfinite(X, every=3)``) at 777 and 65,536 rows and every
    launch shape, every KNN index in [0, S);
 4. serve — the port CLI in-process, serial (``<subcommand> --source
-   synthetic --synthetic-flows 65536 --capacity 65536 --max-ticks 4
+   synthetic --synthetic-flows 65536 --capacity 65536 --max-ticks 2
    --print-every 2 --pipeline off --degrade off``; native ingest and
    incremental labels at their defaults) for ``Randomforest``,
    ``knearest`` and ``svm`` on those models: 65,536 flows tracked, one
@@ -53,7 +53,7 @@ the script exits non-zero:
    seconds are printed. These are the main path: their launches are the
    ``launches`` of the kernels line;
 4c. ladder drills — for each family, the no-flag serve (forest and KNN
-   at 16,384 flows, SVC at 4,096, ``DRILL_FLOWS``; 10 ticks) with
+   at 16,384 flows, SVC at 4,096, ``DRILL_FLOWS``; 8 ticks) with
    ``degrade.dispatch_error`` armed on the second device call (``--probe-every
    0 --probe-successes 2``): the ladder demotes, the demoted tables'
    labels (the host rung's) equal the plain version's, and it re-promotes
@@ -87,7 +87,7 @@ the script exits non-zero:
 6b. 2^20 flows — the no-flag forest serve of ``--capacity 1048576`` fed as
    raw pipe bytes through ``--source ryu`` by an emitter that replays
    ``shard_capture``'s ticks of ``SyntheticFlows(1048576)``: one tick of
-   every conversation (~2.1 M lines, ~120 MB), then three of 4,096 of
+   every conversation (~2.1 M lines, ~120 MB), then two of 4,096 of
    them: every flow tracked, every line parsed, the last table's
    labels equal the plain version's; each poll's host time, each
    render's label time on the device stage and ``ticks_coalesced``;
@@ -135,15 +135,15 @@ the script exits non-zero:
 6i. controller — ``Randomforest --source controller --of-port <free
    port>`` with no other flag: the port's own controller, spawned by the
    serve, and ``tools/torch_fake_switch.py`` conversing 64 host pairs for
-   6 polls; the tables' labels equal the plain version's, and the
+   4 polls; the tables' labels equal the plain version's, and the
    controller ends on the serve's SIGTERM; then ``--source workload``
-   on seeded training CSVs in the reference layout (20,480 flows, 6
+   on seeded training CSVs in the reference layout (20,480 flows, 4
    ticks): tick seconds and labels per class against the generator's
    ground truth;
 6j. obs — the no-flag forest serve of 65,536 synthetic flows with
    ``--metrics-every 2 --obs-port 0 --obs-dir D`` and a snapshot due
    every tick under the default budget (its saves and skips), its source
-   held after 6 ticks (``held_source``): ``/metrics`` scraped while it
+   held after 4 ticks (``held_source``): ``/metrics`` scraped while it
    ticks (at least two scrapes with the ``tcsdn_stage_*`` summaries of
    poll, parse, scatter, predict, render and snapshot, and the counters
    and gauges the serve writes), ``/healthz`` 200 with the ``degrade``,
@@ -224,7 +224,7 @@ the script exits non-zero:
    row count summed across the processes, the KNN of 4,448 corpus rows
    (k = 5) over 4 state shards on 65,536 queries (the torch local stage
    and ``fused_predict``, the KNN kernel once per owned shard) and the
-   sharded table of 6p's 65,536-flow capture for 4 ticks (native ingest,
+   sharded table of 6p's 65,536-flow capture for 3 ticks (native ingest,
    incremental labels, the forest installed as its predict: the forest
    kernel once per owned shard a tick); then every other function the
    JAX package runs under ``shard_map``, at the same widths: the KNN's
@@ -237,21 +237,41 @@ the script exits non-zero:
    rank, shard 3 all padding) on the 65,536 query rows, and
    ``train/distributed.py``'s four fits on the 8,898 labelled rows of
    7b's retrain CSVs at ``retrain``'s settings (forest depth 10, its
-   trees cut to 20, ``MULTIHOST_FIT_KW``; SVC 15 pairs over the state
+   trees cut to 10, ``MULTIHOST_FIT_KW``; SVC 15 pairs over the state
    axis; k-means k = 6) with a Lloyd run
    from given centers. Each rank holds its results to its single-device
    references where those are bitwise, and the script holds every rank's
    results bitwise to its own one-process 4-shard mesh on the same
    inputs; the rendezvous seconds, each rank's host ms per tick, the
    bytes and ms it exchanged per tick and per merge call, and the fits'
-   seconds are printed;
+   seconds are printed; the ranks also take three data-parallel Adam
+   steps (``train/logreg.make_sgd(mesh=...)``) over their four data shards
+   on those rows, each rank's losses and state bitwise the one-process
+   mesh's;
+6r. dryrun — the twin of ``__graft_entry__.py``
+   (``traffic_classifier_sdn_tpu_torch/graft_entry.py``): ``entry()`` on
+   the card with ``TCSDN_MODELS_DIR`` at ``tests/data/reference_pickles``
+   (the reference-shaped forest through the forest kernel on 256 rows,
+   labels the plain forest's, one launch); ``dryrun_multichip(8)`` on a 4x2 mesh of 8 slots of the one
+   card, every launch count set to 0 just before and read just after (the
+   forest kernel once per data shard for each of two layouts, the KNN
+   kernel once per state shard under each of three merges, the RBF kernel
+   once per state shard), every kernel call recorded
+   (``recorded_kernel_calls``) and held bitwise to its plain version on
+   the same operands and inputs; the same steps' results held to the
+   same functions on one slot (``_dryrun_one_slot``: labels equal;
+   reordered sums within the tolerances beside ``SGD_RTOL``); and the
+   data-parallel Adam step at full width, 65,536 served rows labelled by
+   the plain forest over 4 data shards, 20 steps each held to the
+   one-shard step from the same state (``_sgd_held``), with each step's
+   time;
 7. breakdown — host seconds per tick of 131,072 records into 65,536 flows
    through the Python spine, the native spine from records and the
    native spine from raw bytes (each with ``step()`` and a device sync),
    and the device time of each step of the incremental label plan at 0,
    1, 20 and 100 % churn beside the full re-predict;
 7b. train — the training path (PR 13): ``train voice --source replay``
-   on a capture of 65,536 conversations (3 ticks) on the card, its CSV
+   on a capture of 65,536 conversations (2 ticks) on the card, its CSV
    byte for byte the ``--device cpu`` one's, with the host seconds per
    tick of ingest, the ``features16`` fetch and ``savetxt``; ``retrain``
    of the six families on the card from ``reference_csvs`` of the
@@ -263,11 +283,15 @@ the script exits non-zero:
    bitwise an uninterrupted run's; the no-flag classify of the retrained
    ``Randomforest``, ``knearest`` and ``svm`` checkpoints and of the
    reference-pickle forest (``--checkpoint-dir
-   tests/data/reference_pickles``) at 65,536 synthetic flows (4 ticks, a
+   tests/data/reference_pickles``) at 65,536 synthetic flows (2 ticks, a
    render every 2): every table's labels the plain version's, one launch
    a render, the kernel bitwise to its plain version on the served table
    (every KNN index in [0, S)) and timed there; the analysis numbers
-   (``figures.save_all`` without drawing) within 1e-6 of the CPU's;
+   (``figures.save_all`` without drawing) within 1e-6 of the CPU's.
+   Beside it, each in processes of its own (``Beside``,
+   ``start_sanitize``), run 6o (fleet), 7c (doctor), 7d (sanitize) and
+   the open-set run of 7e (``BENCH_BESIDE``): no clock decides a check
+   of theirs or of 7b, whose printed times then share the host;
 7c. doctor — ``tools/torch_doctor.py --platform default --expect gpu``
    at a 2^20-row table taking 65,536 flows a tick, in a process of its
    own: verdict ``pass`` with ``hbm`` and ``retrace`` passed, each check
@@ -342,9 +366,9 @@ SVC_VECTORS = 2281  # reference checkpoint SVC: support vectors, 15 pairs
 KMEANS_CLUSTERS = 4  # reference checkpoint KMeans_Clustering
 CAPACITY = 65536
 SHAPES = (777, 65536, 1 << 20)
-TIMED_RUNS = 30
+TIMED_RUNS = 20
 # the plain KNN/SVC versions take seconds at 2^20 rows: few runs each
-PLAIN_RUNS = {777: 10, 65536: 5, 1 << 20: 2}
+PLAIN_RUNS = {777: 5, 65536: 3, 1 << 20: 1}
 CLASSES = ("dns", "game", "ping", "quake", "telnet", "voice")
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and
 # non-tensor-core float32 operations/s.
@@ -1051,9 +1075,14 @@ def _check_nonfinite(g_knn, g_svc, X, N: int) -> None:
 
 # the serial bare-kernel serve (the JAX defaults turn both on)
 SERIAL = ("--pipeline", "off", "--degrade", "off")
-# ticks of the serial serves: 4, a render every 2 (short enough to keep
+# ticks of the serial serves: 2, a render every 2 (short enough to keep
 # the whole script within its time)
-SERIAL_TICKS = 4
+SERIAL_TICKS = 2
+# ticks of the no-flag serves of the main path: 4, a render every 2
+DEFAULT_TICKS = 4
+# ticks of a ladder drill: room for the demotion, failed parity probes and
+# two clean ones
+DRILL_TICKS = 8
 
 # family → (CLI subcommand, interop builder of the port's model)
 SERVES = {
@@ -1297,7 +1326,7 @@ def phase_default_serve(family: str, model: dict, g, device) -> int:
         argv = [
             subcommand, "--source", "synthetic",
             "--synthetic-flows", str(CAPACITY), "--capacity", str(CAPACITY),
-            "--max-ticks", "6", "--print-every", "2",
+            "--max-ticks", str(DEFAULT_TICKS), "--print-every", "2",
             "--native-checkpoint", ckpt,
         ]
         with watched_dispatch(family) as (features, log):
@@ -1381,7 +1410,7 @@ def phase_drills(family: str, model: dict, g, device) -> dict:
         argv = [
             subcommand, "--source", "synthetic",
             "--synthetic-flows", str(flows),
-            "--capacity", str(flows), "--max-ticks", "10",
+            "--capacity", str(flows), "--max-ticks", str(DRILL_TICKS),
             "--print-every", "1", "--probe-every", "0",
             "--probe-successes", "2", "--native-checkpoint", ckpt,
         ]
@@ -1633,7 +1662,7 @@ BIG_FLOWS = 1 << 20
 # the un-sharded serves of shard_capture, kept for the shards phase:
 # {n_flows: (stdout, final feature matrix, numbers)}
 RYU_BASELINES: dict = {}
-SHARD_TICKS = 4  # one tick of every conversation, then small ones
+SHARD_TICKS = 3  # one tick of every conversation, then small ones
 SHARD_SUB = 4096  # conversations reporting in each later tick
 SHARD_PAUSE = 0.5  # s between the small ticks
 # s after the first tick (at 65,536 flows, and at 2^20): the serve takes it
@@ -2012,8 +2041,9 @@ def _drill_family(tag: str, family: str, model: dict, cpu_model,
                   ckpt: str) -> None:
     """The no-flag serve of 65,536 flows with ``degrade.dispatch_error``
     armed on the second device call (``--probe-every 0 --probe-successes
-    2``, 10 ticks): the ladder demotes to the ``plain-cpu`` rung, every
-    printed table's labels equal the CPU module's but on near-ties, and it
+    2``, ``DRILL_TICKS`` ticks): the ladder demotes to the ``plain-cpu``
+    rung, every printed table's labels equal the CPU module's but on
+    near-ties, and it
     re-promotes (probes before that may fail only on parity)."""
     from traffic_classifier_sdn_tpu_torch.utils import faults
 
@@ -2022,7 +2052,8 @@ def _drill_family(tag: str, family: str, model: dict, cpu_model,
                                               after=1)])
     drill = [FAMILY_SERVES[family][0], "--source", "synthetic",
              "--synthetic-flows", str(CAPACITY), "--capacity", str(CAPACITY),
-             "--max-ticks", "10", "--print-every", "1", "--probe-every", "0",
+             "--max-ticks", str(DRILL_TICKS), "--print-every", "1",
+             "--probe-every", "0",
              "--probe-successes", "2", "--native-checkpoint", ckpt]
     with watched_dispatch(family) as (features, log), faults.installed(plan):
         out, summary, wall = _serve(drill)
@@ -2055,7 +2086,7 @@ MENU_VARS = ("TCSDN_KNN_TOPK", "TCSDN_SVC_KERNEL", "TCSDN_FOREST_KERNEL")
 KNN_TIERS = ("sort", "pallas", "argmax", "hier", "hier512", "screened",
              "screened64")
 IVF_CHUNK = 16384  # rows per IVF call: the (N, nprobe·L) candidate gather
-HOST_RUNS = 3  # host (C++) calls timed per form
+HOST_RUNS = 2  # host (C++) calls timed per form
 
 
 @contextlib.contextmanager
@@ -2524,7 +2555,7 @@ def phase_menu_serves(models: dict, ops: dict, device) -> dict:
 
 
 CONTROLLER_PAIRS = 64  # host pairs the fake switch converses
-CONTROLLER_TICKS = 6
+CONTROLLER_TICKS = 4
 
 
 def free_port() -> int:
@@ -2574,10 +2605,10 @@ def phase_controller(model: dict, k, device) -> int:
     other flag: the serve spawns the port's own OpenFlow controller
     (``python -m traffic_classifier_sdn_tpu_torch.controller``, polling
     each second), ``tools/torch_fake_switch.py`` connects and converses
-    64 host pairs, and 6 polls are served. Every printed table's labels
-    equal the plain version's on its dispatched table, the 64
-    conversations are tracked, and the controller ends on the serve's
-    SIGTERM with no process of its group left. Returns the forest
+    64 host pairs, and ``CONTROLLER_TICKS`` polls are served. Every
+    printed table's labels equal the plain version's on its dispatched
+    table, the 64 conversations are tracked, and the controller ends on
+    the serve's SIGTERM with no process of its group left. Returns the forest
     kernel's launches."""
     from traffic_classifier_sdn_tpu_torch import interop
     from traffic_classifier_sdn_tpu_torch.io import checkpoint
@@ -2632,7 +2663,7 @@ def phase_controller(model: dict, k, device) -> int:
 
 
 WORKLOAD_FLOWS = 20480  # 4,096 conversations per class of 5
-WORKLOAD_TICKS = 6
+WORKLOAD_TICKS = 4
 
 
 def phase_workload(model: dict, k, device) -> int:
@@ -3161,7 +3192,8 @@ def render_breakdown(engine, family: str, g, device) -> None:
 
 INSTANCES: dict = {}  # ptxas_instances of this run's build
 
-OBS_TICKS = 6
+OBS_TICKS = 4
+OBS_DRILL_TICKS = 3  # the obs drill's ticks: a render demoted after the first
 OBS_PRINT_EVERY = 2
 # seconds a held source waits for the signal that ends its serve
 SOURCE_HOLD_S = 120.0
@@ -3856,8 +3888,9 @@ def phase_obs(model: dict, k, device) -> int:
         plan = faults.FaultPlan([faults.FaultRule(
             "degrade.dispatch_error", after=1, times=None)])
         fk.forest_proba.launches = 0
-        with held_source(4) as held, faults.installed(plan), \
-                ObsWatch(lambda m: held.is_set() and _renders_done(m, 4)
+        with held_source(OBS_DRILL_TICKS) as held, faults.installed(plan), \
+                ObsWatch(lambda m: held.is_set()
+                         and _renders_done(m, OBS_DRILL_TICKS)
                          and m.gauges.get("degrade_state", 0) != 0) as watch:
             out, err, code, wall = _serve_until_signal(base + [
                 "--print-every", "1", "--probe-every", "600", "--obs-port",
@@ -3888,6 +3921,7 @@ def phase_obs(model: dict, k, device) -> int:
 CKPT_TICKS = 6
 CKPT_STOP = 4  # the serve checkpointed every 2 ticks stops here
 CKPT_BIG_FLOWS = 1 << 20
+CKPT_BIG_TICKS = 1  # ticks of every 2^20 conversation before the save
 
 
 def _capture(path: str, n_flows: int, ticks: int) -> None:
@@ -4087,7 +4121,7 @@ def phase_checkpoint(model: dict, k, device) -> int:
         # 2^20 flows: one save and one restore, timed
         eng = FlowStateEngine(CKPT_BIG_FLOWS, device=device, native=True)
         syn = SyntheticFlows(n_flows=CKPT_BIG_FLOWS)
-        for _ in range(2):
+        for _ in range(CKPT_BIG_TICKS):
             eng.mark_tick()
             eng.ingest_bytes(syn.tick_bytes())
             eng.step()
@@ -4562,7 +4596,7 @@ def phase_drift(model: dict, k, device) -> int:
 # slice 11: the actuation plane, the scenario campaign and the fleet
 # ---------------------------------------------------------------------------
 
-ACT_TICKS = 10
+ACT_TICKS = 6
 ACT_PAUSE = 0.5  # s between the emitter's ticks
 # one action per forest class but voice, which stays observe-only
 ACT_POLICY = ("dns=queue:1,game=meter:2,ping=drop,quake=mirror:3,"
@@ -4889,7 +4923,7 @@ FLEET_FLOWS = 32768  # per member: 2 sources of 16,384 conversations
 FLEET_TICKS = 4
 
 
-def phase_fleet(model: dict, device) -> None:
+def phase_fleet(model: dict, device, log=print) -> None:
     """``tools/torch_fleet_serve.py`` with two forest members on the one
     card: ``--total-sources 4`` (2 a member), ``FLEET_FLOWS`` synthetic
     flows a member, ``--drift auto`` on a shared rotation directory,
@@ -4951,7 +4985,7 @@ def phase_fleet(model: dict, device) -> None:
                              f"member log tails: "
                              f"{[v[-800:] for v in logs.values()]}")
     tables = {i: logs[i].count(b"Flow ID") for i in logs}
-    print(f"{tag} 2 members x {FLEET_FLOWS} flows ({FLEET_TICKS} ticks, "
+    log(f"{tag} 2 members x {FLEET_FLOWS} flows ({FLEET_TICKS} ticks, "
           f"--drift auto on one rotation) in {wall:.2f} s, both exit 0; "
           f"members {[m['sources'] for m in roster['members']]}; one "
           f"aggregator scrape: healthy {scrape['healthy']}, "
@@ -4963,7 +4997,7 @@ def phase_fleet(model: dict, device) -> None:
 
 
 SHARD_MESH = 4  # shards placed on the one card
-SHARD_GATHER_RUNS = 5  # dispatch/gather/merge timings per engine
+SHARD_GATHER_RUNS = 3  # dispatch/gather/merge timings per engine
 
 
 def _global_features(engine):
@@ -5305,10 +5339,10 @@ MULTIHOST_TIMEOUT_S = 300.0  # the longest wait for the ranks to exit
 MULTIHOST_PEER_TIMEOUT_S = 120.0  # a rank's wait for a lost peer
 # the fits' settings beside k-means' k and steps: retrain's
 # (serving/retrain.fit_family: the SVC 800 iterations, the forest depth 10
-# and 128 bins) but for the forest's tree count, cut from 100 to 20: each
+# and 128 bins) but for the forest's tree count, cut from 100 to 10: each
 # tree's histograms cross the ranks level by level (75 MB a rank a tree),
 # and 100 trees took 49.0 s of the phase's 77.6 s on the card
-MULTIHOST_FIT_KW = {"forest": {"n_trees": 20}, "svc": {}}
+MULTIHOST_FIT_KW = {"forest": {"n_trees": 10}, "svc": {}}
 
 
 def multihost_worker():
@@ -5458,6 +5492,7 @@ def phase_multihost(models: dict, device) -> tuple[dict, dict]:
         "exchange_ms_per_tick": meta["exchange_ms"],
         "merges": meta["merges"], "svc_fused": meta["svc_fused"],
         "fit_s": meta["fit_s"], "tree_draws": meta["tree_draws"],
+        "sgd_s": meta["sgd_s"],
     } for _, meta in got]
     if [r["tree_draws"] for r in ranks] != [want["fit_forest_left"].shape[0]] \
             + [0] * (MULTIHOST_RANKS - 1):
@@ -5489,15 +5524,18 @@ def phase_multihost(models: dict, device) -> tuple[dict, dict]:
               f"launches, {sf['bytes_sent']}/{sf['bytes_received']} bytes "
               f"in {sf['exchange_ms']:.2f} ms, call {sf['ms']:.2f} ms; fits "
               + ", ".join(f"{k} {v:.2f} s" for k, v in r["fit_s"].items())
-              + f"; forest draws made here {r['tree_draws']}")
+              + f"; forest draws made here {r['tree_draws']}; "
+              f"{worker.SGD_STEPS} data-parallel Adam steps "
+              f"{r['sgd_s']:.3f} s")
     print(f"{tag} {MULTIHOST_RANKS} ranks x {MULTIHOST_SHARDS} shards on "
           f"{device.type}: logreg labels of {X.shape[0]} rows, the row count "
           f"{int(want['row_count'])}, KNN labels of {X.shape[0]} queries "
           "(all_gather, ring and tournament merges; torch and kernel local "
           f"stages), the {want['forest_proba'].shape[0]}-row forest "
           "probabilities (gather and GEMM forms) and SVC decisions (torch "
-          "and kernel forms), the four fits on "
-          f"{fit['X'].shape[0]} rows and {rendered} render rows over "
+          "and kernel forms), the four fits and the data-parallel Adam "
+          f"step on {fit['X'].shape[0]} rows and {rendered} render rows "
+          "over "
           f"{n_ticks} ticks of {flows} flows bitwise the one-process "
           f"{n_shards}-shard mesh's on every rank; ranks {ranks_s:.1f} s, "
           f"phase {time.perf_counter() - t_phase:.1f} s")
@@ -5505,7 +5543,363 @@ def phase_multihost(models: dict, device) -> tuple[dict, dict]:
             {"ranks": ranks, "ranks_s": ranks_s})
 
 
-TRAIN_TICKS = 3  # collection ticks of the train phase's capture
+DRYRUN_SLOTS = 8  # dryrun_multichip's slots, all on the one card
+DRYRUN_SHARDS = 4  # data shards of the full-width train step
+DRYRUN_STEPS = 20  # its Adam steps
+DRYRUN_LR = 1e-2
+# the sharded sums against one slot's (tests/test_torch_graft_entry.py):
+# the Adam step's loss and moments, the forest's probabilities and the
+# SVC's decisions (of its largest coefficient sum); GNB's float64 moments
+SGD_RTOL = 1e-5
+FOREST_ATOL = 1e-5
+FOREST_GAP = 2e-5
+SVC_RTOL = 1e-5
+GNB_RTOL = 1e-12
+
+
+@contextlib.contextmanager
+def recorded_kernel_calls():
+    """Every call of the three kernels' wrappers inside the block, with
+    its operands, inputs and output: ``{family: [(operands, args, out)]}``.
+    The recorder counts nothing: a wrapper counts its launch on the module
+    global of its name, which is the recorder inside the block, so each
+    recorder carries the wrapper's count and hands it back on the way
+    out."""
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+    from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk
+    from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
+
+    calls: dict = {"forest": [], "knn": [], "svc": []}
+    sites = ((fk, "forest_proba", "forest"), (kk, "topk_sim_idx", "knn"),
+             (rk, "partial_decision", "svc"))
+    real = {}
+
+    def recorder(fn, family):
+        def call(g, *args):
+            out = fn(g, *args)
+            calls[family].append((g, args, out))
+            return out
+
+        return call
+
+    for mod, name, family in sites:
+        real[(mod, name)] = getattr(mod, name)
+        rec = recorder(real[(mod, name)], family)
+        rec.launches = real[(mod, name)].launches
+        setattr(mod, name, rec)
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in real.items():
+            fn.launches = getattr(mod, name).launches
+            setattr(mod, name, fn)
+
+
+def _held_to_plain(calls: dict) -> dict:
+    """Each recorded kernel call's output bitwise its plain version's on
+    the same operands and inputs; returns {family: calls checked}."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+    from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk
+    from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
+
+    plain = {"forest": fk.forest_proba_plain, "knn": kk.topk_sim_idx_plain,
+             "svc": rk.partial_decision_plain}
+    for family, recs in calls.items():
+        for i, (g, args, out) in enumerate(recs):
+            want = plain[family](g, *args)
+            got = out if isinstance(out, tuple) else (out,)
+            want = want if isinstance(want, tuple) else (want,)
+            if not all(a.dtype == b.dtype and torch.equal(
+                    a.view(torch.int32), b.view(torch.int32))
+                    for a, b in zip(got, want)):
+                raise AssertionError(f"[dryrun] {family} kernel call {i} "
+                                     "differs from its plain version")
+    return {f: len(r) for f, r in calls.items()}
+
+
+def _sgd_held(tag: str, got, got_loss: float, want, want_loss: float) -> int:
+    """One Adam step held to another from the same state: the loss within
+    ``SGD_RTOL``, the moments within ``SGD_RTOL`` of their largest
+    component, the params within ``SGD_RTOL · lr`` wherever the gradient
+    component exceeds ``SGD_RTOL`` of the largest (a gradient near 0 may
+    change sign between summation orders and move a param by up to
+    2 · lr: there the moments are what is compared). Returns how many
+    param components lay in that band."""
+    if abs(got_loss - want_loss) > SGD_RTOL * abs(want_loss):
+        raise AssertionError(f"{tag} loss {got_loss} against {want_loss}")
+    for name, ga, wa in (("mu", got.opt_state.mu, want.opt_state.mu),
+                         ("nu", got.opt_state.nu, want.opt_state.nu)):
+        for g, w in zip(ga, wa):
+            if float((g - w).abs().max()) > SGD_RTOL * float(w.abs().max()):
+                raise AssertionError(f"{tag} {name} off by "
+                                     f"{float((g - w).abs().max())}")
+    band = 0
+    for p, q, m in zip(got.params, want.params, want.opt_state.mu):
+        clear = m.abs() > SGD_RTOL * m.abs().max()
+        band += int((~clear).sum())
+        gap = float(((p - q).abs() * clear).max())
+        if gap > SGD_RTOL * DRYRUN_LR:
+            raise AssertionError(f"{tag} params off by {gap}")
+    if int(got.opt_state.count) != int(want.opt_state.count):
+        raise AssertionError(f"{tag} step counts differ")
+    return band
+
+
+def _dryrun_one_slot(out: dict, device) -> list[str]:
+    """Each of ``graft_entry._dryrun_steps``' results held to the same
+    function on one slot of ``device`` on the same inputs (module
+    docstring, 6r); returns a line a step."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.core import flow_table as ft
+    from traffic_classifier_sdn_tpu_torch.ingest.batcher import (
+        FlowStateEngine,
+    )
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+    from traffic_classifier_sdn_tpu_torch.train import distributed as dtrain
+    from traffic_classifier_sdn_tpu_torch.train import kmeans as tkmeans
+    from traffic_classifier_sdn_tpu_torch.train import logreg as tlogreg
+
+    tag = "[dryrun]"
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    lines = []
+    s = out["sgd"]
+    init, step = tlogreg.make_sgd(DRYRUN_LR, device=device)
+    want, loss = step(init(6, 12), on(s["X"]), on(s["y"].astype(np.int64)))
+    got = tlogreg.SGDState.from_leaves(s["leaves"], device=device)
+    band = _sgd_held(f"{tag} sgd", got, s["loss"], want, float(loss))
+    lines.append(f"sgd loss {s['loss']:.6f} (one slot {float(loss):.6f}), "
+                 f"{band} param components in the flip band")
+    f = out["forest_fit"]
+    single = dtrain.single_device_mesh(device)
+    fm = dtrain.fit_forest(single, f["X"], f["y"], n_classes=6, n_trees=2,
+                           max_depth=3, n_bins=8)
+    for k in ("left", "right", "feature", "threshold", "values"):
+        if not np.array_equal(f[k], getattr(fm, k).cpu().numpy()):
+            raise AssertionError(f"{tag} forest fit {k} differs")
+    lines.append("forest fit bitwise")
+    knn = out["knn"]
+    raw = dict(knn["model"])
+    if "pad_mask" in raw:
+        keep = ~raw.pop("pad_mask")
+        raw["fit_X"], raw["y"] = raw["fit_X"][keep], raw["y"][keep]
+    kp = interop.knn_params_from_numpy(raw, device)
+    for name, case in knn.items():
+        if name != "model" and not np.array_equal(
+                case[1], kp.predict(on(case[0])).cpu().numpy()):
+            raise AssertionError(f"{tag} knn {name} labels differ")
+    lines.append(f"knn labels of {len(knn) - 1} merges equal")
+    forest = out["forest"]
+    fp = interop.forest_params_from_numpy(_unpadded_forest(forest["model"]),
+                                          device)
+    for name in ("gather", "gemm"):
+        Xq, proba = forest[name]
+        want_p = fp.scores(on(Xq)).cpu().numpy()
+        err = float(np.abs(proba - want_p).max())
+        top2 = np.sort(want_p, axis=1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > FOREST_GAP
+        if err > FOREST_ATOL or not np.array_equal(
+                proba.argmax(1)[clear], want_p.argmax(1)[clear]):
+            raise AssertionError(f"{tag} forest {name}: max |diff| {err}")
+        lines.append(f"forest {name} max |diff| {err:.2e} (atol "
+                     f"{FOREST_ATOL}), labels equal on {int(clear.sum())} of "
+                     f"{len(clear)} rows off ties")
+    batch = out["forest_batch"]
+    k = fk.compile_forest(batch["model"], n_features=12, device=device)
+    for name, case in batch.items():
+        if name != "model" and not np.array_equal(
+                case[1], fk.forest_proba_plain(k, on(case[0])).argmax(-1)
+                .to(torch.int32).cpu().numpy()):
+            raise AssertionError(f"{tag} forest {name} labels differ")
+    lines.append("batch-sharded forest labels equal")
+    svc = out["svc"]
+    sp = interop.svc_params_from_numpy(svc["model"], device)
+    atol = SVC_RTOL * float(sp.pair_coef.abs().sum(1).max())
+    for name in ("torch", "fused"):
+        Xq, labels, dec = svc[name]
+        want_d = sp.decision_ovo(on(Xq)).cpu().numpy()
+        err = float(np.abs(dec - want_d).max())
+        clear = np.abs(want_d).min(1) > atol
+        if err > atol or not np.array_equal(
+                labels[clear], sp.predict(on(Xq)).cpu().numpy()[clear]):
+            raise AssertionError(f"{tag} svc {name}: max |diff| {err}")
+        lines.append(f"svc {name} max |diff| {err:.2e} (atol {atol:.2e}), "
+                     f"labels equal on {int(clear.sum())} of {len(clear)} "
+                     "rows off the band")
+    fits = out["fits"]
+    g = dtrain.fit_gnb(single, fits["X"], fits["y"], n_classes=6)
+    for key in ("theta", "inv_var", "log_const"):
+        a, b = fits[f"gnb_{key}"], getattr(g, key).cpu().numpy()
+        if not np.allclose(a, b, rtol=GNB_RTOL, atol=0):
+            raise AssertionError(f"{tag} gnb {key} differs")
+    n_data = DRYRUN_SLOTS // 2
+    Xt = fits["X"][: len(fits["X"]) - len(fits["X"]) % n_data]
+    km, inertia = dtrain.fit_kmeans(single, Xt, k=4, n_init=2, n_iter=5)
+    Xd = on(np.asarray(Xt, np.float32))
+    if not torch.equal(tkmeans._assign(Xd, on(fits["centers"]))[0],
+                       tkmeans._assign(Xd, km.centers)[0]) or abs(
+            fits["inertia"] - inertia) > 1e-5 * abs(inertia):
+        raise AssertionError(f"{tag} kmeans differs from one slot")
+    lines.append(f"gnb within {GNB_RTOL} relative, kmeans assignments equal")
+    t = out["table"]
+    eng = FlowStateEngine(capacity=t["capacity"], device=device)
+    eng.mark_tick()
+    eng.ingest(t["records"])
+    eng.step()
+    labels = torch.sum(ft.features12(eng.table), dim=1).to(torch.int32) % 6
+    rows = np.asarray(eng.render_sample(labels, 4), np.int64).reshape(-1, 4)
+    if not np.array_equal(rows, t["rows"]):
+        raise AssertionError(f"{tag} table rows differ from one slot")
+    lines.append("table rows equal")
+    return lines
+
+
+def _unpadded_forest(d: dict) -> dict:
+    """The ensemble without ``pad_trees``' inert trees."""
+    n = int(d.get("n_real_trees", d["left"].shape[0]))
+    return {k: (v[:n] if isinstance(v, np.ndarray) and k != "classes"
+                else v) for k, v in d.items() if k != "n_real_trees"}
+
+
+def dryrun_train_step(X, y, device) -> dict:
+    """The data-parallel Adam step at full width: ``X`` (served features)
+    and ``y`` over ``DRYRUN_SHARDS`` data shards of ``device``, each of
+    ``DRYRUN_STEPS`` steps held to the one-shard step from the same state
+    (``_sgd_held``), then both steps timed alone over ``DRYRUN_STEPS``
+    steps from a zero state (host clock, the device synced at the end)."""
+    from traffic_classifier_sdn_tpu_torch.parallel import mesh as meshlib
+    from traffic_classifier_sdn_tpu_torch.train import logreg as tlogreg
+
+    mesh = meshlib.make_mesh(n_data=DRYRUN_SHARDS, n_state=1,
+                             devices=[device] * DRYRUN_SHARDS)
+    init, sharded = tlogreg.make_sgd(DRYRUN_LR, mesh=mesh)
+    _, one = tlogreg.make_sgd(DRYRUN_LR, device=device)
+    state, band, losses = init(6, X.shape[1]), 0, []
+    for i in range(DRYRUN_STEPS):
+        a, la = sharded(state, X, y)
+        b, lb = one(state, X, y)
+        band += _sgd_held(f"[dryrun] train step {i + 1}", a, float(la), b,
+                          float(lb))
+        losses.append(float(la))
+        state = a
+
+    def per_step_ms(step) -> float:
+        st = init(6, X.shape[1])
+        _device_sync(X.device)
+        t0 = time.perf_counter()
+        for _ in range(DRYRUN_STEPS):
+            st, loss = step(st, X, y)
+        float(loss)
+        return (time.perf_counter() - t0) / DRYRUN_STEPS * 1e3
+
+    return {"rows": int(X.shape[0]), "shards": DRYRUN_SHARDS,
+            "steps": DRYRUN_STEPS, "losses": losses, "flip_band": band,
+            "ms_per_step": per_step_ms(sharded),
+            "one_shard_ms_per_step": per_step_ms(one)}
+
+
+def phase_dryrun(ops: dict, device, rows: int = CAPACITY) -> tuple[dict, dict]:
+    """The entry module's twin (module docstring, 6r): ``entry()`` against
+    the plain forest, ``dryrun_multichip(8)`` on 8 slots of the device
+    with every kernel call held to its plain version and each step's
+    result to one slot's, and the data-parallel train step at ``rows``
+    served rows. Returns ({path: {family: launches}}, numbers)."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch import graft_entry
+    from traffic_classifier_sdn_tpu_torch.core import flow_table as ft
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+    from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk
+    from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
+
+    tag = "[dryrun]"
+    t_phase = time.perf_counter()
+    on_card = int(device.type == "cuda")
+    counters = {"forest": fk.forest_proba, "knn": kk.topk_sim_idx,
+                "svc": rk.partial_decision}
+
+    def zero() -> None:
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read() -> dict:
+        return {f: fn.launches for f, fn in counters.items()}
+
+    saved = os.environ.get("TCSDN_MODELS_DIR")
+    os.environ["TCSDN_MODELS_DIR"] = REFERENCE_PICKLES
+    try:
+        zero()
+        fn, args = graft_entry.entry(device=device)
+        labels = fn(*args)
+        entry_launches = read()
+    finally:
+        if saved is None:
+            os.environ.pop("TCSDN_MODELS_DIR", None)
+        else:
+            os.environ["TCSDN_MODELS_DIR"] = saved
+    k, X = args
+    if not torch.equal(labels, fk.forest_proba_plain(k, X).argmax(-1).to(
+            torch.int32)):
+        raise AssertionError(f"{tag} entry labels differ from the plain "
+                             "forest's")
+    if entry_launches != {"forest": on_card, "knn": 0, "svc": 0}:
+        raise AssertionError(f"{tag} entry launches {entry_launches}")
+    print(f"{tag} entry: the {k.n_trees}-tree reference forest on "
+          f"{X.shape[0]} rows, labels the plain forest's, launches "
+          f"{entry_launches}")
+
+    n_state = 2
+    n_data = DRYRUN_SLOTS // n_state
+    zero()
+    with recorded_kernel_calls() as calls:
+        t0 = time.perf_counter()
+        graft_entry.dryrun_multichip(DRYRUN_SLOTS, device=device)
+        _device_sync(device)
+        dryrun_s = time.perf_counter() - t0
+    launches = read()
+    # the forest kernel once per data shard for each of the two v2
+    # layouts, the KNN kernel once per state shard under each of the three
+    # merges, the RBF kernel once per state shard
+    want_calls = {"forest": 2 * n_data, "knn": 3 * n_state, "svc": n_state}
+    made = {f: len(r) for f, r in calls.items()}
+    if made != want_calls or launches != {
+            f: n * on_card for f, n in want_calls.items()}:
+        raise AssertionError(f"{tag} kernel calls {made}, launches "
+                             f"{launches}; want {want_calls}")
+    _held_to_plain(calls)
+    print(f"{tag} dryrun_multichip({DRYRUN_SLOTS}) on a {n_data}x{n_state} "
+          f"mesh of one {device.type} device in {dryrun_s:.2f} s: launches "
+          f"{launches}, every kernel call bitwise its plain version")
+    out = graft_entry._dryrun_steps(
+        graft_entry.dryrun_mesh(DRYRUN_SLOTS, device),
+        np.random.RandomState(0))
+    for line in _dryrun_one_slot(out, device):
+        print(f"{tag} against one slot: {line}")
+
+    X = ft.features12(synthetic_table(rows, 3, device))
+    y = fk.forest_proba_plain(ops["forest"], X).argmax(-1)
+    sgd = dryrun_train_step(X, y, device)
+    print(f"{tag} data-parallel Adam step: {sgd['rows']} served rows over "
+          f"{sgd['shards']} data shards, {sgd['steps']} steps each held to "
+          f"the one-shard step from the same state (loss rtol {SGD_RTOL}, "
+          f"moments {SGD_RTOL} of their largest, params {SGD_RTOL} x lr; "
+          f"{sgd['flip_band']} param components in the flip band); loss "
+          f"{sgd['losses'][0]:.4f} -> {sgd['losses'][-1]:.4f}; "
+          f"{sgd['ms_per_step']:.3f} ms a step (one shard "
+          f"{sgd['one_shard_ms_per_step']:.3f} ms); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return ({"dryrun entry": entry_launches, "dryrun": launches},
+            {"dryrun_s": dryrun_s, "train_step": sgd})
+
+
+TRAIN_TICKS = 2  # collection ticks of the train phase's capture
+TRAIN_SERVE_TICKS = 2  # ticks of its classify serves: one render
 TRAIN_ROWS = 1483  # rows per class of its retrain CSVs: 8,898 in all
 RETRAIN_TOLERANCE = 0.02  # card against CPU held-out accuracy
 SGD_EVERY, SGD_KILL = 500, 1000  # logreg train-state saves; the kill
@@ -5652,8 +6046,8 @@ def _train_serve(kind: str, sub: str, family: str, tmp: str,
             device=device)
     _, g = model.serving_path()
     argv = [sub, *src, "--source", "synthetic", "--synthetic-flows",
-            str(CAPACITY), "--capacity", str(CAPACITY), "--max-ticks", "4",
-            "--print-every", "2"]
+            str(CAPACITY), "--capacity", str(CAPACITY), "--max-ticks",
+            str(TRAIN_SERVE_TICKS), "--print-every", "2"]
     tables, feats, log, summary, launches, _ = _menu_serve(tag, family, argv,
                                                            {})
     if family == "forest":
@@ -5973,7 +6367,7 @@ DOCTOR_IDS = ("platform", "compile", "retrace", "hbm", "transfers",
 
 
 def phase_doctor(device, capacity: int = 1 << 20,
-                 flows_per_tick: int = CAPACITY) -> dict:
+                 flows_per_tick: int = CAPACITY, log=print) -> dict:
     """``tools/torch_doctor.py`` in a process of its own at the serve's
     full width (on the card: ``--platform default --expect gpu``, a
     2^20-row table taking 65,536 flows a tick). Requires exit 0, verdict
@@ -5988,7 +6382,7 @@ def phase_doctor(device, capacity: int = 1 << 20,
         # the doctor reads the card's free memory: hand back this
         # process's cached blocks first (59 GB after the earlier phases)
         torch.cuda.empty_cache()
-        print(f"{tag} this process holds "
+        log(f"{tag} this process holds "
               f"{torch.cuda.memory_allocated(device)} bytes of live "
               "tensors on the card while the doctor runs")
     t0 = time.perf_counter()
@@ -6007,7 +6401,7 @@ def phase_doctor(device, capacity: int = 1 << 20,
     for c in bundle.get("checks", ()):
         fields = {k: v for k, v in c.items()
                   if k not in ("id", "status", "detail")}
-        print(f"{tag} {c['id']}: {c['status']} — {c['detail']} "
+        log(f"{tag} {c['id']}: {c['status']} — {c['detail']} "
               f"{json.dumps(fields, sort_keys=True)}")
     want = ("hbm", "retrace") if on_card else ("retrace",)
     if (proc.returncode != 0 or bundle.get("verdict") != "pass"
@@ -6017,13 +6411,87 @@ def phase_doctor(device, capacity: int = 1 << 20,
             f"{tag} rc {proc.returncode}, verdict {bundle.get('verdict')}, "
             f"checks {[(c, x['status']) for c, x in checks.items()]}: "
             f"{proc.stderr[-3000:]}")
-    print(f"{tag} verdict pass at capacity {capacity}, {flows_per_tick} "
+    log(f"{tag} verdict pass at capacity {capacity}, {flows_per_tick} "
           f"flows a tick on {bundle['platform']}, in "
           f"{time.perf_counter() - t0:.1f} s (the process's start included)")
     return bundle
 
 
-def phase_sanitize(device) -> dict:
+# the bench_tools runs whose checks no clock decides (accuracy and its
+# AUC), run beside the train phase
+BENCH_BESIDE = ("openset",)
+
+
+class Beside:
+    """Phases run in threads beside the main thread's phase, each waiting
+    on processes of its own: ``start(name, fn, *args, **kw)`` calls
+    ``fn(*args, log=..., **kw)``, then ``join()`` waits for every one,
+    prints each phase's lines in the order they were started and returns
+    {name: result}, or raises the first one's error. A phase beside
+    another must not print while it runs: the other may have
+    ``sys.stdout`` redirected (a serve's captured stdout), so its lines
+    go to ``log`` and are printed once the join is done."""
+
+    def __init__(self):
+        self.jobs: list = []
+
+    def start(self, name: str, fn, *args, **kw) -> None:
+        import threading
+
+        box: dict = {"lines": []}
+
+        def run():
+            try:
+                box["result"] = fn(*args, log=box["lines"].append, **kw)
+            except BaseException as e:  # re-raised by join
+                box["error"] = e
+
+        thread = threading.Thread(target=run, name=name)
+        thread.start()
+        self.jobs.append((name, thread, box))
+
+    def wait(self) -> None:
+        """Waits for every phase to end."""
+        for _, thread, _ in self.jobs:
+            thread.join()
+
+    def join(self) -> dict:
+        self.wait()
+        for _, _, box in self.jobs:
+            for line in box["lines"]:
+                print(line)
+        for name, _, box in self.jobs:
+            if "error" in box:
+                raise box["error"]
+        return {name: box["result"] for name, _, box in self.jobs}
+
+
+def start_sanitize() -> dict:
+    """Starts ``tools/torch_native_sanitize.sh --cuda-only`` in a process
+    group of its own and returns its handle for ``phase_sanitize``. Its
+    checks are bitwise, none timed, so ``main`` runs it beside the train
+    phase, whose checks no clock decides either."""
+    tmp = tempfile.mkdtemp()
+    out = os.path.join(tmp, "summary.json")
+    proc = subprocess.Popen(
+        ["sh", os.path.join(HERE, "tools", "torch_native_sanitize.sh"),
+         "--cuda-only"], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True,
+        env=dict(os.environ, NATIVE_SANITIZE_SUMMARY=out, TMPDIR=tmp))
+    return {"proc": proc, "tmp": tmp, "out": out, "t0": time.perf_counter()}
+
+
+def stop_sanitize(run: dict) -> None:
+    """Kills a started sanitizer's process group if it still runs."""
+    import signal
+
+    if run["proc"].poll() is None:
+        os.killpg(run["proc"].pid, signal.SIGKILL)
+        run["proc"].communicate()
+    shutil.rmtree(run["tmp"], ignore_errors=True)
+
+
+def phase_sanitize(device, run: dict | None = None) -> dict:
     """``tools/torch_native_sanitize.sh --cuda-only``: compute-sanitizer's
     memcheck, racecheck, initcheck and synccheck over the three kernels at
     small odd shapes (each held bitwise to its plain version), then the
@@ -6032,18 +6500,18 @@ def phase_sanitize(device) -> dict:
     must pass; a sanitizer tool whose log holds nothing but its refusal
     of the card reports ``unsupported`` with its own words, which is
     printed, not hidden: that tool has then checked nothing. On the CPU
-    every phase is skipped. Returns the summary."""
+    every phase is skipped. ``run``: a ``start_sanitize`` handle to wait
+    for (default: start one now). Returns the summary."""
     tag = "[sanitize]"
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "summary.json")
-        proc = subprocess.run(
-            ["sh", os.path.join(HERE, "tools", "torch_native_sanitize.sh"),
-             "--cuda-only"], cwd=HERE, capture_output=True, text=True,
-            timeout=900, env=dict(os.environ, NATIVE_SANITIZE_SUMMARY=out,
-                                  TMPDIR=tmp),
-        )
+    beside = run is not None
+    run = run or start_sanitize()
+    try:
+        stdout, stderr = run["proc"].communicate(timeout=900)
+        out = run["out"]
         summary = json.loads(open(out).read()) if os.path.exists(out) else {}
+    finally:
+        stop_sanitize(run)
+    rc = run["proc"].returncode
     phases = {p["name"]: p for p in summary.get("phases", ())}
     for p in summary.get("phases", ()):
         print(f"{tag} {p['name']}: {p['status']}"
@@ -6051,7 +6519,7 @@ def phase_sanitize(device) -> dict:
     names = ("memcheck", "racecheck", "initcheck", "synccheck",
              "kernel_guards")
     if device.type == "cuda":
-        bad = (proc.returncode != 0 or list(phases) != list(names)
+        bad = (rc != 0 or list(phases) != list(names)
                or phases["kernel_guards"]["status"] != "pass"
                or any(phases[n]["status"] not in ("pass", "unsupported")
                       for n in names))
@@ -6059,12 +6527,13 @@ def phase_sanitize(device) -> dict:
         bad = any(phases.get(n, {}).get("status") != "skipped"
                   for n in names)
     if bad:
-        raise AssertionError(f"{tag} rc {proc.returncode}: {summary}\n"
-                             f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
-    for line in proc.stdout.splitlines():
+        raise AssertionError(f"{tag} rc {rc}: {summary}\n"
+                             f"{stdout[-4000:]}{stderr[-2000:]}")
+    for line in stdout.splitlines():
         if line.startswith("kernel guards:"):
             print(f"{tag} {line.strip()}")
-    print(f"{tag} {time.perf_counter() - t0:.1f} s")
+    print(f"{tag} {time.perf_counter() - run['t0']:.1f} s"
+          + (" from its start, beside the train phase" if beside else ""))
     return summary
 
 BENCH_DRIVER = (
@@ -6162,17 +6631,17 @@ def bench_plan(tmp: str, device, small: bool = False) -> list[tuple]:
     reference_csvs(data, rows=64 if small else 1483, files=NOTEBOOK_CSVS)
     fanin = os.path.join(tmp, "fanin.json")
     cap = 4096 if small else 1 << 20
-    serve = ["--capacity", str(cap), "--ticks", "2" if small else "3",
+    serve = ["--capacity", str(cap), "--ticks", "2",
              "--pipeline", "both", "--warmup"]
     sweep = ["--capacity", str(cap), "--ticks", "2",
              "--flows-per-tick", "1024" if small else "65536",
              "--source-interval", "0.1" if small else "0.25"]
     plan = [
         ("serve gnb", "torch_bench_serve.py", serve + ["--model", "gnb"],
-         ("metric", "serve_pipeline_ab"), "ticks 5 -> 3"),
+         ("metric", "serve_pipeline_ab"), "ticks 5 -> 2"),
         ("serve forest", "torch_bench_serve.py",
          serve + ["--model", "forest"], ("metric", "serve_pipeline_ab"),
-         "ticks 5 -> 3"),
+         "ticks 5 -> 2"),
         ("serve fanin", "torch_bench_serve.py",
          sweep + ["--sources-sweep", "1,16", "--warmup"],
          ("metric", "serve_fanin_sources"),
@@ -6186,8 +6655,8 @@ def bench_plan(tmp: str, device, small: bool = False) -> list[tuple]:
         ("e2e", "torch_bench_e2e.py", [],
          ("metric", "e2e_latency_budget_16k_slice"), "none"),
         ("e2e serve-budget", "torch_bench_e2e.py",
-         ["--serve-budget", "--ticks", "5"],
-         ("metric", "e2e_serve_budget_16k"), "ticks 9 -> 5"),
+         ["--serve-budget", "--ticks", "3"],
+         ("metric", "e2e_serve_budget_16k"), "ticks 9 -> 3"),
         ("e2e_live", "torch_bench_e2e_live.py",
          ["--ticks", "3", "--sources", "1,16", "--ab-repeat", "1"]
          + (["--records-per-tick", "1024", "--interval", "0.1",
@@ -6195,24 +6664,24 @@ def bench_plan(tmp: str, device, small: bool = False) -> list[tuple]:
          ("metric", "e2e_budget_live"),
          "ticks 12 -> 3, sources 1,16,64 -> 1,16, A/B repeats 3 -> 1"),
         ("knn", "torch_bench_knn.py",
-         ["--batch", "512" if small else "16384", "--repeat", "2",
+         ["--batch", "512" if small else "16384", "--repeat", "1",
           "--out-prune", os.path.join(tmp, "knn_prune.json"),
           "--out-recall", os.path.join(tmp, "knn_recall.json")],
-         ("artifact", "knn_ivf_recall"), "repeats 3 -> 2"),
+         ("artifact", "knn_ivf_recall"), "repeats 3 -> 1"),
         ("forest_buckets", "torch_bench_forest_buckets.py",
-         ["--batch", "1024" if small else "131072", "--buckets", "2,8,32",
+         ["--batch", "1024" if small else "131072", "--buckets", "2,32",
           "--data-dir", data],
          ("metric", "forest_bucket_sweep"),
-         "buckets 2,4,8,16,32 -> 2,8,32; parity rows: "
+         "buckets 2,4,8,16,32 -> 2,32; parity rows: "
          "chip_smoke.reference_csvs"),
         ("sharded", "torch_bench_sharded.py",
-         ["--repeats", "3"] + (["--batch", "256"] if small else []),
-         ("metric", "sharded_scaling_cpu_mesh"), "repeats 5 -> 3"),
+         ["--repeats", "2"] + (["--batch", "256"] if small else []),
+         ("metric", "sharded_scaling_cpu_mesh"), "repeats 5 -> 2"),
         ("sharded_scaling", "torch_bench_sharded_scaling.py",
-         ["--repeats", "3"]
+         ["--repeats", "2"]
          + (["--corpus", "8192", "--batch", "512"] if small else []),
          ("metric", "sharded_knn_scaling_fixed_total_work"),
-         "repeats 5 -> 3"),
+         "repeats 5 -> 2"),
         ("openset", "torch_bench_openset.py",
          ["--rows-per-class", "64"] if small else [],
          ("bench", "openset_eval"), "none"),
@@ -6227,17 +6696,19 @@ def bench_plan(tmp: str, device, small: bool = False) -> list[tuple]:
 
 
 def phase_bench_tools(device, small: bool = False,
-                      only: tuple | None = None) -> dict:
+                      only: tuple | None = None, skip: tuple = (),
+                      log=print) -> dict:
     """Each twin of ``bench_plan`` in a process of its own through
-    ``BENCH_DRIVER`` (module docstring, 7e). Returns {``bench_tools
-    <name>``: {family: launches}}."""
+    ``BENCH_DRIVER`` (module docstring, 7e), those named in ``only`` if
+    given, none named in ``skip``; its lines go to ``log``. Returns
+    {``bench_tools <name>``: {family: launches}}."""
     tag = "[bench_tools]"
     paths = {}
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         for name, tool, argv, (key, want), cuts in bench_plan(tmp, device,
                                                               small):
-            if only is not None and name not in only:
+            if (only is not None and name not in only) or name in skip:
                 continue
             t0 = time.perf_counter()
             proc = subprocess.run(
@@ -6269,10 +6740,10 @@ def phase_bench_tools(device, small: bool = False,
                 with open(os.path.join(tmp, "fanin.json"), "w") as f:
                     json.dump(docs[-1], f)
             paths[f"bench_tools {name}"] = launches
-            print(f"{tag} {name}: {tool} {' '.join(argv)} — exit 0 in "
+            log(f"{tag} {name}: {tool} {' '.join(argv)} — exit 0 in "
                   f"{wall:.1f} s, cuts: {cuts}; launches {launches}; "
                   f"{json.dumps(_bench_summary(name, docs))}")
-    print(f"{tag} {len(paths)} runs in {time.perf_counter() - t_phase:.1f} s")
+    log(f"{tag} {len(paths)} runs in {time.perf_counter() - t_phase:.1f} s")
     return paths
 
 
@@ -6326,6 +6797,39 @@ def _bench_summary(name: str, docs: list[dict]) -> dict:
     return {"scenarios": len(d["scenarios"]), "passed": d["passed"]}
 
 
+def depth_cuts() -> dict:
+    """{phase: the depths cut in it}, printed on a line of the phase's own
+    when it ends: ticks, repeats and sweep points cut to keep the script
+    within half its time limit, every check and width kept (each
+    ``bench_tools`` run prints its own in ``bench_plan``)."""
+    shard = f"shard_capture ticks 4 -> {SHARD_TICKS}"
+    return {
+        "kernels": f"CUDA-event single calls timed, here and in every "
+                   f"later phase, 30 -> {TIMED_RUNS}; "
+                   "plain-version runs at 777, 65,536 and 2^20 rows 10, 5, "
+                   "2 -> " + ", ".join(str(PLAIN_RUNS[n]) for n in SHAPES),
+        "serves": f"serial serves 4 -> {SERIAL_TICKS} ticks, no-flag serves "
+                  f"6 -> {DEFAULT_TICKS} ticks",
+        "drills": f"dispatch drills 10 -> {DRILL_TICKS} ticks",
+        "2^20": shard,
+        "families": f"gaussiannb drill 10 -> {DRILL_TICKS} ticks",
+        "menus": f"native host runs 3 -> {HOST_RUNS}",
+        "controller": f"polls 6 -> {CONTROLLER_TICKS}",
+        "workload": f"ticks 6 -> {WORKLOAD_TICKS}",
+        "obs": f"ticks of the obs serve and its on and off serves 6 -> "
+               f"{OBS_TICKS}, of its drill 4 -> {OBS_DRILL_TICKS}",
+        "checkpoint": f"ticks before the 2^20 save 2 -> {CKPT_BIG_TICKS}",
+        "actuation": f"ticks 10 -> {ACT_TICKS}",
+        "shards": f"{shard}; gather timings 5 -> {SHARD_GATHER_RUNS}",
+        "multihost": f"{shard}; forest fit trees 20 -> "
+                     f"{MULTIHOST_FIT_KW['forest']['n_trees']}",
+        "train": f"collection ticks 3 -> {TRAIN_TICKS}, classify serves 4 "
+                 f"-> {TRAIN_SERVE_TICKS} ticks; beside it, each in "
+                 "processes of its own: doctor, fleet, the sanitizer gate "
+                 "and bench_tools openset",
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -6343,10 +6847,14 @@ def main() -> int:
         return 1
     t0 = time.perf_counter()
     marks = [("start", t0)]
+    cuts = depth_cuts()
 
     def mark(name: str) -> None:
-        """Seconds since the previous mark, under ``name``."""
+        """Seconds since the previous mark, under ``name``, and the depths
+        cut in that phase."""
         marks.append((name, time.perf_counter()))
+        if name in cuts:
+            print(f"[{name}] depth cut: {cuts[name]}")
 
     smi = phase_environment()
     device = torch.device("cuda")
@@ -6411,31 +6919,46 @@ def main() -> int:
         "forest": phase_actuation(models["forest"], ops["forest"], device),
         "knn": 0, "svc": 0}
     mark("actuation")
-    # the scenarios serve a GNB (plain torch ops) and the fleet's members
-    # launch in their own processes: neither adds to the counts here
+    # the scenarios serve a GNB (plain torch ops): nothing adds to the
+    # counts here
     phase_scenarios(device)
-    phase_fleet(models["forest"], device)
-    mark("scenarios, fleet")
+    mark("scenarios")
     shard_paths, shards = phase_shards(models, ops, device)
     paths.update(shard_paths)
     mark("shards")
     multihost_paths, multihost = phase_multihost(models, device)
     paths.update(multihost_paths)
     mark("multihost")
+    dryrun_paths, _ = phase_dryrun(ops, device)
+    paths.update(dryrun_paths)
+    mark("dryrun")
     phase_ingest_breakdown(ops["forest"], device)
     mark("breakdown")
-    train_paths, trained = phase_train(device)
+    # beside the train phase, whose checks no clock decides: the
+    # operator's gates, the fleet and the open-set bench, each in
+    # processes of its own (launches there add nothing to the counts
+    # here, the bench's are reported by BENCH_DRIVER)
+    sanitizer = start_sanitize()
+    side = Beside()
+    side.start("doctor", phase_doctor, device)
+    side.start("fleet", phase_fleet, models["forest"], device)
+    side.start("bench_tools", phase_bench_tools, device, only=BENCH_BESIDE)
+    try:
+        train_paths, trained = phase_train(device)
+        beside = side.join()
+    except BaseException:
+        stop_sanitize(sanitizer)
+        raise
+    finally:
+        side.wait()
     paths.update(train_paths)
+    paths.update(beside["bench_tools"])
     mark("train")
-    # the operator's gates, each in processes of its own: launches there
-    # add nothing to the counts here
-    phase_doctor(device)
-    mark("doctor")
-    phase_sanitize(device)
+    phase_sanitize(device, sanitizer)
     mark("sanitize")
     # the measurement tools, each in a process of its own: their launches
     # are counted there and reported by BENCH_DRIVER
-    paths.update(phase_bench_tools(device))
+    paths.update(phase_bench_tools(device, skip=BENCH_BESIDE))
     mark("bench_tools")
     kernels = kernel_entries(results, launches, paths, buckets, menus,
                              promoted, shards, trained, multihost)

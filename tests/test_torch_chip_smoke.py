@@ -371,7 +371,8 @@ def test_default_serve_and_drill_phases_run_on_cpu(small_card_phases,
     models, ops = small_card_phases
     device = torch.device("cpu")
     assert chip_smoke.phase_default_serve(family, models[family],
-                                          ops[family], device) == 3
+                                          ops[family], device) == \
+        chip_smoke.DEFAULT_TICKS // 2
     assert chip_smoke.phase_drills(family, models[family], ops[family],
                                    device) > 0
     out = capsys.readouterr().out
@@ -689,6 +690,133 @@ def test_multihost_phase_runs_on_cpu(small_card_phases, capsys,
     out = capsys.readouterr().out
     assert "bitwise the one-process 4-shard mesh's on every rank" in out
     assert "[multihost] rank 1 fused ring: 0 KNN launches in 3 calls" in out
+
+
+def test_dryrun_phase_runs_on_cpu(capsys):
+    """``phase_dryrun`` on the CPU, the train step at 1,024 served rows:
+    the entry's labels are the plain forest's, each kernel wrapper is
+    called as often as the card would launch it (the forest 8, the KNN 6,
+    the RBF 2) and its output is its plain version's, every step equals
+    one slot's, and the CPU's wrappers launch nothing."""
+    X = ft.features12(chip_smoke.synthetic_table(256, 3, "cpu"))
+    forest = chip_smoke.random_forest(0, X.numpy(), n_trees=8)
+    ops = {"forest": fk.compile_forest(forest, n_features=12, device="cpu")}
+    paths, numbers = chip_smoke.phase_dryrun(ops, torch.device("cpu"),
+                                             rows=1024)
+    none = {"forest": 0, "knn": 0, "svc": 0}
+    assert paths == {"dryrun entry": none, "dryrun": none}
+    sgd = numbers["train_step"]
+    assert (sgd["rows"], sgd["shards"], sgd["steps"]) == (1024, 4, 20)
+    assert len(sgd["losses"]) == 20 and sgd["ms_per_step"] > 0
+    out = capsys.readouterr().out
+    assert "[dryrun] entry: the 100-tree reference forest on 256 rows" in out
+    assert "every kernel call bitwise its plain version" in out
+    for line in ("forest fit bitwise", "knn labels of 6 merges equal",
+                 "batch-sharded forest labels equal", "table rows equal"):
+        assert f"[dryrun] against one slot: {line}" in out
+
+
+def test_recorded_kernel_calls_hold_each_call_to_its_plain_version():
+    """The recorder sees each wrapper call and puts the wrappers back;
+    ``_held_to_plain`` passes the plain outputs and names a call whose
+    output differs in one bit."""
+    X = ft.features12(chip_smoke.synthetic_table(64, 3, "cpu"))
+    k = fk.compile_forest(chip_smoke.random_forest(0, X.numpy(), n_trees=4),
+                          n_features=12, device="cpu")
+    real = fk.forest_proba
+    launches = real.launches
+    with chip_smoke.recorded_kernel_calls() as calls:
+        fk.predict(k, X)
+        assert fk.forest_proba is not real
+        # a wrapper counts a launch on the module global of its name
+        fk.forest_proba.launches += 1
+    assert fk.forest_proba is real and real.launches == launches + 1
+    assert [len(calls[f]) for f in ("forest", "knn", "svc")] == [1, 0, 0]
+    assert chip_smoke._held_to_plain(calls) == {"forest": 1, "knn": 0,
+                                                "svc": 0}
+    g, args, out = calls["forest"][0]
+    bad = out.clone()
+    bad.view(torch.int32)[0, 0] ^= 1
+    calls["forest"][0] = (g, args, bad)
+    with pytest.raises(AssertionError, match="forest kernel call 0"):
+        chip_smoke._held_to_plain(calls)
+
+
+def test_sgd_held_allows_the_flip_band_only():
+    """``_sgd_held`` passes a step against itself, names a loss or a param
+    off by more than its tolerance, and counts the components whose
+    gradient lies in the flip band instead of comparing their params."""
+    from traffic_classifier_sdn_tpu_torch.train import logreg as tlogreg
+
+    rng = np.random.RandomState(0)
+    X = torch.from_numpy(rng.rand(64, 12).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 6, 64))
+    init, step = tlogreg.make_sgd(chip_smoke.DRYRUN_LR, device="cpu")
+    a, la = step(init(6, 12), X, y)
+    assert chip_smoke._sgd_held("t", a, float(la), a, float(la)) == 0
+    with pytest.raises(AssertionError, match="t loss"):
+        chip_smoke._sgd_held("t", a, float(la) * 1.001, a, float(la))
+    moved = a._replace(params=(a.params[0] + 1e-4, a.params[1]))
+    with pytest.raises(AssertionError, match="t params"):
+        chip_smoke._sgd_held("t", moved, float(la), a, float(la))
+    # a zero gradient component: its param may move (a flip), counted
+    mu = (a.opt_state.mu[0].clone(), a.opt_state.mu[1])
+    mu[0][0, 0] = 0.0
+    banded = a._replace(opt_state=a.opt_state._replace(mu=mu))
+    flipped = banded._replace(params=(
+        a.params[0].index_put(((torch.tensor([0]), torch.tensor([0]))),
+                              a.params[0][0, 0] + 2e-2), a.params[1]))
+    assert chip_smoke._sgd_held("t", flipped, float(la), banded,
+                                float(la)) == 1
+
+
+def test_beside_joins_every_phase_and_raises_the_first_error(capsys):
+    """``Beside`` runs each phase in a thread of its own with a ``log``
+    for its lines; ``join`` waits for all of them, prints their lines in
+    the order the phases started (none while they run, even where the
+    main thread has stdout redirected, as a captured serve does) and
+    returns their results by name, or raises the first one's error once
+    every phase has ended."""
+    import contextlib
+    import io
+
+    ended = []
+
+    def slow(log):
+        time.sleep(0.2)
+        log("[slow] done")
+        ended.append(1)
+        return "s"
+
+    side = chip_smoke.Beside()
+    side.start("slow", slow)
+    side.start("fast", lambda x, y=0, log=None: log("[fast] done") or x + y,
+               1, y=2)
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        time.sleep(0.3)
+    assert captured.getvalue() == ""
+    assert side.join() == {"slow": "s", "fast": 3} and ended == [1]
+    assert capsys.readouterr().out == "[slow] done\n[fast] done\n"
+    side = chip_smoke.Beside()
+    side.start("bad", lambda log: 1 / 0)
+    side.start("slow", lambda log: time.sleep(0.2) or ended.append(2))
+    with pytest.raises(ZeroDivisionError):
+        side.join()
+    assert ended == [1, 2]
+
+
+def test_sanitize_started_beside_another_phase_on_cpu(capsys):
+    """A sanitizer started ahead (``start_sanitize``) is waited for and
+    checked by ``phase_sanitize`` as one it starts itself, and
+    ``stop_sanitize`` ends one still running."""
+    summary = chip_smoke.phase_sanitize(torch.device("cpu"),
+                                        chip_smoke.start_sanitize())
+    assert [p["status"] for p in summary["phases"]] == ["skipped"] * 5
+    assert "beside the train phase" in capsys.readouterr().out
+    run = chip_smoke.start_sanitize()
+    chip_smoke.stop_sanitize(run)
+    assert run["proc"].poll() is not None
 
 
 def test_doctor_phase_runs_on_cpu(capsys):

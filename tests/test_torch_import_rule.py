@@ -373,3 +373,30 @@ def test_push_scenario_replays_with_jax_and_fake_switch_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr
     card = __import__("json").loads(proc.stdout)
     assert card["passed"] and card["switch"]["live_rules"] > 0
+
+
+GRAFT_ENTRY = BLOCKER.split("import traffic_classifier_sdn_tpu_torch as pkg")[0] + '''
+from traffic_classifier_sdn_tpu_torch import graft_entry
+fn, args = graft_entry.entry(device="cpu")
+assert fn(*args).shape == (256,)
+assert graft_entry.dryrun_multichip(2, device="cpu") is None
+leaked = sorted(m for m in sys.modules if blocked(m))
+assert not leaked, leaked
+'''
+
+
+def test_graft_entry_never_imports_the_jax_entry_module():
+    """The port's twin of ``__graft_entry__.py`` (``graft_entry.py``)
+    keeps its own copy of ``_synth_forest``: no source of the port,
+    ``chip_smoke.py`` or the tools names ``__graft_entry__`` in an import,
+    and ``entry`` and
+    ``dryrun_multichip`` run in a fresh interpreter with it blocked beside
+    JAX and the JAX package."""
+    for path in _sources():
+        assert "__graft_entry__" not in _imported_names(path), path
+    proc = subprocess.run(
+        [sys.executable, "-c", GRAFT_ENTRY.format(
+            blocked=BLOCKED + ("__graft_entry__",))],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr

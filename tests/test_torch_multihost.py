@@ -42,6 +42,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding
+from jax.sharding import PartitionSpec as P
 
 import chip_smoke
 import torch_multihost_worker as worker
@@ -63,6 +65,7 @@ from traffic_classifier_sdn_tpu.parallel import mesh as jmeshlib
 from traffic_classifier_sdn_tpu.parallel import svc_sharded as jss
 from traffic_classifier_sdn_tpu.train import distributed as jdist
 from traffic_classifier_sdn_tpu.train import kmeans as jkmeans
+from traffic_classifier_sdn_tpu.train import logreg as jlogreg_train
 from traffic_classifier_sdn_tpu_torch import interop
 from traffic_classifier_sdn_tpu_torch.ops import tree_gemm
 from traffic_classifier_sdn_tpu_torch.parallel import forest_sharded as fsh
@@ -470,6 +473,40 @@ def test_distributed_fit_across_ranks(two_ranks, family):
             jwant, jnp.asarray(fit["X_test"]))) == fit["y_test"]))
         t_acc = float(np.mean(want["fit_svc_labels"] == fit["y_test"]))
         assert abs(t_acc - j_acc) <= 0.02, (t_acc, j_acc)
+
+
+SGD_KEYS = ("sgd_loss",) + tuple(f"sgd_{k}" for k in worker.SGD_LEAVES)
+
+
+def test_data_parallel_sgd_step_across_ranks(two_ranks):
+    """``make_sgd(mesh=...)`` over the two ranks' four data shards, every
+    rank passing the whole fit rows: each rank's losses and state bitwise
+    the one-process 4-shard mesh's, and within
+    tests/test_torch_graft_entry.py's tolerance of JAX's ``make_sgd`` over
+    ``NamedSharding`` on a 4-device data mesh (loss rtol 1e-5, each leaf
+    within 1e-5 of its largest component)."""
+    want = _held_to_one_process(two_ranks, SGD_KEYS)
+    fit = two_ranks["inp"]["fit"]
+    n = len(fit["X"]) - len(fit["X"]) % N_DEVICES
+    jm = _jax_data_mesh()
+    init, step = jlogreg_train.make_sgd(1e-2)
+    state = jax.device_put(init(fit["n_classes"], 12),
+                           jmeshlib.replicated(jm))
+    X = jax.device_put(np.asarray(fit["X"][:n], np.float32), NamedSharding(
+        jm, P(jmeshlib.DATA_AXIS, None)))
+    y = jax.device_put(np.asarray(fit["y"][:n], np.int32), NamedSharding(
+        jm, P(jmeshlib.DATA_AXIS)))
+    losses = []
+    for _ in range(worker.SGD_STEPS):
+        state, loss = step(state, X, y)
+        losses.append(float(loss))
+    np.testing.assert_allclose(want["sgd_loss"], losses, rtol=1e-5)
+    for name, leaf in zip(worker.SGD_LEAVES,
+                          jax.tree_util.tree_leaves(state)):
+        leaf = np.asarray(leaf)
+        np.testing.assert_allclose(want[f"sgd_{name}"], leaf, rtol=0,
+                                   atol=1e-5 * float(np.abs(leaf).max()),
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("merge,blocks", [("ring", 3), ("tournament", 2)])

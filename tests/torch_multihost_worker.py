@@ -22,7 +22,10 @@ and every other function the JAX package runs under ``shard_map``:
 7. the SV-sharded SVC, torch and kernel (RBF) local stages;
 8. ``train/distributed.py``'s four fits over the data axis (the SVC's
    pairs over the state axis) and a Lloyd run from given centers, each
-   fit's seconds and the forest's draws made on this rank recorded.
+   fit's seconds and the forest's draws made on this rank recorded;
+9. the data-parallel Adam step (``train/logreg.make_sgd(mesh=...)``) over
+   the data axis on the fit rows, ``SGD_STEPS`` steps, each step's loss
+   and the state after the last.
 
 Each result is held to a single-device reference computed locally where
 the sharded function equals it bitwise, as JAX's worker does, then
@@ -408,6 +411,38 @@ def _fits(inp: dict, dmesh, smesh, device, out: dict, timings: dict) -> None:
     out["fit_svc_labels"] = svc.predict(Xte).cpu().numpy()
 
 
+SGD_STEPS = 3  # steps of the data-parallel Adam step
+SGD_LEAVES = ("coef", "intercept", "count", "mu_coef", "mu_intercept",
+              "nu_coef", "nu_intercept")  # SGDState.leaves() order
+
+
+def _sgd(inp: dict, dmesh, device, out: dict, timings: dict) -> None:
+    """``SGD_STEPS`` data-parallel Adam steps (lr 1e-2) over ``dmesh`` on
+    the fit rows trimmed to a multiple of the data shards (every rank
+    passes them all): each step's loss and the state's leaves after the
+    last; the steps' seconds in ``timings["sgd_s"]``."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch.parallel import mesh as meshlib
+    from traffic_classifier_sdn_tpu_torch.train import logreg as tlogreg
+
+    fit = inp["fit"]
+    n = fit["X"].shape[0] - fit["X"].shape[0] % dmesh.shape[meshlib.DATA_AXIS]
+    X = torch.from_numpy(np.asarray(fit["X"][:n], np.float32)).to(device)
+    y = torch.from_numpy(np.asarray(fit["y"][:n], np.int64)).to(device)
+    init, step = tlogreg.make_sgd(1e-2, mesh=dmesh)
+    state = init(int(fit["n_classes"]), X.shape[1])
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(SGD_STEPS):
+        state, loss = step(state, X, y)
+        losses.append(loss.cpu().numpy())
+    timings["sgd_s"] = time.perf_counter() - t0
+    out["sgd_loss"] = np.stack(losses)
+    for name, leaf in zip(SGD_LEAVES, state.leaves()):
+        out[f"sgd_{name}"] = leaf.cpu().numpy()
+
+
 def run_checks(inp: dict, dmesh, smesh, device) -> tuple[dict, dict]:
     """Every check on a data mesh ``dmesh`` and a state mesh ``smesh``
     (one process's, or spanning the group): ``(results, timings)``.
@@ -450,6 +485,7 @@ def run_checks(inp: dict, dmesh, smesh, device) -> tuple[dict, dict]:
     _knn_merges(inp, smesh, device, out, timings)
     _state_sharded(inp, smesh, device, out, timings)
     _fits(inp, dmesh, smesh, device, out, timings)
+    _sgd(inp, dmesh, device, out, timings)
 
     predict_fn, params = _table_predict(inp, device)
     eng = tsh.ShardedFlowEngine(

@@ -218,7 +218,9 @@ def make_mesh(n_data: int | None = None, n_state: int = 1,
     device may appear more than once. In a process group and with no
     ``devices``, the global mesh: every rank's ``local_devices()`` in rank
     order, each slot owned by its rank; a device list always makes a mesh
-    of this process alone."""
+    of this process alone. A global mesh of several ranks with both axes
+    above 1 raises ``ValueError``: each axis's shards belong to the ranks
+    of its first row or column, which a grid need not give every rank."""
     owners = None
     dist = _distributed() if devices is None else None
     if dist is not None:
@@ -237,6 +239,14 @@ def make_mesh(n_data: int | None = None, n_state: int = 1,
     grid = _grid(devs).reshape(n_data, n_state)
     if owners is None:
         return Mesh(grid)
+    if n_data > 1 and n_state > 1 and dist.get_world_size() > 1:
+        raise ValueError(
+            f"a {n_data}x{n_state} mesh over {dist.get_world_size()} "
+            "processes is refused: a mesh spanning processes has one axis "
+            "of size 1, (N, 1) for the data axis or (1, N) for the state "
+            "axis. Each axis's shards are owned through its first row or "
+            "column, so in a grid with both axes above 1 some rank would "
+            "own no shard of an axis it sums over")
     return Mesh(grid, owners.reshape(n_data, n_state))
 
 

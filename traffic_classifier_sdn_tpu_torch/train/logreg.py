@@ -13,7 +13,12 @@ not bits (ROADMAP's rule for trainers).
 
 ``fit_sgd`` is the minibatch Adam trainer with resumable train state
 (``make_sgd``, ``SGDState``; checkpoints through
-io/checkpoint.save_train_state). Adam is written out in optax's order —
+io/checkpoint.save_train_state). ``make_sgd(mesh=...)`` is the
+data-parallel train step of the JAX package's dryrun, where XLA averages
+the gradients over the mesh's data axis because the batch is sharded:
+the port names the mesh, splits the batch over its data axis, and adds
+the shards' partial sums in shard order (``mesh.shard_sum``, across
+processes too). Adam is written out in optax's order —
 first moment, second moment, bias correction, ``-lr·m̂/(√v̂+eps)`` —
 rather than ``torch.optim.Adam``, which rounds in another order; the
 state is optax's ``(count, mu, nu)``, and ``SGDState.leaves`` lists it in
@@ -124,15 +129,34 @@ class SGDState(NamedTuple):
         )
 
 
-def make_sgd(learning_rate: float = 1e-3, device=None):
+def make_sgd(learning_rate: float = 1e-3, device=None, mesh=None):
     """``(init, train_step)`` of the minibatch logistic-regression trainer
     on ``device`` (default CUDA, see device.py): ``init(n_classes,
     n_features)`` is a zero ``SGDState``; ``train_step(state, X, y)`` takes
     one Adam step on the mean softmax cross-entropy of the batch and
     returns ``(state, loss)``. The JAX package's ``make_sgd`` (optax.adam)
-    in optax's rounding order."""
+    in optax's rounding order.
+
+    With a ``mesh`` (parallel/mesh.py) the step is data parallel: the
+    batch is split over the mesh's data axis (``batch_sharded``), each
+    shard this process owns computes the partial sums of the loss and of
+    both gradients on its rows (the softmax term scaled by the global
+    ``1/B``), ``shard_sum`` adds them in shard order (through
+    ``gather_tensors`` on a mesh spanning processes), and every process
+    applies the same Adam update to the replicated state, which lives on
+    its first data shard's device (``device`` is then that one). So the
+    step on a mesh spanning processes is bitwise the one-process mesh's
+    with the same shard count, and a one-shard mesh's gradients are
+    bitwise the step's without a mesh."""
     from ..device import resolve_device
 
+    if mesh is not None:
+        from ..parallel.mesh import DATA_AXIS
+
+        local = mesh.local_shards(DATA_AXIS)
+        if not local:
+            raise ValueError("this process owns no data shard of the mesh")
+        device = mesh.axis_devices(DATA_AXIS)[local[0]]
     device = resolve_device(device)
     f32 = np.float32
     # the float32 constants of optax's expressions, rounded as JAX rounds
@@ -153,16 +177,19 @@ def make_sgd(learning_rate: float = 1e-3, device=None):
                 nu=(z(n_classes, n_features), z(n_classes))),
         )
 
-    def train_step(state: SGDState, X: torch.Tensor, y: torch.Tensor):
-        coef, intercept = state.params
+    def ce_grads(coef, intercept, X, y, inv_b: float):
+        """Each row's softmax cross-entropy, and the gradients of their
+        sum times ``inv_b`` (of their mean when ``inv_b`` is 1/B):
+        ∂/∂ logits = (softmax − onehot) · inv_b."""
         logits = X @ coef.t() + intercept
         lse = torch.logsumexp(logits, dim=1)
-        loss = (lse - logits.gather(1, y[:, None])[:, 0]).mean()
-        # ∂ mean CE / ∂ logits = (softmax − onehot) / B
+        ce = lse - logits.gather(1, y[:, None])[:, 0]
         g = torch.exp(logits - lse[:, None])
         g[torch.arange(y.shape[0], device=y.device), y] -= 1.0
-        g = g * float(f32(1.0 / y.shape[0]))
-        grads = (g.t() @ X, g.sum(0))
+        g = g * inv_b
+        return ce, (g.t() @ X, g.sum(0))
+
+    def adam(state: SGDState, grads: tuple) -> SGDState:
         o = state.opt_state
         count = o.count + 1
         n = int(count)
@@ -174,9 +201,33 @@ def make_sgd(learning_rate: float = 1e-3, device=None):
         params = tuple(
             p + (m / bc1) / (torch.sqrt(v / bc2) + eps) * step
             for p, m, v in zip(state.params, mu, nu))
-        return SGDState(params, AdamState(count, mu, nu)), loss
+        return SGDState(params, AdamState(count, mu, nu))
 
-    return init, train_step
+    def train_step(state: SGDState, X: torch.Tensor, y: torch.Tensor):
+        ce, grads = ce_grads(*state.params, X, y, float(f32(1.0 / y.shape[0])))
+        return adam(state, grads), ce.mean()
+
+    if mesh is None:
+        return init, train_step
+
+    from ..parallel.mesh import batch_sharded, replicated, shard_sum
+
+    def sharded_step(state: SGDState, X: torch.Tensor, y: torch.Tensor):
+        B = y.shape[0]
+        inv_b = float(f32(1.0 / B))
+        xs, ys = batch_sharded(mesh, X), batch_sharded(mesh, y)
+        params = replicated(mesh, state.params)
+        parts: list = [None] * len(xs)
+        for s in mesh.local_shards(DATA_AXIS):
+            ce, (g_coef, g_int) = ce_grads(*params[s], xs[s], ys[s], inv_b)
+            # one flat vector a shard, so the shards add in one exchange
+            parts[s] = torch.cat([g_coef.reshape(-1), g_int, ce.sum()[None]])
+        total = shard_sum(parts, mesh).to(device)
+        C, F = state.params[0].shape
+        grads = (total[: C * F].reshape(C, F), total[C * F: C * F + C])
+        return adam(state, grads), total[-1] / B
+
+    return init, sharded_step
 
 
 def fit_sgd(X, y, n_classes: int, *, learning_rate: float = 1e-2,
