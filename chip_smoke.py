@@ -270,6 +270,17 @@ the script exits non-zero:
    native spine from raw bytes (each with ``step()`` and a device sync),
    and the device time of each step of the incremental label plan at 0,
    1, 20 and 100 % churn beside the full re-predict;
+7a. profile in-process — ``ProfilerCapture`` in the script's own
+   process after every phase above (``phase_profile_in_process``): three
+   1 s captures back to back while a thread launches forest predicts of
+   the 65,536 served rows on a stream of its own; each trace names the
+   forest kernel, holds no more of its events than the launches made
+   while its capture ran, and leaves no profiler enabled, and CUPTI is
+   detached after the third (at most one thread more than before the
+   first); the launch loop (20 runs of 1,000 one-element launches,
+   median, host clock), its CPU reference, a launch's own cost and the
+   forest predict p50 before the first capture and after the third are
+   printed with their ratios;
 7b. train — the training path (PR 13): ``train voice --source replay``
    on a capture of 65,536 conversations (2 ticks) on the card, its CSV
    byte for byte the ``--device cpu`` one's, with the host seconds per
@@ -3599,12 +3610,11 @@ def profiled_serves(ckpt: str, tmp: str, device, env=None) -> dict:
     own: ``/profile?seconds=1`` on a forest serve rendering every tick
     (``--source-spec synthetic:65536`` at ``profile_plan``'s interval),
     with a second request while the first runs; then a 2-tick serve under
-    ``--profile-dir``. In the script's own process, after its earlier
-    phases, a capture recorded no GPU activity at all (PR 11; ROADMAP
-    Queue 3 item 21): a fresh process is where an operator's serve runs.
-    The serve keeps one perf-ring segment per tick, so the device-stage
-    predicts of the renders before the capture and after it can be
-    compared (``predict_around``)."""
+    ``--profile-dir``: a fresh process, where an operator's serve starts
+    (``phase_profile_in_process`` captures in the script's own long
+    process). The serve keeps one perf-ring segment per tick, so the
+    device-stage predicts of the renders before the capture and after it
+    can be compared (``predict_around``)."""
     import threading
 
     tick_s, window, warm = profile_plan(device)
@@ -3659,6 +3669,176 @@ def profiled_serves(ckpt: str, tmp: str, device, env=None) -> dict:
     out["profile_dir"] = [os.path.join(pdir, n) for n in os.listdir(pdir)] \
         if os.path.isdir(pdir) else []
     return out
+
+
+PROFILE_CAPTURES = 3  # in-process /profile captures, back to back
+PROFILE_CAPTURE_S = 1.0
+LAUNCH_RUNS, LAUNCH_LOOP = 20, 1000  # runs of one-element launches
+PROFILE_PREDICTS = 300  # forest predicts timed before and after captures
+
+
+def launch_loops_us(t) -> tuple[float, float]:
+    """The launch loop and its host reference, in alternation: median µs
+    a ``t.add_(1)`` takes on the host clock over ``LAUNCH_RUNS`` runs of
+    ``LAUNCH_LOOP`` back to back, each run between two synchronizes (the
+    host's cost of a launch, which a profiler left subscribed raises),
+    and the same for the same op on a CPU tensor, each of its runs right
+    after a launch run (the dispatcher and the interpreter without a
+    launch: what the host's own pace moves)."""
+    import torch
+
+    ref = torch.zeros(t.shape, dtype=t.dtype)
+
+    def sync():
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+
+    def run(x) -> float:
+        t0 = time.perf_counter()
+        for _ in range(LAUNCH_LOOP):
+            x.add_(1)
+        return (time.perf_counter() - t0) / LAUNCH_LOOP
+
+    launch, host = [], []
+    for _ in range(LAUNCH_RUNS):
+        sync()
+        launch.append(run(t))
+        sync()
+        host.append(run(ref))
+    return statistics.median(launch) * 1e6, statistics.median(host) * 1e6
+
+
+def predict_p50_ms(predict, n: int) -> float:
+    """Median ms of ``predict()`` (which ends in a copy to the host) over
+    ``n`` calls after 10 warm ones, on the host clock."""
+    for _ in range(10):
+        predict()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        predict()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def trace_events(path: str) -> list:
+    """The ``traceEvents`` of a Chrome trace file."""
+    with open(path) as f:
+        return json.load(f).get("traceEvents", [])
+
+
+def phase_profile_in_process(k, device) -> int:
+    """``ProfilerCapture`` in this script's own process, after every
+    earlier phase (ROADMAP Queue 3 items 21 and 31): ``PROFILE_CAPTURES``
+    captures of ``PROFILE_CAPTURE_S`` back to back while a thread launches
+    forest predicts of the 65,536 served rows on a stream of its own, as the
+    serve's device stage does. On a card each trace must name the forest
+    kernel, with no more kernel events than the launches made while its
+    capture ran (no event of another window), and no profiler may be left
+    enabled after it. CUPTI must be detached after the last capture: the
+    process may hold at most one thread more than before the first
+    (kineto's own: CUPTI's activity threads exit when it detaches; on an
+    H100 each process whose captures left CUPTI attached held three
+    more, ``tools/torch_profile_gate.py``). The launch loop before the
+    first capture and after the last (``launch_loops_us``), its CPU
+    reference, a launch's own cost (the one less the other) and the
+    forest predict's p50 are printed with their ratios, not held: the
+    host's own pace moves single readings of them past
+    ``PROFILE_SLOWDOWN`` with no capture between them (PERF.md,
+    Findings). On the CPU the capture records no kernel and each trace
+    must hold events. Returns the forest kernel's launches."""
+    import threading
+
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch.obs import ProfilerCapture
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+    from traffic_classifier_sdn_tpu_torch.utils import profiling
+
+    tag = "[profile in-process]"
+    t_phase = time.perf_counter()
+    X = served_rows(device)
+    t = torch.zeros(16, device=device)
+    fk.forest_proba.launches = 0
+
+    def predict():
+        return fk.forest_proba(k, X).argmax(1).cpu()
+
+    before = launch_loops_us(t)
+    pred0 = predict_p50_ms(predict, PROFILE_PREDICTS)
+    threads0 = len(profiling.thread_ids())
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    stop = threading.Event()
+    errors: list = []
+
+    def device_stage():
+        try:
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                while not stop.is_set():
+                    predict()
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+
+    caps = []
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = ProfilerCapture(os.path.join(tmp, "profile"), device=device)
+        stage = threading.Thread(target=device_stage, name="device-stage")
+        stage.start()
+        try:
+            for i in range(PROFILE_CAPTURES):
+                n0 = fk.forest_proba.launches
+                out = prof.capture(PROFILE_CAPTURE_S)
+                n1 = fk.forest_proba.launches
+                events = trace_events(out["trace"])
+                kernels = [e for e in events if e.get("cat") == "kernel"]
+                forest = sum("forest_proba" in e.get("name", "")
+                             for e in kernels)
+                caps.append({"wall_s": out["wall_s"], "events": len(events),
+                             "kernels": len(kernels), "forest": forest,
+                             "launches": n1 - n0})
+                enabled = torch.autograd.profiler._is_profiler_enabled
+                seen = forest > 0 if device.type == "cuda" else events
+                # each predict waits for its labels, so at most the one
+                # launched just before n0 was read can still run in the
+                # window: more events than that are another window's
+                if not seen or forest > n1 - n0 + 1 or enabled:
+                    raise AssertionError(
+                        f"{tag} capture {i + 1}: {caps[-1]} (the forest "
+                        f"kernel must be named, with at most the launches "
+                        f"made while it ran), profiler left enabled "
+                        f"{enabled}")
+        finally:
+            stop.set()
+            stage.join()
+    if errors:
+        raise errors[0]
+    after = launch_loops_us(t)
+    pred1 = predict_p50_ms(predict, PROFILE_PREDICTS)
+    launches = fk.forest_proba.launches
+    for i, c in enumerate(caps):
+        print(f"{tag} capture {i + 1} of {PROFILE_CAPTURES}: "
+              f"{PROFILE_CAPTURE_S:g} s window, wall {c['wall_s']} s, "
+              f"{c['events']} events, {c['kernels']} kernel events, "
+              f"{c['forest']} of them forest_proba of the {c['launches']} "
+              f"launches made while it ran")
+    threads1 = len(profiling.thread_ids())
+    (loop0, ref0), (loop1, ref1) = before, after
+    own0, own1 = loop0 - ref0, loop1 - ref1
+    print(f"{tag} launch loop {loop0:.3f} us before the first capture, "
+          f"{loop1:.3f} us after the last (ratio {loop1 / loop0:.3f}); the "
+          f"same op on a CPU tensor {ref0:.3f} -> {ref1:.3f} us (ratio "
+          f"{ref1 / ref0:.3f}); a launch's own cost {own0:.3f} -> "
+          f"{own1:.3f} us (ratio {own1 / own0:.3f}); forest predict of "
+          f"{X.shape[0]} rows p50 {pred0:.4f} ms -> {pred1:.4f} ms (ratio "
+          f"{pred1 / pred0:.3f}); threads {threads0} -> {threads1} (at most "
+          f"one more: CUPTI detached); {launches} forest launches; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if threads1 > threads0 + 1:
+        raise AssertionError(f"{tag} {threads1 - threads0} threads more "
+                             f"after {PROFILE_CAPTURES} captures than "
+                             f"before them: CUPTI left attached")
+    return launches
 
 
 def _check_device_plane(tag: str, health: dict, obs_dir: str, m,
@@ -3720,7 +3900,7 @@ def _check_profiled(tag: str, got: dict, device) -> None:
     pm = got["predict_ms"]
     window = pm["window"]
     # The slowdown gate is a card's: a capture that slowed the card's
-    # predicts (ROADMAP Queue 3 item 21). On the CPU there is no card and
+    # predicts (ROADMAP Queue 3 item 31). On the CPU there is no card and
     # no CUDA profiler, and the predicts' times follow the host's load
     # (p50 114 ms before, 181 ms after beside five loaded test workers),
     # so there both windows must fill and the ratio is printed, not held.
@@ -6934,6 +7114,11 @@ def main() -> int:
     mark("dryrun")
     phase_ingest_breakdown(ops["forest"], device)
     mark("breakdown")
+    # the profiler in this long process, after every phase above
+    paths["profile in-process Randomforest"] = {
+        "forest": phase_profile_in_process(ops["forest"], device),
+        "knn": 0, "svc": 0}
+    mark("profile in-process")
     # beside the train phase, whose checks no clock decides: the
     # operator's gates, the fleet and the open-set bench, each in
     # processes of its own (launches there add nothing to the counts

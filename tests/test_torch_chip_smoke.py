@@ -716,6 +716,26 @@ def test_dryrun_phase_runs_on_cpu(capsys):
         assert f"[dryrun] against one slot: {line}" in out
 
 
+def test_profile_in_process_phase_runs_on_cpu(small_card_phases, monkeypatch,
+                                              capsys):
+    """``phase_profile_in_process`` at 256 served rows with 0.2 s windows:
+    three captures in this process while a thread predicts, each trace
+    holding events, no profiler left on and at most one thread more after
+    them; the launches it made are the forest wrapper's, and the timing
+    ratios are printed."""
+    models, ops = small_card_phases
+    monkeypatch.setattr(chip_smoke, "PROFILE_CAPTURE_S", 0.2)
+    monkeypatch.setattr(chip_smoke, "PROFILE_PREDICTS", 20)
+    launches = chip_smoke.phase_profile_in_process(ops["forest"],
+                                                   torch.device("cpu"))
+    assert launches > 2 * (10 + 20)
+    out = capsys.readouterr().out
+    for i in (1, 2, 3):
+        assert f"[profile in-process] capture {i} of 3: 0.2 s window" in out
+    assert "forest predict of 256 rows" in out
+    assert "(at most one more: CUPTI detached)" in out
+
+
 def test_recorded_kernel_calls_hold_each_call_to_its_plain_version():
     """The recorder sees each wrapper call and puts the wrappers back;
     ``_held_to_plain`` passes the plain outputs and names a call whose

@@ -1000,3 +1000,72 @@ def test_fit_sgd_kill_and_resume_bitwise_on_card(cuda, tmp_path):
     state, step = checkpoint.restore_train_state(d, init(6, 12))
     assert step == 300 and state.params[0].is_cuda
     assert not state.opt_state.count.is_cuda
+
+
+def test_profiler_captures_repeat_and_name_the_forest_kernel(
+        cuda, tmp_path, monkeypatch):
+    """Three ``ProfilerCapture`` captures in a row in this long test
+    process while a thread launches forest predicts on a stream of its own
+    (the serve's device stage): each trace names the forest kernel and the
+    label run in its own window, none of the other windows' labels, and
+    no profiler is left enabled after it."""
+    import json
+    import threading
+    import time
+
+    from traffic_classifier_sdn_tpu_torch.obs import ProfilerCapture
+
+    X = ft.features12(chip_smoke.synthetic_table(chip_smoke.CAPACITY, 3, cuda))
+    k = fk.compile_forest(_forests()["random"], n_features=12, device=cuda)
+    stop = threading.Event()
+    stream = torch.cuda.Stream(cuda)
+
+    def device_stage():
+        with torch.cuda.stream(stream):
+            while not stop.is_set():
+                fk.forest_proba(k, X).argmax(1).cpu()
+
+    labels = [f"card-capture-window-{i}" for i in range(3)]
+    window = []
+    real_sleep = time.sleep
+
+    def labelled(s):
+        # the capture's window only: the trace also sleeps while it waits
+        # for CUPTI's detach
+        if s == 0.5:
+            with torch.profiler.record_function(labels[len(window)]):
+                torch.ones(4, device=cuda).add_(1)
+            window.append(s)
+        real_sleep(s)
+
+    prof = ProfilerCapture(str(tmp_path / "profile"), device=cuda)
+    stage = threading.Thread(target=device_stage)
+    stage.start()
+    traces = []
+    try:
+        monkeypatch.setattr(time, "sleep", labelled)
+        for _ in labels:
+            traces.append(prof.capture(0.5)["trace"])
+            assert not torch.autograd.profiler._is_profiler_enabled
+    finally:
+        monkeypatch.undo()
+        stop.set()
+        stage.join()
+    for label, path in zip(labels, traces):
+        events = json.load(open(path))["traceEvents"]
+        names = {e.get("name") for e in events
+                 if e.get("cat") == "user_annotation"}
+        assert names & set(labels) == {label}
+        assert any("forest_proba" in e.get("name", "") for e in events
+                   if e.get("cat") == "kernel"), path
+
+
+def test_profiler_captures_leave_cupti_detached(cuda):
+    """``chip_smoke.phase_profile_in_process`` in this test process: three
+    captures, each naming the forest kernel, after which CUPTI is
+    detached (at most one thread more than before them); it prints the
+    launch loop's ratio."""
+    X = ft.features12(chip_smoke.synthetic_table(chip_smoke.CAPACITY, 3, cuda))
+    d = chip_smoke.random_forest(chip_smoke.SEED, X[:4096].cpu().numpy())
+    k = fk.compile_forest(d, n_features=12, device=cuda)
+    assert chip_smoke.phase_profile_in_process(k, cuda) > 0

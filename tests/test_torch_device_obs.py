@@ -394,6 +394,60 @@ def test_a_failing_capture_tears_the_profiler_down(tmp_path, monkeypatch):
     assert prof.status()["failures"] == 1
 
 
+def _annotations(path: str) -> set:
+    """The ``record_function`` labels a Chrome trace holds."""
+    events = json.load(open(path))["traceEvents"]
+    return {e.get("name") for e in events if e.get("cat") == "user_annotation"}
+
+
+def test_captures_repeat_each_with_its_own_window(tmp_path, monkeypatch):
+    """Three captures in a row on one ``ProfilerCapture``: each trace names
+    the label run inside its own window and none of the others', and no
+    profiler is left enabled after any of them."""
+    import torch
+
+    prof = ProfilerCapture(str(tmp_path / "profile"), device="cpu")
+    real_sleep = time.sleep
+    labels = [f"capture-window-{i}" for i in range(3)]
+    window = []
+
+    def labelled(s):
+        # the capture's window (its thread is the one the CPU profiler
+        # records)
+        if s == 0.05:
+            with torch.profiler.record_function(labels[len(window)]):
+                torch.ones(4).add_(1)
+            window.append(s)
+        real_sleep(s)
+
+    monkeypatch.setattr(time, "sleep", labelled)
+    traces = []
+    for _ in labels:
+        traces.append(prof.capture(0.05)["trace"])
+        assert not torch.autograd.profiler._is_profiler_enabled
+    assert len(set(traces)) == 3
+    for label, path in zip(labels, traces):
+        assert _annotations(path) & set(labels) == {label}
+    assert prof.status()["captures"] == 3 and prof.status()["failures"] == 0
+
+
+def test_trace_twice_in_one_process_keeps_each_block(tmp_path):
+    """``utils.profiling.trace`` used twice in one process: each trace holds
+    its own block's label only and the profiler is off after each."""
+    import torch
+
+    paths = []
+    for i in range(2):
+        with profiling.trace(str(tmp_path), "cpu") as info:
+            with torch.profiler.record_function(f"trace-block-{i}"):
+                torch.ones(4).add_(1)
+        assert not torch.autograd.profiler._is_profiler_enabled
+        paths.append(info["path"])
+    assert paths[0] != paths[1]
+    assert [_annotations(p) & {"trace-block-0", "trace-block-1"}
+            for p in paths] == [{"trace-block-0"}, {"trace-block-1"}]
+
+
 def test_profile_dir_traces_a_whole_serve(capture_file, checkpoints, tmp_path):
     pdir = tmp_path / "prof"
     out, _, _ = _serve(tcli.main, capture_file, checkpoints[1], "--device",
