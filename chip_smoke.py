@@ -4416,16 +4416,23 @@ def watched_drift():
     """While active, the drift loop's objects a serve builds are kept
     (``seen["gate"]``, ``["controller"]``, ``["openset"]``), and every
     refit is timed: ``seen["fits"]`` holds ``(seconds, params, end)`` per
-    ``retrain.fit_family`` call, ``end`` on the monotonic clock. The
-    candidate's staging is timed too: ``seen["builds"]`` holds ``(name,
-    wall start, seconds)`` of each ``DriftController._build`` call and,
-    within it, of the CLI's ``default_build_serving`` build and
-    ``models.resolve_fallback``."""
+    ``retrain.fit_family`` call that returned, ``end`` on the monotonic
+    clock; ``seen["windows"]`` the labels and class count each call was
+    given, ``seen["fit_errors"]`` ``(error name, seconds)`` of each call
+    that raised. On a card, ``seen["fit_memory"]`` holds each call's
+    ``{"before", "peak"}`` of ``torch.cuda.memory_allocated`` and
+    ``max_memory_allocated`` (peak stats reset at the call), and
+    ``seen["taken"]`` the allocated bytes just after each failed fit was
+    taken (``BackgroundRetrainer.take``). The candidate's staging is timed
+    too: ``seen["builds"]`` holds ``(name, wall start, seconds)`` of each
+    ``DriftController._build`` call and, within it, of the CLI's
+    ``default_build_serving`` build and ``models.resolve_fallback``."""
     from traffic_classifier_sdn_tpu_torch import models
     from traffic_classifier_sdn_tpu_torch.serving import drift, openset
     from traffic_classifier_sdn_tpu_torch.serving import retrain
 
-    seen: dict = {"fits": [], "builds": []}
+    seen: dict = {"fits": [], "builds": [], "windows": [], "fit_errors": [],
+                  "fit_memory": [], "taken": []}
     patched = []
 
     def keep(cls, name):
@@ -4450,23 +4457,50 @@ def watched_drift():
     models.resolve_fallback = _timed(seen["builds"], "resolve_fallback",
                                      resolve)
     fit = retrain.fit_family
+    take = retrain.BackgroundRetrainer.take
 
-    def timed(*a, **kw):
+    def timed(family, X, y, n_classes, **kw):
         import torch
 
+        dev = kw.get("device")
+        card = dev is not None and torch.device(dev).type == "cuda"
+        seen["windows"].append((np.array(y), n_classes))
+        if card:
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
-        params = fit(*a, **kw)
-        if next(params.buffers()).is_cuda:
-            torch.cuda.synchronize()
+        try:
+            params = fit(family, X, y, n_classes, **kw)
+            if next(params.buffers()).is_cuda:
+                torch.cuda.synchronize()
+        except BaseException as e:
+            seen["fit_errors"].append((type(e).__name__,
+                                       time.perf_counter() - t0))
+            raise
+        finally:
+            if card:
+                seen["fit_memory"].append({
+                    "before": before,
+                    "peak": torch.cuda.max_memory_allocated(dev)})
         seen["fits"].append((time.perf_counter() - t0, params,
                              time.monotonic()))
         return params
 
+    def taken(self):
+        import torch
+
+        out = take(self)
+        if out[0] == retrain.FAILED and torch.cuda.is_available():
+            seen["taken"].append(torch.cuda.memory_allocated())
+        return out
+
     retrain.fit_family = timed
+    retrain.BackgroundRetrainer.take = taken
     try:
         yield seen
     finally:
         retrain.fit_family = fit
+        retrain.BackgroundRetrainer.take = take
         drift.default_build_serving = default_build
         models.resolve_fallback = resolve
         for cls, init in patched:
@@ -4499,27 +4533,41 @@ def staging_breakdown(tag: str, seen: dict) -> None:
               f"{hit or 'no staging call'}")
 
 
-def _drift_serve(tag: str, ckpt: str, tmp: str, novel: int, counter: str,
-                 plan=None):
-    """One no-flag forest serve of the drifting stream (``--source ryu``
-    over ``DRIFT_EMITTER``) with ``DRIFT_FLAGS`` and ``--obs-port 0``. A
-    watcher touches the emitter's flag once the ``counter`` metric
-    (``promotions`` or ``rollbacks``) counts one, and scrapes ``/healthz``
-    meanwhile. Returns (stdout, summary, wall s, features, log, per-render
-    state, seen, watcher record)."""
+def _drift_serve(tag: str, family: str, ckpt: str, tmp: str, novel: int,
+                 counters, plan=None, *, base: int | None = None,
+                 capacity: int | None = None, after: int | None = None):
+    """One no-flag ``family`` serve of the drifting stream (``--source
+    ryu`` over ``DRIFT_EMITTER``: ``base`` drifting conversations, default
+    ``DRIFT_BASE``, then ``novel`` more once flagged) at ``capacity``
+    (default ``CAPACITY``) with ``DRIFT_FLAGS`` and ``--obs-port 0``. A
+    watcher touches the emitter's flag once one of the ``counters``
+    metrics (``promotions``, ``rollbacks``, ``retrain_failures``) counts
+    one, after which the emitter sends ``after`` more ticks (default
+    ``DRIFT_AFTER_TICKS``), and scrapes ``/healthz`` meanwhile. Returns
+    (stdout, summary, wall s, features, log, per-render state, seen,
+    watcher record)."""
     import threading
 
     from traffic_classifier_sdn_tpu_torch.utils import faults
     from traffic_classifier_sdn_tpu_torch.utils.metrics import global_metrics
 
+    base = DRIFT_BASE if base is None else base
+    capacity = CAPACITY if capacity is None else capacity
+    after = DRIFT_AFTER_TICKS if after is None else after
+    counters = (counters,) if isinstance(counters, str) else tuple(counters)
+    name = f"{family}-{'-'.join(counters)}-{capacity}"
     root = os.path.dirname(os.path.abspath(__file__))
     emitter = os.path.join(tmp, "drift_emit.py")
-    flag = os.path.join(tmp, f"{counter}.flag")
+    flag = os.path.join(tmp, f"{name}.flag")
     with open(emitter, "w") as f:
         f.write(DRIFT_EMITTER)
     states: dict = {}
     watch: dict = {"healthz": None, "flagged_at": None}
     done = threading.Event()
+    # an earlier serve's counts and port, until this serve's reset
+    for c in counters:
+        global_metrics.counters.pop(c, None)
+    global_metrics.gauges.pop("obs_port", None)
 
     with watched_drift() as seen:
         def before(k):
@@ -4530,8 +4578,8 @@ def _drift_serve(tag: str, ckpt: str, tmp: str, novel: int, counter: str,
 
         def watcher():
             while not done.is_set():
-                if (watch["flagged_at"] is None
-                        and global_metrics.counters.get(counter, 0)):
+                if watch["flagged_at"] is None and any(
+                        global_metrics.counters.get(c, 0) for c in counters):
                     watch["flagged_at"] = len(log)
                     watch["flagged_t"] = time.monotonic()
                     open(flag, "w").close()
@@ -4541,12 +4589,12 @@ def _drift_serve(tag: str, ckpt: str, tmp: str, novel: int, counter: str,
                         status, body = _get(port, "/healthz")
                     except OSError:  # the serve's plane stopping under it
                         status, body = 0, b"{}"
-                    body = json.loads(body)
+                    body = json.loads(body or b"{}")
                     if status == 200 and "drift" in body:
                         watch["healthz"] = body
                 done.wait(0.1)
 
-        with watched_dispatch("forest", before) as (features, log):
+        with watched_dispatch(family, before) as (features, log):
             thread = threading.Thread(target=watcher, daemon=True)
             ctx = (faults.installed(plan) if plan is not None
                    else contextlib.nullcontext())
@@ -4554,16 +4602,16 @@ def _drift_serve(tag: str, ckpt: str, tmp: str, novel: int, counter: str,
                 with ctx:
                     thread.start()
                     out, summary, wall = _serve([
-                        "Randomforest", "--source", "ryu", "--monitor-cmd",
-                        f"{sys.executable} {emitter} {root} {DRIFT_BASE} "
+                        SERVES[family][0], "--source", "ryu", "--monitor-cmd",
+                        f"{sys.executable} {emitter} {root} {base} "
                         f"{novel} {flag} {DRIFT_SHIFT_AT} {DRIFT_PAUSE} "
-                        f"{DRIFT_MAX_TICKS} {DRIFT_AFTER_TICKS}",
-                        "--capacity", str(CAPACITY), "--print-every", "1",
+                        f"{DRIFT_MAX_TICKS} {after}",
+                        "--capacity", str(capacity), "--print-every", "1",
                         "--native-checkpoint", ckpt,
-                        "--drift-dir", os.path.join(tmp, f"rotation-{counter}"),
+                        "--drift-dir", os.path.join(tmp, f"rotation-{name}"),
                         "--obs-port", "0", *DRIFT_FLAGS,
                         "--openset-calibration-rows",
-                        str(OPENSET_CAL_TICKS * DRIFT_BASE),
+                        str(OPENSET_CAL_TICKS * base),
                     ])
             finally:
                 done.set()
@@ -4572,7 +4620,7 @@ def _drift_serve(tag: str, ckpt: str, tmp: str, novel: int, counter: str,
         events = [e for e in seen["controller"]._recorder.tail()
                   if e["kind"].startswith(("drift.", "openset.calibrated"))]
         print(f"{tag} events: {events[-40:]}; open-set {summary.openset}")
-        raise AssertionError(f"{tag} no {counter[:-1]} in "
+        raise AssertionError(f"{tag} none of {counters} in "
                              f"{DRIFT_MAX_TICKS} ticks: {summary.drift}")
     print(f"{tag} {summary.ticks} polls in {wall:.2f} s (ticks paced "
           f"{DRIFT_PAUSE} s apart, rates x{DRIFT_FACTOR} from tick "
@@ -4582,11 +4630,13 @@ def _drift_serve(tag: str, ckpt: str, tmp: str, novel: int, counter: str,
 
 
 def _check_drift_tables(tag: str, tables: list, features: list, log: list,
-                        states: dict, ops: dict) -> tuple[int, int]:
-    """Every printed table's labels: the plain forest's (the boot stacks
-    before the swap, the promoted ones after) on the table its render was
-    dispatched against, with the open-set relabel of the reference armed
-    at that render. Returns (tables after the swap, unknown rows shown)."""
+                        states: dict, plain: dict) -> tuple[int, int]:
+    """Every printed table's labels: the plain version's of the model its
+    render served (``plain[swapped]``: the boot model's before the swap,
+    the promoted one's after; a function of the rows' features) on the
+    rows of the table its render was dispatched against, with the
+    open-set relabel of the reference armed at that render. Returns
+    (tables after the swap, unknown rows shown)."""
     printed = [k for what, k, *_ in log if what == "rows"]
     if len(printed) != len(tables):
         raise AssertionError(f"{tag} {len(tables)} tables printed, "
@@ -4595,19 +4645,27 @@ def _check_drift_tables(tag: str, tables: list, features: list, log: list,
     after = unknown = 0
     for table, k in zip(tables, printed):
         swapped, ref = states[k]
-        X = features[k]
-        want = plain_forest_proba(ops[swapped], X).argmax(-1).cpu().numpy()
+        slots = [s for s, _ in table]
+        X = features[k][slots]
+        want = np.asarray(plain[swapped](X)).reshape(-1)
         want = openset_relabel(want, X.cpu().numpy(), ref, len(CLASSES))
-        wrong = [(s, lab) for s, lab in table if names[want[s]] != lab]
+        wrong = [(s, lab) for (s, lab), w in zip(table, want)
+                 if names[w] != lab]
         # the first polls' rows are not active yet (one sample, no deltas):
         # their tables may hold fewer rows
         if wrong or (swapped and len(table) != 64):
             raise AssertionError(f"{tag} render {k + 1} ({len(table)} rows, "
                                  f"swapped {swapped}): labels differing from "
-                                 f"the plain forest's: {wrong[:5]}")
+                                 f"the plain version's: {wrong[:5]}")
         after += int(swapped)
         unknown += sum(1 for _, lab in table if lab == "unknown")
     return after, unknown
+
+
+def _family_plain(family: str, g):
+    """Labels of ``family``'s plain version on the operands ``g``: a
+    function of the rows' features, to the host."""
+    return lambda X: _plain_labels(family, g, X).cpu().numpy()
 
 
 def phase_drift(model: dict, k, device) -> int:
@@ -4622,8 +4680,6 @@ def phase_drift(model: dict, k, device) -> int:
     that rolls back with the boot model on every table. Returns the forest
     kernel's launches in the promotion serve and the promoted forest's
     kernel numbers."""
-    import torch
-
     from traffic_classifier_sdn_tpu_torch import interop
     from traffic_classifier_sdn_tpu_torch.io import checkpoint
     from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
@@ -4638,30 +4694,11 @@ def phase_drift(model: dict, k, device) -> int:
                               classes=CLASSES)
         fk.forest_proba.launches = 0
         out, summary, wall, features, log, states, seen, watch = \
-            _drift_serve(tag, ckpt, tmp, DRIFT_NOVEL, "promotions")
+            _drift_serve(tag, "forest", ckpt, tmp, DRIFT_NOVEL, "promotions")
         launches = fk.forest_proba.launches
-        st, ost = summary.drift, summary.openset
-        fits = [f for f in seen["fits"] if f[2] <= watch["flagged_t"]]
-        fit_s, params, _ = fits[-1]
-        deadline = 300.0  # --retrain-deadline's default
-        staging_breakdown(tag, seen)
-        print(f"{tag} drift {st['state']}: {st['retrain_runs']} refit(s), "
-              f"{st['promotions']} promotion(s), {st['rollbacks']} "
-              f"rollbacks; the promoted refit took {fit_s:.3f} s on the card "
-              f"(deadline {deadline} s); PROMOTED at render "
-              f"{watch['flagged_at']}")
-        if st["promotions"] != 1 or not st["swapped"]:
-            raise AssertionError(f"{tag} not promoted: {st}")
-        if not 0 < fit_s < deadline or not all(
-                b.device.type == device.type for b in params.buffers()):
-            raise AssertionError(f"{tag} the refit took {fit_s} s or left "
-                                 "the card")
-        probes = [e for e in seen["controller"]._recorder.tail()
-                  if e["kind"] == "drift.probe"]
-        print(f"{tag} drift.probe events (parity floor {DRIFT_PARITY}): "
-              + ", ".join(f"{e['detail']} ok={e['ok']}" for e in probes))
-        if not probes or not probes[-1]["ok"]:
-            raise AssertionError(f"{tag} probes {probes}")
+        ost = summary.openset
+        fit_s, params, probes = _check_promotion(tag, summary, seen, watch,
+                                                 device)
         pk = fk.compile_forest(params.node_arrays(), n_features=N_FEATURES,
                                device=device)
         print(f"{tag} promoted forest: {params.left.shape[0]} trees, "
@@ -4670,29 +4707,15 @@ def phase_drift(model: dict, k, device) -> int:
               f"{pk.per_chunk}")
         after, unknown = _check_drift_tables(
             tag, parse_tables(out), features, log, states,
-            {False: k, True: pk})
+            {False: _family_plain("forest", k),
+             True: _family_plain("forest", pk)})
         if after == 0:
             raise AssertionError(f"{tag} no table printed after the swap")
-        # the promoted forest's kernel against its plain version
         X = features[-1]
-        got = fk.forest_proba(pk, X)
-        want = plain_forest_proba(pk, X)
-        err = float((got - want).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"{tag} promoted kernel differs, {err}")
-        ms = cuda_median_ms(lambda: fk.forest_proba(pk, X), 10)
-        boot_ms = cuda_median_ms(lambda: fk.forest_proba(k, X), 10)
-        plain_ms = cuda_median_ms(lambda: plain_forest_proba(pk, X), 2, 1)
-        promoted = {"rows": int(X.shape[0]), "ms": round(ms, 4),
-                    "plain_ms": round(plain_ms, 4),
-                    "boot_ms": round(boot_ms, 4), "max_abs_err": err,
+        promoted = {**promoted_kernel(tag, "forest", k, pk, X),
                     "trees": int(params.left.shape[0]),
-                    "internal": pk.n_internal, "leaves": pk.n_leaves,
                     "fit_s": round(fit_s, 3)}
-        print(f"{tag} promoted forest kernel bitwise equal to its plain "
-              f"version at {X.shape[0]} rows: {ms:.4f} ms (plain "
-              f"{plain_ms:.2f} ms; the boot forest {boot_ms:.4f} ms on the "
-              "same rows)")
+        want = fk.forest_proba(pk, X)  # bitwise its plain version
         # the gate's card path (float32 torch) against float64 scores
         ref = states[max(states)][1]
         gate = tos.OpenSetGate(lambda _p, Xc: fk.predict(pk, Xc),
@@ -4748,7 +4771,7 @@ def phase_drift(model: dict, k, device) -> int:
         plan = faults.FaultPlan([faults.FaultRule("promote.swap",
                                                   times=None)])
         dout, dsum, _, dfeat, dlog, dstates, dseen, _ = _drift_serve(
-            dtag, ckpt, tmp, 0, "rollbacks", plan)
+            dtag, "forest", ckpt, tmp, 0, "rollbacks", plan)
         dst = dsum.drift
         if (dst["rollbacks"] != 1 or dst["promotions"] or dst["swapped"]
                 or not plan.fires):
@@ -4763,13 +4786,416 @@ def phase_drift(model: dict, k, device) -> int:
                   and e.get("to") == "ROLLED_BACK"]
         dtables = parse_tables(dout)
         _check_drift_tables(dtag, dtables, dfeat, dlog, dstates,
-                            {False: k})
+                            {False: _family_plain("forest", k)})
         print(f"{dtag} ROLLED_BACK after {dst['retrain_runs']} refit(s): "
               f"{rolled}; all {len(dtables)} tables equal the boot forest's "
               "labels (with the open-set relabel)")
         if len(rolled) != 1 or "latest:model-000000000" not in rolled[0]:
             raise AssertionError(f"{dtag} the rollback resolved {rolled}")
     return launches, promoted
+
+
+RETRAIN_DEADLINE = 300.0  # --retrain-deadline's default
+
+
+def _check_promotion(tag: str, summary, seen: dict, watch: dict, device):
+    """The checks of a drift serve that promoted: one promotion and the
+    swap, the promoted refit on ``device`` within ``--retrain-deadline``,
+    and clean ``drift.probe`` events. Prints the staging breakdown.
+    Returns (the refit's seconds, its params, the probe events)."""
+    st = summary.drift
+    fits = [f for f in seen["fits"] if f[2] <= watch["flagged_t"]]
+    if not fits:
+        raise AssertionError(f"{tag} no refit returned: {st}")
+    fit_s, params, _ = fits[-1]
+    staging_breakdown(tag, seen)
+    print(f"{tag} drift {st['state']}: {st['retrain_runs']} refit(s), "
+          f"{st['promotions']} promotion(s), {st['rollbacks']} "
+          f"rollbacks; the promoted refit took {fit_s:.3f} s on the card "
+          f"(deadline {RETRAIN_DEADLINE} s); PROMOTED at render "
+          f"{watch['flagged_at']}")
+    if st["promotions"] != 1 or not st["swapped"]:
+        raise AssertionError(f"{tag} not promoted: {st}")
+    if not 0 < fit_s < RETRAIN_DEADLINE or not all(
+            b.device.type == device.type for b in params.buffers()):
+        raise AssertionError(f"{tag} the refit took {fit_s} s or left "
+                             "the card")
+    probes = [e for e in seen["controller"]._recorder.tail()
+              if e["kind"] == "drift.probe"]
+    print(f"{tag} drift.probe events (parity floor {DRIFT_PARITY}): "
+          + ", ".join(f"{e['detail']} ok={e['ok']}" for e in probes))
+    if not probes or not probes[-1]["ok"]:
+        raise AssertionError(f"{tag} probes {probes}")
+    return fit_s, params, probes
+
+
+# bytes a plain KNN/SVC version may hold at once: its (rows, S) matrices
+# at 65,536 rows and a refit's corpus would not fit the card
+PLAIN_BYTES = 8 << 30
+
+
+def plain_row_chunk(bytes_per_row: int) -> int:
+    """The largest power-of-two row chunk, at most 65,536, whose plain
+    version holds at most ``PLAIN_BYTES``."""
+    chunk = 1 << 16
+    while chunk > 1 and chunk * bytes_per_row > PLAIN_BYTES:
+        chunk //= 2
+    return chunk
+
+
+def _plain_chunked(family: str, g, X, chunk: int):
+    """A kernel's plain version over ``chunk``-row slices: each row's
+    result is its own, so the slices change no bit."""
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+    from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk
+    from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
+    from traffic_classifier_sdn_tpu_torch.ops.chunking import map_row_chunks
+
+    plain = {"forest": fk.forest_proba_plain, "knn": kk.topk_sim_idx_plain,
+             "svc": rk.partial_decision_plain}[family]
+    return map_row_chunks(lambda xc: plain(g, xc), chunk, X)
+
+
+def promoted_kernel(tag: str, family: str, boot, g, X) -> dict:
+    """A promoted model's kernel on the served rows ``X``: bitwise its
+    plain version (values and indices for the KNN), at the row chunk
+    that fits (``plain_row_chunk``; ``PLAIN_SLICE`` for the forest); its
+    time by CUDA events beside the boot model's on the same rows and the
+    plain version's; and its bound for this model (``forest_bound``,
+    ``knn_bound``, ``svc_bound``)."""
+    import torch
+
+    from traffic_classifier_sdn_tpu_torch.ops import forest_kernel as fk
+    from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk
+    from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
+
+    if family == "forest":
+        kernel, chunk, what = fk.forest_proba, PLAIN_SLICE, "probabilities"
+        size = {"internal": g.n_internal, "leaves": g.n_leaves}
+        boot_size = f"{boot.n_internal} internal slots"
+        bound = forest_bound(g, X, node_visits(g, X))
+    elif family == "knn":
+        # sim, its keys, the sorted keys and int64 order, per corpus row
+        chunk = plain_row_chunk(24 * g.n_rows)
+        kernel, what = kk.topk_sim_idx, "values and indices"
+        size, boot_size = {"corpus_rows": g.n_rows}, f"{boot.n_rows} rows"
+        bound = knn_bound(g, X)
+    else:
+        # the RBF matrix, its transpose and the two feature temporaries
+        chunk = plain_row_chunk(16 * g.n_sv)
+        kernel, what = rk.partial_decision, "decisions"
+        size, boot_size = {"n_sv": g.n_sv}, f"{boot.n_sv} support vectors"
+        bound = svc_bound(g, X)
+    got, want = kernel(g, X), _plain_chunked(family, g, X, chunk)
+    pairs = list(zip(got, want)) if family == "knn" else [(got, want)]
+    err = float((pairs[0][0] - pairs[0][1]).abs().max())
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in pairs):
+        raise AssertionError(f"{tag} the promoted {family} kernel differs "
+                             f"from its plain version: {err}")
+    ms = cuda_median_ms(lambda: kernel(g, X), 10)
+    boot_ms = cuda_median_ms(lambda: kernel(boot, X), 10)
+    plain_ms = cuda_median_ms(lambda: _plain_chunked(family, g, X, chunk),
+                              2, 1)
+    bound_ms, bound_by = bound
+    print(f"{tag} promoted {family} kernel bitwise equal to its plain "
+          f"version ({size}; {what}, plain at {chunk}-row chunks) at "
+          f"{X.shape[0]} rows: {ms:.4f} ms (bound {bound_ms:.5f} ms by "
+          f"{bound_by}; plain {plain_ms:.2f} ms; the boot model "
+          f"({boot_size}) {boot_ms:.4f} ms on the same rows)")
+    return {"rows": int(X.shape[0]), **size, "ms": round(ms, 4),
+            "plain_ms": round(plain_ms, 4), "boot_ms": round(boot_ms, 4),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err, "plain_row_chunk": chunk,
+            "library_ms": None}
+
+
+def _promoted_rung(tag: str, seen: dict, fallback: str) -> dict:
+    """The installed (promoted) model's degrade ladder: on its device
+    rung, rebuilt with ``fallback`` behind it (``cli.build_promoted``)."""
+    status = seen["gate"].inner.status()
+    print(f"{tag} the promoted ladder: rung {status['rung']}, state "
+          f"{status['state']}, fallback {status['fallback']}, "
+          f"{status['device_calls']} device calls, "
+          f"{status['fallback_calls']} fallback calls")
+    if status["rung"] != "HEALTHY" or status["fallback_calls"] or \
+            status["fallback"] not in (fallback, "plain-cpu"):
+        raise AssertionError(f"{tag} the promoted ladder: {status}")
+    return status
+
+
+def svc_refit_bytes(y, n_classes: int, n_features: int = N_FEATURES,
+                    chunk: int = 256) -> dict:
+    """The device bytes of ``train/distributed.fit_svc`` on a window with
+    labels ``y``, reckoned from the code, step by step (each step's
+    allocation and the live bytes once it is made):
+
+    - ``operands``: the window's two-float hi and lo halves, (N, F) f32;
+    - ``kernel chunks``: the (N, N) f32 kernel's row blocks, with the
+      last block's three (chunk, N, F) f32 difference temporaries;
+    - ``kernel concatenation``: ``torch.cat`` of the blocks, 4N² more
+      while the blocks live;
+    - ``pair operands``: the (P, Smax) int64 indices and f32 targets and
+      boxes, the kernel alone live beside them;
+    - ``gather indices``: the gather's two broadcast index tensors,
+      which CUDA's advanced indexing materializes as (P, Smax, Smax)
+      int64 each (measured on the H100: the peak is five stacks' bytes);
+    - ``pair stack``: the (P, Smax, Smax) f32 gather, its indices live;
+    - ``plus one``: the ``+ 1.0`` copy, while the gather lives (the
+      indices freed).
+
+    Smax is the largest pair's member count. Returns {"N", "class_counts",
+    "Smax", "pairs", "steps": [(name, allocated, live)], "peak"}."""
+    y = np.asarray(y)
+    N, F = int(y.size), int(n_features)
+    counts = np.bincount(y, minlength=n_classes)
+    pairs = [(i, j) for i in range(n_classes) for j in range(i + 1, n_classes)]
+    P = len(pairs)
+    smax = int(max(counts[i] + counts[j] for i, j in pairs))
+    ops = 2 * N * F * 4
+    kernel = 4 * N * N
+    temps = 3 * chunk * N * F * 4
+    pair_ops = P * smax * (8 + 4 + 4)
+    stack = 4 * P * smax * smax
+    index = 2 * 8 * P * smax * smax
+    steps = [
+        ("operands", ops, ops),
+        ("kernel chunks", kernel + temps, ops + kernel + temps),
+        ("kernel concatenation", kernel, ops + 2 * kernel),
+        ("pair operands", pair_ops, kernel + pair_ops),
+        ("gather indices", index, kernel + pair_ops + index),
+        ("pair stack", stack, kernel + pair_ops + index + stack),
+        ("plus one", stack, kernel + pair_ops + 2 * stack),
+    ]
+    return {"N": N, "class_counts": counts.tolist(), "Smax": smax,
+            "pairs": P, "steps": steps,
+            "peak": max(live for _, _, live in steps)}
+
+
+def _gb(n: float) -> str:
+    return f"{n / 1e9:.2f} GB"
+
+
+# the allocated bytes a failed refit may leave behind once its failure is
+# taken (the serve's own tensors come and go meanwhile)
+REFIT_FREED_MARGIN = 256 << 20
+
+
+def _report_svc_refit(tag: str, seen: dict, device) -> dict:
+    """Prints the reckoning of the first SVC refit's device bytes
+    (``svc_refit_bytes``) on its window, the step it cannot pass on this
+    card, and the measured ``max_memory_allocated`` over the refit, and
+    holds the measured peak to the reckoned one of the steps it passed:
+    within 10 %. Returns the numbers."""
+    import torch
+
+    y, n_classes = seen["windows"][0]
+    r = svc_refit_bytes(y, n_classes)
+    total = (torch.cuda.get_device_properties(device).total_memory
+             if device.type == "cuda" else None)
+    mem = seen["fit_memory"][0] if seen["fit_memory"] else None
+    room = None if mem is None else total - mem["before"]
+    fails = next((name for name, _, live in r["steps"]
+                  if room is not None and live > room), None)
+    names = [name for name, _, _ in r["steps"]]
+    passed = [live for _, _, live in
+              r["steps"][:names.index(fails) if fails else len(names)]]
+    print(f"{tag} SVC refit reckoned on its window of {r['N']} rows, class "
+          f"counts {r['class_counts']}, Smax {r['Smax']} over {r['pairs']} "
+          "pairs: " + "; ".join(
+              f"{name} +{_gb(a)} -> {_gb(live)} live"
+              for name, a, live in r["steps"])
+          + f"; peak {_gb(r['peak'])}"
+          + ("" if room is None else
+             f"; the card's room beside the serve {_gb(room)}: "
+             + (f"fails at '{fails}'" if fails else "fits")))
+    out = {"rows": r["N"], "class_counts": r["class_counts"],
+           "smax": r["Smax"], "reckoned_peak": r["peak"],
+           "reckoned_fails_at": fails}
+    if mem is not None:
+        measured = mem["peak"] - mem["before"]
+        want = max(passed) if passed else 0
+        print(f"{tag} SVC refit measured: max_memory_allocated "
+              f"{_gb(mem['peak'])} over {_gb(mem['before'])} before the fit "
+              f"(+{_gb(measured)}), against the reckoned {_gb(want)} of the "
+              f"steps it could pass ({measured / max(want, 1):.4f}x)")
+        if not 0.9 * want <= measured <= 1.1 * want:
+            raise AssertionError(f"{tag} the measured refit peak "
+                                 f"{measured} is not the reckoned {want}")
+        out.update(measured_peak=measured, before=mem["before"],
+                   room=room)
+    return out
+
+
+# the svm serve whose window the refit holds: every observation at most
+# the monitor's reservoir (``--drift`` keeps 4,096 rows), so the retrain
+# window is the reservoir, not the last whole tick
+RESERVOIR_ROWS = 4096
+
+
+def _drift_knn(model: dict, g, device, tmp: str) -> tuple[int, dict]:
+    """``[drift knearest]``: the seeded 4,448-row KNN served as the forest
+    is in ``phase_drift`` (``DRIFT_BASE`` drifting conversations, then
+    ``DRIFT_NOVEL`` novel ones, 65,536 flows). Its refit's corpus is the
+    retrain window. Checks: PROMOTED, the refit on the card within the
+    deadline, the probes, every table against the plain KNN of its model
+    with the open-set relabel, the promoted ladder's rung, and the
+    promoted corpus's kernel bitwise at 65,536 served rows, timed beside
+    the boot corpus's. Returns the kernel's launches in the serve and the
+    promoted corpus's numbers."""
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+    from traffic_classifier_sdn_tpu_torch.ops import knn_kernel as kk
+
+    tag = "[drift knearest]"
+    ckpt = os.path.join(tmp, "knn")
+    checkpoint.save_model(ckpt, "knn",
+                          interop.knn_params_from_numpy(model, device),
+                          classes=CLASSES)
+    kk.topk_sim_idx.launches = 0
+    out, summary, _, features, log, states, seen, watch = _drift_serve(
+        tag, "knn", ckpt, tmp, DRIFT_NOVEL, "promotions")
+    launches = kk.topk_sim_idx.launches
+    fit_s, params, probes = _check_promotion(tag, summary, seen, watch,
+                                             device)
+    gp = kk.compile_knn(params)
+    tables = parse_tables(out)
+    after, unknown = _check_drift_tables(
+        tag, tables, features, log, states,
+        {False: _family_plain("knn", g), True: _family_plain("knn", gp)})
+    if after == 0:
+        raise AssertionError(f"{tag} no table printed after the swap")
+    print(f"{tag} the refit's corpus: {gp.n_rows} rows (the retrain "
+          f"window), {gp.n_rows / g.n_rows:.1f}x the boot corpus's "
+          f"{g.n_rows}; all {len(tables)} tables equal the plain KNN of "
+          f"their model ({after} after the swap, {unknown} unknown rows)")
+    _promoted_rung(tag, seen, "native-knn")
+    entry = promoted_kernel(tag, "knn", g, gp, features[-1])
+    print(f"{tag} {launches} knn_topk launches: {len(probes)} parity "
+          f"probes of the candidate and the renders' ({len(features)} "
+          f"dispatched, {len(tables)} printed, label plans "
+          f"{summary.render_plans})")
+    return launches, {**entry, "launches": launches, "fit_s": round(fit_s, 3)}
+
+
+def _drift_svm(model: dict, g, device, tmp: str) -> tuple[dict, dict]:
+    """``[drift svm]``: the seeded 2,281-vector SVC served as the forest is
+    in ``phase_drift``, at 65,536 flows (no novel conversations). The
+    refit's device bytes are reckoned on its window and measured. If the
+    refit fits the card, it promotes there; if it does not, the serve
+    must fail it as the JAX package does: ``retrain_failures`` 1, the
+    state back to STEADY, every table the boot SVC's through its kernel,
+    and the allocated bytes back within ``REFIT_FREED_MARGIN`` once the
+    failure was taken. Then ``[drift svm cut]`` shows the promotion on a
+    stream of ``RESERVOIR_ROWS`` conversations, whose window the refit
+    holds. The promoted SVC is checked as ``_drift_knn`` checks the KNN,
+    its kernel bitwise at the 65,536 rows of the first serve. Returns
+    ({path: launches}, the promoted SVC's numbers)."""
+    from traffic_classifier_sdn_tpu_torch import interop
+    from traffic_classifier_sdn_tpu_torch.io import checkpoint
+    from traffic_classifier_sdn_tpu_torch.ops import rbf_kernel as rk
+
+    tag = "[drift svm]"
+    ckpt = os.path.join(tmp, "svc")
+    checkpoint.save_model(ckpt, "svc",
+                          interop.svc_params_from_numpy(model, device),
+                          classes=CLASSES)
+    rk.partial_decision.launches = 0
+    # one tick after the flag: a refit that failed re-trips two windows on
+    out, summary, _, features, log, states, seen, watch = _drift_serve(
+        tag, "svc", ckpt, tmp, 0, ("promotions", "retrain_failures"),
+        after=1)
+    paths = {"drift svm": rk.partial_decision.launches}
+    X = features[-1]
+    st = summary.drift
+    refit = _report_svc_refit(tag, seen, device)
+    print(f"{tag} drift {st['state']}: {st['retrain_runs']} refit(s), "
+          f"{st['retrain_failures']} failed ({seen['fit_errors']}), "
+          f"{st['promotions']} promotion(s)")
+    if not st["promotions"]:
+        _check_refit_failed(tag, summary, seen, refit, states, device)
+        tables = parse_tables(out)
+        _check_drift_tables(tag, tables, features, log, states,
+                            {False: _family_plain("svc", g)})
+        print(f"{tag} all {len(tables)} tables equal the boot SVC's labels "
+              f"(with the open-set relabel), {paths['drift svm']} "
+              "rbf_decision launches")
+        tag = "[drift svm cut]"
+        rk.partial_decision.launches = 0
+        out, summary, _, features, log, states, seen, watch = _drift_serve(
+            tag, "svc", ckpt, tmp, 0, "promotions", base=RESERVOIR_ROWS,
+            capacity=RESERVOIR_ROWS)
+        paths["drift svm cut"] = rk.partial_decision.launches
+        refit = _report_svc_refit(tag, seen, device)
+    fit_s, params, probes = _check_promotion(tag, summary, seen, watch,
+                                             device)
+    gp = rk.compile_svc(params)
+    tables = parse_tables(out)
+    after, unknown = _check_drift_tables(
+        tag, tables, features, log, states,
+        {False: _family_plain("svc", g), True: _family_plain("svc", gp)})
+    if after == 0:
+        raise AssertionError(f"{tag} no table printed after the swap")
+    print(f"{tag} the refit: {gp.n_sv} support vectors from a window of "
+          f"{refit['rows']} rows; all {len(tables)} tables equal the plain "
+          f"SVC of their model ({after} after the swap, {unknown} unknown "
+          f"rows); {len(probes)} parity probes")
+    _promoted_rung(tag, seen, "native-svc")
+    entry = promoted_kernel(tag, "svc", g, gp, X)
+    return paths, {**entry, "launches": paths.get("drift svm cut",
+                                                  paths["drift svm"]),
+                   "fit_s": round(fit_s, 3), "window": refit}
+
+
+def _check_refit_failed(tag: str, summary, seen: dict, refit: dict,
+                        states: dict, device) -> None:
+    """The checks of an SVC refit the card could not hold: it failed out
+    of memory where the reckoning said it would, once; the controller
+    went back to STEADY with the boot model serving every render; the
+    allocated bytes were back once the failure was taken."""
+    import torch
+
+    st = summary.drift
+    moved = [(e["to"], e["reason"])
+             for e in seen["controller"]._recorder.tail()
+             if e["kind"] == "drift.transition"]
+    print(f"{tag} transitions: {moved}")
+    errors = [name for name, _ in seen["fit_errors"]]
+    # a still-drifting stream re-trips two windows after a failure: the
+    # serve ends one tick after the first, so it counts one as a rule
+    failed = moved.count(("STEADY", "retrain-failed:OutOfMemoryError"))
+    if (not 1 <= st["retrain_failures"] == st["retrain_runs"] == failed
+            or st["swapped"] or set(errors) != {"OutOfMemoryError"}
+            or any(swapped for swapped, _ in states.values())):
+        raise AssertionError(f"{tag} the refit did not fail out of memory "
+                             f"with the boot model serving: {st}, {errors}")
+    if device.type == "cuda":
+        if refit["reckoned_fails_at"] is None:
+            raise AssertionError(f"{tag} the reckoning said the refit fits")
+        before, taken = refit["before"], seen["taken"][0]
+        print(f"{tag} allocated before the refit {_gb(before)}, once its "
+              f"failure was taken {_gb(taken)} (margin "
+              f"{_gb(REFIT_FREED_MARGIN)}); now "
+              f"{_gb(torch.cuda.memory_allocated(device))}")
+        if abs(taken - before) > REFIT_FREED_MARGIN:
+            raise AssertionError(f"{tag} the failed refit kept "
+                                 f"{taken - before} bytes")
+
+
+def phase_drift_kernels(models: dict, ops: dict, device) -> tuple[dict, dict]:
+    """The drift loop on the KNN and SVC kernels (``_drift_knn``,
+    ``_drift_svm``). Returns ({path: {family: launches}}, {family: the
+    promoted model's kernel numbers})."""
+    paths, promoted = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        n, promoted["knn"] = _drift_knn(models["knn"], ops["knn"], device,
+                                        tmp)
+        paths["drift knearest"] = {"forest": 0, "knn": n, "svc": 0}
+        svm, promoted["svc"] = _drift_svm(models["svc"], ops["svc"], device,
+                                          tmp)
+        for path, n in svm.items():
+            paths[path] = {"forest": 0, "knn": 0, "svc": n}
+    return paths, promoted
 
 
 # ---------------------------------------------------------------------------
@@ -6343,8 +6769,9 @@ def kernel_entries(results: dict, launches: dict, paths: dict | None = None,
     {family: launches}}), for the forest each dirty bucket (``buckets``)
     and, under ``menus`` ({family: {...}}), the serving-menu forms timed
     beside the kernel (``phase_knn_tiers``, ``phase_ivf``,
-    ``phase_svc_dot``); for the forest, ``promoted``: the drift loop's
-    retrained forest through the same kernel (``phase_drift``); under
+    ``phase_svc_dot``); under ``promoted`` ({family: {...}}), the drift
+    loop's promoted model through the same kernel (``phase_drift``,
+    ``phase_drift_kernels``); under
     ``shards`` ({family: {...}}), the sharded spine's numbers
     (``phase_shards``); under ``retrained``, the kernel on the model the
     ``retrain`` subcommand fit, and for the forest under
@@ -6362,8 +6789,8 @@ def kernel_entries(results: dict, launches: dict, paths: dict | None = None,
             extra["by_dirty_bucket"] = buckets
         if menus and family in menus:
             extra["menus"] = menus[family]
-        if family == "forest" and promoted:
-            extra["promoted"] = promoted
+        if promoted and family in promoted:
+            extra["promoted"] = promoted[family]
         if shards and family in shards:
             extra["shards"] = shards[family]
         if multihost:
@@ -7094,6 +7521,9 @@ def main() -> int:
         mark(name)
     n, promoted = phase_drift(models["forest"], ops["forest"], device)
     paths["drift Randomforest"] = {"forest": n, "knn": 0, "svc": 0}
+    drift_paths, promoted_kernels = phase_drift_kernels(models, ops, device)
+    paths.update(drift_paths)
+    promoted = {"forest": promoted, **promoted_kernels}
     mark("drift")
     paths["actuation Randomforest"] = {
         "forest": phase_actuation(models["forest"], ops["forest"], device),

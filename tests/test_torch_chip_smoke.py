@@ -1110,6 +1110,103 @@ def test_drift_phase_runs_on_cpu(small_card_phases, cpu_timers, monkeypatch,
     assert "ROLLED_BACK after" in out
 
 
+def test_svc_refit_bytes_is_the_hand_count_of_the_fit():
+    """``svc_refit_bytes`` on a 10-row window of classes 5/3/2 (pairs of
+    8, 7 and 5 members), counted by hand from train/svc.py, and its
+    kernel, pair operands and gather the sizes the fit makes."""
+    from traffic_classifier_sdn_tpu_torch.train import svc as tsvc
+
+    y = np.repeat([0, 1, 2], [5, 3, 2])
+    r = chip_smoke.svc_refit_bytes(y, 3, n_features=12, chunk=4)
+    ops, kernel = 2 * 10 * 12 * 4, 10 * 10 * 4
+    temps, pair_ops, stack = 3 * 4 * 10 * 12 * 4, 3 * 8 * (8 + 4 + 4), \
+        3 * 8 * 8 * 4
+    index = 2 * 3 * 8 * 8 * 8  # two (P, Smax, Smax) int64 index tensors
+    assert (r["N"], r["class_counts"], r["Smax"], r["pairs"]) == (
+        10, [5, 3, 2], 8, 3)
+    assert r["steps"] == [
+        ("operands", 960, 960),
+        ("kernel chunks", kernel + temps, ops + kernel + temps),
+        ("kernel concatenation", 400, ops + 800),
+        ("pair operands", pair_ops, kernel + pair_ops),
+        ("gather indices", index, kernel + pair_ops + index),
+        ("pair stack", 768, kernel + pair_ops + index + stack),
+        ("plus one", 768, kernel + pair_ops + 2 * stack),
+    ]
+    assert r["peak"] == ops + kernel + temps == 7120
+    X = np.random.RandomState(0).rand(10, 12)
+    prob = tsvc.prepare_ovo(X, y, 3, 1.0, "scale", "cpu")
+    assert prob["K"].numel() * prob["K"].element_size() == kernel
+    assert prob["idx"].shape == prob["t"].shape == (3, 8)
+    assert prob["idx"].nbytes + prob["t"].nbytes + prob["Cbox"].nbytes \
+        == pair_ops
+    idx = torch.from_numpy(prob["idx"])
+    rows, cols = torch.broadcast_tensors(idx[:, :, None], idx[:, None, :])
+    assert rows.numel() * 8 + cols.numel() * 8 == index
+    assert prob["K"][rows, cols].numel() * 4 == stack
+    # the row chunk of a plain version that holds 8 GiB at most
+    assert chip_smoke.plain_row_chunk(24 * 61440) == 4096
+    assert chip_smoke.plain_row_chunk(16 * 2281) == 65536
+
+
+@pytest.mark.parametrize("family", ["knn", "svc"])
+def test_drift_table_check_and_promoted_kernel_by_family(
+        small_card_phases, cpu_timers, family):
+    """The drift phase's table check for a knearest and an svm serve at a
+    tiny size: tables printed from the plain labels of the model each
+    render served (the boot one, then the promoted one with an armed
+    open-set reference) pass, a wrong label fails; and the promoted
+    kernel against its plain version, with its numbers."""
+    from traffic_classifier_sdn_tpu_torch.serving import openset
+
+    models, ops = small_card_phases
+    boot = ops[family]
+    X = ft.features12(chip_smoke.synthetic_table(96, 3, "cpu"))
+    sample = X.numpy()
+    if family == "knn":
+        promoted = kk.compile_knn(interop.knn_params_from_numpy(
+            chip_smoke.random_knn(1, sample, n_rows=150), "cpu"))
+    else:
+        promoted = rk.compile_svc(interop.svc_params_from_numpy(
+            chip_smoke.random_svc(1, sample, n_sv=40), "cpu"))
+    Xh = X.numpy().astype(np.float64)
+    mean, inv_std = Xh.mean(0)[None], 1.0 / (Xh.std(0)[None] + 1.0)
+    scores = openset.openset_scores(Xh, mean, inv_std)
+    ref = {"openset_mean": mean, "openset_inv_std": inv_std,
+           "openset_threshold": np.float64(np.median(scores))}
+    plain = {False: chip_smoke._family_plain(family, boot),
+             True: chip_smoke._family_plain(family, promoted)}
+    states = {0: (False, None), 1: (True, ref)}
+    names = chip_smoke.CLASSES + ("unknown",)
+    slots = list(range(0, 96, 3))[:64]
+    tables = []
+    for k, (swapped, r) in states.items():
+        want = chip_smoke.openset_relabel(plain[swapped](X[slots]),
+                                          Xh[slots], r, 6)
+        tables.append([(s, names[w]) for s, w in zip(slots, want)])
+    assert any(lab == "unknown" for _, lab in tables[1])
+    log = [("rows", 0, 1, 0.0), ("rows", 1, 1, 0.0)]
+    # the check wants full tables after the swap: 64 rows
+    slots64 = list(range(64))
+    want = chip_smoke.openset_relabel(plain[True](X[slots64]), Xh[slots64],
+                                      ref, 6)
+    tables[1] = [(s, names[w]) for s, w in zip(slots64, want)]
+    after, unknown = chip_smoke._check_drift_tables(
+        "[t]", tables, [X, X], log, states, plain)
+    assert after == 1 and unknown == sum(
+        lab == "unknown" for t in tables for _, lab in t)
+    s, lab = tables[0][0]
+    tables[0][0] = (s, names[(names.index(lab) + 1) % 6])
+    with pytest.raises(AssertionError, match="differing"):
+        chip_smoke._check_drift_tables("[t]", tables, [X, X], log, states,
+                                       plain)
+    entry = chip_smoke.promoted_kernel("[t]", family, boot, promoted, X)
+    assert entry["max_abs_err"] == 0.0 and entry["rows"] == 96
+    assert entry["plain_row_chunk"] == 65536 and entry["bound_ms"] > 0
+    assert entry[{"knn": "corpus_rows", "svc": "n_sv"}[family]] == (
+        150 if family == "knn" else 40)
+
+
 def test_steady_capture_holds_rates(tmp_path):
     """``steady_capture``: every conversation reports every tick, its
     counters growing by the same deltas each tick."""

@@ -45,6 +45,8 @@ from traffic_classifier_sdn_tpu.ingest.replay import iter_capture as jiter
 from traffic_classifier_sdn_tpu.io import checkpoint as jck
 from traffic_classifier_sdn_tpu.models import forest as jforest
 from traffic_classifier_sdn_tpu.models import gnb as jgnb
+from traffic_classifier_sdn_tpu.models import knn as jknn
+from traffic_classifier_sdn_tpu.models import svc as jsvc
 from traffic_classifier_sdn_tpu.serving import drift as jdrift
 from traffic_classifier_sdn_tpu.serving import retrain as jretrain
 from traffic_classifier_sdn_tpu.utils import faults as jfaults
@@ -60,6 +62,7 @@ from traffic_classifier_sdn_tpu_torch.serving import retrain as tretrain
 from traffic_classifier_sdn_tpu_torch.utils import faults as tfaults
 from traffic_classifier_sdn_tpu_torch.utils.metrics import Metrics as TMetrics
 from torch_witnesses import _torch_locktrace_witness, _torch_syncguard_witness  # noqa: F401 — the lock witness and the sync witness ride this suite
+from test_torch_train import _accuracy
 
 CLASSES = chip_smoke.CLASSES
 
@@ -324,6 +327,31 @@ def test_background_retrainer_abandon_discards_the_late_result():
     assert r.take() == (tretrain.DONE, 42, None)
 
 
+def test_a_published_failure_holds_no_frame_locals():
+    """A failed fit is kept until ``take``, its frames' locals cleared:
+    a tensor the fit allocated is freed once the failure is published,
+    and the taken error still carries its traceback."""
+    import weakref
+
+    r = tretrain.BackgroundRetrainer()
+    held = {}
+
+    def failing_fit(is_current):
+        kernel = torch.zeros(64, 64)  # the (N, N) kernel of a refit
+        held["kernel"] = weakref.ref(kernel)
+        raise torch.OutOfMemoryError("the stack does not fit")
+
+    r.submit(failing_fit)
+    assert r.join(10)
+    assert r.poll() == tretrain.FAILED
+    assert held["kernel"]() is None
+    state, result, error = r.take()
+    assert (state, result) == (tretrain.FAILED, None)
+    assert isinstance(error, torch.OutOfMemoryError)
+    assert error.__traceback__ is not None
+    assert r.poll() == tretrain.IDLE
+
+
 # ---------------------------------------------------------------------------
 # DriftController: each scenario in both packages
 # ---------------------------------------------------------------------------
@@ -538,25 +566,36 @@ def _sample(n_flows: int = 300) -> np.ndarray:
     return ft.features12(chip_smoke.synthetic_table(n_flows, 3, "cpu")).numpy()
 
 
+# family → (JAX module, seeded importer dict of the sample X, the interop
+# function that carries the JAX params across). The KNN and SVC models are
+# the JAX params carried bitwise (KNN's ``half_sq_norms`` included), at
+# the sizes the port's serve tests use
+FAMILIES = {
+    "forest": (jforest, lambda X: chip_smoke.random_forest(0, X, n_trees=16),
+               interop.forest_params_from_numpy),
+    "gnb": (jgnb, lambda X: chip_smoke.random_gnb(0, X),
+            interop.gnb_params_from_numpy),
+    "knn": (jknn, lambda X: chip_smoke.random_knn(0, X, n_rows=400),
+            interop.knn_params_from_numpy),
+    "svc": (jsvc, lambda X: chip_smoke.random_svc(0, X, n_sv=200),
+            interop.svc_params_from_numpy),
+}
+
+
 def _model_dirs(tmp_path, family: str):
-    X = _sample()
+    jmod, build, carry = FAMILIES[family]
+    d = build(_sample())
     jdir, tdir = str(tmp_path / "jax_ckpt"), str(tmp_path / "port_ckpt")
-    if family == "forest":
-        d = chip_smoke.random_forest(0, X, n_trees=16)
-        jck.save_model(jdir, "forest", jforest.from_numpy(d), classes=CLASSES)
-        tck.save_model(tdir, "forest",
-                       interop.forest_params_from_numpy(d, device="cpu"),
-                       classes=CLASSES)
-    else:
-        d = chip_smoke.random_gnb(0, X)
-        jck.save_model(jdir, "gnb", jgnb.from_numpy(d), classes=CLASSES)
-        tck.save_model(tdir, "gnb",
-                       interop.gnb_params_from_numpy(d, device="cpu"),
-                       classes=CLASSES)
+    jck.save_model(jdir, family, jmod.from_numpy(d), classes=CLASSES)
+    # the forest and gnb from the importer dict (each package builds its
+    # own, bitwise alike); KNN and SVC carried from JAX's params
+    src = d if family in ("forest", "gnb") else jmod.from_numpy(d)
+    tck.save_model(tdir, family, carry(src, device="cpu"), classes=CLASSES)
     return jdir, tdir
 
 
-SUBCOMMAND = {"forest": "Randomforest", "gnb": "gaussiannb"}
+SUBCOMMAND = {"forest": "Randomforest", "gnb": "gaussiannb",
+              "knn": "knearest", "svc": "svm"}
 DRIFT_FLAGS = ["--drift", "auto", "--drift-window", "2", "--drift-trips",
                "2", "--drift-probe-successes", "2", "--openset", "auto",
                "--openset-calibration-rows", "64"]
@@ -573,7 +612,7 @@ def _both(tmp_path, family, argv, port_extra=()):
     return want, got
 
 
-@pytest.mark.parametrize("family", ["forest", "gnb"])
+@pytest.mark.parametrize("family", ["forest", "gnb", "knn", "svc"])
 def test_closed_world_drift_openset_stdout_equals_jax(tmp_path, family):
     """A stationary synthetic stream: the monitor calibrates and closes
     windows, the gate arms, nothing trips and nothing is rejected — and
@@ -612,31 +651,35 @@ def _sync_retrainer(retrain):
     return Inline
 
 
-@pytest.mark.parametrize("pipeline", ["off", "auto"])
-def test_promotion_serve_stdout_equals_jax(tmp_path, monkeypatch, pipeline):
-    """A capture whose packet rates jump ×10 at tick 9: the monitor trips,
-    both packages refit with JAX's gnb trainer on their (equal) retrain
-    windows — the port's copy carried across by ``interop`` — and the
-    candidate promotes after two probes at the stated parity floor. Every
-    table, before and after the swap, is the JAX serial serve's byte for
-    byte; pipelined too (``PIPELINE_DEPTH`` 64, so no render coalesces),
-    where the swap lands on the device-stage worker between renders and
-    the next render's labels come from the promoted model."""
+def _promotion_serves(tmp_path, monkeypatch, family, pipeline="off",
+                      carry_fit=True):
+    """Both CLIs over a capture whose packet rates jump ×10 at tick 9,
+    each refit run inline. With ``carry_fit`` the port's refit is JAX's
+    (``retrain.fit_family`` in the JAX package) carried across by
+    ``interop``; without it, the port's own. Returns ((JAX stdout, stderr),
+    (port stdout, stderr, summary), {package: its refit windows},
+    {package: its refits' params})."""
     if pipeline == "auto":
         monkeypatch.setattr(tcli, "PIPELINE_DEPTH", 64)
     capture = str(tmp_path / "drift.capture")
     chip_smoke.drift_capture(capture, 40, 22, shift_at=8)
-    windows = {}
-    real_fit = jretrain.fit_family
+    windows: dict = {"jax": [], "port": []}
+    fits: dict = {"jax": [], "port": []}
+    real_jfit, real_tfit = jretrain.fit_family, tretrain.fit_family
+    carry = FAMILIES[family][2]
 
     def jax_fit(family, X, y, n_classes, **kw):
-        windows["jax"] = (np.array(X), np.array(y))
-        return real_fit(family, X, y, n_classes, **kw)
+        windows["jax"].append((np.array(X), np.array(y)))
+        fits["jax"].append(real_jfit(family, X, y, n_classes, **kw))
+        return fits["jax"][-1]
 
     def port_fit(family, X, y, n_classes, *, device=None, **kw):
-        windows["port"] = (np.array(X), np.array(y))
-        return interop.gnb_params_from_numpy(
-            real_fit(family, X, y, n_classes, **kw), device=device)
+        windows["port"].append((np.array(X), np.array(y)))
+        fits["port"].append(
+            carry(real_jfit(family, X, y, n_classes, **kw), device=device)
+            if carry_fit else
+            real_tfit(family, X, y, n_classes, device=device, **kw))
+        return fits["port"][-1]
 
     monkeypatch.setattr(jretrain, "fit_family", jax_fit)
     monkeypatch.setattr(tretrain, "fit_family", port_fit)
@@ -649,19 +692,83 @@ def test_promotion_serve_stdout_equals_jax(tmp_path, monkeypatch, pipeline):
         "--print-every", "1", "--idle-timeout", "0", "--table-rows", "16",
         *DRIFT_FLAGS, "--drift-parity", "0.5",
     ]
-    jdir, tdir = _model_dirs(tmp_path, "gnb")
+    jdir, tdir = _model_dirs(tmp_path, family)
+    sub = SUBCOMMAND[family]
     want, want_err, _ = _serve(jcli.main, [
-        "gaussiannb", "--native-checkpoint", jdir, *argv, "--pipeline",
-        "off", "--drift-dir", str(tmp_path / "jd")])
-    got, got_err, summary = _serve(tcli.main, [
-        "gaussiannb", "--native-checkpoint", tdir, *argv, "--pipeline",
-        pipeline, "--drift-dir", str(tmp_path / "td"), "--device", "cpu"])
+        sub, "--native-checkpoint", jdir, *argv, "--pipeline", "off",
+        "--drift-dir", str(tmp_path / "jd")])
+    got = _serve(tcli.main, [
+        sub, "--native-checkpoint", tdir, *argv, "--pipeline", pipeline,
+        "--drift-dir", str(tmp_path / "td"), "--device", "cpu"])
+    return (want, want_err), got, windows, fits
+
+
+@pytest.mark.parametrize("family,pipeline", [
+    pytest.param("gnb", "off", id="off"),
+    pytest.param("gnb", "auto", id="auto"),
+    pytest.param("knn", "off", id="knn-off"),
+    pytest.param("svc", "off", id="svc-off"),
+])
+def test_promotion_serve_stdout_equals_jax(tmp_path, monkeypatch, family,
+                                           pipeline):
+    """A capture whose packet rates jump ×10 at tick 9: the monitor trips,
+    both packages refit on their (equal) retrain windows, and the
+    candidate promotes after two probes at the stated parity floor. The
+    gnb and svc refits are JAX's trainer's in both packages, the port's
+    copy carried across by ``interop``; knearest refits with each
+    package's own trainer (the corpus is the window, bitwise alike).
+    Every table, before and after the swap, is the JAX serial serve's
+    byte for byte; pipelined too (``PIPELINE_DEPTH`` 64, so no render
+    coalesces), where the swap lands on the device-stage worker between
+    renders and the next render's labels come from the promoted model."""
+    (want, want_err), (got, got_err, summary), windows, _ = \
+        _promotion_serves(tmp_path, monkeypatch, family, pipeline,
+                          carry_fit=family != "knn")
     assert want.count("Flow ID") == 22
-    _same(windows["jax"], windows["port"], "retrain window")
+    assert windows["jax"] and len(windows["jax"]) == len(windows["port"])
+    _same(windows["jax"], windows["port"], "retrain windows")
     assert _drift_lines(got_err) == _drift_lines(want_err)
     assert any("-> PROMOTED" in ln for ln in _drift_lines(got_err))
     assert summary.drift["promotions"] == 1 and summary.drift["swapped"]
     assert got == want
+
+
+def test_svc_own_refit_on_the_window_matches_jax_by_the_trainer_rule(
+        tmp_path, monkeypatch):
+    """The port's own SVC refit (``train/distributed.fit_svc``) in the
+    promotion serve, against JAX's trainer on the same window: the
+    trainer rule of tests/test_torch_train.py (accuracy within 0.02 of
+    JAX's; here on the rows each probe judged, against the live model's
+    labels there), support vectors within 2 % of JAX's count, and each
+    probe's verdict at the parity floor the same."""
+    probes = []
+    real_probe = tdrift.DriftController._probe_candidate
+
+    def watched_probe(self):
+        shadow, failed = self._last_shadow, self._counts["probe_failures"]
+        real_probe(self)
+        if self._counts["probe_failures"] > failed:
+            probes.append((shadow, False))
+        elif self._probe_ok or self.state == tdrift.PROMOTED:
+            probes.append((shadow, True))
+
+    monkeypatch.setattr(tdrift.DriftController, "_probe_candidate",
+                        watched_probe)
+    _, (_, _, summary), windows, fits = _promotion_serves(
+        tmp_path, monkeypatch, "svc", carry_fit=False)
+    assert summary.drift["promotions"] == 1
+    _same(windows["jax"], windows["port"], "retrain windows")
+    jp, tp = fits["jax"][-1], fits["port"][-1]
+    n_jax, n_port = int(jp.sv_hi.shape[0]), int(tp.sv_hi.shape[0])
+    assert abs(n_port - n_jax) <= 0.02 * n_jax, (n_port, n_jax)
+    assert len(probes) >= 2
+    for (Xs, ys, mask), ok in probes:
+        known = mask & (np.asarray(ys) < len(CLASSES))
+        Xk, live = Xs[known], np.asarray(ys)[known]
+        a_jax = _accuracy(jsvc.predict(jp, Xk), live)
+        a_port = _accuracy(tp.predict(torch.from_numpy(Xk)).numpy(), live)
+        assert abs(a_port - a_jax) <= 0.02, (a_port, a_jax)
+        assert ok == (a_port >= 0.5) == (a_jax >= 0.5), (ok, a_port, a_jax)
 
 
 def _archive(path) -> dict:

@@ -33,6 +33,7 @@ import os
 import re
 import shutil
 import threading
+import traceback
 
 import numpy as np
 
@@ -177,7 +178,9 @@ class BackgroundRetrainer:
     — the job checks it before PUBLISHING (the candidate save), so an
     abandoned fit leaves no stray in the rotation. The caller polls for
     ``DONE``/``FAILED`` and consumes the terminal state with ``take``;
-    ``abandon`` bumps the generation so a late result is dropped."""
+    ``abandon`` bumps the generation so a late result is dropped. A
+    failure is kept with its frames' locals cleared, so a failed fit's
+    tensors are freed when it fails, not when it is taken."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -212,6 +215,11 @@ class BackgroundRetrainer:
         try:
             out = fn(lambda: self._is_current(gen))
         except BaseException as e:  # noqa: BLE001 — published to the poller
+            # the failure is kept until ``take``: its frames' locals would
+            # keep every tensor of the failed fit alive meanwhile (an
+            # out-of-memory SVC refit's (N, N) kernel). Clear them; the
+            # traceback keeps its files and lines
+            traceback.clear_frames(e.__traceback__)
             with self._lock:
                 if gen == self._gen and self._state == RUNNING:
                     self._state = FAILED
